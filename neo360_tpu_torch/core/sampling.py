@@ -1,0 +1,138 @@
+"""Ray sampling for the NeRF++ fg/bg split (port of
+neo360_tpu/core/sampling.py:29-32, 72-121, 150-235).
+
+The inverse-CDF lookup uses `torch.searchsorted` instead of the JAX
+package's dense (B, N+1, M) mask, with the same results: the mask
+`u >= cdf` is a prefix of the bins (cdf never decreases), `count` its
+length, and the masked max / min of the JAX code are the running max of
+x[:count] and the running min of x[count:] (plus x[-1]). For ascending bins
+those are x[count-1] and x[count]. Background bins DESCEND (inverse depth),
+where the running forms give x[0] and x[-1] as the JAX code does, so the
+running max / min are kept rather than plain indexing.
+
+Only the deterministic (eval) sampling is ported: stratified jitter and
+random inverse-CDF draws come with the trainer.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from neo360_tpu_torch.core.geometry import linspace
+from neo360_tpu_torch.core.spherical import depth2pts_outside
+
+_FLOAT_MIN_EPS = 2.0 ** -32
+
+
+def cast_rays(t_vals: torch.Tensor, origins: torch.Tensor,
+              directions: torch.Tensor) -> torch.Tensor:
+    """points[..., i, :] = o + t_i * d."""
+    return origins[..., None, :] + t_vals[..., None] * directions[..., None, :]
+
+
+def sorted_piecewise_constant_pdf(
+    bins: torch.Tensor,
+    weights: torch.Tensor,
+    num_samples: int,
+) -> torch.Tensor:
+    """Deterministic inverse-CDF sampling of a piecewise-constant PDF at
+    evenly spaced u: bins (B, N+1), weights (B, N) -> (B, num_samples)."""
+    eps = 1e-5
+    weight_sum = torch.sum(weights, dim=-1, keepdim=True)
+    padding = torch.clamp(eps - weight_sum, min=0.0)
+    weights = weights + padding / weights.shape[-1]
+    weight_sum = weight_sum + padding
+
+    pdf = weights / weight_sum
+    cdf = torch.clamp(torch.cumsum(pdf[..., :-1], dim=-1), max=1.0)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf,
+                     torch.ones_like(cdf[..., :1])], dim=-1)
+
+    u = linspace(0.0, 1.0 - _FLOAT_MIN_EPS, num_samples, cdf.dtype,
+                 cdf.device).expand(cdf.shape[:-1] + (num_samples,))
+    u = u.contiguous()
+
+    # count = #{j : cdf[j] <= u} >= 1 since cdf[0] = 0 <= u
+    count = torch.searchsorted(cdf.contiguous(), u, right=True)
+    last = cdf.shape[-1] - 1
+    i0 = count - 1
+    i1 = torch.clamp(count, max=last)
+
+    def masked_max(x):
+        return torch.gather(torch.cummax(x, dim=-1).values, -1, i0)
+
+    def masked_min(x):
+        run_min = torch.flip(torch.cummin(torch.flip(x, [-1]), dim=-1).values,
+                             [-1])
+        return torch.gather(run_min, -1, i1)
+
+    bin0, bin1 = masked_max(bins), masked_min(bins)
+    cdf0, cdf1 = masked_max(cdf), masked_min(cdf)
+
+    denom = cdf1 - cdf0
+    t = torch.where(denom > 0,
+                    (u - cdf0) / torch.where(denom == 0,
+                                             torch.ones_like(denom), denom),
+                    torch.zeros_like(denom))
+    t = torch.clamp(torch.nan_to_num(t, nan=0.0), 0.0, 1.0)
+    return bin0 + t * (bin1 - bin0)
+
+
+def sample_along_rays_nerfpp(
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    num_samples: int,
+    near,
+    far,
+    in_sphere: bool,
+    far_uncontracted: float = 4.0,
+):
+    """NeO-360 level-0 sampling (neo360_tpu/core/sampling.py:150-193).
+
+    in_sphere=True: (t_vals (B, N+1), coords (B, N+1, 3)) over [near, far].
+    in_sphere=False: inverse-sphere depths s in [0, 1], flipped to descend;
+    returns (t_vals, coords4d (B, N+1, 4), coords_linear (B, N+1, 3)) where
+    the linear points at t in [far, far_uncontracted] index the features.
+    """
+    bsz = rays_o.shape[0]
+    t_vals = linspace(0.0, 1.0, num_samples + 1, rays_o.dtype, rays_o.device)
+    if in_sphere:
+        t_vals = near * (1.0 - t_vals) + far * t_vals
+    t_vals = t_vals.expand(bsz, num_samples + 1)
+
+    if in_sphere:
+        return t_vals, cast_rays(t_vals, rays_o, rays_d)
+
+    t_vals_linear = far * (1.0 - t_vals) + far_uncontracted * t_vals
+    t_vals = torch.flip(t_vals, [-1])
+    t_vals_linear = torch.flip(t_vals_linear, [-1])
+    coords_linear = cast_rays(t_vals_linear, rays_o, rays_d)
+    coords = depth2pts_outside(rays_o, rays_d, t_vals)
+    return t_vals, coords, coords_linear
+
+
+def sample_pdf_nerfpp(
+    bins: torch.Tensor,
+    weights: torch.Tensor,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    num_samples: int,
+    in_sphere: bool,
+    far=None,
+    far_uncontracted: float = 3.0,
+):
+    """Proposal resampling without the union with the level-0 edges (the
+    `merge=False` path of neo360_tpu/core/sampling.py:196-235):
+    num_samples+1 points are drawn and sorted."""
+    t_vals = sorted_piecewise_constant_pdf(bins, weights, num_samples + 1)
+    t_vals = torch.sort(t_vals, dim=-1).values
+
+    if in_sphere:
+        return t_vals, cast_rays(t_vals, origins, directions)
+
+    t_vals_linear = far * (1.0 - t_vals) + far_uncontracted * t_vals
+    t_vals = torch.flip(t_vals, [-1])
+    coords = depth2pts_outside(origins, directions, t_vals)
+    t_vals_linear = torch.flip(t_vals_linear, [-1])
+    coords_linear = cast_rays(t_vals_linear, origins, directions)
+    return t_vals, coords, coords_linear

@@ -1,0 +1,167 @@
+"""Build and bind the hand-written CUDA kernels of `csrc/`.
+
+The sources are compiled on first use with `nvcc` into one shared library
+with a plain C interface, `build/neo360_kernels/libneo360_kernels-<hash>.so`
+at the root of the checkout, and bound with ctypes. The hash covers the
+sources and the flags, so an edited kernel is rebuilt and a stale library is
+never loaded. Every C entry point takes raw pointers and the CUDA stream as
+`void*`, launches on that stream without synchronising, and returns
+`cudaGetLastError()`; `launch` raises on a non-zero code.
+
+Nothing is compiled or loaded when this module is imported: the CPU tests
+import every module, and there is no `nvcc` there.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "neo360_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+# C signatures of csrc/*.cu (all return int = cudaError_t)
+SIGNATURES = {
+    # table, table_dtype, uv, out, out_dtype, n_views, n_points, h, w, c,
+    # zeros_mode, view_offset, total_views, stream
+    "table_sample_fwd": (_P, _I, _P, _P, _I, _I, _L, _I, _I, _I, _I, _I, _I,
+                         _P),
+    # fg rgb/sigma/t, s_fg, bg rgb/sigma/t, s_bg, dirs, far, n_rays,
+    # white_bkgd, comp, fg_comp, bg_comp, fg_acc, bg_acc, fg_w, bg_w,
+    # bg_lambda, depth, fg_depth, stream
+    "composite_nerfpp_fwd": (_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I,
+                             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    # latent, logit_yz, logit_xz, logit_xy, out_yz, out_xz, out_xy, dtype,
+    # nv, X, Y, Z, C, stream
+    "pillar_collapse_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _P),
+}
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_lock = threading.Lock()
+_lib = None
+build_log = ""
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels of csrc/ need the "
+                       "CUDA toolkit (PATH or /usr/local/cuda/bin)")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libneo360_kernels-{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the shared library unless it exists; returns
+    its path. The compiler's register / spill report is kept in
+    `build_log`."""
+    global build_log
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    build_log = proc.stdout + proc.stderr
+    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The bound kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call C entry `name` on `device` and its current stream (appended as
+    the last argument); raise if the launch was refused."""
+    fn = getattr(library(), name)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def compare(out: torch.Tensor, ref: torch.Tensor) -> dict:
+    """A kernel's output against its plain version's.
+
+    Tolerance by output type: float32, 1e-5 relative; bfloat16, one bf16
+    ulp of the larger magnitude (both sides round the same float32 sum,
+    and summation order may put them on either side of a rounding edge).
+    Both add 1e-6 * max|ref| for the summation-order error of results
+    that cancel to near zero. Returns {max_abs, max_rel, ok}."""
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        raise ValueError(f"compare: {out.dtype} {tuple(out.shape)} vs "
+                         f"{ref.dtype} {tuple(ref.shape)}")
+    o, r = out.double(), ref.double()
+    err = (o - r).abs()
+    mag = torch.maximum(o.abs(), r.abs())
+    if out.dtype == torch.bfloat16:
+        _, exp = torch.frexp(mag.clamp(min=2.0 ** -126))
+        allowed = torch.ldexp(torch.ones_like(mag), exp - 8)
+    else:
+        allowed = 1e-5 * mag
+    scale = float(r.abs().max()) if r.numel() else 0.0
+    ok = bool(torch.all(err <= allowed + 1e-6 * scale)) and \
+        bool(torch.all(torch.isfinite(o) == torch.isfinite(r)))
+    rel = err / mag.clamp(min=1e-30)
+    return {"max_abs": float(err.nan_to_num(0.0).max()) if err.numel()
+            else 0.0,
+            "max_rel": float(rel.nan_to_num(0.0).max()) if rel.numel()
+            else 0.0,
+            "ok": ok}
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous tensor on one CUDA device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"{name}: all inputs must be on one CUDA device, "
+                             f"got {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
