@@ -3,7 +3,7 @@ argparse flags as one dataclass with the four experiment presets).
 
 Two model-size overrides are added for the port, `encoder_width` and
 `num_prop_samples`, so that a cut-down neo360_fast model can be built
-through `cli.build_model`.
+through `cli.build_model`, and the torch `device` of the CLI runs.
 
 Model hyperparameters that the reference hardcodes in constructors (sample
 counts, MLP shapes) live on the model classes; this config carries the
@@ -105,6 +105,9 @@ class Config:
     log_every_steps: int = 100
 
     seed: int = 0
+    # port only: the torch device of run_train / run_eval (cli --device);
+    # a CUDA device that is absent raises
+    device: str = "cuda"
 
     def __post_init__(self):
         # a typo'd mode would otherwise silently fall through to running

@@ -3,7 +3,10 @@
 `composite_nerfpp` renders one level's fg and bg branches and combines
 them (neo360_tpu/models/neo360.py:471-500). On CUDA tensors it is kernel B
 (csrc/composite_nerfpp.cu); on CPU tensors it is `composite_nerfpp_reference`,
-built on the plain `volumetric_rendering_nerfpp`.
+built on the plain `volumetric_rendering_nerfpp`. With autograd on it runs
+as a `torch.autograd.Function` whose backward is kernel B'
+(csrc/composite_nerfpp_bwd.cu) on CUDA and autograd of the plain version on
+the CPU; t, dirs and far take no gradient.
 """
 
 from __future__ import annotations
@@ -76,19 +79,13 @@ def composite_nerfpp_reference(fg_rgb, fg_sigma, fg_t, bg_rgb, bg_sigma,
             "fg_depth": fg_depth}
 
 
-def composite_nerfpp(fg_rgb, fg_sigma, fg_t, bg_rgb, bg_sigma, bg_t, dirs,
-                     far, white_bkgd: bool = False
-                     ) -> Dict[str, torch.Tensor]:
-    """One level's NeRF++ composite: {rgb, fg_rgb, bg_rgb (B,3); fg_acc,
-    bg_acc, depth, fg_depth (B,); fg_weights (B,S_fg); bg_weights (B,S_bg);
-    bg_lambda (B,1)}, all float32.
+OUT_KEYS = ("rgb", "fg_rgb", "bg_rgb", "fg_acc", "bg_acc", "fg_weights",
+            "bg_weights", "bg_lambda", "depth", "fg_depth")
 
-    CPU tensors run `composite_nerfpp_reference`; CUDA tensors launch
-    kernel B and add one to `composite_nerfpp.launches`."""
-    args = (fg_rgb, fg_sigma, fg_t, bg_rgb, bg_sigma, bg_t, dirs, far)
-    if all(a.device.type == "cpu" for a in args):
-        return composite_nerfpp_reference(*args, white_bkgd)
-    name = "composite_nerfpp"
+
+def _checked(name, args):
+    """The eight inputs, contiguous on one CUDA device with the shapes the
+    kernels take; returns them and (B, S_fg, S_bg)."""
     args = tuple(a.contiguous() for a in args)
     kernels.require_cuda(name, *args)
     fg_rgb, fg_sigma, fg_t, bg_rgb, bg_sigma, bg_t, dirs, far = args
@@ -102,6 +99,14 @@ def composite_nerfpp(fg_rgb, fg_sigma, fg_t, bg_rgb, bg_sigma, bg_t, dirs,
         if tuple(t.shape) != shape or t.dtype != torch.float32:
             raise ValueError(f"{name}: expected float32 {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
+    return args, (b, s_fg, s_bg)
+
+
+def _composite_forward(args, white_bkgd: bool) -> Dict[str, torch.Tensor]:
+    if all(a.device.type == "cpu" for a in args):
+        return composite_nerfpp_reference(*args, white_bkgd)
+    args, (b, s_fg, s_bg) = _checked("composite_nerfpp", args)
+    fg_rgb, fg_sigma, fg_t, bg_rgb, bg_sigma, bg_t, dirs, far = args
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,
                                      device=dirs.device)
     out = {"rgb": new(b, 3), "fg_rgb": new(b, 3), "bg_rgb": new(b, 3),
@@ -112,12 +117,102 @@ def composite_nerfpp(fg_rgb, fg_sigma, fg_t, bg_rgb, bg_sigma, bg_t, dirs,
                    fg_sigma.data_ptr(), fg_t.data_ptr(), s_fg,
                    bg_rgb.data_ptr(), bg_sigma.data_ptr(), bg_t.data_ptr(),
                    s_bg, dirs.data_ptr(), far.data_ptr(), b, int(white_bkgd),
-                   *(out[k].data_ptr() for k in (
-                       "rgb", "fg_rgb", "bg_rgb", "fg_acc", "bg_acc",
-                       "fg_weights", "bg_weights", "bg_lambda", "depth",
-                       "fg_depth")))
+                   *(out[k].data_ptr() for k in OUT_KEYS))
     composite_nerfpp.launches += 1
     return out
 
 
+def composite_nerfpp_backward(args, grads, white_bkgd: bool = False):
+    """Gradients (d fg_rgb, d fg_sigma, d bg_rgb, d bg_sigma) of
+    `composite_nerfpp` at inputs `args` (its eight tensors) for the output
+    cotangents `grads` (one per OUT_KEYS entry, None = zero).
+
+    CPU tensors: autograd of `composite_nerfpp_reference`. CUDA tensors
+    launch kernel B' (csrc/composite_nerfpp_bwd.cu) and add one to
+    `composite_nerfpp_backward.launches`."""
+    if all(a.device.type == "cpu" for a in args):
+        with torch.enable_grad():
+            leaves = [a.detach().requires_grad_(i in (0, 1, 3, 4))
+                      for i, a in enumerate(args)]
+            out = composite_nerfpp_reference(*leaves, white_bkgd)
+            pairs = [(out[k], g) for k, g in zip(OUT_KEYS, grads)
+                     if g is not None]
+            wrt = [leaves[i] for i in (0, 1, 3, 4)]
+            d = torch.autograd.grad([o for o, _ in pairs], wrt,
+                                    [g for _, g in pairs],
+                                    allow_unused=True) if pairs else [None] * 4
+            return tuple(torch.zeros_like(a) if g is None else g
+                         for a, g in zip(wrt, d))
+    name = "composite_nerfpp_backward"
+    args, (b, s_fg, s_bg) = _checked(name, args)
+    fg_rgb, fg_sigma, fg_t, bg_rgb, bg_sigma, bg_t, dirs, far = args
+    ptrs = []
+    for key, g in zip(OUT_KEYS, grads):
+        if g is None:
+            ptrs.append(None)
+            continue
+        g = g.contiguous()
+        if g.dtype != torch.float32 or g.device != dirs.device:
+            raise ValueError(f"{name}: cotangent of {key} must be float32 "
+                             f"on {dirs.device}")
+        ptrs.append(g)
+    d = [torch.empty_like(a) for a in (fg_rgb, fg_sigma, bg_rgb, bg_sigma)]
+    kernels.launch("composite_nerfpp_bwd", dirs.device, fg_rgb.data_ptr(),
+                   fg_sigma.data_ptr(), fg_t.data_ptr(), s_fg,
+                   bg_rgb.data_ptr(), bg_sigma.data_ptr(), bg_t.data_ptr(),
+                   s_bg, dirs.data_ptr(), far.data_ptr(), b, int(white_bkgd),
+                   *(None if g is None else g.data_ptr() for g in ptrs),
+                   *(t.data_ptr() for t in d))
+    composite_nerfpp_backward.launches += 1
+    return tuple(d)
+
+
+class _Composite(torch.autograd.Function):
+    """composite_nerfpp with the gradient of `composite_nerfpp_backward`."""
+
+    @staticmethod
+    def forward(ctx, white_bkgd, *args):
+        ctx.set_materialize_grads(False)
+        ctx.white_bkgd = white_bkgd
+        ctx.save_for_backward(*args)
+        out = _composite_forward(args, white_bkgd)
+        return tuple(out[k] for k in OUT_KEYS)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        d = composite_nerfpp_backward(ctx.saved_tensors, grads,
+                                      ctx.white_bkgd)
+        return (None, d[0], d[1], None, d[2], d[3], None, None, None)
+
+
+def composite_nerfpp(fg_rgb, fg_sigma, fg_t, bg_rgb, bg_sigma, bg_t, dirs,
+                     far, white_bkgd: bool = False
+                     ) -> Dict[str, torch.Tensor]:
+    """One level's NeRF++ composite: {rgb, fg_rgb, bg_rgb (B,3); fg_acc,
+    bg_acc, depth, fg_depth (B,); fg_weights (B,S_fg); bg_weights (B,S_bg);
+    bg_lambda (B,1)}, all float32.
+
+    CPU tensors run `composite_nerfpp_reference`; CUDA tensors launch
+    kernel B and add one to `composite_nerfpp.launches`. With grad enabled
+    the call is a `_Composite` autograd Function; t, dirs and far must not
+    require grad (raises)."""
+    args = (fg_rgb, fg_sigma, fg_t, bg_rgb, bg_sigma, bg_t, dirs, far)
+    if not torch.is_grad_enabled():
+        return _composite_forward(args, white_bkgd)
+    for name, a in (("fg_t", fg_t), ("bg_t", bg_t), ("dirs", dirs),
+                    ("far", far)):
+        if a.requires_grad:
+            raise ValueError(f"composite_nerfpp: {name} takes no gradient "
+                             f"(detach it)")
+    return dict(zip(OUT_KEYS, _Composite.apply(bool(white_bkgd), *args)))
+
+
 composite_nerfpp.launches = 0
+composite_nerfpp_backward.launches = 0
+
+# kernel B' against autograd of the plain version (ops.kernels.compare):
+# 1e-4 relative and 1e-5 * max|ref|. The plain backward of torch.cumprod
+# divides by (1 - alpha + 1e-10) and sums in reverse cumsum order; the
+# kernel's reverse scan does neither. A float32 emulation of the scan
+# differs from float64 autograd by ~2e-6 relative at S=9.
+BACKWARD_TOL = dict(rtol=1e-4, atol_frac=1e-5)

@@ -1,5 +1,5 @@
 """Ray sampling for the NeRF++ fg/bg split (port of
-neo360_tpu/core/sampling.py:29-32, 72-121, 150-235).
+neo360_tpu/core/sampling.py:29-41, 72-121, 150-235).
 
 The inverse-CDF lookup uses `torch.searchsorted` instead of the JAX
 package's dense (B, N+1, M) mask, with the same results: the mask
@@ -10,11 +10,15 @@ those are x[count-1] and x[count]. Background bins DESCEND (inverse depth),
 where the running forms give x[0] and x[-1] as the JAX code does, so the
 running max / min are kept rather than plain indexing.
 
-Only the deterministic (eval) sampling is ported: stratified jitter and
-random inverse-CDF draws come with the trainer.
+Randomized (training) sampling draws its uniforms from an explicit
+`torch.Generator`, or takes them as `u` (the tests pass the numbers that
+`jax.random.uniform` draws, so both packages see the same ones). The
+resampled t is detached, as `jax.lax.stop_gradient` does in the JAX code.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -22,6 +26,30 @@ from neo360_tpu_torch.core.geometry import linspace
 from neo360_tpu_torch.core.spherical import depth2pts_outside
 
 _FLOAT_MIN_EPS = 2.0 ** -32
+
+
+def _uniform(shape, like: torch.Tensor, u: Optional[torch.Tensor],
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """`u` if given (checked against `shape`), else U[0, 1) drawn from
+    `generator` on `like`'s device."""
+    if u is not None:
+        if tuple(u.shape) != tuple(shape):
+            raise ValueError(f"uniforms of shape {tuple(u.shape)}, expected "
+                             f"{tuple(shape)}")
+        return u.to(like.device, like.dtype)
+    return torch.rand(shape, generator=generator, dtype=like.dtype,
+                      device=like.device)
+
+
+def stratify(t_vals: torch.Tensor, u: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Jitter bin edges uniformly within adjacent-midpoint intervals
+    (neo360_tpu/core/sampling.py:_stratify)."""
+    mids = 0.5 * (t_vals[..., 1:] + t_vals[..., :-1])
+    upper = torch.cat([mids, t_vals[..., -1:]], dim=-1)
+    lower = torch.cat([t_vals[..., :1], mids], dim=-1)
+    t_rand = _uniform(t_vals.shape, t_vals, u, generator)
+    return lower + (upper - lower) * t_rand
 
 
 def cast_rays(t_vals: torch.Tensor, origins: torch.Tensor,
@@ -34,9 +62,13 @@ def sorted_piecewise_constant_pdf(
     bins: torch.Tensor,
     weights: torch.Tensor,
     num_samples: int,
+    randomized: bool = False,
+    u: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """Deterministic inverse-CDF sampling of a piecewise-constant PDF at
-    evenly spaced u: bins (B, N+1), weights (B, N) -> (B, num_samples)."""
+    """Inverse-CDF sampling of a piecewise-constant PDF: bins (B, N+1),
+    weights (B, N) -> (B, num_samples), at evenly spaced u, or with
+    `randomized` at uniform random u (`u` or drawn from `generator`)."""
     eps = 1e-5
     weight_sum = torch.sum(weights, dim=-1, keepdim=True)
     padding = torch.clamp(eps - weight_sum, min=0.0)
@@ -48,8 +80,12 @@ def sorted_piecewise_constant_pdf(
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf,
                      torch.ones_like(cdf[..., :1])], dim=-1)
 
-    u = linspace(0.0, 1.0 - _FLOAT_MIN_EPS, num_samples, cdf.dtype,
-                 cdf.device).expand(cdf.shape[:-1] + (num_samples,))
+    shape = cdf.shape[:-1] + (num_samples,)
+    if randomized:
+        u = _uniform(shape, cdf, u, generator)
+    else:
+        u = linspace(0.0, 1.0 - _FLOAT_MIN_EPS, num_samples, cdf.dtype,
+                     cdf.device).expand(shape)
     u = u.contiguous()
 
     # count = #{j : cdf[j] <= u} >= 1 since cdf[0] = 0 <= u
@@ -86,8 +122,12 @@ def sample_along_rays_nerfpp(
     far,
     in_sphere: bool,
     far_uncontracted: float = 4.0,
+    randomized: bool = False,
+    u: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
 ):
-    """NeO-360 level-0 sampling (neo360_tpu/core/sampling.py:150-193).
+    """NeO-360 level-0 sampling (neo360_tpu/core/sampling.py:150-193);
+    `randomized` jitters the edges (`stratify`) before the bg flip.
 
     in_sphere=True: (t_vals (B, N+1), coords (B, N+1, 3)) over [near, far].
     in_sphere=False: inverse-sphere depths s in [0, 1], flipped to descend;
@@ -99,6 +139,8 @@ def sample_along_rays_nerfpp(
     if in_sphere:
         t_vals = near * (1.0 - t_vals) + far * t_vals
     t_vals = t_vals.expand(bsz, num_samples + 1)
+    if randomized:
+        t_vals = stratify(t_vals, u, generator)
 
     if in_sphere:
         return t_vals, cast_rays(t_vals, rays_o, rays_d)
@@ -120,12 +162,16 @@ def sample_pdf_nerfpp(
     in_sphere: bool,
     far=None,
     far_uncontracted: float = 3.0,
+    randomized: bool = False,
+    u: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
 ):
     """Proposal resampling without the union with the level-0 edges (the
     `merge=False` path of neo360_tpu/core/sampling.py:196-235):
-    num_samples+1 points are drawn and sorted."""
-    t_vals = sorted_piecewise_constant_pdf(bins, weights, num_samples + 1)
-    t_vals = torch.sort(t_vals, dim=-1).values
+    num_samples+1 points are drawn, detached and sorted."""
+    t_vals = sorted_piecewise_constant_pdf(bins, weights, num_samples + 1,
+                                           randomized, u, generator)
+    t_vals = torch.sort(t_vals.detach(), dim=-1).values
 
     if in_sphere:
         return t_vals, cast_rays(t_vals, origins, directions)

@@ -3,20 +3,19 @@
 
 `MemoryScenes` serves the same scenes that `make_multi_scene_root` writes to
 disk — a shaded sphere under a direction-gradient sky, cameras on a
-jittered ring — with the test-split interface of `data.nerds360_ae.
-NeRDS360AE` (`scene_ids`, `num_test_views`, `sample_test`), without image
-files: pixels are rendered analytically and quantized to 8 bits as the
-PNGs are.
+jittered ring — through the interface of `data.nerds360_ae.NeRDS360AE`
+(train, val and test sampling, `sample_train_stage` included), without
+image files: pixels are rendered analytically on first use, quantized to 8
+bits as the PNGs are, and cached.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 
-from neo360_tpu_torch.data.nerds360_ae import (default_src_views,
-                                               full_image_rays, source_stack)
+from neo360_tpu_torch.data.nerds360_ae import NeRDS360AE, SceneMeta
 
 SPHERE_RADIUS_FRAC = 0.35  # of camera ring radius
 
@@ -75,16 +74,17 @@ def render(c2w: np.ndarray, w: int, h: int, focal: float,
     return rgb8.astype(np.float32) / 255.0, hit.astype(np.float32)
 
 
-class MemoryScenes:
+class MemoryScenes(NeRDS360AE):
     """Scenes of `make_multi_scene_root(n_scenes=...)` held in memory
-    (scene s uses camera seeds 100 + s and 101 + s), test split only."""
+    (scene s uses camera seeds 100 + s and 101 + s); `split` only names the
+    split, every sampler works."""
 
     def __init__(self, n_scenes: int = 1, img_wh: Tuple[int, int] = (320, 240),
                  num_src_views: int = 3, n_train: int = 103, n_val: int = 5,
-                 radius: float = 8.0):
-        self.img_wh = tuple(img_wh)
-        self.num_src_views = num_src_views
-        self.scene_ids = [f"scene_{s:03d}" for s in range(n_scenes)]
+                 radius: float = 8.0, split: str = "test",
+                 ray_batch_size: int = 500):
+        self.n_scenes = n_scenes
+        super().__init__("", split, img_wh, num_src_views, ray_batch_size)
         w = self.img_wh[0]
         self.focal = 1.1 * w
         self.sphere_radius = radius * SPHERE_RADIUS_FRAC
@@ -96,27 +96,42 @@ class MemoryScenes:
             scale = 1.0 / np.max(np.abs(train[:, :3, 3]))
             self._cams.append((train, test, scale))
 
-    def num_test_views(self, scene_idx: int) -> int:
-        return len(self._cams[scene_idx][1])
+    def _scene_ids(self):
+        return [f"scene_{s:03d}" for s in range(self.n_scenes)]
 
-    def _view(self, c2w: np.ndarray, scale: float):
-        w, h = self.img_wh
-        rgb, hit = render(c2w, w, h, self.focal, self.sphere_radius)
-        norm = c2w.copy()
-        norm[:3, 3] *= scale
-        return rgb, hit, norm.astype(np.float32)
+    def scene_meta(self, name: str) -> SceneMeta:
+        if name in self._meta_cache:
+            return self._meta_cache[name]
+        train, test, scale = self._cams[self.scene_ids.index(name)]
 
-    def sample_test(self, scene_idx: int, dest_idx: int,
-                    src_views: Optional[list] = None) -> Dict[str, np.ndarray]:
-        train, test, scale = self._cams[scene_idx]
+        def normalized(c2ws):
+            out = c2ws.copy()
+            out[:, :3, 3] *= scale
+            return out.astype(np.float32)
+
         w, h = self.img_wh
-        src = src_views or default_src_views(self.num_src_views)
-        views = [self._view(train[v], scale) for v in src]
-        sample = source_stack([v[0] for v in views], [v[2] for v in views],
-                              self.focal, np.array([w / 2.0, h / 2.0]))
-        rgb, hit, c2w = self._view(test[dest_idx], scale)
-        sample.update(full_image_rays(c2w, w, h, self.focal))
-        sample["target"] = rgb.reshape(-1, 3)
-        sample["instance_mask"] = hit.reshape(-1, 1)
-        sample["img_wh"] = np.asarray([w, h])
-        return sample
+        files = lambda n: [f"{i:05d}.png" for i in range(n)]
+        meta = SceneMeta(
+            name=name, c2w_train=normalized(train[:100]),
+            c2w_val_tail=normalized(train[100:]), c2w_test=normalized(test),
+            focal=self.focal, c=np.array([w / 2.0, h / 2.0], np.float32),
+            img_files_train=files(len(train)), img_files_test=files(len(test)))
+        self._meta_cache[name] = meta
+        return meta
+
+    def _render(self, name: str, split_dir: str, img_file: str):
+        key = (name, split_dir, img_file)
+        if key not in self._img_cache:
+            train, test, _ = self._cams[self.scene_ids.index(name)]
+            c2w = (train if split_dir == "train" else test)[
+                int(img_file.split(".")[0])]
+            w, h = self.img_wh
+            self._img_cache[key] = render(c2w, w, h, self.focal,
+                                          self.sphere_radius)
+        return self._img_cache[key]
+
+    def _load_rgb(self, name: str, split_dir: str, img_file: str):
+        return self._render(name, split_dir, img_file)[0]
+
+    def _load_car_mask(self, name: str, split_dir: str, img_file: str):
+        return self._render(name, split_dir, img_file)[1]

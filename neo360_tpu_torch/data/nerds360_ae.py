@@ -1,10 +1,19 @@
-"""NERDS360_AE few-shot scenes, test split (port of
-neo360_tpu/data/nerds360_ae.py:57-240, 255-288, 417-489).
+"""NERDS360_AE few-shot scenes (port of
+neo360_tpu/data/nerds360_ae.py:57-489): the train, val and test splits.
 
-A test sample is one full image of a scene's val/ directory (poses at the
-train split's scale) with the fixed source stack [0, 15, 38, 52, 70]
-(3 views: [0, 38, 44]) from the train split; source images are normalized
-to [-1, 1]. Outputs are numpy. PIL (and cv2, for the instance masks) are
+- train: a random scene, `num_src_views` random source views of its 100
+  train cameras and `ray_batch_size` rays drawn across up to 20 of the
+  other views (`sample_train`); the scene-stage sampler draws S distinct
+  scenes and K ray batches per scene with the same rng order
+  (`sample_train_stage`).
+- val: a full image of a held-out train camera (index 100 + i) with the
+  fixed source stack [0, 38, 44] (5 views: [0, 38, 44, 94, 48]).
+- test: a full image of a scene's val/ directory (poses at the train
+  split's scale) with the fixed source stack [0, 15, 38, 52, 70] (3 views:
+  [0, 38, 44]).
+
+Source images are normalized to [-1, 1]; decoded images are cached per
+loader. Outputs are numpy. PIL (and cv2, for the instance masks) are
 imported only inside the image readers.
 """
 
@@ -20,13 +29,16 @@ from neo360_tpu_torch.data import poses as pose_io
 
 CAR_SEMANTIC_ID = 5
 SRC_VIEWS_3 = [0, 38, 44]
+SRC_VIEWS_5_OPTIMIZE = [0, 38, 44, 94, 48]
 SRC_VIEWS_5_TEST = [0, 15, 38, 52, 70]
+RAY_KEYS = ("rays_o", "viewdirs", "rays_d", "target")
 
 
 @dataclass
 class SceneMeta:
     name: str
     c2w_train: np.ndarray          # (<=100, 4, 4) normalized
+    c2w_val_tail: np.ndarray       # train-split cameras 100:
     c2w_test: np.ndarray           # val/ directory cameras (train scale)
     focal: float                   # scaled to img_wh
     c: np.ndarray                  # (2,) principal point at img_wh
@@ -48,14 +60,15 @@ def rays_at_pixels(c2w: np.ndarray, xs: np.ndarray, ys: np.ndarray,
             rays_d.astype(np.float32))
 
 
-def default_src_views(num_src_views: int) -> List[int]:
-    """The fixed test source list for `num_src_views` views."""
+def default_src_views(num_src_views: int, test: bool = True) -> List[int]:
+    """The fixed test (or val) source list for `num_src_views` views."""
     if num_src_views == 3:
         return SRC_VIEWS_3
-    if num_src_views > len(SRC_VIEWS_5_TEST):
+    full = SRC_VIEWS_5_TEST if test else SRC_VIEWS_5_OPTIMIZE
+    if num_src_views > len(full):
         raise ValueError(f"num_src_views {num_src_views} > "
-                         f"{len(SRC_VIEWS_5_TEST)} known source views")
-    return SRC_VIEWS_5_TEST[:num_src_views]
+                         f"{len(full)} known source views")
+    return full[:num_src_views]
 
 
 def source_stack(images: List[np.ndarray], c2ws: List[np.ndarray],
@@ -80,21 +93,29 @@ def full_image_rays(c2w: np.ndarray, w: int, h: int,
 
 
 class NeRDS360AE:
-    """Test-split sampler over a root of NERDS360 scene directories."""
+    """Few-shot multi-scene sampler over a root of NERDS360 scene dirs."""
 
     def __init__(self, root_dir: str, split: str = "test",
                  img_wh: Tuple[int, int] = (320, 240),
-                 num_src_views: int = 3):
-        if split != "test":
-            raise ValueError(f"split {split!r}: only 'test' is ported")
+                 num_src_views: int = 3, ray_batch_size: int = 500,
+                 dest_views_per_sample: int = 20):
+        if split not in ("train", "val", "test"):
+            raise ValueError(f"split {split!r}: expected train, val or test")
         self.root_dir = root_dir
+        self.split = split
         self.img_wh = tuple(img_wh)
         self.num_src_views = num_src_views
-        self.scene_ids = sorted(
-            f.name for f in os.scandir(root_dir) if f.is_dir())
+        self.ray_batch_size = ray_batch_size
+        self.dest_views_per_sample = dest_views_per_sample
+        self.scene_ids = self._scene_ids()
         if not self.scene_ids:
             raise ValueError(f"no scene directories under {root_dir!r}")
         self._meta_cache: Dict[str, SceneMeta] = {}
+        self._img_cache: Dict[tuple, np.ndarray] = {}
+
+    def _scene_ids(self) -> List[str]:
+        return sorted(f.name for f in os.scandir(self.root_dir)
+                      if f.is_dir())
 
     def scene_meta(self, name: str) -> SceneMeta:
         if name in self._meta_cache:
@@ -113,7 +134,8 @@ class NeRDS360AE:
                 os.path.join(val_dir, "pose"), img_files_test,
                 cams.pose_scale_factor)
         meta = SceneMeta(
-            name=name, c2w_train=cams.c2w_train, c2w_test=c2w_test,
+            name=name, c2w_train=cams.c2w_train, c2w_val_tail=cams.c2w_val,
+            c2w_test=c2w_test,
             focal=float(cams.focal * w / cams.img_wh[0]),
             c=np.array([w / 2.0, h / 2.0], dtype=np.float32),
             img_files_train=cams.img_files_train,
@@ -122,10 +144,15 @@ class NeRDS360AE:
         return meta
 
     def _load_rgb(self, name: str, split_dir: str, img_file: str):
-        from PIL import Image
-        path = os.path.join(self.root_dir, name, split_dir, "rgb", img_file)
-        img = Image.open(path).resize(self.img_wh, Image.LANCZOS)
-        return (np.asarray(img, np.float32) / 255.0)[..., :3]
+        key = (name, split_dir, img_file)
+        if key not in self._img_cache:
+            from PIL import Image
+            path = os.path.join(self.root_dir, name, split_dir, "rgb",
+                                img_file)
+            img = Image.open(path).resize(self.img_wh, Image.LANCZOS)
+            self._img_cache[key] = (np.asarray(img, np.float32)
+                                    / 255.0)[..., :3]
+        return self._img_cache[key]
 
     def _load_car_mask(self, name: str, split_dir: str, img_file: str):
         path = os.path.join(self.root_dir, name, split_dir,
@@ -138,6 +165,136 @@ class NeRDS360AE:
         seg = cv2.resize(seg, self.img_wh, interpolation=cv2.INTER_NEAREST)
         return seg.astype(np.float32)
 
+    def _source_stack(self, meta: SceneMeta, view_ids) -> Dict[str,
+                                                                np.ndarray]:
+        return source_stack(
+            [self._load_rgb(meta.name, "train", meta.img_files_train[v])
+             for v in view_ids], [meta.c2w_train[v] for v in view_ids],
+            meta.focal, meta.c)
+
+    def _dest_rays(self, meta: SceneMeta, view_ids: np.ndarray,
+                   xs: np.ndarray, ys: np.ndarray, c2w_table: np.ndarray,
+                   img_files: List[str], split_dir: str
+                   ) -> Dict[str, np.ndarray]:
+        """Rays and targets for (view, pixel) triples, vectorized per
+        unique view: rays_o, viewdirs, rays_d, target, each (N, 3) float32.
+        (The JAX loader also returns nocs, mask and radii, which no ported
+        path reads.)"""
+        n = xs.shape[0]
+        out = {k: np.empty((n, 3), np.float32) for k in RAY_KEYS}
+        w, h = self.img_wh
+        for vid in np.unique(view_ids):
+            sel = view_ids == vid
+            o, v, d = rays_at_pixels(
+                c2w_table[vid], xs[sel].astype(np.float64),
+                ys[sel].astype(np.float64), w, h, meta.focal)
+            out["rays_o"][sel], out["viewdirs"][sel], out["rays_d"][sel] = \
+                o, v, d
+            rgb = self._load_rgb(meta.name, split_dir, img_files[vid])
+            out["target"][sel] = rgb[ys[sel], xs[sel]]
+        return out
+
+    def _draw(self, rng: np.random.Generator, meta: SceneMeta):
+        """(source views, destination pool) of one training sample."""
+        n_train = len(meta.c2w_train)
+        src = rng.choice(n_train, self.num_src_views, replace=False)
+        return src, np.setdiff1d(np.arange(n_train), src)
+
+    def sample_train(self, rng: np.random.Generator) -> Dict[str,
+                                                              np.ndarray]:
+        """One training sample: a random scene's source stack and
+        `ray_batch_size` rays across up to 20 of its other views, with
+        `scene_idx`."""
+        sid = int(rng.integers(len(self.scene_ids)))
+        meta = self.scene_meta(self.scene_ids[sid])
+        w, h = self.img_wh
+        src, dest_pool = self._draw(rng, meta)
+        sample = self._source_stack(meta, list(src))
+        n_dest = min(self.dest_views_per_sample, len(dest_pool))
+        dest = rng.choice(dest_pool, n_dest, replace=False)
+        view_ids = dest[rng.integers(0, n_dest, self.ray_batch_size)]
+        xs = rng.integers(0, w, self.ray_batch_size)
+        ys = rng.integers(0, h, self.ray_batch_size)
+        sample.update(self._dest_rays(meta, view_ids, xs, ys, meta.c2w_train,
+                                      meta.img_files_train, "train"))
+        sample["scene_idx"] = np.asarray(sid, np.int32)
+        return sample
+
+    def _stage_for_scene(self, rng, meta: SceneMeta, k_steps: int,
+                         n_rays: int):
+        """(source stack, k_steps stacked ray dicts) of one scene, drawn in
+        the rng order of k_steps `sample_train` draws, rays generated in one
+        vectorized pass."""
+        w, h = self.img_wh
+        src, dest_pool = self._draw(rng, meta)
+        sample = self._source_stack(meta, list(src))
+        n_dest = min(self.dest_views_per_sample, len(dest_pool))
+        vids, xss, yss = [], [], []
+        for _ in range(k_steps):
+            dest = rng.choice(dest_pool, n_dest, replace=False)
+            vids.append(dest[rng.integers(0, n_dest, n_rays)])
+            xss.append(rng.integers(0, w, n_rays))
+            yss.append(rng.integers(0, h, n_rays))
+        flat = self._dest_rays(meta, np.concatenate(vids),
+                               np.concatenate(xss), np.concatenate(yss),
+                               meta.c2w_train, meta.img_files_train, "train")
+        stacked = {k: v.reshape((k_steps, n_rays) + v.shape[1:])
+                   for k, v in flat.items()}
+        return sample, stacked
+
+    def sample_train_stage(self, rng: np.random.Generator, k_steps: int,
+                           n_scenes: int = 1) -> Dict[str, np.ndarray]:
+        """A scene stage for the encode-once trainer: `n_scenes` scenes'
+        source stacks shared by `k_steps` steps, and each step's rays.
+
+        n_scenes == 1: source arrays (NV, ...), rays (k_steps, B, ...).
+        n_scenes > 1 (scene-mixed): distinct scenes; source arrays
+        (S, NV, ...), rays (k_steps, S, B // S, ...)."""
+        n_avail = len(self.scene_ids)
+        if n_scenes == 1:
+            meta = self.scene_meta(self.scene_ids[rng.integers(n_avail)])
+            sample, stacked = self._stage_for_scene(
+                rng, meta, k_steps, self.ray_batch_size)
+            sample.update(stacked)
+            return sample
+        if n_scenes > n_avail:
+            raise ValueError(f"n_scenes {n_scenes} > {n_avail} scenes")
+        if self.ray_batch_size % n_scenes:
+            raise ValueError(f"ray_batch_size {self.ray_batch_size} must "
+                             f"divide by n_scenes {n_scenes}")
+        per = self.ray_batch_size // n_scenes
+        picks = rng.choice(n_avail, n_scenes, replace=False)
+        srcs, rays = [], []
+        for idx in picks:
+            s, r = self._stage_for_scene(
+                rng, self.scene_meta(self.scene_ids[idx]), k_steps, per)
+            srcs.append(s)
+            rays.append(r)
+        out = {k: np.stack([s[k] for s in srcs]) for k in srcs[0]}
+        out.update({k: np.stack([r[k] for r in rays], axis=1)
+                    for k in rays[0]})
+        return out
+
+    def sample_val(self, scene_idx: int, dest_offset: int = 0,
+                   src_views: Optional[List[int]] = None):
+        """Full-image sample of the held-out train camera 100 + i."""
+        meta = self.scene_meta(self.scene_ids[scene_idx])
+        if len(meta.c2w_val_tail) == 0:
+            raise ValueError(f"scene {meta.name} has no held-out tail views")
+        dest = dest_offset % len(meta.c2w_val_tail)
+        src = (src_views if src_views is not None
+               else default_src_views(self.num_src_views, test=False))
+        sample = self._source_stack(meta, src)
+        w, h = self.img_wh
+        ys_g, xs_g = np.mgrid[0:h, 0:w]
+        xs, ys = xs_g.reshape(-1), ys_g.reshape(-1)
+        c2w_table = np.concatenate([meta.c2w_train, meta.c2w_val_tail])
+        view_ids = np.full_like(xs, len(meta.c2w_train) + dest)
+        sample.update(self._dest_rays(meta, view_ids, xs, ys, c2w_table,
+                                      meta.img_files_train, "train"))
+        sample["img_wh"] = np.asarray([w, h])
+        return sample
+
     def sample_test(self, scene_idx: int, dest_idx: int,
                     src_views: Optional[List[int]] = None):
         """Full-image sample of the scene's val/ view `dest_idx`: source
@@ -145,10 +302,7 @@ class NeRDS360AE:
         instance_mask (H*W, 1)."""
         meta = self.scene_meta(self.scene_ids[scene_idx])
         src = src_views or default_src_views(self.num_src_views)
-        sample = source_stack(
-            [self._load_rgb(meta.name, "train", meta.img_files_train[v])
-             for v in src], [meta.c2w_train[v] for v in src], meta.focal,
-            meta.c)
+        sample = self._source_stack(meta, src)
         w, h = self.img_wh
         sample.update(full_image_rays(meta.c2w_test[dest_idx], w, h,
                                       meta.focal))

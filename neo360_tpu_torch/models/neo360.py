@@ -1,5 +1,6 @@
 """NeO-360 with the proposal fast path (port of
-neo360_tpu/models/neo360.py:47-502, `use_proposal=True`, eval path).
+neo360_tpu/models/neo360.py:47-656, `use_proposal=True`): the model, its
+training losses and the scene-stage loss functions.
 
 Level 0: unconditioned PropMLP densities on 64+1 fg and bg points.
 Level 1: 60+1 points per branch resampled from the level-0 histograms
@@ -9,13 +10,15 @@ NeRFTPMLP with mean view fusion. Each level composites fg and bg with the
 NeRF++ rule (kernel B).
 
 `encode` runs once per source stack and returns corner tables; `forward`
-renders a ray batch against them. Viewdirs broadcast in (ray, sample)
-order, the JAX package's documented divergence from the reference.
+renders a ray batch against them, deterministically or (training) with
+stratified and random inverse-CDF samples drawn from a `torch.Generator`.
+Viewdirs broadcast in (ray, sample) order, the JAX package's documented
+divergence from the reference.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,7 +29,9 @@ from neo360_tpu_torch.core.render import composite_nerfpp
 from neo360_tpu_torch.nn.layers import Dense
 from neo360_tpu_torch.nn.mlp import combine_interleaved
 from neo360_tpu_torch.nn.resnet import latent_scaling
+from neo360_tpu_torch.nn.layers import commit_running_stats
 from neo360_tpu_torch.nn.triplane import GridEncoder, index_grid_tables
+from neo360_tpu_torch.ops import losses
 from neo360_tpu_torch.ops.interpolate import build_corner_table, table_sample
 
 
@@ -167,7 +172,9 @@ class NeRFTP(nn.Module):
         table, (plane_hw, latent_hw)).
 
         `batch_stats`: BatchNorm with the source stack's own statistics
-        (eval_bn_mode "batch") or the stored running ones ("running"). The
+        (eval_bn_mode "batch") or the stored running ones ("running"); in
+        training mode (`model.train()`) BatchNorm always uses the batch's
+        statistics and records its running-statistics update. The
         fg branch's projected pixel latent fills view rows [:NV] of the local
         table and the bg branch's rows [NV:], so the fine level samples both
         with one gather."""
@@ -183,10 +190,13 @@ class NeRFTP(nn.Module):
         return plane_tables, local_table, hw
 
     def _local_feats_pair(self, fg_samples, bg_samples, poses, focal, c,
-                          stacked_table, latent_hw, image_size):
+                          stacked_table, latent_hw, image_size,
+                          view_offset: int = 0):
         """Pixel-aligned projected latents for the fg and bg branches in one
         border-mode gather (neo360_tpu/models/neo360.py:276-305). Returns
-        (fg latent, bg latent, fg camera points), latents (NV, B*S, D)."""
+        (fg latent, bg latent, fg camera points), latents (NV, B*S, D).
+        `view_offset`: the first view row of this scene in a flat
+        multi-scene table."""
         nv = self.num_src_views
         fg_cam = geometry.world2camera(fg_samples.reshape(1, -1, 3), poses,
                                        ns=nv)
@@ -199,7 +209,7 @@ class NeRFTP(nn.Module):
             image_size, dtype=torch.float32, device=fg_cam.device)
         uv = torch.cat([uv_fg, uv_bg], dim=0) * scale - 1.0
         latent = table_sample(stacked_table, uv, latent_hw,
-                              padding_mode="border")
+                              padding_mode="border", view_offset=view_offset)
         return latent[:nv], latent[nv:], fg_cam
 
     def _predict(self, mlp, cam_pts, world_lat, local_lat, viewdirs_enc,
@@ -217,21 +227,38 @@ class NeRFTP(nn.Module):
         return rgb, sigma
 
     def forward(self, rays: Dict[str, torch.Tensor], encoded,
-                white_bkgd: bool = False, out_depth: bool = False
+                white_bkgd: bool = False, out_depth: bool = False,
+                randomized: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> List[Dict[str, torch.Tensor]]:
-        """Deterministic (eval) render of a ray batch.
+        """Render a ray batch (neo360_tpu/models/neo360.py:307-502).
 
         rays: rays_o/rays_d/viewdirs (B, 3), src_imgs (NV, H, W, 3),
         src_poses (NV, 4, 4), src_focal (NV,), src_c (NV, 2); `encoded`:
-        the output of `encode`. Returns one dict per level with rgb,
-        fg_rgb, bg_rgb, fg_acc, bg_acc, bg_lambda, fg/bg weights and
-        t_vals, far, and with `out_depth` depth and fg_depth."""
-        plane_tables, local_table, (plane_hw, latent_hw) = encoded
+        the output of `encode`, optionally with a 4th element
+        (scene index, scene count) when the tables are flat multi-scene
+        tables (the scene-mixed stage trainer): this scene's rows start at
+        view index * NV of the plane tables and * 2NV of the local table.
+        `randomized`: stratified level-0 samples and random inverse-CDF
+        resampling, drawn from `generator` in the JAX order (fg then bg,
+        per level). Returns one dict per level with rgb, fg_rgb, bg_rgb,
+        fg_acc, bg_acc, bg_lambda, fg/bg weights, fg/bg sdist (distortion
+        midpoints), fg/bg tvals and far, and with `out_depth` depth and
+        fg_depth."""
+        plane_tables, local_table = encoded[0], encoded[1]
         nv = self.num_src_views
+        plane_off = local_off = 0
+        if len(encoded) > 3:
+            s_idx = int(encoded[3][0])
+            plane_off, local_off = s_idx * nv, s_idx * 2 * nv
+        plane_hw = (plane_tables[0].shape[1] - 1,
+                    plane_tables[0].shape[2] - 1)
+        latent_hw = (local_table.shape[1] - 1, local_table.shape[2] - 1)
         h_img, w_img = rays["src_imgs"].shape[1:3]
         image_size = (w_img, h_img)
         poses = rays["src_poses"]
         rays_o, rays_d = rays["rays_o"], rays["rays_d"]
+        rnd = dict(randomized=randomized, generator=generator)
 
         near = torch.full_like(rays_o[..., :1], 1e-4)
         far = spherical.intersect_sphere(rays_o, rays_d)
@@ -247,12 +274,12 @@ class NeRFTP(nn.Module):
             if level == 0:
                 fg_t, fg_samples = sampling.sample_along_rays_nerfpp(
                     rays_o, rays_d, self.num_prop_samples, near, far,
-                    in_sphere=True)
+                    in_sphere=True, **rnd)
                 bg_t, bg_samples, bg_linear = (
                     sampling.sample_along_rays_nerfpp(
                         rays_o, rays_d, self.num_prop_samples, near, far,
                         in_sphere=False,
-                        far_uncontracted=self.far_uncontracted))
+                        far_uncontracted=self.far_uncontracted, **rnd))
                 fg_sigma = F.softplus(self.fg_prop_mlp(fg_samples)
                                       + self.density_bias)
                 bg_sigma = F.softplus(self.bg_prop_mlp(bg_samples)
@@ -266,24 +293,26 @@ class NeRFTP(nn.Module):
                 prev = results[-1]
                 fg_mids = 0.5 * (fg_t[..., 1:] + fg_t[..., :-1])
                 fg_t, fg_samples = sampling.sample_pdf_nerfpp(
-                    fg_mids, prev["fg_weights"][..., 1:-1] + pad, rays_o,
-                    rays_d, self.num_fine_samples, in_sphere=True)
+                    fg_mids, prev["fg_weights"][..., 1:-1].detach() + pad,
+                    rays_o, rays_d, self.num_fine_samples, in_sphere=True,
+                    **rnd)
                 bg_mids = 0.5 * (bg_t[..., 1:] + bg_t[..., :-1])
                 bg_t, bg_samples, bg_linear = sampling.sample_pdf_nerfpp(
-                    bg_mids, prev["bg_weights"][..., 1:-1] + pad, rays_o,
-                    rays_d, self.num_fine_samples, in_sphere=False,
-                    far=far, far_uncontracted=self.far_uncontracted)
+                    bg_mids, prev["bg_weights"][..., 1:-1].detach() + pad,
+                    rays_o, rays_d, self.num_fine_samples, in_sphere=False,
+                    far=far, far_uncontracted=self.far_uncontracted, **rnd)
 
                 b, s = fg_samples.shape[:2]
                 bg_pts = bg_linear[..., :3]
                 # fg + bg in one tri-plane gather and one local gather
                 world = index_grid_tables(
                     torch.cat([fg_samples, bg_pts], dim=0), plane_tables,
-                    plane_hw, poses, nv)
+                    plane_hw, poses, nv, view_offset=plane_off)
                 world_fg, world_bg = world[:, :b * s], world[:, b * s:]
                 local_fg, local_bg, fg_cam = self._local_feats_pair(
                     fg_samples, bg_pts, poses, rays["src_focal"],
-                    rays["src_c"], local_table, latent_hw, image_size)
+                    rays["src_c"], local_table, latent_hw, image_size,
+                    view_offset=local_off)
 
                 bg_cam = geometry.world2camera(
                     bg_samples[..., :3].reshape(1, -1, 3), poses, ns=nv)
@@ -300,8 +329,136 @@ class NeRFTP(nn.Module):
 
             out = composite_nerfpp(fg_rgb, fg_sigma, fg_t, bg_rgb, bg_sigma,
                                    bg_t, rays_d, far, white_bkgd)
-            out.update(fg_tvals=fg_t, bg_tvals=bg_t, far=far)
+            # distortion midpoints (neo360_tpu/models/neo360.py:482-489)
+            fg_sdist = 0.5 * (fg_t[..., 1:] + fg_t[..., :-1])
+            last = fg_sdist[..., -1:] + (fg_sdist[..., -1:]
+                                         - fg_sdist[..., -2:-1])
+            bg_sdist = 0.5 * (bg_t[..., 1:] + bg_t[..., :-1])
+            out.update(fg_tvals=fg_t, bg_tvals=bg_t, far=far,
+                       fg_sdist=torch.cat([fg_sdist, last], dim=-1),
+                       bg_sdist=torch.cat([bg_sdist, bg_t[..., -1:]],
+                                          dim=-1))
             if not out_depth:
                 del out["depth"], out["fg_depth"]
             results.append(out)
         return results
+
+
+SRC_KEYS = ("src_imgs", "src_poses", "src_focal", "src_c")
+RAY_KEYS = ("rays_o", "rays_d", "viewdirs")
+
+
+def neo360_distortion_loss(results, mult: float = 0.01) -> torch.Tensor:
+    """Distortion on the fine level's fg and bg histograms with uniform 1/N
+    interval (neo360_tpu/models/neo360.py:599-615). The bg midpoints
+    descend, so bg is flipped to ascending first, as the JAX code does."""
+    fine = results[-1]
+    n = fine["fg_weights"].shape[-1]
+    loss = mult * losses.eff_distloss(fine["fg_weights"], fine["fg_sdist"],
+                                      1.0 / n)
+    return loss + mult * losses.eff_distloss(
+        torch.flip(fine["bg_weights"], [-1]),
+        torch.flip(fine["bg_sdist"], [-1]), 1.0 / n)
+
+
+def _hist_edges_fg(tvals: torch.Tensor, far: torch.Tensor) -> torch.Tensor:
+    """Point-convention t (B,S) -> ascending edges (B,S+1), the last
+    interval closed by the sphere exit `far`."""
+    return torch.cat([tvals, torch.maximum(far, tvals[..., -1:])], -1)
+
+
+def _hist_edges_bg(tvals: torch.Tensor) -> torch.Tensor:
+    """Descending s-space t (B,S) -> ascending edges (B,S+1) of the flipped
+    weights; the first (formerly infinite) interval is clamped to a 1e-3
+    bin below 0."""
+    a = torch.flip(tvals, [-1])
+    return torch.cat([a[..., :1] - 1e-3, a], -1)
+
+
+def neo360_interlevel_loss(results, mult: float = 1.0) -> torch.Tensor:
+    """The proposal level's fg / bg histograms must upper-bound the
+    detached fine histograms (neo360_tpu/models/neo360.py:634-656)."""
+    prop, fine = results[0], results[-1]
+    fg_c = _hist_edges_fg(fine["fg_tvals"], fine["far"]).detach()
+    fg_w = fine["fg_weights"].detach()
+    loss = torch.mean(losses.lossfun_outer(
+        fg_c, fg_w, _hist_edges_fg(prop["fg_tvals"], prop["far"]),
+        prop["fg_weights"]))
+    bg_c = _hist_edges_bg(fine["bg_tvals"]).detach()
+    bg_w = torch.flip(fine["bg_weights"], [-1]).detach()
+    loss = loss + torch.mean(losses.lossfun_outer(
+        bg_c, bg_w, _hist_edges_bg(prop["bg_tvals"]),
+        torch.flip(prop["bg_weights"], [-1])))
+    return mult * loss
+
+
+def neo360_loss(results, target: torch.Tensor):
+    """(training loss, fine MSE): MSE on the fine level + interlevel bound
+    + distortion, the `use_proposal` loss of the JAX trainer."""
+    l1 = losses.img2mse(results[1]["rgb"], target)
+    return (l1 + neo360_interlevel_loss(results)
+            + neo360_distortion_loss(results)), l1
+
+
+def make_scene_stage_fns(model: NeRFTP, white_bkgd: bool = False,
+                         mixed: bool = False, randomized: bool = True
+                         ) -> Tuple[Callable, Callable]:
+    """(encode_fn, loss_fn) for train.loop.make_scene_stage_trainer (port of
+    neo360_tpu/models/neo360.py:505-596).
+
+    encode_fn(src) -> tables: `NeRFTP.encode` with BatchNorm in training
+    mode; the running statistics are committed once the stage's scenes are
+    encoded. loss_fn(tables, src, batch, generator) -> (loss, {"mse"}):
+    the ray branch against the tables, with randomized sampling (drawn
+    from `generator`) unless `randomized` is False.
+
+    `mixed=True` (the SCENE-MIXED stage): `src` tensors carry a leading
+    scene axis S and every step's ray batch is (S, B/S, ...). The encoder
+    runs once per scene (each scene's 3 views are one BatchNorm batch), the
+    new running statistics are the mean over scenes of each scene's Flax
+    update, and the tables are flattened along the view-row axis, scene s
+    addressed from view s * NV (plane tables) and s * 2NV (local table).
+    The loss is the mean over scenes."""
+
+    def _encode_one(src):
+        pt, lt, _ = model.encode(*(src[k] for k in SRC_KEYS), True)
+        return tuple(pt) + (lt,)
+
+    def _loss_one(tables, src, batch, generator, scene=None):
+        rays = {k: batch[k] for k in RAY_KEYS}
+        rays.update({k: src[k] for k in SRC_KEYS})
+        enc = (tables[:3], tables[3], None) + (
+            (scene,) if scene is not None else ())
+        out = model(rays, enc, white_bkgd, randomized=randomized,
+                    generator=generator)
+        return neo360_loss(out, batch["target"])
+
+    if not mixed:
+        def encode_fn(src):
+            tables = _encode_one(src)
+            commit_running_stats(model)
+            return tables
+
+        def loss_fn(tables, src, batch, generator):
+            loss, l1 = _loss_one(tables, src, batch, generator)
+            return loss, {"mse": l1.detach()}
+
+        return encode_fn, loss_fn
+
+    def encode_fn(src):
+        n_scenes = src["src_imgs"].shape[0]
+        per = [_encode_one({k: src[k][i] for k in SRC_KEYS})
+               for i in range(n_scenes)]
+        commit_running_stats(model)
+        return tuple(torch.cat(t, dim=0) for t in zip(*per))
+
+    def loss_fn(tables, src, batch, generator):
+        n_scenes = batch["target"].shape[0]
+        pairs = [_loss_one(tables, {k: src[k][i] for k in SRC_KEYS},
+                           {k: v[i] for k, v in batch.items()}, generator,
+                           scene=(i, n_scenes))
+                 for i in range(n_scenes)]
+        return (torch.stack([p[0] for p in pairs]).mean(),
+                {"mse": torch.stack([p[1] for p in pairs]).mean().detach()})
+
+    return encode_fn, loss_fn

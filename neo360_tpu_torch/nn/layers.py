@@ -95,30 +95,63 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax.linen.BatchNorm (eps 1e-5) over the channel axis 1 of NCHW.
+    """flax.linen.BatchNorm (eps 1e-5, momentum 0.9) over the channel axis 1
+    of NCHW.
 
-    forward(x, batch_stats): True normalises with the batch's own biased
-    statistics, E[x^2] - E[x]^2 in f32 as Flax computes them, and leaves the
-    running statistics untouched (the few-shot eval "batch" mode); False
-    uses the stored running statistics. Output is in the compute dtype."""
+    Three modes:
+    - eval, `batch_stats=False`: the stored running statistics;
+    - eval, `batch_stats=True`: the batch's own biased statistics,
+      E[x^2] - E[x]^2 in f32 as Flax computes them, running statistics
+      untouched (the few-shot eval "batch" mode);
+    - training (`module.train()`): batch statistics whatever `batch_stats`
+      says, as flax `train=True`, and the Flax update of this batch,
+      `momentum * running + (1 - momentum) * batch` with the biased
+      variance, is appended to `pending`. `commit_running_stats` writes the
+      mean of the pending updates into the buffers, so several batches
+      encoded with the same statistics (one per scene) update them as the
+      JAX trainer's mean over scenes does. Output is in the compute dtype.
+    """
 
-    def __init__(self, features: int, dtype=torch.float32, eps: float = 1e-5):
+    def __init__(self, features: int, dtype=torch.float32, eps: float = 1e-5,
+                 momentum: float = 0.9):
         super().__init__()
-        self.dtype, self.eps = dtype, eps
+        self.dtype, self.eps, self.momentum = dtype, eps, momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.pending = []
 
     def forward(self, x: torch.Tensor, batch_stats: bool) -> torch.Tensor:
         x = x.float()
-        if batch_stats:
+        if batch_stats or self.training:
             dims = (0, 2, 3)
             mean = x.mean(dims)
             var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
         else:
             mean, var = self.running_mean, self.running_var
+        if self.training:
+            m = self.momentum
+            self.pending.append(
+                (m * self.running_mean + (1 - m) * mean.detach(),
+                 m * self.running_var + (1 - m) * var.detach()))
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (x - mean[:, None, None]) * mul[:, None, None] \
             + self.bias[:, None, None]
         return y.to(self.dtype)
+
+
+def commit_running_stats(module: nn.Module) -> int:
+    """Set every BatchNorm's running statistics under `module` to the mean
+    of its pending training-mode updates and clear them. Returns the number
+    of layers updated."""
+    n = 0
+    for bn in module.modules():
+        if isinstance(bn, BatchNorm) and bn.pending:
+            means, vars_ = zip(*bn.pending)
+            with torch.no_grad():
+                bn.running_mean.copy_(torch.stack(means).mean(0))
+                bn.running_var.copy_(torch.stack(vars_).mean(0))
+            bn.pending.clear()
+            n += 1
+    return n

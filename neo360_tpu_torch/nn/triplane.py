@@ -204,16 +204,20 @@ class GridEncoder(nn.Module):
 
 
 def index_grid_tables(samples: torch.Tensor, tables, plane_hw,
-                      poses: torch.Tensor, num_src_views: int) -> torch.Tensor:
+                      poses: torch.Tensor, num_src_views: int,
+                      view_offset: int = 0) -> torch.Tensor:
     """Sample and sum the three plane corner tables (zeros mode) at the
     camera-frame coordinate pairs (x,z), (x,y), (y,z) used directly as uv.
-    samples (B, S, 3) world points -> (NV, B*S, plane_dim) f32."""
+    samples (B, S, 3) world points -> (NV, B*S, plane_dim) f32.
+    `view_offset`: the first view row of this scene in flat multi-scene
+    tables."""
     t_xz, t_xy, t_yz = tables
     flat = samples.reshape(1, -1, 3)
     cam = geometry.world2camera(flat, poses, ns=num_src_views)  # (NV, N, 3)
     uv_xz = cam[..., [0, 2]]
     uv_yz = cam[..., [1, 2]]
     uv_xy = cam[..., [0, 1]]
-    return (table_sample(t_xz, uv_xz, plane_hw, "zeros")
-            + table_sample(t_xy, uv_xy, plane_hw, "zeros")
-            + table_sample(t_yz, uv_yz, plane_hw, "zeros"))
+    kw = dict(padding_mode="zeros", view_offset=view_offset)
+    return (table_sample(t_xz, uv_xz, plane_hw, **kw)
+            + table_sample(t_xy, uv_xy, plane_hw, **kw)
+            + table_sample(t_yz, uv_yz, plane_hw, **kw))

@@ -2,8 +2,11 @@
 117-232).
 
 `table_sample` is kernel A (csrc/table_sample.cu) on CUDA tensors and its
-plain PyTorch version, `table_sample_reference`, on CPU tensors. Maps are
-NHWC at these functions, as in the JAX package. The JAX package's
+plain PyTorch version, `table_sample_reference`, on CPU tensors. With
+autograd on it runs as a `torch.autograd.Function` whose backward, the
+scatter-add into the table, is kernel A' (csrc/table_sample_bwd.cu) on CUDA
+and `table_sample_backward_reference` on the CPU. uv takes no gradient.
+Maps are NHWC at these functions, as in the JAX package. The JAX package's
 `resize_bilinear_align_corners` becomes F.interpolate(mode="bilinear",
 align_corners=True) at its call sites.
 """
@@ -48,6 +51,38 @@ def _check_mode(padding_mode: str) -> None:
         raise ValueError(f"padding_mode {padding_mode!r} not supported")
 
 
+def _corners(uv: torch.Tensor, hw: tuple, padding_mode: str,
+             total_views: int, view_offset: int):
+    """Row index (B*N,) into the flat (V*(H+1)*(W+1), 4C) table and the
+    four f32 corner weights (B*N, 4) of every point. In zeros mode points
+    beyond the one-pixel pad get zero weights (a clamped, live row would be
+    fetched)."""
+    b = uv.shape[0]
+    h, w = hw
+    uv = uv.float()
+    ix = (uv[..., 0] + 1.0) * 0.5 * (w - 1)
+    iy = (uv[..., 1] + 1.0) * 0.5 * (h - 1)
+    if padding_mode == "border":
+        ix = torch.clamp(ix, 0.0, w - 1.0)
+        iy = torch.clamp(iy, 0.0, h - 1.0)
+    x0 = torch.floor(ix)
+    y0 = torch.floor(iy)
+    fx = ix - x0
+    fy = iy - y0
+    wts = torch.stack([(1 - fx) * (1 - fy), fx * (1 - fy), (1 - fx) * fy,
+                       fx * fy], dim=-1)
+    if padding_mode == "zeros":
+        inside = (x0 >= -1) & (x0 <= w - 1) & (y0 >= -1) & (y0 <= h - 1)
+        wts = torch.where(inside[..., None], wts, torch.zeros_like(wts))
+    # clamp in float before the cast: huge or non-finite uv stays defined
+    xb = torch.nan_to_num(torch.clamp(x0 + 1, 0, w)).long()
+    yb = torch.nan_to_num(torch.clamp(y0 + 1, 0, h)).long()
+    views = torch.clamp(torch.arange(b, device=uv.device) + view_offset,
+                        0, total_views - 1)
+    idx = (views[:, None] * (h + 1) + yb) * (w + 1) + xb
+    return idx.reshape(-1), wts.reshape(-1, 4)
+
+
 def table_sample_reference(table: torch.Tensor, uv: torch.Tensor, hw: tuple,
                            padding_mode: str = "zeros",
                            out_dtype=torch.float32, view_offset: int = 0
@@ -60,41 +95,141 @@ def table_sample_reference(table: torch.Tensor, uv: torch.Tensor, hw: tuple,
     table's dtype: identical for f32 tables)."""
     _check_mode(padding_mode)
     b, n = uv.shape[:2]
-    total_views = table.shape[0]
     c4 = table.shape[-1]
     c = c4 // 4
-    h, w = hw
-    uv = uv.float()
-    ix = (uv[..., 0] + 1.0) * 0.5 * (w - 1)
-    iy = (uv[..., 1] + 1.0) * 0.5 * (h - 1)
-    if padding_mode == "border":
-        ix = torch.clamp(ix, 0.0, w - 1.0)
-        iy = torch.clamp(iy, 0.0, h - 1.0)
-    x0 = torch.floor(ix)
-    y0 = torch.floor(iy)
-    fx = ix - x0
-    fy = iy - y0
-    w00 = (1 - fx) * (1 - fy)
-    w01 = fx * (1 - fy)
-    w10 = (1 - fx) * fy
-    w11 = fx * fy
-    if padding_mode == "zeros":
-        # beyond the one-pixel pad a clamped (live) row would be fetched:
-        # zero all four weights there
-        inside = (x0 >= -1) & (x0 <= w - 1) & (y0 >= -1) & (y0 <= h - 1)
-        zero = torch.zeros_like(w00)
-        w00, w01, w10, w11 = (torch.where(inside, wk, zero)
-                              for wk in (w00, w01, w10, w11))
-    # clamp in float before the cast: huge or non-finite uv stays defined
-    xb = torch.nan_to_num(torch.clamp(x0 + 1, 0, w)).long()
-    yb = torch.nan_to_num(torch.clamp(y0 + 1, 0, h)).long()
-    views = torch.clamp(torch.arange(b, device=uv.device) + view_offset,
-                        0, total_views - 1)
-    idx = (views[:, None] * (h + 1) + yb) * (w + 1) + xb
-    rows = table.reshape(-1, c4)[idx.reshape(-1)].float()
-    wts = torch.stack([w00, w01, w10, w11], dim=-1).reshape(b * n, 1, 4)
-    out = torch.bmm(wts, rows.reshape(b * n, 4, c))   # f32 corner fold
+    idx, wts = _corners(uv, hw, padding_mode, table.shape[0], view_offset)
+    rows = table.reshape(-1, c4)[idx].float()
+    out = torch.bmm(wts.reshape(b * n, 1, 4),
+                    rows.reshape(b * n, 4, c))   # f32 corner fold
     return out.reshape(b, n, c).to(out_dtype)
+
+
+def table_sample_backward_reference(grad: torch.Tensor, uv: torch.Tensor,
+                                    table_shape, table_dtype, hw: tuple,
+                                    padding_mode: str = "zeros",
+                                    view_offset: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of kernel A': the gradient of
+    `table_sample_reference` with respect to the table, for the output
+    cotangent `grad` (B, N, C).
+
+    Each point adds w_k * grad into corner block k of its row, summed in
+    f32 and rounded once to `table_dtype` (autograd through a bf16 table
+    would sum in bf16). Points with non-finite uv add nothing. For finite
+    uv this equals autograd of the plain forward on an f32 copy of the
+    table."""
+    _check_mode(padding_mode)
+    b, n, c = grad.shape
+    idx, wts = _corners(uv, hw, padding_mode, table_shape[0], view_offset)
+    finite = torch.isfinite(uv.float()).all(-1).reshape(-1, 1)
+    wts = torch.where(finite, wts, torch.zeros_like(wts))
+    contrib = wts[:, :, None] * grad.reshape(b * n, 1, c).float()
+    n_rows = table_shape[0] * table_shape[1] * table_shape[2]
+    out = torch.zeros((n_rows, 4, c), dtype=torch.float32, device=grad.device)
+    out.index_add_(0, idx, contrib)
+    return out.reshape(table_shape).to(table_dtype)
+
+
+def _table_shape_ok(name: str, table_shape, hw, c_multiple: int) -> int:
+    h, w = hw
+    v, hp, wp, c4 = table_shape
+    c = c4 // 4
+    if (hp, wp) != (h + 1, w + 1) or c4 % 4 or c % c_multiple \
+            or c // c_multiple > 256:
+        raise ValueError(f"{name}: table {tuple(table_shape)} does not fit "
+                         f"hw {hw}, or C={c} is not a multiple of "
+                         f"{c_multiple} up to {256 * c_multiple}")
+    return c
+
+
+def _table_sample_forward(table, uv, hw, padding_mode, out_dtype,
+                          view_offset):
+    if table.device.type == "cpu" and uv.device.type == "cpu":
+        return table_sample_reference(table, uv, hw, padding_mode,
+                                      out_dtype, view_offset)
+    _check_mode(padding_mode)
+    name = "table_sample"
+    table, uv = kernels.dense(table), uv.contiguous()
+    kernels.require_cuda(name, table, uv)
+    if uv.dtype != torch.float32 or uv.dim() != 3 or uv.shape[-1] != 2:
+        raise ValueError(f"{name}: uv must be float32 (B, N, 2)")
+    if (table.dtype not in kernels.DTYPE_CODES
+            or out_dtype not in kernels.DTYPE_CODES):
+        raise ValueError(f"{name}: table/out dtype must be float32 or "
+                         f"bfloat16, got {table.dtype}/{out_dtype}")
+    h, w = hw
+    c = _table_shape_ok(name, table.shape, hw, 16 // table.element_size())
+    b, n = uv.shape[:2]
+    out = torch.empty((b, n, c), dtype=out_dtype, device=uv.device)
+    kernels.launch("table_sample_fwd", uv.device, table.data_ptr(),
+                   kernels.DTYPE_CODES[table.dtype], uv.data_ptr(),
+                   out.data_ptr(), kernels.DTYPE_CODES[out_dtype], b, n, h,
+                   w, c, int(padding_mode == "zeros"), int(view_offset),
+                   table.shape[0])
+    table_sample.launches += 1
+    return out
+
+
+def table_sample_backward(grad: torch.Tensor, uv: torch.Tensor, table_shape,
+                          table_dtype, hw: tuple, padding_mode: str = "zeros",
+                          view_offset: int = 0) -> torch.Tensor:
+    """Gradient of `table_sample` with respect to the table.
+
+    CPU tensors run `table_sample_backward_reference`; CUDA tensors launch
+    kernel A' (csrc/table_sample_bwd.cu) and add one to
+    `table_sample_backward.launches`."""
+    if grad.device.type == "cpu" and uv.device.type == "cpu":
+        return table_sample_backward_reference(
+            grad, uv, table_shape, table_dtype, hw, padding_mode,
+            view_offset)
+    _check_mode(padding_mode)
+    name = "table_sample_backward"
+    grad, uv = kernels.dense(grad), uv.contiguous()
+    kernels.require_cuda(name, grad, uv)
+    if uv.dtype != torch.float32 or uv.dim() != 3 or uv.shape[-1] != 2:
+        raise ValueError(f"{name}: uv must be float32 (B, N, 2)")
+    if (grad.dtype not in kernels.DTYPE_CODES
+            or table_dtype not in kernels.DTYPE_CODES):
+        raise ValueError(f"{name}: grad/table dtype must be float32 or "
+                         f"bfloat16, got {grad.dtype}/{table_dtype}")
+    h, w = hw
+    c = _table_shape_ok(name, table_shape, hw, 4)
+    b, n = uv.shape[:2]
+    if tuple(grad.shape) != (b, n, c):
+        raise ValueError(f"{name}: grad {tuple(grad.shape)}, expected "
+                         f"{(b, n, c)}")
+    scratch = torch.empty(table_shape, dtype=torch.float32,
+                          device=grad.device)
+    dtable = scratch if table_dtype == torch.float32 else torch.empty(
+        table_shape, dtype=table_dtype, device=grad.device)
+    kernels.launch("table_sample_bwd", grad.device, grad.data_ptr(),
+                   kernels.DTYPE_CODES[grad.dtype], uv.data_ptr(),
+                   scratch.data_ptr(), dtable.data_ptr(),
+                   kernels.DTYPE_CODES[table_dtype], b, n, h, w, c,
+                   int(padding_mode == "zeros"), int(view_offset),
+                   table_shape[0], scratch.numel())
+    table_sample_backward.launches += 1
+    return dtable
+
+
+class _TableSample(torch.autograd.Function):
+    """table_sample with the table's gradient from `table_sample_backward`;
+    uv is saved, the table is not (the backward needs its shape only)."""
+
+    @staticmethod
+    def forward(ctx, table, uv, hw, padding_mode, out_dtype, view_offset):
+        ctx.save_for_backward(uv)
+        ctx.meta = (tuple(table.shape), table.dtype, hw, padding_mode,
+                    view_offset)
+        return _table_sample_forward(table, uv, hw, padding_mode, out_dtype,
+                                     view_offset)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (uv,) = ctx.saved_tensors
+        dtable = None
+        if ctx.needs_input_grad[0]:
+            dtable = table_sample_backward(grad, uv, *ctx.meta)
+        return dtable, None, None, None, None, None
 
 
 def table_sample(table: torch.Tensor, uv: torch.Tensor, hw: tuple,
@@ -105,37 +240,23 @@ def table_sample(table: torch.Tensor, uv: torch.Tensor, hw: tuple,
     total_views = table.shape[0]).
 
     CPU tensors run `table_sample_reference`; CUDA tensors launch kernel A
-    (csrc/table_sample.cu) and add one to `table_sample.launches`."""
-    if table.device.type == "cpu" and uv.device.type == "cpu":
-        return table_sample_reference(table, uv, hw, padding_mode,
-                                      out_dtype, view_offset)
-    _check_mode(padding_mode)
-    name = "table_sample"
-    table, uv = table.contiguous(), uv.contiguous()
-    kernels.require_cuda(name, table, uv)
-    if uv.dtype != torch.float32 or uv.dim() != 3 or uv.shape[-1] != 2:
-        raise ValueError(f"{name}: uv must be float32 (B, N, 2)")
-    if (table.dtype not in kernels.DTYPE_CODES
-            or out_dtype not in kernels.DTYPE_CODES):
-        raise ValueError(f"{name}: table/out dtype must be float32 or "
-                         f"bfloat16, got {table.dtype}/{out_dtype}")
-    h, w = hw
-    v, hp, wp, c4 = table.shape
-    c = c4 // 4
-    vec = 16 // table.element_size()
-    if (hp, wp) != (h + 1, w + 1) or c4 % 4 or c % vec or c // vec > 256:
-        raise ValueError(f"{name}: table {tuple(table.shape)} does not fit "
-                         f"hw {hw}, or C={c} is not a multiple of {vec} "
-                         f"up to {256 * vec}")
-    b, n = uv.shape[:2]
-    out = torch.empty((b, n, c), dtype=out_dtype, device=uv.device)
-    kernels.launch("table_sample_fwd", uv.device, table.data_ptr(),
-                   kernels.DTYPE_CODES[table.dtype], uv.data_ptr(),
-                   out.data_ptr(), kernels.DTYPE_CODES[out_dtype], b, n, h,
-                   w, c, int(padding_mode == "zeros"), int(view_offset), v)
-    table_sample.launches += 1
-    return out
+    (csrc/table_sample.cu) and add one to `table_sample.launches`. With
+    grad enabled the call is a `_TableSample` autograd Function; uv must
+    not require grad (raises)."""
+    if not torch.is_grad_enabled():
+        return _table_sample_forward(table, uv, hw, padding_mode, out_dtype,
+                                     view_offset)
+    if uv.requires_grad:
+        raise ValueError("table_sample: uv takes no gradient (detach it)")
+    return _TableSample.apply(table, uv, tuple(hw), padding_mode, out_dtype,
+                              int(view_offset))
 
 
 table_sample.launches = 0
+table_sample_backward.launches = 0
 
+# kernel A' against its plain version (ops.kernels.compare): bf16, one ulp
+# (both round one f32 sum); f32, 1e-5 relative. Both allow 1e-5 * max|ref|:
+# the atomic adds sum each row's contributions in another order than
+# index_add_, which matters where they cancel.
+BACKWARD_TOL = dict(rtol=1e-5, atol_frac=1e-5)

@@ -1,8 +1,9 @@
 """Build and bind the hand-written CUDA kernels of `csrc/`.
 
-The sources are compiled on first use with `nvcc` into one shared library
-with a plain C interface, `build/neo360_kernels/libneo360_kernels-<hash>.so`
-at the root of the checkout, and bound with ctypes. The hash covers the
+The sources are compiled on first use with `nvcc`, one process per source
+started together, and linked into one shared library with a plain C
+interface, `build/neo360_kernels/libneo360_kernels-<hash>.so` at the root
+of the checkout, bound with ctypes. The hash covers the
 sources and the flags, so an edited kernel is rebuilt and a stale library is
 never loaded. Every C entry point takes raw pointers and the CUDA stream as
 `void*`, launches on that stream without synchronising, and returns
@@ -28,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "neo360_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,6 +49,18 @@ SIGNATURES = {
     # nv, X, Y, Z, C, stream
     "pillar_collapse_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _P),
+    # grad, grad_dtype, uv, scratch, dtable, table_dtype, n_views, n_points,
+    # h, w, c, zeros_mode, view_offset, total_views, table_elems, stream
+    "table_sample_bwd": (_P, _I, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _I,
+                         _I, _L, _P),
+    # the forward's inputs, then the cotangents of comp, fg_comp, bg_comp,
+    # fg_acc, bg_acc, fg_w, bg_w, bg_lambda, depth, fg_depth (null = zero),
+    # then d fg rgb, d fg sigma, d bg rgb, d bg sigma, stream
+    "composite_nerfpp_bwd": (_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I)
+    + (_P,) * 14 + (_P,),
+    # latent, 3 logits, 3 floor cotangents, d latent, 3 d logits, scratch,
+    # dtype, nv, X, Y, Z, C, stream
+    "pillar_collapse_bwd": (_P,) * 12 + (_I,) * 6 + (_P,),
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -81,24 +94,41 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the shared library unless it exists; returns
-    its path. The compiler's register / spill report is kept in
-    `build_log`."""
+    """Compile csrc/*.cu into the shared library unless it exists (one nvcc
+    per source, in parallel, then one link); returns its path. The
+    compiler's register / spill report is kept in `build_log`."""
     global build_log
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    build_log = proc.stdout + proc.stderr
-    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in _sources():
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs = []
+        for cmd, _, proc in jobs:
+            text, _ = proc.communicate()
+            logs.append(text)
+            if proc.returncode != 0:
+                for _, _, other in jobs:
+                    other.kill()
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{text}")
+        lib = os.path.join(tmp, out.name)
+        cmd = [nvcc, "-shared", "-o", lib, *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        build_log = "".join(logs)
+        os.replace(lib, out)  # atomic: a concurrent build never sees half
     return out
 
 
@@ -126,14 +156,16 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
-def compare(out: torch.Tensor, ref: torch.Tensor) -> dict:
+def compare(out: torch.Tensor, ref: torch.Tensor, rtol: float = 1e-5,
+            atol_frac: float = 1e-6) -> dict:
     """A kernel's output against its plain version's.
 
-    Tolerance by output type: float32, 1e-5 relative; bfloat16, one bf16
-    ulp of the larger magnitude (both sides round the same float32 sum,
-    and summation order may put them on either side of a rounding edge).
-    Both add 1e-6 * max|ref| for the summation-order error of results
-    that cancel to near zero. Returns {max_abs, max_rel, ok}."""
+    Tolerance by output type: float32, `rtol` relative (default 1e-5);
+    bfloat16, one bf16 ulp of the larger magnitude (both sides round the
+    same float32 sum, and summation order may put them on either side of a
+    rounding edge). Both add `atol_frac` * max|ref| (default 1e-6) for the
+    summation-order error of results that cancel to near zero. Returns
+    {max_abs, max_rel, ok}."""
     if out.shape != ref.shape or out.dtype != ref.dtype:
         raise ValueError(f"compare: {out.dtype} {tuple(out.shape)} vs "
                          f"{ref.dtype} {tuple(ref.shape)}")
@@ -144,9 +176,9 @@ def compare(out: torch.Tensor, ref: torch.Tensor) -> dict:
         _, exp = torch.frexp(mag.clamp(min=2.0 ** -126))
         allowed = torch.ldexp(torch.ones_like(mag), exp - 8)
     else:
-        allowed = 1e-5 * mag
+        allowed = rtol * mag
     scale = float(r.abs().max()) if r.numel() else 0.0
-    ok = bool(torch.all(err <= allowed + 1e-6 * scale)) and \
+    ok = bool(torch.all(err <= allowed + atol_frac * scale)) and \
         bool(torch.all(torch.isfinite(o) == torch.isfinite(r)))
     rel = err / mag.clamp(min=1e-30)
     return {"max_abs": float(err.nan_to_num(0.0).max()) if err.numel()
@@ -165,3 +197,10 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
                              f"got {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def dense(t: torch.Tensor) -> torch.Tensor:
+    """`t` contiguous and 16-byte aligned, for kernels that load 16-byte
+    vectors (copied only if it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -1,11 +1,136 @@
-"""Tiled full-image rendering (port of
-neo360_tpu/train/loop.py:make_image_renderer, 311-366)."""
+"""Training loop building blocks: the scene-mixed, encode-once stage
+trainer (port of neo360_tpu/train/loop.py:169-308) and tiled full-image
+rendering (make_image_renderer, 311-366).
+
+The stage trainer runs the encoder once per stage of K steps. Each step
+differentiates the loss with respect to the ray-branch parameters and to
+detached copies of the encoder's corner tables, steps the ray optimizer,
+and adds the table cotangents, cast to `cot_dtype`, to an accumulator.
+After the K steps the mean cotangent, cast to the tables' dtype, is pulled
+back through the encoder graph with one `torch.autograd.grad` and the
+encoder optimizer steps once: exact gradient accumulation, since the
+pullback is linear in the cotangent and the encoder's parameters do not
+change within the stage. The two partitions have their own Adam states
+and step counts (encoder: one per stage).
+"""
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Sequence, Tuple
 
+import numpy as np
 import torch
+from torch import nn
+
+
+def partition_encoder_params(model: nn.Module
+                             ) -> Tuple[Dict[str, nn.Parameter],
+                                        Dict[str, nn.Parameter]]:
+    """(encoder, ray-branch) parameters by name. Encoder = everything
+    NeRFTP.encode touches: the GridEncoder (`encoder.*`) and the factored
+    local projections (`local_proj_*`)."""
+    is_enc = lambda name: name.startswith(("encoder.", "local_proj"))
+    named = dict(model.named_parameters())
+    enc = {k: v for k, v in named.items() if is_enc(k)}
+    ray = {k: v for k, v in named.items() if not is_enc(k)}
+    return enc, ray
+
+
+@dataclass
+class SceneStageState:
+    """The model (parameters and BatchNorm buffers, updated in place), the
+    two parameter partitions with their optimizers, and the ray-step
+    count."""
+    step: int
+    model: nn.Module
+    enc_params: Dict[str, nn.Parameter]
+    ray_params: Dict[str, nn.Parameter]
+    enc_opt: object
+    ray_opt: object
+
+
+def create_scene_stage_state(model: nn.Module,
+                             make_optimizer: Callable[[List[torch.Tensor]],
+                                                      object]
+                             ) -> SceneStageState:
+    """`make_optimizer(params)` builds one partition's optimizer (the CLI's
+    build_optimizer); each partition gets its own."""
+    enc, ray = partition_encoder_params(model)
+    return SceneStageState(step=0, model=model, enc_params=enc,
+                           ray_params=ray,
+                           enc_opt=make_optimizer(list(enc.values())),
+                           ray_opt=make_optimizer(list(ray.values())))
+
+
+def _grads(grads, params) -> List[torch.Tensor]:
+    return [torch.zeros_like(p) if g is None else g
+            for g, p in zip(grads, params)]
+
+
+def make_scene_stage_trainer(encode_fn: Callable, loss_fn: Callable,
+                             multi_stage: bool = False,
+                             cot_dtype=torch.float32):
+    """The encode-once stage trainer.
+
+    encode_fn(src) -> tuple of tables (differentiable in the encoder's
+    parameters); loss_fn(tables, src, batch, generator) -> (loss, metrics).
+
+    Returns run(state, src, ray_batches, generator) -> last step's metrics,
+    ray_batches a dict of (K, ...) tensors. With `multi_stage=True`, every
+    tensor of `src` and `ray_batches` carries a leading stage axis (as
+    `stack_batches` builds them) and one call runs the stages in order.
+    `cot_dtype` is the table-cotangent accumulator's dtype."""
+
+    def stage(state: SceneStageState, src, ray_batches, generator):
+        tables = encode_fn(src)
+        detached = [t.detach().requires_grad_() for t in tables]
+        cot = [None] * len(tables)   # allocated by the first cotangent
+        ray_list = list(state.ray_params.values())
+        k_steps = next(iter(ray_batches.values())).shape[0]
+        metrics = {}
+        for i in range(k_steps):
+            batch = {k: v[i] for k, v in ray_batches.items()}
+            loss, metrics = loss_fn(detached, src, batch, generator)
+            grads = torch.autograd.grad(loss, ray_list + detached,
+                                        allow_unused=True)
+            state.ray_opt.step(_grads(grads[:len(ray_list)], ray_list))
+            for j, g in enumerate(grads[len(ray_list):]):
+                if g is None:
+                    continue
+                if cot[j] is None:
+                    cot[j] = g.to(cot_dtype, copy=True)
+                else:
+                    cot[j].add_(g.to(cot_dtype))
+            state.step += 1
+        enc_list = list(state.enc_params.values())
+        pairs = [(t, (c / k_steps).to(t.dtype)) for t, c in zip(tables, cot)
+                 if c is not None]
+        g_enc = torch.autograd.grad([t for t, _ in pairs],
+                                    enc_list, [c for _, c in pairs],
+                                    allow_unused=True)
+        state.enc_opt.step(_grads(g_enc, enc_list))
+        return metrics
+
+    if not multi_stage:
+        return stage
+
+    def run_stages(state, srcs, ray_batches, generator):
+        metrics = {}
+        for i in range(next(iter(srcs.values())).shape[0]):
+            metrics = stage(state, {k: v[i] for k, v in srcs.items()},
+                            {k: v[i] for k, v in ray_batches.items()},
+                            generator)
+        return metrics
+
+    return run_stages
+
+
+def stack_batches(samples: Sequence[Dict], keys=None) -> Dict[str,
+                                                               np.ndarray]:
+    """Stack a list of sample dicts into one dict of (K, ...) arrays."""
+    keys = keys or list(samples[0].keys())
+    return {k: np.stack([np.asarray(s[k]) for s in samples]) for k in keys}
 
 
 def make_image_renderer(render_chunk_fn: Callable, chunk: int = 4096):

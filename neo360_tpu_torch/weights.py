@@ -63,6 +63,17 @@ def from_flax_flat(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def from_checkpoint(raw: Dict) -> Dict[str, torch.Tensor]:
+    """The state_dict in a port file: a training checkpoint
+    (train/checkpoints.py, written by cli.run_train) gives its two parameter
+    partitions and BatchNorm buffers merged; anything else is taken to be a
+    state_dict already."""
+    if "enc_params" in raw:
+        return {**raw["enc_params"], **raw["ray_params"],
+                **raw["batch_stats"]}
+    return raw
+
+
 def load_into(model: nn.Module, state_dict: Dict[str, torch.Tensor]) -> None:
     """Copy `state_dict` into `model`; raise on any key the model does not
     have, any model entry left without a value, or a shape mismatch."""

@@ -131,8 +131,9 @@ def test_run_eval_without_checkpoint_evaluates_random_init(tmp_path,
 
 def test_parse_args_matches_jax_cli():
     """The port's CLI builds the same neo360_fast config as the JAX CLI,
-    except bf16: the JAX CLI's `--bf16` flag defaults to False and
-    overrides the preset's bf16=True; the port keeps the preset's value."""
+    for eval and for training flags, except bf16: the JAX CLI's `--bf16`
+    flag defaults to False and overrides the preset's bf16=True; the port
+    keeps the preset's value."""
     import dataclasses
     argv = ["--exp_type", "neo360_fast", "--root_dir", "/data",
             "--eval_mode", "full_eval", "--render_name", "3views_test",
@@ -142,7 +143,14 @@ def test_parse_args_matches_jax_cli():
         assert getattr(cfg, f.name) == getattr(ref, f.name), f.name
     assert (cfg.bf16, cfg.lift_dim, cfg.num_fine_samples, cfg.chunk,
             cfg.num_src_views) == (True, 128, 60, 256, 3)
-    with pytest.raises(NotImplementedError):
-        cli.main(argv[:4])               # training is not ported
+    train = argv[:4] + ["--run_max_steps", "640", "--stage_k", "16",
+                        "--save_every_steps", "320", "--ray_batch_size",
+                        "400", "--lr_init", "1e-3"]
+    cfg, ref = cli.parse_args(train), jcli.parse_args(train + ["--bf16"])
+    for f in dataclasses.fields(ref):
+        assert getattr(cfg, f.name) == getattr(ref, f.name), f.name
+    if not torch.cuda.is_available():   # training runs on cuda by default
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(argv[:4])
     with pytest.raises(NotImplementedError):
         cli.build_model(preset("neo360"))

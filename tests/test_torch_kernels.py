@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernels against their plain PyTorch versions.
+"""The hand-written CUDA kernels, forward and backward, against their plain
+PyTorch versions, and the autograd Functions around them.
 
 Tests marked `cuda` need an NVIDIA GPU with nvcc and skip without one. The
 file imports no JAX, so on the GPU machine it runs without the JAX package
@@ -8,20 +9,26 @@ and without tests/conftest.py:
 
 Each kernel is compared with its plain version run on the card on the same
 tensors (the CPU's exp rounds differently, which can flip a bf16-rounded
-softmax weight). Tolerances are those of `ops.kernels.compare`: float32
-1e-5 relative, bfloat16 one ulp.
+softmax weight). Forward tolerances are those of `ops.kernels.compare`:
+float32 1e-5 relative, bfloat16 one ulp; each backward's is stated beside
+its wrapper (`BACKWARD_TOL`). The CPU tests hold each Function's gradient
+against autograd of the plain forward (1e-6: the same float32 operations).
 """
 
 import pytest
 import torch
 
-from neo360_tpu_torch.core.render import composite_nerfpp, \
-    composite_nerfpp_reference
+from neo360_tpu_torch.core.render import BACKWARD_TOL as RENDER_BWD_TOL
+from neo360_tpu_torch.core.render import OUT_KEYS, composite_nerfpp, \
+    composite_nerfpp_backward, composite_nerfpp_reference
 from neo360_tpu_torch.ops import kernels
-from neo360_tpu_torch.ops.interpolate import table_sample, \
+from neo360_tpu_torch.ops.interpolate import BACKWARD_TOL as INTERP_BWD_TOL
+from neo360_tpu_torch.ops.interpolate import build_corner_table, \
+    table_sample, table_sample_backward, table_sample_backward_reference, \
     table_sample_reference
+from neo360_tpu_torch.ops.pillar import BACKWARD_TOL as PILLAR_BWD_TOL
 from neo360_tpu_torch.ops.pillar import pillar_collapse, \
-    pillar_collapse_reference
+    pillar_collapse_backward, pillar_collapse_reference
 
 
 @pytest.fixture
@@ -136,3 +143,180 @@ def test_pillar_collapse_kernel(cuda, dtype, shape):
     assert pillar_collapse.launches == before + 1
     for o, r in zip(out, ref):
         _assert_ok(o, r)
+
+
+# --- backward kernels and the autograd Functions -------------------------
+
+def _composite_args(g, b, s_fg, s_bg):
+    fg_t = torch.sort(torch.rand(b, s_fg, generator=g), -1).values
+    bg_t = torch.sort(torch.rand(b, s_bg, generator=g), -1,
+                      descending=True).values
+    return (torch.rand(b, s_fg, 3, generator=g),
+            torch.rand(b, s_fg, 1, generator=g) * 10, fg_t,
+            torch.rand(b, s_bg, 3, generator=g),
+            torch.rand(b, s_bg, 1, generator=g) * 10, bg_t,
+            torch.randn(b, 3, generator=g),
+            fg_t[:, -1:] + torch.rand(b, 1, generator=g))
+
+
+def _plain_composite_grads(args, grads, white_bkgd):
+    """Autograd of the plain composite on `args`' device."""
+    leaves = [a.detach().requires_grad_(i in (0, 1, 3, 4))
+              for i, a in enumerate(args)]
+    out = composite_nerfpp_reference(*leaves, white_bkgd)
+    pairs = [(out[k], g) for k, g in zip(OUT_KEYS, grads) if g is not None]
+    return torch.autograd.grad([o for o, _ in pairs],
+                               [leaves[i] for i in (0, 1, 3, 4)],
+                               [g for _, g in pairs])
+
+
+@pytest.mark.parametrize("mode", ["zeros", "border"])
+def test_table_sample_function_grad_matches_plain_autograd(mode):
+    """CPU: the Function's table gradient equals autograd of the plain
+    forward (an f32 table, finite uv), the flat view offset included."""
+    g = _gen(3)
+    table = build_corner_table(torch.randn(4, 7, 9, 8, generator=g), mode)
+    uv = (torch.rand(2, 60, 2, generator=g) * 2 - 1) * 1.4
+    cot = torch.randn(2, 60, 8, generator=g)
+    t1 = table.clone().requires_grad_()
+    (ours,) = torch.autograd.grad(
+        table_sample(t1, uv, (7, 9), mode, view_offset=1), t1, cot)
+    t2 = table.clone().requires_grad_()
+    (ref,) = torch.autograd.grad(
+        table_sample_reference(t2, uv, (7, 9), mode, view_offset=1), t2,
+        cot)
+    torch.testing.assert_close(ours, ref, rtol=1e-6, atol=1e-6)
+    assert ours[0].abs().max() == 0 and ours[3].abs().max() == 0
+    assert ours[1].abs().max() > 0
+
+
+def test_composite_function_grads_match_plain_autograd():
+    g = _gen(4)
+    args = _composite_args(g, 12, 9, 7)
+    leaves = [a.clone().requires_grad_(i in (0, 1, 3, 4))
+              for i, a in enumerate(args)]
+    out = composite_nerfpp(*leaves, True)
+    cots = {k: torch.randn_like(out[k]) for k in OUT_KEYS}
+    loss = sum((out[k] * cots[k]).sum() for k in OUT_KEYS)
+    ours = torch.autograd.grad(loss, [leaves[i] for i in (0, 1, 3, 4)])
+    ref = _plain_composite_grads(args, [cots[k] for k in OUT_KEYS], True)
+    for a, b in zip(ours, ref):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+def test_pillar_function_grads_match_plain_autograd():
+    g = _gen(5)
+    latent = torch.randn(2, 5, 4, 3, 8, generator=g).requires_grad_()
+    logits = [torch.randn(2, 5, 4, 3, generator=g).requires_grad_()
+              for _ in range(3)]
+    cots = [torch.randn(s, generator=g) for s in
+            ((2, 4, 3, 8), (2, 5, 3, 8), (2, 5, 4, 8))]
+    ours = torch.autograd.grad(pillar_collapse(latent, *logits),
+                               [latent, *logits], cots)
+    ref = torch.autograd.grad(pillar_collapse_reference(latent, *logits),
+                              [latent, *logits], cots)
+    for a, b in zip(ours, ref):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+def test_functions_refuse_gradients_they_do_not_give():
+    g = _gen(6)
+    table = torch.randn(1, 5, 5, 16, generator=g, requires_grad=True)
+    uv = torch.rand(1, 4, 2, generator=g, requires_grad=True)
+    with pytest.raises(ValueError, match="uv takes no gradient"):
+        table_sample(table, uv, (4, 4))
+    args = list(_composite_args(g, 4, 5, 5))
+    for i, name in ((2, "fg_t"), (5, "bg_t"), (6, "dirs"), (7, "far")):
+        bad = list(args)
+        bad[i] = bad[i].clone().requires_grad_()
+        with pytest.raises(ValueError, match=name):
+            composite_nerfpp(*bad)
+    with torch.no_grad():      # no autograd: no Function, no check
+        table_sample(table, uv, (4, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_dtype,grad_dtype", [
+    (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.float32)])
+@pytest.mark.parametrize("mode", ["zeros", "border"])
+def test_table_sample_backward_kernel(cuda, table_dtype, grad_dtype, mode):
+    g = _gen(7)
+    h, w, c = 15, 20, 32
+    shape = (6, h + 1, w + 1, 4 * c)
+    uv = _uv(3, 2000, g)
+    cot = torch.randn(3, 2000, c, generator=g).to(grad_dtype)
+    uv, cot = uv.to(cuda), cot.to(cuda)
+    for offset in (0, 3):
+        ref = table_sample_backward_reference(cot, uv, shape, table_dtype,
+                                              (h, w), mode, offset)
+        before = table_sample_backward.launches
+        out = table_sample_backward(cot, uv, shape, table_dtype, (h, w),
+                                    mode, offset)
+        assert table_sample_backward.launches == before + 1
+        res = kernels.compare(out, ref, **INTERP_BWD_TOL)
+        assert res["ok"], res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("white_bkgd", [False, True])
+@pytest.mark.parametrize("subset", [False, True])
+@pytest.mark.parametrize("s_fg,s_bg", [(65, 65), (61, 61), (9, 5)])
+def test_composite_backward_kernel(cuda, white_bkgd, subset, s_fg, s_bg):
+    g = _gen(8)
+    args = tuple(a.to(cuda) for a in _composite_args(g, 300, s_fg, s_bg))
+    ref_out = composite_nerfpp_reference(*args, white_bkgd)
+    grads = [torch.randn(ref_out[k].shape, generator=g).to(cuda)
+             if not subset or k in ("rgb", "fg_weights", "bg_weights")
+             else None for k in OUT_KEYS]
+    ref = _plain_composite_grads(args, grads, white_bkgd)
+    before = composite_nerfpp_backward.launches
+    out = composite_nerfpp_backward(args, grads, white_bkgd)
+    assert composite_nerfpp_backward.launches == before + 1
+    for o, r in zip(out, ref):
+        res = kernels.compare(o, r, **RENDER_BWD_TOL)
+        assert res["ok"], res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 8, 6, 4, 40), (3, 16, 16, 8, 512)])
+def test_pillar_collapse_backward_kernel(cuda, dtype, shape):
+    g = _gen(9)
+    nv, x, y, z, c = shape
+    args = [torch.randn(shape, generator=g).to(dtype).to(cuda)] + [
+        (torch.randn(nv, x, y, z, generator=g) * 3).to(dtype).to(cuda)
+        for _ in range(3)]
+    cots = [torch.randn(s, generator=g).to(dtype).to(cuda) for s in
+            ((nv, y, z, c), (nv, x, z, c), (nv, x, y, c))]
+    leaves = [a.detach().requires_grad_() for a in args]
+    ref = torch.autograd.grad(pillar_collapse_reference(*leaves), leaves,
+                              cots)
+    before = pillar_collapse_backward.launches
+    out = pillar_collapse_backward(args, cots)
+    assert pillar_collapse_backward.launches == before + 1
+    res = kernels.compare(out[0], ref[0], **PILLAR_BWD_TOL["latent"])
+    assert res["ok"], res
+    for o, r in zip(out[1:], ref[1:]):
+        res = kernels.compare(o, r, **PILLAR_BWD_TOL["logit"][dtype])
+        assert res["ok"], res
+
+
+@pytest.mark.cuda
+def test_gradients_reach_inputs_through_kernels(cuda):
+    """On the card the Functions launch the forward and backward kernels
+    and their gradients match the plain version's autograd."""
+    g = _gen(10)
+    table = build_corner_table(torch.randn(3, 15, 20, 32, generator=g),
+                               "zeros").to(cuda).requires_grad_()
+    uv = _uv(3, 500, g).nan_to_num(0.0, 0.0, 0.0).to(cuda)
+    cot = torch.randn(3, 500, 32, generator=g).to(cuda)
+    before = (table_sample.launches, table_sample_backward.launches)
+    (ours,) = torch.autograd.grad(table_sample(table, uv, (15, 20)), table,
+                                  cot)
+    assert (table_sample.launches, table_sample_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    (ref,) = torch.autograd.grad(table_sample_reference(table, uv, (15, 20)),
+                                 table, cot)
+    res = kernels.compare(ours, ref, **INTERP_BWD_TOL)
+    assert res["ok"], res
