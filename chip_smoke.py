@@ -10,8 +10,13 @@ line):
 1. the card (nvidia-smi name and power limit) and the torch / CUDA versions;
 2. build the hand-written kernels of neo360_tpu_torch/csrc with nvcc;
 3. each kernel, forward and backward, against its plain PyTorch version
-   (the backward: autograd of the plain forward) on seeded random inputs
-   at the neo360_fast shapes, with both times (median of 20 runs);
+   (the backward: autograd of the plain forward, or its index_add_ plain
+   version under the accumulate contract) on seeded random inputs at the
+   neo360_fast shapes, with both times (median of 20 runs), the kernel's
+   bound (bytes over the card's memory rate or operations over its f32
+   rate, whichever is larger; `bound`) and its share of it, and for the
+   corner-table kernels the time of `F.grid_sample` (forward, and the
+   autograd of it with respect to the map) on the same points;
 4. the render slice at a small size in float32 on the card (kernels)
    against the same slice on the CPU (plain versions), TF32 off;
 5. one tiny float32 train stage (K=2, S=2, deterministic sampling) on the
@@ -19,19 +24,23 @@ line):
    buffers and parameters;
 6. the training main path: `cli.run_train` at full neo360_fast width
    (random seeded weights, bf16) on 3 in-memory 320x240 fixture scenes,
-   2 stages of K=32 steps, S=2 scenes and 500 rays per step, then its
+   3 stages of K=32 steps, S=2 scenes and 500 rays per step (the third
+   under `torch.profiler`, whose top device ops are printed), then its
    validation render and checkpoint; every step's loss must be finite,
    every parameter and BatchNorm buffer must move (apart from the leaves
-   whose gradient is zero by construction) and all six kernels must
-   launch;
+   whose gradient is zero by construction), all six kernels must launch,
+   and every stage must launch kernel A' once per scene under the dense
+   contract (the grid lift) and 4 x S x K times under the accumulate
+   contract (the tri-plane and local tables);
 7. the serving main path: the same model encodes one in-memory 320x240
    fixture scene once and renders 3 novel views through cli.make_render_fn
    + train.eval.evaluate, the code of `cli.run_eval`; every forward kernel
-   must launch.
+   must launch. One more render of a view runs under `torch.profiler`.
 
-The line before the last is {"kernels": [...]}, the last is
-{"ok": true, "device": {...}}. Requires a CUDA device: it exits 2 without
-one, or without the neo360_tpu_torch package beside it.
+Each kernel's launches per training stage and per rendered view follow
+the last phase. The line before the last is {"kernels": [...]}, the last
+is {"ok": true, "device": {...}}. Requires a CUDA device: it exits 2
+without one, or without the neo360_tpu_torch package beside it.
 """
 
 from __future__ import annotations
@@ -47,6 +56,11 @@ import time
 
 SEED = 0
 TIMED_RUNS = 20
+# the bound's peaks: one H100 SXM (on-chip-measurement guide): HBM3 bytes
+# per second, and float32 operations per second outside the tensor cores
+# (every kernel here computes in float32 on the CUDA cores)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 # (name, source, JAX function it replaces)
 KERNELS = {
@@ -71,19 +85,101 @@ ZERO_GRAD = re.compile(r"encoder\.(floorplan_(yz|xz|xy)\.conv[0-3]"
 
 
 def counters():
-    """Kernel name -> the wrapper that counts its launches."""
+    """Counter name -> the wrapper that counts its launches: one per
+    kernel, and kernel A' under each of its two contracts (dense and
+    accumulate)."""
     from neo360_tpu_torch.core.render import composite_nerfpp, \
         composite_nerfpp_backward
     from neo360_tpu_torch.ops.interpolate import table_sample, \
-        table_sample_backward
+        table_sample_accumulate, table_sample_backward
     from neo360_tpu_torch.ops.pillar import pillar_collapse, \
         pillar_collapse_backward
     return {"table_sample_fwd": table_sample,
             "composite_nerfpp_fwd": composite_nerfpp,
             "pillar_collapse_fwd": pillar_collapse,
             "table_sample_bwd": table_sample_backward,
+            "table_sample_bwd_acc": table_sample_accumulate,
             "composite_nerfpp_bwd": composite_nerfpp_backward,
             "pillar_collapse_bwd": pillar_collapse_backward}
+
+
+def _read(fns) -> dict:
+    """Counter name -> launches so far."""
+    return {k: fn.launches for k, fn in fns.items()}
+
+
+def _by_kernel(counts) -> dict:
+    """Counter values summed per kernel (A' = dense + accumulate)."""
+    out = {k: v for k, v in counts.items() if k != "table_sample_bwd_acc"}
+    out["table_sample_bwd"] += counts["table_sample_bwd_acc"]
+    return out
+
+
+def _bound(nbytes: float, ops: float):
+    """(least ms the card could take, "bytes" or "operations")."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def _share(bound_ms: float, ms: float) -> str:
+    return f"{bound_ms / ms:.1%}" if ms > 0 else "not measured"
+
+
+def _rows_read(table_shape, uv, hw, mode, view_offset) -> int:
+    """Distinct corner-table rows that the points read (and kernel A'
+    writes): finite points inside the table's reach."""
+    import torch
+
+    from neo360_tpu_torch.ops.interpolate import _corners
+    idx, wts = _corners(uv, hw, mode, table_shape[0], view_offset)
+    live = torch.isfinite(uv).all(-1).reshape(-1) & (wts.abs().sum(-1) > 0)
+    return int(torch.unique(idx[live]).numel())
+
+
+# the port's kernels (csrc/*.cu) as the profiler names them
+PORT_KERNEL = re.compile(r"::(table_sample|table_scatter|round_to_bf16"
+                         r"|composite_nerfpp(_bwd)?|pillar_(collapse|dlogit"
+                         r"|dlatent))_kernel\b")
+
+
+def _profile(torch, fn, label: str, top: int = 15):
+    """Run `fn` once under torch.profiler and print the device's busy
+    share, the top `top` kernels and ops by device time, and every kernel
+    of the port."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels_, ops = [], []
+    for e in prof.key_averages():
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = e.self_cuda_time_total
+        if dev <= 0:
+            continue
+        on_device = str(e.device_type).endswith("CUDA")
+        (kernels_ if on_device else ops).append((dev / 1e3, e.count, e.key))
+    busy = sum(r[0] for r in kernels_)
+    launches = sum(r[1] for r in kernels_)
+    print(f"[profile] {label}: wall {wall:.3f} s under the profiler, device "
+          f"time {busy / 1e3:.3f} s in {launches} kernels, busy "
+          f"{busy / 1e3 / wall:.1%}")
+    if not kernels_:
+        print(f"[profile] {label}: the profiler recorded no device time "
+              f"(not measured)")
+    port = [r for r in kernels_ if PORT_KERNEL.search(r[2])]
+    for what, rows in (("kernel", kernels_), ("op", ops),
+                       ("port kernel", port)):
+        for ms, n, key in sorted(rows, reverse=True)[:top]:
+            print(f"[profile] {label} {what}: {ms:9.3f} ms "
+                  f"{ms / max(busy, 1e-9):6.1%} x{n:<6d} "
+                  f"{ms / n * 1e3:8.1f} us/call {key[:90]}")
 
 
 def _median_ms(fn, torch) -> float:
@@ -100,6 +196,24 @@ def _median_ms(fn, torch) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _device_ms(torch, fn) -> dict:
+    """{kernel name: device ms per call} of `fn` over TIMED_RUNS calls
+    under torch.profiler, after a warm-up (memsets included). For a
+    kernel of a few microseconds a CUDA-event time around one call
+    measures the caller's host work; this does not."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(TIMED_RUNS):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / TIMED_RUNS
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0}
 
 
 def phase_card(torch) -> str:
@@ -126,9 +240,12 @@ def phase_build():
 
 
 def _check(name, case, out, ref, kernel_fn, plain_fn, torch, results,
-           tols=None):
-    """`tols`: compare() keywords, one dict for every output or a list of
-    one per output."""
+           tols=None, nbytes=0.0, ops=0.0, library_fn=None, main=False):
+    """Hold a kernel's output against its plain version's, time both (and
+    `library_fn`, one PyTorch call computing the same function, if any),
+    and give the kernel's bound for `nbytes` moved and `ops` done. `tols`:
+    compare() keywords, one dict for every output or a list of one per
+    output. `main`: the case the {"kernels": ...} line reports."""
     from neo360_tpu_torch.ops import kernels
     outs = out if isinstance(out, (tuple, list)) else [out]
     refs = ref if isinstance(ref, (tuple, list)) else [ref]
@@ -138,15 +255,44 @@ def _check(name, case, out, ref, kernel_fn, plain_fn, torch, results,
     max_abs = max(r["max_abs"] for r in res)
     max_rel = max(r["max_rel"] for r in res)
     ms = _median_ms(kernel_fn, torch)
+    device_ms = sum(_device_ms(torch, kernel_fn).values())
     plain_ms = _median_ms(plain_fn, torch)
+    library_ms = _median_ms(library_fn, torch) if library_fn else None
+    bound_ms, bound_by = _bound(nbytes, ops)
     ok = all(r["ok"] for r in res)
+    lib = f"{library_ms:.4f} ms" if library_ms is not None else "none"
     print(f"[kernel] {name} {case}: max_abs {max_abs:.3e} max_rel "
-          f"{max_rel:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+          f"{max_rel:.3e} kernel {ms:.4f} ms (device {device_ms:.4f} ms) "
+          f"plain {plain_ms:.4f} ms library {lib} bound {bound_ms:.4f} ms "
+          f"({bound_by}, {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} Gop) share "
+          f"{bound_ms / ms:.1%} (device {_share(bound_ms, device_ms)}) "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} {case} disagrees with its plain "
                              f"version: {res}")
-    results.append((name, case, max_abs, ms, plain_ms))
+    results.append({"name": name, "case": case, "max_abs": max_abs,
+                    "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                    "library_ms": library_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "main": main})
+
+
+def _grid_sample_fns(torch, c, dtype, uv, hw, mode, cot=None):
+    """`F.grid_sample(align_corners=True)` on an NCHW map of `dtype` and C
+    channels, over the views the points read, at the same points: the
+    forward, or (given the output cotangent `cot`) autograd of it with
+    respect to the map. A yardstick only: the port never calls it. Its
+    gradient is the map's, not the corner table's, and it takes the grid
+    in the map's type (bf16 uv for a bf16 map)."""
+    import torch.nn.functional as F
+    fmap = torch.randn(uv.shape[0], c, *hw, device=uv.device).to(dtype)
+    grid = uv[:, :, None, :].to(dtype)
+    if cot is None:
+        return lambda: F.grid_sample(fmap, grid, "bilinear", mode,
+                                     align_corners=True)
+    fmap.requires_grad_()
+    out = F.grid_sample(fmap, grid, "bilinear", mode, align_corners=True)
+    g = cot.permute(0, 2, 1)[..., None].to(out.dtype).contiguous()
+    return lambda: torch.autograd.grad(out, fmap, g, retain_graph=True)
 
 
 def phase_kernels(torch):
@@ -186,8 +332,17 @@ def phase_kernels(torch):
     for case, table, u, mode, odt, off in cases:
         kernel = lambda: table_sample(table, u, hw, mode, odt, off)
         plain = lambda: table_sample_reference(table, u, hw, mode, odt, off)
+        b, n = u.shape[:2]
+        c4 = table.shape[-1]
+        rows = _rows_read(table.shape, u, hw, mode, off)
+        out_bytes = torch.tensor([], dtype=odt).element_size()
+        nbytes = (u.numel() * 4 + rows * c4 * table.element_size()
+                  + b * n * c4 // 4 * out_bytes)
         _check("table_sample_fwd", case, kernel(), plain(), kernel, plain,
-               torch, results)
+               torch, results, nbytes=nbytes, ops=2.0 * b * n * c4,
+               library_fn=_grid_sample_fns(torch, c4 // 4, table.dtype, u,
+                                           hw, mode),
+               main=case.startswith("plane"))
 
     # Kernel B: one 256-ray tile, prop level (65 points) and fine (61)
     for s in (65, 61):
@@ -205,9 +360,13 @@ def phase_kernels(torch):
         kernel = lambda: composite_nerfpp(*args, False)
         plain = lambda: composite_nerfpp_reference(*args, False)
         out, ref = kernel(), plain()
+        # per sample: rgb, sigma, t read, one weight written, per branch;
+        # per ray: dirs, far read, 14 sums written
         _check("composite_nerfpp_fwd", f"B=256 S={s}",
                [out[k] for k in keys], [ref[k] for k in keys],
-               kernel, plain, torch, results)
+               kernel, plain, torch, results,
+               nbytes=4.0 * b * (2 * 6 * s + 4 + 14), ops=2 * 20.0 * b * s,
+               main=s == 61)
 
     # Kernel C: the neo360_fast grid latent
     latent = torch.randn(3, 64, 64, 32, 512, device=dev, generator=g).to(bf16)
@@ -215,19 +374,42 @@ def phase_kernels(torch):
         bf16) for _ in range(3)]
     kernel = lambda: pillar_collapse(latent, *logits)
     plain = lambda: pillar_collapse_reference(latent, *logits)
+    nv, x, y, z, c = latent.shape
+    cells = nv * x * y * z
+    floor_elems = nv * (y * z + x * z + x * y) * c
+    # the latent and 3 logits read, 3 floors written, bf16; per cell and
+    # floor a softmax term (~4 ops) and a C-wide multiply-add
     _check("pillar_collapse_fwd", "latent (3,64,64,32,512) bf16", kernel(),
-           plain(), kernel, plain, torch, results)
+           plain(), kernel, plain, torch, results,
+           nbytes=2.0 * (latent.numel() + 3 * cells + floor_elems),
+           ops=3.0 * (latent.numel() * 2 + cells * 4), main=True)
     return results
+
+
+def _ray_uv(torch, g, b, n_rays, s, lim=1.2, reach=0.5):
+    """uv of `s` sorted samples along each of `n_rays` segments per view
+    (start uniform in [-lim, lim]^2, extent normal with deviation `reach`):
+    consecutive points of a ray often read one corner row, as along the
+    path's rays."""
+    dev = g.device
+    start = (torch.rand(b, n_rays, 1, 2, device=dev, generator=g) * 2
+             - 1) * lim
+    step = torch.randn(b, n_rays, 1, 2, device=dev, generator=g) * reach
+    t = torch.sort(torch.rand(b, n_rays, s, 1, device=dev, generator=g),
+                   2).values
+    return (start + t * step).reshape(b, n_rays * s, 2)
 
 
 def phase_backward_kernels(torch):
     """A', B' and C' at the shapes of the training main path, against
-    autograd of the plain forward on the same inputs."""
+    autograd of the plain forward on the same inputs (A' under the
+    accumulate contract: against its index_add_ plain version)."""
     from neo360_tpu_torch.core.render import BACKWARD_TOL as B_TOL
     from neo360_tpu_torch.core.render import OUT_KEYS, \
         composite_nerfpp_backward, composite_nerfpp_reference
     from neo360_tpu_torch.ops.interpolate import BACKWARD_TOL as A_TOL
-    from neo360_tpu_torch.ops.interpolate import table_sample_backward, \
+    from neo360_tpu_torch.ops.interpolate import table_sample_accumulate, \
+        table_sample_accumulate_reference, table_sample_backward, \
         table_sample_reference
     from neo360_tpu_torch.ops.pillar import BACKWARD_TOL as C_TOL
     from neo360_tpu_torch.ops.pillar import pillar_collapse_backward, \
@@ -241,9 +423,10 @@ def phase_backward_kernels(torch):
     def uv(b, n, lim):
         return (torch.rand(b, n, 2, device=dev, generator=g) * 2 - 1) * lim
 
-    # A': the grid lift (bf16 cotangent), the flat tri-plane tables of two
-    # scenes (scene 1: views 3-5) and the flat stacked local tables (scene
-    # 1: views 6-11); per scene 250 rays x 61 fine points, fg + bg
+    # A', dense contract: the grid lift (bf16 cotangent), the flat
+    # tri-plane tables of two scenes (scene 1: views 3-5) and the flat
+    # stacked local tables (scene 1: views 6-11); per scene 250 rays x 61
+    # fine points, fg + bg
     hw = (120, 160)
     lift_uv = uv(3, 64 * 64 * 32, 1.5)
     lift_uv[0, :4] = torch.tensor([[1e30, 0.0], [-1e30, 0.0],
@@ -254,9 +437,11 @@ def phase_backward_kernels(torch):
               uv(3, 2 * 250 * 61, 1.2), "zeros", f32, 3),
              ("local border f32 cotangent, view_offset=6",
               (12, 121, 161, 512), uv(6, 250 * 61, 1.2), "border", f32, 6)]
+    uniform = {}
     for case, shape, u, mode, gdt, off in cases:
         cot = torch.randn(u.shape[:2] + (128,), device=dev,
                           generator=g).to(gdt)
+        uniform[mode if off else "lift"] = (u, cot)
         # the plain version: autograd of the plain forward through an f32
         # table (the same values), rounded once to the table's bf16
         t32 = torch.zeros(shape, device=dev, requires_grad=True)
@@ -265,9 +450,55 @@ def phase_backward_kernels(torch):
                                             retain_graph=True)[0].to(bf16)
         kernel = lambda: table_sample_backward(cot, u, shape, bf16, hw, mode,
                                                off)
-        _check("table_sample_bwd", case, kernel(), plain(), kernel, plain,
-               torch, results, A_TOL)
+        # the cotangent and uv read once, the dense bf16 table written once
+        nbytes = (cot.numel() * cot.element_size() + u.numel() * 4
+                  + t32.numel() * 2)
+        _check("table_sample_bwd", f"dense {case}", kernel(), plain(),
+               kernel, plain, torch, results, A_TOL, nbytes=nbytes,
+               ops=2.0 * cot.numel() * 4,
+               library_fn=_grid_sample_fns(torch, 128, bf16, u, hw, mode,
+                                           cot))
         del fwd, t32
+
+    # A', accumulate contract: one stage step's two scenes into one f32
+    # accumulator per table, as the trainer makes them: scene 0 (view 0)
+    # with ray-structured uv (250 fg + 250 bg rays x 61 points per view;
+    # the local table: fg and bg views apart), scene 1 (view_offset 3 / 6)
+    # with the dense case's uniform uv and cotangent
+    acc_cases = [("plane zeros", (6, 121, 161, 512), "zeros", 3,
+                  (3, 500, 61)),
+                 ("local border", (12, 121, 161, 512), "border", 6,
+                  (6, 250, 61))]
+    for label, shape, mode, off, (b, n_rays, s) in acc_cases:
+        calls = [("ray uv, view_offset=0", _ray_uv(torch, g, b, n_rays, s),
+                  None, 0),
+                 (f"uniform uv, view_offset={off}", *uniform[mode], off)]
+        calls = [(what, u, torch.randn(u.shape[:2] + (128,), device=dev,
+                                       generator=g) if cot is None else cot,
+                  o) for what, u, cot, o in calls]
+        acc = torch.zeros(shape, device=dev)
+        ref = torch.zeros(shape, device=dev)
+        for _, u, cot, o in calls:
+            table_sample_accumulate(cot, u, acc, hw, mode, o)
+            table_sample_accumulate_reference(cot, u, ref, hw, mode, o)
+        acc_t, ref_t = acc.clone(), ref.clone()   # timed adds go here
+        for what, u, cot, o in calls:
+            kernel = lambda: table_sample_accumulate(cot, u, acc_t, hw, mode,
+                                                     o)
+            plain = lambda: table_sample_accumulate_reference(cot, u, ref_t,
+                                                              hw, mode, o)
+            # the cotangent and uv read once; every accumulator row the
+            # points touch read and written once
+            rows = _rows_read(shape, u, hw, mode, o)
+            nbytes = (cot.numel() * 4 + u.numel() * 4
+                      + rows * shape[-1] * 4 * 2)
+            _check("table_sample_bwd", f"accumulate {label} {what}", acc,
+                   ref, kernel, plain, torch, results, A_TOL, nbytes=nbytes,
+                   ops=2.0 * cot.numel() * 4,
+                   library_fn=_grid_sample_fns(torch, 128, bf16, u, hw, mode,
+                                               cot),
+                   main=label.startswith("plane") and o == 0)
+        del acc, ref, acc_t, ref_t
 
     # B': one scene's 250 rays, proposal (65 points) and fine (61) levels;
     # the loss reads rgb and both weight histograms
@@ -293,8 +524,13 @@ def phase_backward_kernels(torch):
         gs = [gr for gr in grads if gr is not None]
         plain = lambda: torch.autograd.grad(outs, wrt, gs, retain_graph=True)
         kernel = lambda: composite_nerfpp_backward(args, grads, False)
+        # per sample and branch: rgb, sigma, t and one weight cotangent
+        # read, d rgb and d sigma written; per ray: dirs, far and the rgb
+        # cotangent read
         _check("composite_nerfpp_bwd", f"B=250 S={s}", list(kernel()),
-               list(plain()), kernel, plain, torch, results, B_TOL)
+               list(plain()), kernel, plain, torch, results, B_TOL,
+               nbytes=4.0 * b * (2 * 10 * s + 7), ops=2 * 40.0 * b * s,
+               main=s == 61)
 
     # C': the grid latent of one scene
     shape = (3, 64, 64, 32, 512)
@@ -308,9 +544,15 @@ def phase_backward_kernels(torch):
     plain = lambda: torch.autograd.grad(floors, leaves, cots,
                                         retain_graph=True)
     kernel = lambda: pillar_collapse_backward(args, cots)
+    cells = args[1].numel()
+    floor_elems = sum(c.numel() for c in cots)
+    # the latent, 3 logits and 3 floor cotangents read, d latent and 3 d
+    # logits written, bf16; per cell and floor ~4 C-wide multiply-adds
     _check("pillar_collapse_bwd", "latent (3,64,64,32,512) bf16",
            list(kernel()), list(plain()), kernel, plain, torch, results,
-           [C_TOL["latent"]] + [C_TOL["logit"][bf16]] * 3)
+           [C_TOL["latent"]] + [C_TOL["logit"][bf16]] * 3,
+           nbytes=2.0 * (2 * args[0].numel() + 6 * cells + floor_elems),
+           ops=3.0 * (args[0].numel() * 8 + cells * 8), main=True)
     return results
 
 
@@ -392,9 +634,11 @@ def phase_small_train(torch):
 
 
 def phase_train_main_path(torch):
-    """`cli.run_train` at full neo360_fast width: 2 stages of K=32, S=2,
-    500 rays per step, on 3 in-memory 320x240 scenes, then its validation
-    render and checkpoint."""
+    """`cli.run_train` at full neo360_fast width: 3 stages of K=32, S=2,
+    500 rays per step, on 3 in-memory 320x240 scenes (the third under
+    torch.profiler), then its validation render and checkpoint. Returns
+    the path's launches, each stage's launches, the unprofiled stages'
+    seconds and the peak memory."""
     import numpy as np
 
     from neo360_tpu_torch import cli
@@ -404,21 +648,22 @@ def phase_train_main_path(torch):
     from neo360_tpu_torch.train import loop
 
     with tempfile.TemporaryDirectory() as tmp:
-        cfg = preset("neo360_fast", seed=SEED, run_max_steps=64,
-                     save_every_steps=64, steps_per_call=32,
+        cfg = preset("neo360_fast", seed=SEED, run_max_steps=96,
+                     save_every_steps=96, steps_per_call=32,
                      log_every_steps=32, ckpt_dir=tmp, device="cuda")
         print(f"[train] {cfg.exp_type}: img_wh {cfg.img_wh}, bf16 "
               f"{cfg.bf16}, K={cfg.stage_k}, S={cfg.stage_scenes}, "
-              f"{cfg.ray_batch_size} rays/step, 2 stages, grid "
+              f"{cfg.ray_batch_size} rays/step, 3 stages, grid "
               f"{cfg.grid_size or (64, 64, 32)}, lift {cfg.lift_dim}")
         datasets = tuple(MemoryScenes(3, cfg.img_wh, cfg.num_src_views,
                                       split=split,
                                       ray_batch_size=cfg.ray_batch_size)
                          for split in ("train", "val"))
         before = cli.build_model(cfg, "cpu").state_dict()
-        losses, seconds = [], []
+        losses, seconds, per_stage = [], [], []
         plain_loss, plain_factory = (neo360.neo360_loss,
                                      loop.make_scene_stage_trainer)
+        fns = counters()
 
         def recorded_loss(out, target):
             loss, l1 = plain_loss(out, target)
@@ -429,15 +674,23 @@ def phase_train_main_path(torch):
             run = plain_factory(*a, **kw)
 
             def timed(*args):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                metrics = run(*args)
-                torch.cuda.synchronize()
-                seconds.append(time.perf_counter() - t)
+                before = _read(fns)
+                if len(per_stage) == 2:     # the third stage: profiled
+                    box = []
+                    _profile(torch, lambda: box.append(run(*args)),
+                             "steady training stage (K=32, S=2)")
+                    metrics = box[0]
+                else:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    metrics = run(*args)
+                    torch.cuda.synchronize()
+                    seconds.append(time.perf_counter() - t)
+                after = _read(fns)
+                per_stage.append({k: after[k] - before[k] for k in after})
                 return metrics
             return timed
 
-        fns = counters()
         for fn in fns.values():
             fn.launches = 0
         torch.cuda.reset_peak_memory_stats()
@@ -451,7 +704,7 @@ def phase_train_main_path(torch):
         finally:
             neo360.neo360_loss, loop.make_scene_stage_trainer = (
                 plain_loss, plain_factory)
-        launches = {k: fn.launches for k, fn in fns.items()}
+        launches = _read(fns)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         with open(os.path.join(tmp, "exp", "metrics.jsonl")) as f:
             records = [json.loads(line) for line in f]
@@ -461,20 +714,30 @@ def phase_train_main_path(torch):
     rays = cfg.ray_batch_size * cfg.stage_k
     for i, s in enumerate(seconds):
         print(f"[train] stage {i}: {s:.3f} s, {rays / s:.0f} train rays/s")
-    print(f"[train] run_train wall {wall:.3f} s (model build, sampling, 2 "
-          f"stages, validation render, checkpoint); peak device memory "
-          f"{peak:.2f} GiB")
+    print(f"[train] run_train wall {wall:.3f} s (model build, sampling, 3 "
+          f"stages, one under the profiler, validation render, "
+          f"checkpoint); peak device memory {peak:.2f} GiB")
     print(f"[train] losses: {len(values)} (step x scene), first "
           f"{values[:2].mean():.4f}, last {values[-2:].mean():.4f}; "
           f"metrics.jsonl {records}; checkpoints {ckpts}")
-    print(f"[train] launches on the training path: {launches}")
-    if len(values) != 2 * cfg.stage_k * cfg.stage_scenes or \
+    print(f"[train] launches on the training path: {launches}; per stage: "
+          f"{per_stage}")
+    if len(values) != 3 * cfg.stage_k * cfg.stage_scenes or \
             not np.isfinite(values).all():
         raise AssertionError(f"non-finite or missing losses: {values}")
-    if state.step != 64 or "ckpt_00000064.pt" not in ckpts or not any(
+    if state.step != 96 or "ckpt_00000096.pt" not in ckpts or not any(
             "val_psnr" in r and np.isfinite(r["val_psnr"]) for r in records):
         raise AssertionError("run_train did not validate and checkpoint "
-                             "at step 64")
+                             "at step 96")
+    want = (cfg.stage_scenes, 4 * cfg.stage_scenes * cfg.stage_k)
+    got = [(n["table_sample_bwd"], n["table_sample_bwd_acc"])
+           for n in per_stage]
+    print(f"[train] kernel A' per stage (dense, accumulate): {got}, "
+          f"expected {want} (the lift once per scene; 3 planes + 1 local "
+          f"table per scene-step)")
+    if len(got) != 3 or any(x != want for x in got):
+        raise AssertionError(f"kernel A' launches per stage {got}, "
+                             f"expected {want}")
     after = {k: v.detach().cpu() for k, v in
              state.model.state_dict().items()}
     still = [k for k, v in before.items()
@@ -489,7 +752,7 @@ def phase_train_main_path(torch):
     if missing:
         raise AssertionError(f"kernels not launched by the training path: "
                              f"{missing}")
-    return launches, seconds, peak
+    return launches, per_stage, seconds, peak
 
 
 def _tiny_cfg(**kw):
@@ -561,20 +824,23 @@ def phase_main_path(torch, cfg, dev="cuda"):
     w, h = cfg.img_wh
 
     def timed(sample):
+        before = _read(counted)
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = render_fn(sample)
         torch.cuda.synchronize()
         timed.seconds.append(time.perf_counter() - t)
+        after = _read(counted)
+        timed.per_view.append({k: after[k] - before[k] for k in after})
         for k, v in out.items():
             if v.shape[0] != w * h or not bool(torch.isfinite(v).all()):
                 raise AssertionError(f"output {k}: shape {tuple(v.shape)} or "
                                      f"non-finite values")
         return out
 
-    timed.seconds = []
+    timed.seconds, timed.per_view = [], []
     views = list(evaluate(timed, samples, cfg.img_wh))
-    launches = {k: fn.launches for k, fn in counted.items()}
+    launches = _read(counted)
     for i, (v, s) in enumerate(zip(views, timed.seconds)):
         what = "encode + render" if i == 0 else "render"
         print(f"[main] view {i}: {what} {s:.3f} s ({w * h} rays), PSNR "
@@ -584,12 +850,15 @@ def phase_main_path(torch, cfg, dev="cuda"):
             raise AssertionError(f"view {i}: non-finite output or metrics")
     print(f"[main] render s/view (views 1-2, encode cached): "
           f"{statistics.mean(timed.seconds[1:]):.3f}")
-    print(f"[main] launches on the main path: {launches}")
+    print(f"[main] launches on the main path: {launches}; per view: "
+          f"{timed.per_view}")
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels not launched by the main path: "
                              f"{missing}")
-    return launches
+    _profile(torch, lambda: render_fn(samples[1]),
+             "rendered view (encode cached)")
+    return launches, timed.per_view
 
 
 def main() -> int:
@@ -610,18 +879,36 @@ def main() -> int:
     checks = phase_kernels(torch) + phase_backward_kernels(torch)
     phase_small_reference(torch)
     phase_small_train(torch)
-    launches, _, _ = phase_train_main_path(torch)
+    launches, per_stage, _, _ = phase_train_main_path(torch)
     from neo360_tpu_torch.config import preset
-    phase_main_path(torch, preset("neo360_fast", seed=SEED))
+    _, per_view = phase_main_path(torch, preset("neo360_fast", seed=SEED))
 
+    # launches per steady training stage (the second) and per rendered
+    # view with the encode cached (the second view)
+    steady = _by_kernel(per_stage[1])
+    print(f"[kernel] launches: A' per stage dense "
+          f"{per_stage[1]['table_sample_bwd']}, accumulate "
+          f"{per_stage[1]['table_sample_bwd_acc']}")
     entries = []
     for name, (source, replaces) in KERNELS.items():
-        rows = [r for r in checks if r[0] == name]
-        heaviest = max(rows, key=lambda r: r[4])
+        rows = [r for r in checks if r["name"] == name]
+        main = next((r for r in rows if r["main"]), rows[0])
+        print(f"[kernel] {name}: {steady[name]} launches per training "
+              f"stage, {per_view[1].get(name, 0)} per rendered view; "
+              f"{main['case']}: {main['ms']:.4f} ms (device "
+              f"{main['device_ms']:.4f} ms), bound {main['bound_ms']:.4f} ms "
+              f"({main['bound_by']}), share "
+              f"{_share(main['bound_ms'], main['ms'])} (device "
+              f"{_share(main['bound_ms'], main['device_ms'])})")
         entries.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": max(r[2] for r in rows),
-                        "ms": heaviest[3], "plain_ms": heaviest[4]})
+                        "replaces": replaces,
+                        "launches": _by_kernel(launches)[name],
+                        "max_abs_err": max(r["max_abs"] for r in rows),
+                        "ms": main["ms"], "device_ms": main["device_ms"],
+                        "plain_ms": main["plain_ms"],
+                        "bound_ms": main["bound_ms"],
+                        "bound_by": main["bound_by"],
+                        "library_ms": main["library_ms"]})
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -76,8 +76,9 @@ class Config:
     # encoder gradients through the staleness-sensitive early phase), then
     # encode-once stages. Ignored when resuming past it or stage_k <= 1.
     stage_warmup_steps: int = 0
-    # stage cotangent-accumulator dtype: "bfloat16" halves the accumulator's
-    # per-step HBM traffic (train/loop.py make_scene_stage_trainer docstring)
+    # stage cotangent-accumulator dtype: with "float32" the tables' backward
+    # adds straight into the accumulators; another dtype casts and adds each
+    # step's dense table gradient (train/loop.py make_scene_stage_trainer)
     stage_cot_dtype: str = "float32"
 
     # run modes

@@ -191,12 +191,13 @@ class NeRFTP(nn.Module):
 
     def _local_feats_pair(self, fg_samples, bg_samples, poses, focal, c,
                           stacked_table, latent_hw, image_size,
-                          view_offset: int = 0):
+                          view_offset: int = 0, grad_acc=None):
         """Pixel-aligned projected latents for the fg and bg branches in one
         border-mode gather (neo360_tpu/models/neo360.py:276-305). Returns
         (fg latent, bg latent, fg camera points), latents (NV, B*S, D).
         `view_offset`: the first view row of this scene in a flat
-        multi-scene table."""
+        multi-scene table; `grad_acc`: the table's f32 gradient accumulator
+        (`table_sample`'s accumulate contract)."""
         nv = self.num_src_views
         fg_cam = geometry.world2camera(fg_samples.reshape(1, -1, 3), poses,
                                        ns=nv)
@@ -209,7 +210,8 @@ class NeRFTP(nn.Module):
             image_size, dtype=torch.float32, device=fg_cam.device)
         uv = torch.cat([uv_fg, uv_bg], dim=0) * scale - 1.0
         latent = table_sample(stacked_table, uv, latent_hw,
-                              padding_mode="border", view_offset=view_offset)
+                              padding_mode="border", view_offset=view_offset,
+                              grad_acc=grad_acc)
         return latent[:nv], latent[nv:], fg_cam
 
     def _predict(self, mlp, cam_pts, world_lat, local_lat, viewdirs_enc,
@@ -238,7 +240,11 @@ class NeRFTP(nn.Module):
         the output of `encode`, optionally with a 4th element
         (scene index, scene count) when the tables are flat multi-scene
         tables (the scene-mixed stage trainer): this scene's rows start at
-        view index * NV of the plane tables and * 2NV of the local table.
+        view index * NV of the plane tables and * 2NV of the local table;
+        None for a single scene. An optional 5th element, ((3 plane
+        accumulators), local accumulator), f32 tensors of the tables'
+        shapes, makes the backward add the tables' gradients into them
+        instead of returning them (the stage trainer's accumulate path).
         `randomized`: stratified level-0 samples and random inverse-CDF
         resampling, drawn from `generator` in the JAX order (fg then bg,
         per level). Returns one dict per level with rgb, fg_rgb, bg_rgb,
@@ -248,9 +254,11 @@ class NeRFTP(nn.Module):
         plane_tables, local_table = encoded[0], encoded[1]
         nv = self.num_src_views
         plane_off = local_off = 0
-        if len(encoded) > 3:
+        if len(encoded) > 3 and encoded[3] is not None:
             s_idx = int(encoded[3][0])
             plane_off, local_off = s_idx * nv, s_idx * 2 * nv
+        plane_acc, local_acc = (encoded[4] if len(encoded) > 4
+                                and encoded[4] is not None else (None, None))
         plane_hw = (plane_tables[0].shape[1] - 1,
                     plane_tables[0].shape[2] - 1)
         latent_hw = (local_table.shape[1] - 1, local_table.shape[2] - 1)
@@ -307,12 +315,13 @@ class NeRFTP(nn.Module):
                 # fg + bg in one tri-plane gather and one local gather
                 world = index_grid_tables(
                     torch.cat([fg_samples, bg_pts], dim=0), plane_tables,
-                    plane_hw, poses, nv, view_offset=plane_off)
+                    plane_hw, poses, nv, view_offset=plane_off,
+                    grad_acc=plane_acc)
                 world_fg, world_bg = world[:, :b * s], world[:, b * s:]
                 local_fg, local_bg, fg_cam = self._local_feats_pair(
                     fg_samples, bg_pts, poses, rays["src_focal"],
                     rays["src_c"], local_table, latent_hw, image_size,
-                    view_offset=local_off)
+                    view_offset=local_off, grad_acc=local_acc)
 
                 bg_cam = geometry.world2camera(
                     bg_samples[..., :3].reshape(1, -1, 3), poses, ns=nv)
@@ -408,9 +417,11 @@ def make_scene_stage_fns(model: NeRFTP, white_bkgd: bool = False,
 
     encode_fn(src) -> tables: `NeRFTP.encode` with BatchNorm in training
     mode; the running statistics are committed once the stage's scenes are
-    encoded. loss_fn(tables, src, batch, generator) -> (loss, {"mse"}):
-    the ray branch against the tables, with randomized sampling (drawn
-    from `generator`) unless `randomized` is False.
+    encoded. loss_fn(tables, src, batch, generator, grad_acc=None) ->
+    (loss, {"mse"}): the ray branch against the tables, with randomized
+    sampling (drawn from `generator`) unless `randomized` is False.
+    `grad_acc`: one f32 accumulator per table; the backward then adds the
+    tables' gradients into them and returns None for the tables.
 
     `mixed=True` (the SCENE-MIXED stage): `src` tensors carry a leading
     scene axis S and every step's ray batch is (S, B/S, ...). The encoder
@@ -424,11 +435,12 @@ def make_scene_stage_fns(model: NeRFTP, white_bkgd: bool = False,
         pt, lt, _ = model.encode(*(src[k] for k in SRC_KEYS), True)
         return tuple(pt) + (lt,)
 
-    def _loss_one(tables, src, batch, generator, scene=None):
+    def _loss_one(tables, src, batch, generator, scene=None, grad_acc=None):
         rays = {k: batch[k] for k in RAY_KEYS}
         rays.update({k: src[k] for k in SRC_KEYS})
-        enc = (tables[:3], tables[3], None) + (
-            (scene,) if scene is not None else ())
+        acc = None if grad_acc is None else (tuple(grad_acc[:3]),
+                                             grad_acc[3])
+        enc = (tables[:3], tables[3], None, scene, acc)
         out = model(rays, enc, white_bkgd, randomized=randomized,
                     generator=generator)
         return neo360_loss(out, batch["target"])
@@ -439,8 +451,9 @@ def make_scene_stage_fns(model: NeRFTP, white_bkgd: bool = False,
             commit_running_stats(model)
             return tables
 
-        def loss_fn(tables, src, batch, generator):
-            loss, l1 = _loss_one(tables, src, batch, generator)
+        def loss_fn(tables, src, batch, generator, grad_acc=None):
+            loss, l1 = _loss_one(tables, src, batch, generator,
+                                 grad_acc=grad_acc)
             return loss, {"mse": l1.detach()}
 
         return encode_fn, loss_fn
@@ -452,11 +465,11 @@ def make_scene_stage_fns(model: NeRFTP, white_bkgd: bool = False,
         commit_running_stats(model)
         return tuple(torch.cat(t, dim=0) for t in zip(*per))
 
-    def loss_fn(tables, src, batch, generator):
+    def loss_fn(tables, src, batch, generator, grad_acc=None):
         n_scenes = batch["target"].shape[0]
         pairs = [_loss_one(tables, {k: src[k][i] for k in SRC_KEYS},
                            {k: v[i] for k, v in batch.items()}, generator,
-                           scene=(i, n_scenes))
+                           scene=(i, n_scenes), grad_acc=grad_acc)
                  for i in range(n_scenes)]
         return (torch.stack([p[0] for p in pairs]).mean(),
                 {"mse": torch.stack([p[1] for p in pairs]).mean().detach()})

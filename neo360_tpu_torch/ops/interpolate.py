@@ -5,7 +5,13 @@
 plain PyTorch version, `table_sample_reference`, on CPU tensors. With
 autograd on it runs as a `torch.autograd.Function` whose backward, the
 scatter-add into the table, is kernel A' (csrc/table_sample_bwd.cu) on CUDA
-and `table_sample_backward_reference` on the CPU. uv takes no gradient.
+and its plain version on the CPU, under one of two contracts:
+- dense (`table_sample_backward`): the table-shaped gradient, returned
+  through autograd;
+- accumulate (`table_sample(..., grad_acc=acc)`, `table_sample_accumulate`):
+  the gradient is added into `acc`, an f32 tensor of the table's shape that
+  the caller owns, and autograd gets None for the table.
+uv takes no gradient.
 Maps are NHWC at these functions, as in the JAX package. The JAX package's
 `resize_bilinear_align_corners` becomes F.interpolate(mode="bilinear",
 align_corners=True) at its call sites.
@@ -117,16 +123,28 @@ def table_sample_backward_reference(grad: torch.Tensor, uv: torch.Tensor,
     would sum in bf16). Points with non-finite uv add nothing. For finite
     uv this equals autograd of the plain forward on an f32 copy of the
     table."""
+    out = torch.zeros(table_shape, dtype=torch.float32, device=grad.device)
+    table_sample_accumulate_reference(grad, uv, out, hw, padding_mode,
+                                      view_offset)
+    return out.to(table_dtype)
+
+
+def table_sample_accumulate_reference(grad: torch.Tensor, uv: torch.Tensor,
+                                      acc: torch.Tensor, hw: tuple,
+                                      padding_mode: str = "zeros",
+                                      view_offset: int = 0) -> None:
+    """Plain PyTorch version of kernel A' under the accumulate contract:
+    adds the table gradient of `table_sample_reference` for the output
+    cotangent `grad` (B, N, C) into `acc`, a contiguous f32 tensor of the
+    table's shape, in place. Each point adds w_k * grad in f32 into corner
+    block k of its row; points with non-finite uv add nothing."""
     _check_mode(padding_mode)
     b, n, c = grad.shape
-    idx, wts = _corners(uv, hw, padding_mode, table_shape[0], view_offset)
+    idx, wts = _corners(uv, hw, padding_mode, acc.shape[0], view_offset)
     finite = torch.isfinite(uv.float()).all(-1).reshape(-1, 1)
     wts = torch.where(finite, wts, torch.zeros_like(wts))
     contrib = wts[:, :, None] * grad.reshape(b * n, 1, c).float()
-    n_rows = table_shape[0] * table_shape[1] * table_shape[2]
-    out = torch.zeros((n_rows, 4, c), dtype=torch.float32, device=grad.device)
-    out.index_add_(0, idx, contrib)
-    return out.reshape(table_shape).to(table_dtype)
+    acc.view(-1, 4, c).index_add_(0, idx, contrib)
 
 
 def _table_shape_ok(name: str, table_shape, hw, c_multiple: int) -> int:
@@ -169,10 +187,29 @@ def _table_sample_forward(table, uv, hw, padding_mode, out_dtype,
     return out
 
 
+def _backward_args(name, grad, uv, table_shape, grad_dtypes, hw):
+    """grad and uv ready for kernel A' (contiguous, 16-byte aligned, on
+    one CUDA device, of the shapes and types it takes) and (b, n, c)."""
+    grad, uv = kernels.dense(grad), uv.contiguous()
+    kernels.require_cuda(name, grad, uv)
+    if uv.dtype != torch.float32 or uv.dim() != 3 or uv.shape[-1] != 2:
+        raise ValueError(f"{name}: uv must be float32 (B, N, 2)")
+    if any(d not in kernels.DTYPE_CODES for d in grad_dtypes):
+        raise ValueError(f"{name}: grad/table dtype must be float32 or "
+                         f"bfloat16, got {grad_dtypes}")
+    c = _table_shape_ok(name, table_shape, hw, 4)
+    b, n = uv.shape[:2]
+    if tuple(grad.shape) != (b, n, c):
+        raise ValueError(f"{name}: grad {tuple(grad.shape)}, expected "
+                         f"{(b, n, c)}")
+    return grad, uv, (b, n, c)
+
+
 def table_sample_backward(grad: torch.Tensor, uv: torch.Tensor, table_shape,
                           table_dtype, hw: tuple, padding_mode: str = "zeros",
                           view_offset: int = 0) -> torch.Tensor:
-    """Gradient of `table_sample` with respect to the table.
+    """Gradient of `table_sample` with respect to the table (the dense
+    contract).
 
     CPU tensors run `table_sample_backward_reference`; CUDA tensors launch
     kernel A' (csrc/table_sample_bwd.cu) and add one to
@@ -183,20 +220,9 @@ def table_sample_backward(grad: torch.Tensor, uv: torch.Tensor, table_shape,
             view_offset)
     _check_mode(padding_mode)
     name = "table_sample_backward"
-    grad, uv = kernels.dense(grad), uv.contiguous()
-    kernels.require_cuda(name, grad, uv)
-    if uv.dtype != torch.float32 or uv.dim() != 3 or uv.shape[-1] != 2:
-        raise ValueError(f"{name}: uv must be float32 (B, N, 2)")
-    if (grad.dtype not in kernels.DTYPE_CODES
-            or table_dtype not in kernels.DTYPE_CODES):
-        raise ValueError(f"{name}: grad/table dtype must be float32 or "
-                         f"bfloat16, got {grad.dtype}/{table_dtype}")
+    grad, uv, (b, n, c) = _backward_args(name, grad, uv, table_shape,
+                                         (grad.dtype, table_dtype), hw)
     h, w = hw
-    c = _table_shape_ok(name, table_shape, hw, 4)
-    b, n = uv.shape[:2]
-    if tuple(grad.shape) != (b, n, c):
-        raise ValueError(f"{name}: grad {tuple(grad.shape)}, expected "
-                         f"{(b, n, c)}")
     scratch = torch.empty(table_shape, dtype=torch.float32,
                           device=grad.device)
     dtable = scratch if table_dtype == torch.float32 else torch.empty(
@@ -211,15 +237,49 @@ def table_sample_backward(grad: torch.Tensor, uv: torch.Tensor, table_shape,
     return dtable
 
 
+def table_sample_accumulate(grad: torch.Tensor, uv: torch.Tensor,
+                            acc: torch.Tensor, hw: tuple,
+                            padding_mode: str = "zeros",
+                            view_offset: int = 0) -> None:
+    """Add the gradient of `table_sample` with respect to the table into
+    `acc`, a contiguous f32 tensor of the table's shape (the accumulate
+    contract), in place.
+
+    CPU tensors run `table_sample_accumulate_reference`; CUDA tensors
+    launch kernel A' (csrc/table_sample_bwd.cu, no scratch, memset or
+    rounding) and add one to `table_sample_accumulate.launches`."""
+    if all(t.device.type == "cpu" for t in (grad, uv, acc)):
+        return table_sample_accumulate_reference(grad, uv, acc, hw,
+                                                 padding_mode, view_offset)
+    _check_mode(padding_mode)
+    name = "table_sample_accumulate"
+    grad, uv, (b, n, c) = _backward_args(name, grad, uv, acc.shape,
+                                         (grad.dtype,), hw)
+    kernels.require_cuda(name, grad, acc)
+    if acc.dtype != torch.float32 or acc.data_ptr() % 16:
+        raise ValueError(f"{name}: acc must be float32 and 16-byte aligned")
+    h, w = hw
+    kernels.launch("table_sample_bwd_acc", grad.device, grad.data_ptr(),
+                   kernels.DTYPE_CODES[grad.dtype], uv.data_ptr(),
+                   acc.data_ptr(), b, n, h, w, c,
+                   int(padding_mode == "zeros"), int(view_offset),
+                   acc.shape[0])
+    table_sample_accumulate.launches += 1
+
+
 class _TableSample(torch.autograd.Function):
-    """table_sample with the table's gradient from `table_sample_backward`;
-    uv is saved, the table is not (the backward needs its shape only)."""
+    """table_sample with the table's gradient from `table_sample_backward`
+    or, given `grad_acc`, added into it by `table_sample_accumulate` (the
+    table then gets None); uv is saved, the table is not (the backward
+    needs its shape only)."""
 
     @staticmethod
-    def forward(ctx, table, uv, hw, padding_mode, out_dtype, view_offset):
+    def forward(ctx, table, uv, hw, padding_mode, out_dtype, view_offset,
+                grad_acc):
         ctx.save_for_backward(uv)
         ctx.meta = (tuple(table.shape), table.dtype, hw, padding_mode,
                     view_offset)
+        ctx.grad_acc = grad_acc
         return _table_sample_forward(table, uv, hw, padding_mode, out_dtype,
                                      view_offset)
 
@@ -228,13 +288,20 @@ class _TableSample(torch.autograd.Function):
         (uv,) = ctx.saved_tensors
         dtable = None
         if ctx.needs_input_grad[0]:
-            dtable = table_sample_backward(grad, uv, *ctx.meta)
-        return dtable, None, None, None, None, None
+            shape, dtype, hw, mode, offset = ctx.meta
+            if ctx.grad_acc is None:
+                dtable = table_sample_backward(grad, uv, shape, dtype, hw,
+                                               mode, offset)
+            else:
+                table_sample_accumulate(grad, uv, ctx.grad_acc, hw, mode,
+                                        offset)
+        return dtable, None, None, None, None, None, None
 
 
 def table_sample(table: torch.Tensor, uv: torch.Tensor, hw: tuple,
                  padding_mode: str = "zeros", out_dtype=torch.float32,
-                 view_offset: int = 0) -> torch.Tensor:
+                 view_offset: int = 0, grad_acc: torch.Tensor = None
+                 ) -> torch.Tensor:
     """Bilinear sample via one row gather from a `build_corner_table` table
     (semantics of neo360_tpu/ops/interpolate.py:table_sample, flat mode:
     total_views = table.shape[0]).
@@ -242,18 +309,28 @@ def table_sample(table: torch.Tensor, uv: torch.Tensor, hw: tuple,
     CPU tensors run `table_sample_reference`; CUDA tensors launch kernel A
     (csrc/table_sample.cu) and add one to `table_sample.launches`. With
     grad enabled the call is a `_TableSample` autograd Function; uv must
-    not require grad (raises)."""
+    not require grad (raises). `grad_acc`: an f32 tensor of the table's
+    shape; the backward then adds the table's gradient into it and returns
+    None for the table (the accumulate contract)."""
     if not torch.is_grad_enabled():
         return _table_sample_forward(table, uv, hw, padding_mode, out_dtype,
                                      view_offset)
     if uv.requires_grad:
         raise ValueError("table_sample: uv takes no gradient (detach it)")
+    if grad_acc is not None and (
+            grad_acc.shape != table.shape or grad_acc.dtype != torch.float32
+            or grad_acc.device != table.device
+            or not grad_acc.is_contiguous()):
+        raise ValueError(f"table_sample: grad_acc must be a contiguous "
+                         f"float32 tensor of the table's shape "
+                         f"{tuple(table.shape)} on {table.device}")
     return _TableSample.apply(table, uv, tuple(hw), padding_mode, out_dtype,
-                              int(view_offset))
+                              int(view_offset), grad_acc)
 
 
 table_sample.launches = 0
 table_sample_backward.launches = 0
+table_sample_accumulate.launches = 0
 
 # kernel A' against its plain version (ops.kernels.compare): bf16, one ulp
 # (both round one f32 sum); f32, 1e-5 relative. Both allow 1e-5 * max|ref|:

@@ -53,6 +53,10 @@ SIGNATURES = {
     # h, w, c, zeros_mode, view_offset, total_views, table_elems, stream
     "table_sample_bwd": (_P, _I, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _I,
                          _I, _L, _P),
+    # grad, grad_dtype, uv, acc, n_views, n_points, h, w, c, zeros_mode,
+    # view_offset, total_views, stream
+    "table_sample_bwd_acc": (_P, _I, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I,
+                             _P),
     # the forward's inputs, then the cotangents of comp, fg_comp, bg_comp,
     # fg_acc, bg_acc, fg_w, bg_w, bg_lambda, depth, fg_depth (null = zero),
     # then d fg rgb, d fg sigma, d bg rgb, d bg sigma, stream

@@ -5,10 +5,13 @@ rendering (make_image_renderer, 311-366).
 The stage trainer runs the encoder once per stage of K steps. Each step
 differentiates the loss with respect to the ray-branch parameters and to
 detached copies of the encoder's corner tables, steps the ray optimizer,
-and adds the table cotangents, cast to `cot_dtype`, to an accumulator.
-After the K steps the mean cotangent, cast to the tables' dtype, is pulled
-back through the encoder graph with one `torch.autograd.grad` and the
-encoder optimizer steps once: exact gradient accumulation, since the
+and adds the table cotangents to an accumulator of `cot_dtype`. With the
+default float32 accumulators the tables' backward (kernel A') adds into
+them itself, at the rows the step read, and autograd returns None for the
+tables; with another dtype each step's dense table gradient is cast and
+added. After the K steps the mean cotangent, cast to the tables' dtype, is
+pulled back through the encoder graph with one `torch.autograd.grad` and
+the encoder optimizer steps once: exact gradient accumulation, since the
 pullback is linear in the cotangent and the encoder's parameters do not
 change within the stage. The two partitions have their own Adam states
 and step counts (encoder: one per stage).
@@ -74,7 +77,11 @@ def make_scene_stage_trainer(encode_fn: Callable, loss_fn: Callable,
     """The encode-once stage trainer.
 
     encode_fn(src) -> tuple of tables (differentiable in the encoder's
-    parameters); loss_fn(tables, src, batch, generator) -> (loss, metrics).
+    parameters); loss_fn(tables, src, batch, generator, **kw) -> (loss,
+    metrics). With `cot_dtype` float32, loss_fn is also given
+    `grad_acc=[one zeroed f32 tensor per table]`, into which the tables'
+    backward adds their gradients (returning None for them); a gradient it
+    still returns for a table is added to that accumulator too.
 
     Returns run(state, src, ray_batches, generator) -> last step's metrics,
     ray_batches a dict of (K, ...) tensors. With `multi_stage=True`, every
@@ -85,13 +92,18 @@ def make_scene_stage_trainer(encode_fn: Callable, loss_fn: Callable,
     def stage(state: SceneStageState, src, ray_batches, generator):
         tables = encode_fn(src)
         detached = [t.detach().requires_grad_() for t in tables]
+        kw = {}
         cot = [None] * len(tables)   # allocated by the first cotangent
+        if cot_dtype == torch.float32:
+            cot = [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+                   for t in tables]
+            kw = {"grad_acc": cot}
         ray_list = list(state.ray_params.values())
         k_steps = next(iter(ray_batches.values())).shape[0]
         metrics = {}
         for i in range(k_steps):
             batch = {k: v[i] for k, v in ray_batches.items()}
-            loss, metrics = loss_fn(detached, src, batch, generator)
+            loss, metrics = loss_fn(detached, src, batch, generator, **kw)
             grads = torch.autograd.grad(loss, ray_list + detached,
                                         allow_unused=True)
             state.ray_opt.step(_grads(grads[:len(ray_list)], ray_list))

@@ -24,8 +24,9 @@ from neo360_tpu_torch.core.render import OUT_KEYS, composite_nerfpp, \
 from neo360_tpu_torch.ops import kernels
 from neo360_tpu_torch.ops.interpolate import BACKWARD_TOL as INTERP_BWD_TOL
 from neo360_tpu_torch.ops.interpolate import build_corner_table, \
-    table_sample, table_sample_backward, table_sample_backward_reference, \
-    table_sample_reference
+    table_sample, table_sample_accumulate, \
+    table_sample_accumulate_reference, table_sample_backward, \
+    table_sample_backward_reference, table_sample_reference
 from neo360_tpu_torch.ops.pillar import BACKWARD_TOL as PILLAR_BWD_TOL
 from neo360_tpu_torch.ops.pillar import pillar_collapse, \
     pillar_collapse_backward, pillar_collapse_reference
@@ -320,3 +321,155 @@ def test_gradients_reach_inputs_through_kernels(cuda):
                                  table, cot)
     res = kernels.compare(ours, ref, **INTERP_BWD_TOL)
     assert res["ok"], res
+
+
+# --- A' under the accumulate contract, and B at chunk edges --------------
+
+def _ray_uv(b, n_rays, s, g, lim=1.2, reach=0.3):
+    """uv of `s` consecutive samples along each of `n_rays` short segments
+    per view, as the fine level gives them (consecutive points often read
+    one row); the first five points are huge or non-finite."""
+    start = (torch.rand(b, n_rays, 1, 2, generator=g) * 2 - 1) * lim
+    step = torch.randn(b, n_rays, 1, 2, generator=g) * reach
+    t = torch.sort(torch.rand(b, n_rays, s, 1, generator=g), 2).values
+    uv = (start + t * step).reshape(b, n_rays * s, 2)
+    uv[0, :5] = torch.tensor([[1e30, 0.0], [-1e30, 0.5], [float("inf"), 0.0],
+                              [0.0, float("nan")], [-1.0, -1.0]])
+    return uv
+
+
+@pytest.mark.parametrize("nonfinite", [False, True])
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("view_offset", [0, 3])
+@pytest.mark.parametrize("mode", ["zeros", "border"])
+def test_accumulate_reference_sums_the_dense_gradients(mode, view_offset,
+                                                       grad_dtype, nonfinite):
+    """CPU: three accumulate calls into one f32 accumulator equal the sum
+    of the dense plain version's three f32 gradients (1e-6: the same f32
+    products, summed in another order); non-finite uv adds nothing."""
+    g = _gen(11)
+    h, w, c = 7, 9, 8
+    shape = (6, h + 1, w + 1, 4 * c)
+    acc = torch.zeros(shape)
+    dense = torch.zeros(shape)
+    before = table_sample_accumulate.launches
+    for _ in range(3):
+        uv = (_uv(3, 50, g, 1.4) if nonfinite
+              else (torch.rand(3, 50, 2, generator=g) * 2 - 1) * 1.4)
+        cot = torch.randn(3, 50, c, generator=g).to(grad_dtype)
+        table_sample_accumulate(cot, uv, acc, (h, w), mode, view_offset)
+        dense += table_sample_backward_reference(cot, uv, shape,
+                                                 torch.float32, (h, w), mode,
+                                                 view_offset)
+    assert table_sample_accumulate.launches == before   # no kernel on CPU
+    torch.testing.assert_close(acc, dense, rtol=1e-6, atol=1e-6)
+    assert acc.abs().max() > 0
+    read = set(range(view_offset, view_offset + 3))
+    for v in range(shape[0]):
+        assert (acc[v].abs().max() > 0) == (v in read), v
+    if nonfinite:   # non-finite points add nothing
+        alone = torch.zeros(shape)
+        uv = torch.tensor([[[float("inf"), 0.0], [0.0, float("nan")],
+                            [-float("inf"), 1.0]]])
+        table_sample_accumulate(torch.ones(1, 3, c), uv, alone, (h, w), mode,
+                                view_offset)
+        assert alone.abs().max() == 0
+
+
+def test_table_sample_function_adds_into_grad_acc():
+    """CPU: with grad_acc the Function's backward adds the table gradient
+    into the accumulator and autograd gets None for the table; the sum over
+    two calls equals the sum of autograd of the plain forward (1e-6)."""
+    g = _gen(12)
+    table = build_corner_table(torch.randn(4, 7, 9, 8, generator=g),
+                               "zeros").requires_grad_()
+    acc = torch.zeros(table.shape)
+    ref = torch.zeros(table.shape)
+    for _ in range(2):
+        uv = (torch.rand(2, 60, 2, generator=g) * 2 - 1) * 1.4
+        cot = torch.randn(2, 60, 8, generator=g)
+        out = table_sample(table, uv, (7, 9), "zeros", view_offset=1,
+                           grad_acc=acc)
+        (ours,) = torch.autograd.grad(out, table, cot, allow_unused=True)
+        assert ours is None
+        ref += torch.autograd.grad(
+            table_sample_reference(table, uv, (7, 9), "zeros",
+                                   view_offset=1), table, cot)[0]
+    torch.testing.assert_close(acc, ref, rtol=1e-6, atol=1e-6)
+    assert acc[1:3].abs().max() > 0
+    for bad in (torch.zeros(table.shape, dtype=torch.float64),
+                torch.zeros(table.shape[:-1] + (4,))):
+        with pytest.raises(ValueError, match="grad_acc"):
+            table_sample(table, uv, (7, 9), grad_acc=bad)
+
+
+# A' accumulate cases: (table shape, hw, mode, view offsets of the calls,
+# uv of each call (views, rays, samples per ray)); "path" is one stage
+# step's tri-plane (6 flat views, scene 1 at 3) and local (12, scene 1 at
+# 6) calls, 250 rays x 61 samples, fg + bg
+ACC_CASES = {
+    "small zeros": ((6, 16, 21, 128), (15, 20), "zeros", (0, 3),
+                    (3, 40, 50)),
+    "small border": ((6, 16, 21, 128), (15, 20), "border", (0, 3),
+                     (3, 40, 50)),
+    "path plane": ((6, 121, 161, 512), (120, 160), "zeros", (0, 3),
+                   (3, 500, 61)),
+    "path local": ((12, 121, 161, 512), (120, 160), "border", (0, 6),
+                   (6, 250, 61)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(ACC_CASES))
+def test_table_sample_accumulate_kernel(cuda, case, grad_dtype):
+    """Two scenes' calls into one accumulator on the card against the
+    index_add_ plain version, with runs of points that read one row."""
+    shape, hw, mode, offsets, (b, rays, s) = ACC_CASES[case]
+    g = _gen(13)
+    acc = torch.zeros(shape, device=cuda)
+    ref = torch.zeros(shape, device=cuda)
+    before = table_sample_accumulate.launches
+    for off in offsets:
+        uv = _ray_uv(b, rays, s, g).to(cuda)
+        cot = torch.randn(b, rays * s, shape[-1] // 4, generator=g).to(
+            grad_dtype).to(cuda)
+        table_sample_accumulate(cot, uv, acc, hw, mode, off)
+        table_sample_accumulate_reference(cot, uv, ref, hw, mode, off)
+    assert table_sample_accumulate.launches == before + len(offsets)
+    res = kernels.compare(acc, ref, **INTERP_BWD_TOL)
+    assert res["ok"], res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["zeros", "border"])
+def test_table_sample_backward_kernel_path_shapes(cuda, mode):
+    """The dense contract at the grid lift's shape (3 x 131,072 points,
+    bf16 cotangent and table) and ray-structured uv."""
+    g = _gen(14)
+    shape = (3, 121, 161, 512)
+    uv = _ray_uv(3, 4096, 32, g, lim=1.5).to(cuda)
+    cot = torch.randn(3, 4096 * 32, 128, generator=g).to(
+        torch.bfloat16).to(cuda)
+    ref = table_sample_backward_reference(cot, uv, shape, torch.bfloat16,
+                                          (120, 160), mode)
+    out = table_sample_backward(cot, uv, shape, torch.bfloat16, (120, 160),
+                                mode)
+    res = kernels.compare(out, ref, **INTERP_BWD_TOL)
+    assert res["ok"], res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s_fg,s_bg", [
+    (7, 1, 1), (33, 32, 33), (33, 33, 32), (5, 64, 1), (1, 97, 31),
+    (256, 65, 65), (256, 61, 61)])
+def test_composite_kernel_chunk_edges(cuda, b, s_fg, s_bg):
+    """Kernel B (one warp per ray, 32-sample chunks) at sample counts on
+    and around the chunk edges and at the path's 256-ray tiles."""
+    g = _gen(15)
+    args = tuple(a.to(cuda) for a in _composite_args(g, b, s_fg, s_bg))
+    for white_bkgd in (False, True):
+        ref = composite_nerfpp_reference(*args, white_bkgd)
+        out = composite_nerfpp(*args, white_bkgd)
+        for k in ref:
+            _assert_ok(out[k], ref[k])

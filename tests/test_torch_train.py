@@ -265,6 +265,62 @@ def test_stage_accumulates_the_mean_step_gradient(multi_scene_root,
     _compare_leaves(ours, ref, rtol=1e-5, atol=1e-5, min_compared=40)
 
 
+def test_stage_adds_table_gradients_into_f32_accumulators(multi_scene_root,
+                                                          monkeypatch):
+    """With float32 accumulators (the preset) the scene-mixed stage hands
+    loss_fn one f32 accumulator per table, the tables' autograd gradient
+    is None at every step, and after the stage the accumulators hold the
+    sum of the steps' dense table cotangents (1e-5 relative + 1e-6 of the
+    largest entry: the same f32 products, summed in another order)."""
+    stage = NeRDS360AE(multi_scene_root, "train", WH, 3, 16
+                       ).sample_train_stage(np.random.default_rng(0), 2, 2)
+    monkeypatch.setattr(GridEncoder, "plane_hw", SMALL_PLANES)
+    port = cli.build_model(preset("neo360_fast", bf16=False, **TINY),
+                           "cpu").train()
+    encode_fn, loss_fn = neo360.make_scene_stage_fns(port, mixed=True)
+    src = {k: torch.as_tensor(stage[k]) for k in SRC}
+    rays = {k: torch.as_tensor(stage[k]) for k in RAYS + ("target",)}
+    seen, table_grads = [], []
+    grad = torch.autograd.grad
+
+    def recording_loss(tables, src, batch, generator, **kw):
+        seen.append(kw["grad_acc"])
+        return loss_fn(tables, src, batch, generator, **kw)
+
+    def recording_grad(outputs, inputs, *args, **kwargs):
+        out = grad(outputs, inputs, *args, **kwargs)
+        if len(inputs) == len(state.ray_params) + 4:   # the trainer's step
+            table_grads.append(out[-4:])
+        return out
+
+    state = loop.create_scene_stage_state(port, _Record)
+    gen = torch.Generator().manual_seed(5)
+    start = gen.get_state()
+    monkeypatch.setattr(torch.autograd, "grad", recording_grad)
+    loop.make_scene_stage_trainer(encode_fn, recording_loss)(state, src,
+                                                             rays, gen)
+    monkeypatch.setattr(torch.autograd, "grad", grad)
+    assert len(seen) == 2 and seen[0] is seen[1]
+    accs = seen[0]
+    assert [a.dtype for a in accs] == [torch.float32] * 4
+    assert len(table_grads) == 2
+    assert all(g is None for step in table_grads for g in step)
+
+    gen.set_state(start)
+    tables = [t.detach().requires_grad_() for t in encode_fn(src)]
+    ref = [torch.zeros(t.shape) for t in tables]
+    for i in range(2):
+        loss, _ = loss_fn(tables, src, {k: v[i] for k, v in rays.items()},
+                          gen)
+        for r, g in zip(ref, torch.autograd.grad(loss, tables)):
+            r += g
+    port.eval()
+    for a, r in zip(accs, ref):
+        assert float(r.abs().max()) > 0
+        torch.testing.assert_close(a, r, rtol=1e-5,
+                                   atol=1e-6 * float(r.abs().max()))
+
+
 def test_training_needs_the_device_it_names(tmp_path):
     """The default device is cuda: without one, both entry points raise
     instead of running on the CPU."""
