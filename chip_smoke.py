@@ -56,7 +56,7 @@ import time
 
 SEED = 0
 TIMED_RUNS = 20
-# the bound's peaks: one H100 SXM (on-chip-measurement guide): HBM3 bytes
+# the bound's peaks: one H100 SXM (NVIDIA's datasheet figures): HBM3 bytes
 # per second, and float32 operations per second outside the tensor cores
 # (every kernel here computes in float32 on the CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
