@@ -31,7 +31,8 @@ line):
    whose gradient is zero by construction), all six kernels must launch,
    and every stage must launch kernel A' once per scene under the dense
    contract (the grid lift) and 4 x S x K times under the accumulate
-   contract (the tri-plane and local tables);
+   contract (the tri-plane and local tables), kernel B' 2 x S x K times
+   (both levels of every scene-step) and kernel C' S times;
 7. the serving main path: the same model encodes one in-memory 320x240
    fixture scene once and renders 3 novel views through cli.make_render_fn
    + train.eval.evaluate, the code of `cli.run_eval`; every forward kernel
@@ -140,8 +141,8 @@ def _rows_read(table_shape, uv, hw, mode, view_offset) -> int:
 
 # the port's kernels (csrc/*.cu) as the profiler names them
 PORT_KERNEL = re.compile(r"::(table_sample|table_scatter|round_to_bf16"
-                         r"|composite_nerfpp(_bwd)?|pillar_(collapse|dlogit"
-                         r"|dlatent))_kernel\b")
+                         r"|composite_nerfpp(_bwd)?|pillar_(collapse|softmax"
+                         r"|dlogit|dlatent))_kernel\b")
 
 
 def _profile(torch, fn, label: str, top: int = 15):
@@ -737,6 +738,15 @@ def phase_train_main_path(torch):
           f"table per scene-step)")
     if len(got) != 3 or any(x != want for x in got):
         raise AssertionError(f"kernel A' launches per stage {got}, "
+                             f"expected {want}")
+    # B' once per level (proposal, fine) per scene-step; C' once per scene
+    want = (2 * cfg.stage_scenes * cfg.stage_k, cfg.stage_scenes)
+    got = [(n["composite_nerfpp_bwd"], n["pillar_collapse_bwd"])
+           for n in per_stage]
+    print(f"[train] kernels B', C' per stage: {got}, expected {want} (B' "
+          f"per level and scene-step, C' per scene)")
+    if any(x != want for x in got):
+        raise AssertionError(f"kernel B' / C' launches per stage {got}, "
                              f"expected {want}")
     after = {k: v.detach().cpu() for k, v in
              state.model.state_dict().items()}

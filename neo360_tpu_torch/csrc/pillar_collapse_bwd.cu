@@ -16,19 +16,35 @@
 // cotangent of the rounded weights is rounded to the latent's type, and
 // the logit gradient to the logits' type.
 //
-// Bound: device memory. The latent (403 MB in bf16 at neo360_fast) is read
-// once per floor for dw and its gradient written once: ~1.6 GB, ~0.5 ms at
-// the card's bandwidth. Design: two launches.
-//   1. One block per (view, floor, pillar), as the forward: the pillar's
-//      logits and weights in shared memory; each warp takes cells of the
-//      pillar and reduces g . latent over C with coalesced reads and a
-//      shuffle; the block then forms the softmax gradient. The rounded
-//      weights wb go to an f32 scratch (3 x NV*X*Y*Z floats).
-//   2. One thread per (cell, 4 channels) sums the three wb * g terms.
+// Bound: device memory. The latent (403 MB in bf16 at neo360_fast,
+// (3,64,64,32,512)) has to be read once and d latent (403 MB) written
+// once; the floors, logits and logit gradients add ~32 MB: ~0.84 GB,
+// 0.25 ms at 3.35 TB/s. The first version read the latent once per floor
+// with 2-byte loads and wrote d latent in a second launch (~1.2 ms).
+// Design: three launches, one of which touches the latent.
+//   1. pillar_softmax_kernel, one thread per (view, floor, pillar): the f32
+//      softmax exp(l - max) / sum with the sum in axis order, as the
+//      forward kernel computes it, so that wb = round(w32) is the
+//      forward's bit for bit; w32 of the three floors to f32 scratch.
+//   2. pillar_dlatent_kernel, the one pass over the latent: a block owns a
+//      fixed (view, x), a run of kRunY values of y (one warp each) and all
+//      z. Each latent row is loaded once, each d latent row stored once,
+//      with 16-byte (or, for a bf16 C that 8 does not divide, 8-byte)
+//      vectors; the three dot products dw_f = g_f . latent are f32 warp
+//      reductions, rounded to the latent's type and written to a second f32
+//      scratch. The floor cotangents (6 + 6 + 12.6 MB at the path's shape)
+//      stay in L2: g_xz[n,x,:,:], shared by every y of the block, is staged
+//      in shared memory when it fits in 48 KB; g_xy[n,x,y,:] is the same
+//      row for every z of a warp (L1); g_yz is read through L2. The latent
+//      and d latent stream past the caches (__ldcs / __stcs).
+//   3. pillar_dlogit_kernel, one thread per pillar: s = sum_axis w32 * dw
+//      in axis order, then the logit gradient.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -45,162 +61,238 @@ __device__ __forceinline__ float round_to(float x, __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxLen = 256;  // longest pillar (grid axis); the wrapper checks
+// VEC elements of T as one 16- or 8-byte word
+template <typename T, int VEC>
+struct Vec;
+template <>
+struct Vec<float, 4> {
+  using W = float4;
+  __device__ static void unpack(W w, float* v) {
+    v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
+  }
+  __device__ static W pack(const float* v) {
+    return make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+template <int VEC>
+struct BfVec {
+  using W = typename std::conditional<VEC == 8, uint4, uint2>::type;
+  __device__ static void unpack(W w, float* v) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+    for (int k = 0; k < VEC / 2; ++k) {
+      const float2 f = __bfloat1622float2(h[k]);
+      v[2 * k] = f.x;
+      v[2 * k + 1] = f.y;
+    }
+  }
+  __device__ static W pack(const float* v) {
+    W w;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&w);
+#pragma unroll
+    for (int k = 0; k < VEC / 2; ++k)
+      h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+    return w;
+  }
+};
+template <>
+struct Vec<__nv_bfloat16, 8> : BfVec<8> {};
+template <>
+struct Vec<__nv_bfloat16, 4> : BfVec<4> {};
+
+constexpr int kThreads = 128;  // threads per block, kernels 1 and 3
+constexpr int kRunY = 8;       // warps (values of y) per block, kernel 2
+constexpr int kUnroll = 2;     // vectors per lane loaded together, kernel 2
+constexpr int kStageBytes = 48 * 1024;
+
+struct Pillar {
+  long long cell0, stride;  // first cell of the pillar, step along it
+  int len, floor;           // floor: 0 = yz (over X), 1 = xz (Y), 2 = xy (Z)
+};
+
+// Pillar p of NV * (Y*Z + X*Z + X*Y): view-major, then the floors; within
+// a floor the kept axis that is last in memory varies fastest, so
+// neighbouring threads read neighbouring cells (yz, xz).
+__device__ __forceinline__ Pillar pillar(long long p, int X, int Y, int Z) {
+  const long long n_yz = (long long)Y * Z, n_xz = (long long)X * Z,
+                  n_xy = (long long)X * Y;
+  const long long per_view = n_yz + n_xz + n_xy;
+  const long long xyz = (long long)X * Y * Z;
+  const long long view = p / per_view;
+  long long rem = p - view * per_view;
+  if (rem < n_yz)  // sum over X, keep (y, z)
+    return {view * xyz + rem, (long long)Y * Z, X, 0};
+  rem -= n_yz;
+  if (rem < n_xz) {  // sum over Y, keep (x, z)
+    const long long x = rem / Z, z = rem % Z;
+    return {view * xyz + x * Y * Z + z, Z, Y, 1};
+  }
+  rem -= n_xz;  // sum over Z, keep (x, y)
+  return {view * xyz + rem * Z, 1, Z, 2};
+}
+
+// w32[floor * n_cells + cell] = the floor's f32 softmax weight at the cell
+template <typename T>
+__global__ void __launch_bounds__(kThreads) pillar_softmax_kernel(
+    const T* __restrict__ logit_yz, const T* __restrict__ logit_xz,
+    const T* __restrict__ logit_xy, float* __restrict__ w32,
+    long long n_pillars, long long n_cells, int X, int Y, int Z) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n_pillars) return;
+  const Pillar pl = pillar(p, X, Y, Z);
+  const T* logit = pl.floor == 0 ? logit_yz : pl.floor == 1 ? logit_xz
+                                                            : logit_xy;
+  logit += pl.cell0;
+  float* w = w32 + pl.floor * n_cells + pl.cell0;
+  float m = -INFINITY;
+  for (int i = 0; i < pl.len; ++i)
+    m = fmaxf(m, to_float(logit[i * pl.stride]));
+  float sum = 0.0f;
+  for (int i = 0; i < pl.len; ++i)
+    sum += expf(to_float(logit[i * pl.stride]) - m);
+  for (int i = 0; i < pl.len; ++i)
+    w[i * pl.stride] = expf(to_float(logit[i * pl.stride]) - m) / sum;
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(32 * kRunY) pillar_dlatent_kernel(
+    const T* __restrict__ latent, const T* __restrict__ g_yz,
+    const T* __restrict__ g_xz, const T* __restrict__ g_xy,
+    const float* __restrict__ w32, float* __restrict__ dw,
+    T* __restrict__ d_latent, long long n_cells, int X, int Y, int Z, int C,
+    int stage) {
+  using V = Vec<T, VEC>;
+  using W = typename V::W;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int runs = (Y + kRunY - 1) / kRunY;
+  const long long nx = blockIdx.x / runs;  // n * X + x
+  const int y = (int)(blockIdx.x - nx * runs) * kRunY + (threadIdx.x >> 5);
+  const long long n = nx / X;
+  const int lane = threadIdx.x & 31;
+  const int n_vec = C / VEC;
+
+  // g_xz[n, x, :, :] (Z rows of C), staged or read in place
+  const T* gxz = g_xz + nx * Z * C;
+  if (stage) {
+    const W* src = reinterpret_cast<const W*>(gxz);
+    W* dst = reinterpret_cast<W*>(smem);
+    for (int i = threadIdx.x; i < Z * n_vec; i += blockDim.x)
+      dst[i] = __ldg(src + i);
+    __syncthreads();
+    gxz = reinterpret_cast<const T*>(smem);
+  }
+  if (y >= Y) return;  // after the only barrier
+
+  const T* gxy = g_xy + (nx * Y + y) * C;
+  const long long cell0 = (nx * Y + y) * Z;
+  for (int z = 0; z < Z; ++z) {
+    const long long cell = cell0 + z;
+    const T* lat = latent + cell * C;
+    const T* gyz = g_yz + ((n * Y + y) * Z + z) * C;
+    const T* gxzr = gxz + (long long)z * C;
+    T* dst = d_latent + cell * C;
+    const float wyz = round_to(w32[cell], (T*)nullptr);
+    const float wxz = round_to(w32[n_cells + cell], (T*)nullptr);
+    const float wxy = round_to(w32[2 * n_cells + cell], (T*)nullptr);
+    float s_yz = 0.0f, s_xz = 0.0f, s_xy = 0.0f;
+    for (int v0 = lane; v0 < n_vec; v0 += 32 * kUnroll) {
+      // all of this step's loads first, so that they are in flight together
+      W lw[kUnroll], aw[kUnroll], bw[kUnroll], cw[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int v = v0 + 32 * u;
+        if (v < n_vec) {
+          lw[u] = __ldcs(reinterpret_cast<const W*>(lat) + v);
+          aw[u] = __ldg(reinterpret_cast<const W*>(gyz) + v);
+          bw[u] = reinterpret_cast<const W*>(gxzr)[v];
+          cw[u] = __ldg(reinterpret_cast<const W*>(gxy) + v);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int v = v0 + 32 * u;
+        if (v >= n_vec) break;
+        float l[VEC], a[VEC], b[VEC], c[VEC], o[VEC];
+        V::unpack(lw[u], l);
+        V::unpack(aw[u], a);
+        V::unpack(bw[u], b);
+        V::unpack(cw[u], c);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          s_yz += a[k] * l[k];
+          s_xz += b[k] * l[k];
+          s_xy += c[k] * l[k];
+          float d = wyz * a[k];
+          d += wxz * b[k];
+          d += wxy * c[k];
+          o[k] = d;
+        }
+        __stcs(reinterpret_cast<W*>(dst) + v, V::pack(o));
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      s_yz += __shfl_xor_sync(0xffffffffu, s_yz, off);
+      s_xz += __shfl_xor_sync(0xffffffffu, s_xz, off);
+      s_xy += __shfl_xor_sync(0xffffffffu, s_xy, off);
+    }
+    if (lane == 0) {
+      dw[cell] = round_to(s_yz, (T*)nullptr);
+      dw[n_cells + cell] = round_to(s_xz, (T*)nullptr);
+      dw[2 * n_cells + cell] = round_to(s_xy, (T*)nullptr);
+    }
+  }
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) pillar_dlogit_kernel(
-    const T* __restrict__ latent, const T* __restrict__ logit_yz,
-    const T* __restrict__ logit_xz, const T* __restrict__ logit_xy,
-    const T* __restrict__ g_yz, const T* __restrict__ g_xz,
-    const T* __restrict__ g_xy, T* __restrict__ d_yz, T* __restrict__ d_xz,
-    T* __restrict__ d_xy, float* __restrict__ wb_yz,
-    float* __restrict__ wb_xz, float* __restrict__ wb_xy, int X, int Y,
-    int Z, int C) {
-  __shared__ float s_w[kMaxLen];   // f32 softmax weights
-  __shared__ float s_dw[kMaxLen];  // rounded weight cotangents
-  __shared__ float s_red[kWarps];
-  const long long n_yz = (long long)Y * Z;
-  const long long n_xz = (long long)X * Z;
-  const long long n_xy = (long long)X * Y;
-  const long long per_view = n_yz + n_xz + n_xy;
-  const long long xyz = (long long)X * Y * Z;
-  const long long view = blockIdx.x / per_view;
-  long long rem = blockIdx.x - view * per_view;
-
-  long long cell0, stride;
-  int len;
-  const T* logit;
-  const T* g;
-  T* dlogit;
-  float* wb;
-  if (rem < n_yz) {               // sum over X, keep (y, z)
-    const long long y = rem / Z, z = rem % Z;
-    cell0 = view * xyz + y * Z + z;
-    stride = (long long)Y * Z;
-    len = X;
-    logit = logit_yz; dlogit = d_yz; wb = wb_yz;
-    g = g_yz + ((view * Y + y) * Z + z) * C;
-  } else if (rem < n_yz + n_xz) { // sum over Y, keep (x, z)
-    rem -= n_yz;
-    const long long x = rem / Z, z = rem % Z;
-    cell0 = view * xyz + x * Y * Z + z;
-    stride = Z;
-    len = Y;
-    logit = logit_xz; dlogit = d_xz; wb = wb_xz;
-    g = g_xz + ((view * X + x) * Z + z) * C;
-  } else {                        // sum over Z, keep (x, y)
-    rem -= n_yz + n_xz;
-    const long long x = rem / Y, y = rem % Y;
-    cell0 = view * xyz + (x * Y + y) * Z;
-    stride = 1;
-    len = Z;
-    logit = logit_xy; dlogit = d_xy; wb = wb_xy;
-    g = g_xy + ((view * X + x) * Y + y) * C;
-  }
-
-  // softmax in f32, exp(l - max) / sum with the sum in axis order, as the
-  // forward kernel computes it
-  for (int i = threadIdx.x; i < len; i += blockDim.x)
-    s_w[i] = to_float(logit[cell0 + i * stride]);
-  __syncthreads();
-  float m = -INFINITY;
-  for (int i = 0; i < len; ++i) m = fmaxf(m, s_w[i]);
-  float sum = 0.0f;
-  for (int i = 0; i < len; ++i) sum += expf(s_w[i] - m);
-  __syncthreads();
-  for (int i = threadIdx.x; i < len; i += blockDim.x) {
-    const float w = expf(s_w[i] - m) / sum;
-    s_w[i] = w;
-    wb[cell0 + i * stride] = round_to(w, (T*)nullptr);
-  }
-  __syncthreads();
-
-  // dw_k = sum_c g[c] * latent[cell_k, c], one warp per cell
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int k = warp; k < len; k += kWarps) {
-    const T* row = latent + (cell0 + k * stride) * C;
-    float acc = 0.0f;
-    for (int c = lane; c < C; c += 32)
-      acc += to_float(g[c]) * to_float(row[c]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) s_dw[k] = round_to(acc, (T*)nullptr);
-  }
-  __syncthreads();
-
-  // s = sum_k w32_k dw_k (block reduction), then the softmax gradient
-  float part = 0.0f;
-  for (int i = threadIdx.x; i < len; i += blockDim.x) part += s_w[i] * s_dw[i];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    part += __shfl_xor_sync(0xffffffffu, part, off);
-  if (lane == 0) s_red[warp] = part;
-  __syncthreads();
+    const float* __restrict__ w32, const float* __restrict__ dw,
+    T* __restrict__ d_yz, T* __restrict__ d_xz, T* __restrict__ d_xy,
+    long long n_pillars, long long n_cells, int X, int Y, int Z) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n_pillars) return;
+  const Pillar pl = pillar(p, X, Y, Z);
+  T* dlogit = (pl.floor == 0 ? d_yz : pl.floor == 1 ? d_xz : d_xy) +
+              pl.cell0;
+  const long long off = pl.floor * n_cells + pl.cell0;
+  const float* w = w32 + off;
+  const float* g = dw + off;
   float s = 0.0f;
-  for (int i = 0; i < kWarps; ++i) s += s_red[i];
-  for (int i = threadIdx.x; i < len; i += blockDim.x)
-    from_float(s_w[i] * (s_dw[i] - s), dlogit + cell0 + i * stride);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(256) pillar_dlatent_kernel(
-    const T* __restrict__ g_yz, const T* __restrict__ g_xz,
-    const T* __restrict__ g_xy, const float* __restrict__ wb_yz,
-    const float* __restrict__ wb_xz, const float* __restrict__ wb_xy,
-    T* __restrict__ d_latent, long long n_cells, int X, int Y, int Z,
-    int C) {
-  const int per_cell = C / 4;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n_cells * per_cell) return;
-  const long long cell = idx / per_cell;
-  const int c0 = (int)(idx - cell * per_cell) * 4;
-  const long long z = cell % Z;
-  const long long y = (cell / Z) % Y;
-  const long long x = (cell / ((long long)Y * Z)) % X;
-  const long long n = cell / ((long long)X * Y * Z);
-  const T* gyz = g_yz + ((n * Y + y) * Z + z) * C + c0;
-  const T* gxz = g_xz + ((n * X + x) * Z + z) * C + c0;
-  const T* gxy = g_xy + ((n * X + x) * Y + y) * C + c0;
-  const float a = wb_yz[cell], b = wb_xz[cell], c = wb_xy[cell];
-  T* dst = d_latent + cell * C + c0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float v = a * to_float(gyz[i]);
-    v += b * to_float(gxz[i]);
-    v += c * to_float(gxy[i]);
-    from_float(v, dst + i);
+  for (int i = 0; i < pl.len; ++i) s += w[i * pl.stride] * g[i * pl.stride];
+  for (int i = 0; i < pl.len; ++i) {
+    const long long k = i * pl.stride;
+    from_float(w[k] * (g[k] - s), dlogit + k);
   }
 }
 
-template <typename T>
+template <typename T, int VEC>
 int launch(const void* latent, const void* l_yz, const void* l_xz,
            const void* l_xy, const void* g_yz, const void* g_xz,
            const void* g_xy, void* d_latent, void* d_yz, void* d_xz,
            void* d_xy, float* scratch, int nv, int X, int Y, int Z, int C,
            cudaStream_t stream) {
   const long long n_cells = (long long)nv * X * Y * Z;
-  const long long blocks =
+  const long long n_pillars =
       (long long)nv * ((long long)Y * Z + (long long)X * Z + (long long)X * Y);
-  if (blocks == 0) return (int)cudaSuccess;
-  float* wb_yz = scratch;
-  float* wb_xz = scratch + n_cells;
-  float* wb_xy = scratch + 2 * n_cells;
-  pillar_dlogit_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(latent), static_cast<const T*>(l_yz),
-      static_cast<const T*>(l_xz), static_cast<const T*>(l_xy),
-      static_cast<const T*>(g_yz), static_cast<const T*>(g_xz),
-      static_cast<const T*>(g_xy), static_cast<T*>(d_yz),
-      static_cast<T*>(d_xz), static_cast<T*>(d_xy), wb_yz, wb_xz, wb_xy, X,
-      Y, Z, C);
-  const long long threads = n_cells * (C / 4);
-  pillar_dlatent_kernel<T><<<(unsigned)((threads + 255) / 256), 256, 0,
-                             stream>>>(
-      static_cast<const T*>(g_yz), static_cast<const T*>(g_xz),
-      static_cast<const T*>(g_xy), wb_yz, wb_xz, wb_xy,
-      static_cast<T*>(d_latent), n_cells, X, Y, Z, C);
+  if (n_cells == 0) return (int)cudaSuccess;
+  float* w32 = scratch;
+  float* dw = scratch + 3 * n_cells;
+  const unsigned pillar_blocks =
+      (unsigned)((n_pillars + kThreads - 1) / kThreads);
+  pillar_softmax_kernel<T><<<pillar_blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(l_yz), static_cast<const T*>(l_xz),
+      static_cast<const T*>(l_xy), w32, n_pillars, n_cells, X, Y, Z);
+  const long long stage_bytes = (long long)Z * C * sizeof(T);
+  const int stage = stage_bytes <= kStageBytes;
+  const long long blocks = (long long)nv * X * ((Y + kRunY - 1) / kRunY);
+  pillar_dlatent_kernel<T, VEC><<<(unsigned)blocks, 32 * kRunY,
+                                  stage ? (size_t)stage_bytes : 0, stream>>>(
+      static_cast<const T*>(latent), static_cast<const T*>(g_yz),
+      static_cast<const T*>(g_xz), static_cast<const T*>(g_xy), w32, dw,
+      static_cast<T*>(d_latent), n_cells, X, Y, Z, C, stage);
+  pillar_dlogit_kernel<T><<<pillar_blocks, kThreads, 0, stream>>>(
+      w32, dw, static_cast<T*>(d_yz), static_cast<T*>(d_xz),
+      static_cast<T*>(d_xy), n_pillars, n_cells, X, Y, Z);
   return (int)cudaSuccess;
 }
 
@@ -209,7 +301,8 @@ int launch(const void* latent, const void* l_yz, const void* l_xz,
 // dtype code: 0 = float32, 1 = bfloat16, for the latent, logits, floor
 // cotangents and all gradients alike. latent (NV,X,Y,Z,C), logits
 // (NV,X,Y,Z), g_yz (NV,Y,Z,C), g_xz (NV,X,Z,C), g_xy (NV,X,Y,C); scratch:
-// f32, 3*NV*X*Y*Z floats. The wrapper (ops/pillar.py) checks shapes,
+// f32, 6*NV*X*Y*Z floats. The latent, the cotangents and d latent must be
+// 16-byte aligned. The wrapper (ops/pillar.py) checks shapes, alignment,
 // C % 4 == 0 and max(X, Y, Z) <= 256.
 extern "C" int pillar_collapse_bwd(const void* latent, const void* logit_yz,
                                    const void* logit_xz, const void* logit_xy,
@@ -220,13 +313,18 @@ extern "C" int pillar_collapse_bwd(const void* latent, const void* logit_yz,
                                    int Y, int Z, int C, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* sc = static_cast<float*>(scratch);
+  if (C % 4) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    launch<float>(latent, logit_yz, logit_xz, logit_xy, g_yz, g_xz, g_xy,
-                  d_latent, d_yz, d_xz, d_xy, sc, nv, X, Y, Z, C, s);
+    launch<float, 4>(latent, logit_yz, logit_xz, logit_xy, g_yz, g_xz, g_xy,
+                     d_latent, d_yz, d_xz, d_xy, sc, nv, X, Y, Z, C, s);
+  else if (dtype == 1 && C % 8 == 0)
+    launch<__nv_bfloat16, 8>(latent, logit_yz, logit_xz, logit_xy, g_yz,
+                             g_xz, g_xy, d_latent, d_yz, d_xz, d_xy, sc, nv,
+                             X, Y, Z, C, s);
   else if (dtype == 1)
-    launch<__nv_bfloat16>(latent, logit_yz, logit_xz, logit_xy, g_yz, g_xz,
-                          g_xy, d_latent, d_yz, d_xz, d_xy, sc, nv, X, Y, Z,
-                          C, s);
+    launch<__nv_bfloat16, 4>(latent, logit_yz, logit_xz, logit_xy, g_yz,
+                             g_xz, g_xy, d_latent, d_yz, d_xz, d_xy, sc, nv,
+                             X, Y, Z, C, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -100,8 +100,13 @@ def pillar_collapse_backward(args, grads) -> Tuple[torch.Tensor, ...]:
         raise ValueError(f"{name}: needs float32 or bfloat16, C % 4 == 0 "
                          f"and grid axes <= 256, got {latent.dtype} "
                          f"{tuple(latent.shape)}")
+    # the latent, cotangents and d latent are read and written as 16-byte
+    # vectors; the scratch holds the f32 softmax weights and the rounded
+    # weight cotangents of the three floors
+    args = (kernels.dense(latent),) + args[1:]
+    grads = tuple(kernels.dense(g) for g in grads)
     d = tuple(torch.empty_like(a) for a in args)
-    scratch = torch.empty((3, nv, x, y, z), dtype=torch.float32,
+    scratch = torch.empty((6, nv, x, y, z), dtype=torch.float32,
                           device=latent.device)
     kernels.launch("pillar_collapse_bwd", latent.device,
                    *(a.data_ptr() for a in args),

@@ -9,7 +9,8 @@ device time per call of every kernel it launched (memsets included) and
 their sum, beside the wrapper's CUDA-event time (median of 20 single
 calls); both helpers are chip_smoke.py's. For a kernel of a few
 microseconds the event time measures the wrapper's host work, while the
-device time does not.
+device time does not. A last case times a device copy of the grid latent
+(`clone`), the memory rate that kernel C′'s one pass over it can reach.
 
 `--tree DIR` imports neo360_tpu_torch from DIR instead of this checkout
 (a checkout of another commit, unpacked with `git archive`), so that two
@@ -93,21 +94,27 @@ def cases(torch):
                         lambda cot=cot, uv=uv, acc=acc, mode=mode:
                         interpolate.table_sample_accumulate(cot, uv, acc, hw,
                                                             mode)))
-    for s in (65, 61):
-        b = 256
+    def composite_args(b, s):
         fg_t = torch.sort(rand(b, s), -1).values
         bg_t = torch.sort(rand(b, s), -1, descending=True).values
-        args = (rand(b, s, 3), rand(b, s, 1) * 10, fg_t, rand(b, s, 3),
+        return (rand(b, s, 3), rand(b, s, 1) * 10, fg_t, rand(b, s, 3),
                 rand(b, s, 1) * 10, bg_t,
                 torch.randn(b, 3, device=dev, generator=g),
                 fg_t[:, -1:] + rand(b, 1))
+
+    # B at the render and train tiles (256 rays); B' at the train path's
+    # 250 rays per scene, with the loss's cotangents (rgb, both weights)
+    for s in (65, 61):
+        args = composite_args(256, s)
         out.append(("B composite_nerfpp_fwd", f"256 rays x {s}",
                     lambda args=args: render.composite_nerfpp(*args)))
-        grads = [torch.randn(args[0].shape[:1] + (3,), device=dev)
-                 if k == "rgb" else torch.randn(fg_t.shape, device=dev)
+    for s in (65, 61):
+        args = composite_args(250, s)
+        grads = [torch.randn(250, 3, device=dev, generator=g) if k == "rgb"
+                 else torch.randn(250, s, device=dev, generator=g)
                  if k in ("fg_weights", "bg_weights") else None
                  for k in render.OUT_KEYS]
-        out.append(("B' composite_nerfpp_bwd", f"256 rays x {s}",
+        out.append(("B' composite_nerfpp_bwd", f"250 rays x {s}",
                     lambda args=args, grads=grads:
                     render.composite_nerfpp_backward(args, grads)))
     latent = torch.randn(3, 64, 64, 32, 512, device=dev,
@@ -121,6 +128,10 @@ def cases(torch):
     out.append(("C' pillar_collapse_bwd", "latent (3,64,64,32,512) bf16",
                 lambda: pillar.pillar_collapse_backward([latent, *logits],
                                                         cots)))
+    # a yardstick, not a kernel of the port: the latent read once and
+    # written once, as C' reads it and writes d latent
+    out.append(("(copy)", "latent.clone(), 403 MB read + 403 MB written",
+                latent.clone))
     return out
 
 

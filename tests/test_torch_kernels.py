@@ -279,9 +279,18 @@ def test_composite_backward_kernel(cuda, white_bkgd, subset, s_fg, s_bg):
         assert res["ok"], res
 
 
+# C' cases: the first two are the original ones; then tiles that are
+# ragged against the kernel's 8-value runs of y (Y = 5, 11, 10), Z = 3 and
+# 5, C = 8 and 40 (16-byte vectors), C = 12 (bf16: 8-byte vectors), and the
+# path's full width (float32: g_xz too large to stage in shared memory)
+PILLAR_BWD_SHAPES = [(2, 8, 6, 4, 40), (3, 16, 16, 8, 512), (2, 3, 5, 3, 8),
+                     (1, 7, 11, 5, 40), (2, 4, 10, 5, 12),
+                     (3, 64, 64, 32, 512)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 8, 6, 4, 40), (3, 16, 16, 8, 512)])
+@pytest.mark.parametrize("shape", PILLAR_BWD_SHAPES)
 def test_pillar_collapse_backward_kernel(cuda, dtype, shape):
     g = _gen(9)
     nv, x, y, z, c = shape
@@ -473,3 +482,264 @@ def test_composite_kernel_chunk_edges(cuda, b, s_fg, s_bg):
         out = composite_nerfpp(*args, white_bkgd)
         for k in ref:
             _assert_ok(out[k], ref[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s_fg,s_bg", [
+    (7, 1, 1), (33, 32, 33), (33, 33, 32), (5, 64, 1), (1, 97, 31),
+    (250, 65, 65), (250, 61, 61)])
+def test_composite_backward_kernel_chunk_edges(cuda, b, s_fg, s_bg):
+    """Kernel B' (one warp per ray, forward product scans, reverse affine
+    suffix scans over 32-sample chunks) at sample counts on and around the
+    chunk edges and at the path's 250 rays, white_bkgd on and off, with
+    every cotangent and with the loss's (rgb and both weights)."""
+    g = _gen(16)
+    args = tuple(a.to(cuda) for a in _composite_args(g, b, s_fg, s_bg))
+    shapes = {k: v.shape for k, v in
+              composite_nerfpp_reference(*args, False).items()}
+    for white_bkgd in (False, True):
+        for subset in (False, True):
+            grads = [torch.randn(shapes[k], generator=g).to(cuda)
+                     if not subset or k in ("rgb", "fg_weights",
+                                            "bg_weights")
+                     else None for k in OUT_KEYS]
+            ref = _plain_composite_grads(args, grads, white_bkgd)
+            out = composite_nerfpp_backward(args, grads, white_bkgd)
+            for o, r in zip(out, ref):
+                res = kernels.compare(o, r, **RENDER_BWD_TOL)
+                assert res["ok"], (white_bkgd, subset, res)
+
+
+# --- the new kernels' arithmetic orders, emulated in float32 on the CPU --
+#
+# Each emulation repeats its kernel's operations in its order, one float32
+# rounding per operation (the card may fuse a multiply and an add), and is
+# held to autograd of the plain version within the kernel's own
+# BACKWARD_TOL: the orders the card runs fit the tolerances it must meet.
+
+_LANE = torch.arange(32)
+
+
+def _xor_sum(v):
+    """Sum over the last axis (32 lanes) in __shfl_xor_sync tree order."""
+    for d in (16, 8, 4, 2, 1):
+        v = v + v[..., _LANE ^ d]
+    return v
+
+
+def _lanes(x, n, fill):
+    """(B, n) values into 32 lanes, lanes past n set to `fill`."""
+    out = torch.full((x.shape[0], 32), fill, dtype=torch.float32)
+    out[:, :n] = x
+    return out
+
+
+def _forward_scan(alpha):
+    """Kernel B's chunked exclusive transmittance: a Hillis-Steele
+    __shfl_up_sync product scan of q = (1 - alpha) + 1e-10 per 32-sample
+    chunk, carried across chunks. Returns A (B,S) and the transmittance
+    past the last sample (B,)."""
+    b, s = alpha.shape
+    trans = torch.ones(b)
+    a_out = torch.empty(b, s)
+    for base in range(0, s, 32):
+        n = min(32, s - base)
+        incl = _lanes((1.0 - alpha[:, base:base + n]) + 1e-10, n, 1.0)
+        for d in (1, 2, 4, 8, 16):
+            up = torch.cat([incl[:, :d], incl[:, :-d]], 1)
+            incl = torch.where(_LANE >= d, incl * up, incl)
+        excl = torch.cat([torch.ones(b, 1), incl[:, :-1]], 1)
+        a_out[:, base:base + n] = (trans[:, None] * excl)[:, :n]
+        trans = trans * incl[:, 31]
+    return a_out, trans
+
+
+def _reverse_scan(q, c, g_top):
+    """Kernel B′'s reverse pass: G_{i-1} = q_i G_i + c_i from G_{S-1} =
+    g_top, per 32-sample chunk from the last down, by an exclusive
+    __shfl_down_sync suffix scan of the affine maps (q, c). Returns G_i
+    (B,S)."""
+    b, s = q.shape
+    out = torch.empty(b, s)
+    G = g_top
+    for base in range((s - 1) // 32 * 32, -1, -32):
+        n = min(32, s - base)
+        Q = _lanes(q[:, base:base + n], n, 1.0)
+        C = _lanes(c[:, base:base + n], n, 0.0)
+        for d in (1, 2, 4, 8, 16):
+            qd = torch.cat([Q[:, d:], Q[:, -d:]], 1)
+            cd = torch.cat([C[:, d:], C[:, -d:]], 1)
+            live = _LANE + d < 32
+            C, Q = torch.where(live, Q * cd + C, C), torch.where(live, Q * qd,
+                                                                 Q)
+        qx = torch.cat([Q[:, 1:], torch.ones(b, 1)], 1)
+        cx = torch.cat([C[:, 1:], torch.zeros(b, 1)], 1)
+        out[:, base:base + n] = (qx * G[:, None] + cx)[:, :n]
+        G = Q[:, 0] * G + C[:, 0]
+    return out
+
+
+def _emulate_composite_backward(args, grads, white_bkgd):
+    """Kernel B′ in float32, in its order of operations."""
+    fg_rgb, fg_sigma, fg_t, bg_rgb, bg_sigma, bg_t, dirs, far = args
+    g = {k: v for k, v in zip(OUT_KEYS, grads)}
+    b = dirs.shape[0]
+    zero = torch.zeros(b)
+
+    def get(key, shape):
+        return g[key].reshape(shape) if g.get(key) is not None else \
+            torch.zeros(shape)
+
+    dnorm = torch.sqrt(dirs[:, 0] * dirs[:, 0] + dirs[:, 1] * dirs[:, 1]
+                       + dirs[:, 2] * dirs[:, 2])
+
+    def branch(rgb, sigma, t, fg):
+        if fg:
+            nxt = torch.cat([t[:, 1:], far], 1)
+            delta = (nxt - t) * dnorm[:, None]
+        else:
+            delta = torch.cat([t[:, :-1] - t[:, 1:],
+                               torch.full((b, 1), 1e10)], 1)
+        e = torch.exp(-sigma[..., 0] * delta)
+        alpha = 1.0 - e
+        a, trans = _forward_scan(alpha)
+        w = alpha * a
+        return dict(rgb=rgb, t=t, delta=delta, e=e, alpha=alpha, a=a, w=w,
+                    trans=trans)
+
+    def lane_sum(x):   # lane partials across chunks, then the xor tree
+        s = x.shape[1]
+        part = torch.zeros(b, 32)
+        for base in range(0, s, 32):
+            n = min(32, s - base)
+            part = part + _lanes(x[:, base:base + n], n, 0.0)
+        return _xor_sum(part)[:, 0]
+
+    f, bg = branch(fg_rgb, fg_sigma, fg_t, True), branch(bg_rgb, bg_sigma,
+                                                         bg_t, False)
+    bsum = [lane_sum(bg["w"] * bg["rgb"][..., k]) for k in range(3)]
+    bacc, bdepth = lane_sum(bg["w"]), lane_sum(bg["w"] * bg["t"])
+    if white_bkgd:
+        bsum = [x + (1.0 - bacc) for x in bsum]
+    lam = f["trans"]
+    gc = get("rgb", (b, 3))
+    gf = gc + get("fg_rgb", (b, 3))
+    gb = lam[:, None] * gc + get("bg_rgb", (b, 3))
+    gdepth = get("depth", (b,))
+    g_top = get("bg_lambda", (b,)) + gc[:, 0] * bsum[0] + gc[:, 1] * bsum[1]
+    g_top = g_top + gc[:, 2] * bsum[2] + gdepth * bdepth
+
+    def backward(br, gcb, gd, ga, gw, top):
+        if white_bkgd:
+            ga = ga - (gcb[:, 0] + gcb[:, 1] + gcb[:, 2])
+        gwi = gw + ga[:, None]
+        for k in range(3):
+            gwi = gwi + gcb[:, k:k + 1] * br["rgb"][..., k]
+        gwi = gwi + gd[:, None] * br["t"]
+        q = (1.0 - br["alpha"]) + 1e-10
+        G = _reverse_scan(q, gwi * br["alpha"], top)
+        dsigma = br["a"] * (gwi - G) * br["e"] * br["delta"]
+        return br["w"][..., None] * gcb[:, None, :], dsigma[..., None]
+
+    s_fg, s_bg = fg_t.shape[1], bg_t.shape[1]
+    d_fg = backward(f, gf, gdepth + get("fg_depth", (b,)),
+                    get("fg_acc", (b,)), get("fg_weights", (b, s_fg)), g_top)
+    d_bg = backward(bg, gb, lam * gdepth, get("bg_acc", (b,)),
+                    get("bg_weights", (b, s_bg)), zero)
+    return d_fg + d_bg
+
+
+@pytest.mark.parametrize("white_bkgd", [False, True])
+@pytest.mark.parametrize("s", [1, 5, 31, 32, 33, 64, 65, 97])
+def test_composite_backward_scan_order_fits_tolerance(s, white_bkgd):
+    """CPU: kernel B′'s chunked forward product scan and reverse affine
+    suffix scan, in tree order, against autograd of the plain version
+    within BACKWARD_TOL, with every cotangent and with the loss's; the bg
+    branch is 6 samples shorter (at least 1)."""
+    g = _gen(17)
+    args = _composite_args(g, 40, s, max(s - 6, 1))
+    shapes = {k: v.shape for k, v in
+              composite_nerfpp_reference(*args, white_bkgd).items()}
+    for subset in (False, True):
+        grads = [torch.randn(shapes[k], generator=g)
+                 if not subset or k in ("rgb", "fg_weights", "bg_weights")
+                 else None for k in OUT_KEYS]
+        ref = _plain_composite_grads(args, grads, white_bkgd)
+        out = _emulate_composite_backward(args, grads, white_bkgd)
+        for o, r in zip(out, ref):
+            res = kernels.compare(o, r, **RENDER_BWD_TOL)
+            assert res["ok"], (subset, res)
+
+
+def _emulate_pillar_backward(args, grads):
+    """Kernel C′ in float32, in its order of operations: the prologue's
+    f32 softmax (sums in axis order), the main pass's rounded weights, d
+    latent and per-cell dot products (each lane sums its VEC-wide vectors
+    v = lane, lane + 32, ... in order, then the xor tree), the epilogue's
+    axis-order sum and logit gradient."""
+    latent, *logits = args
+    dt = latent.dtype
+    nv, x, y, z, c = latent.shape
+    vec = 8 if dt == torch.bfloat16 and c % 8 == 0 else 4
+    lat = latent.float()
+
+    def softmax(logit, axis):
+        lg = logit.float().movedim(axis, -1)
+        m = lg.amax(-1, keepdim=True)
+        total = torch.zeros(lg.shape[:-1])
+        for i in range(lg.shape[-1]):
+            total = total + torch.exp(lg[..., i] - m[..., 0])
+        return (torch.exp(lg - m) / total[..., None]).movedim(-1, axis)
+
+    w32 = [softmax(logits[0], 1), softmax(logits[1], 2),
+           softmax(logits[2], 3)]
+    wb = [w.to(dt).float() for w in w32]
+    gf = [grads[0].float()[:, None], grads[1].float()[:, :, None],
+          grads[2].float()[:, :, :, None]]     # broadcast over the cells
+    gf = [gg.expand(nv, x, y, z, c) for gg in gf]
+    d_latent = wb[0][..., None] * gf[0]
+    d_latent = d_latent + wb[1][..., None] * gf[1]
+    d_latent = d_latent + wb[2][..., None] * gf[2]
+
+    def dot(gg):
+        prod = (gg * lat).reshape(-1, c // vec, vec)
+        part = torch.zeros(prod.shape[0], 32)
+        for v in range(c // vec):
+            for k in range(vec):
+                part[:, v % 32] = part[:, v % 32] + prod[:, v, k]
+        return _xor_sum(part)[:, 0].reshape(nv, x, y, z).to(dt).float()
+
+    d_logits = []
+    for f, axis in enumerate((1, 2, 3)):
+        w = w32[f].movedim(axis, -1)
+        dw = dot(gf[f]).movedim(axis, -1)
+        s = torch.zeros(w.shape[:-1])
+        for i in range(w.shape[-1]):
+            s = s + w[..., i] * dw[..., i]
+        d_logits.append((w * (dw - s[..., None])).movedim(-1, axis).to(dt))
+    return (d_latent.to(dt), *d_logits)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 5, 4, 3, 8), (1, 3, 11, 5, 40),
+                                   (2, 4, 10, 2, 12)])
+def test_pillar_backward_order_fits_tolerance(dtype, shape):
+    """CPU: kernel C′'s arithmetic order against autograd of the plain
+    version within its BACKWARD_TOL (d latent: the forward's tolerance;
+    d logit: per dtype), C = 12 taking bf16's 8-byte vectors."""
+    g = _gen(18)
+    nv, x, y, z, c = shape
+    args = [torch.randn(shape, generator=g).to(dtype)] + [
+        (torch.randn(nv, x, y, z, generator=g) * 3).to(dtype)
+        for _ in range(3)]
+    cots = [torch.randn(s, generator=g).to(dtype) for s in
+            ((nv, y, z, c), (nv, x, z, c), (nv, x, y, c))]
+    leaves = [a.detach().requires_grad_() for a in args]
+    ref = torch.autograd.grad(pillar_collapse_reference(*leaves), leaves,
+                              cots)
+    out = _emulate_pillar_backward(args, cots)
+    res = kernels.compare(out[0], ref[0], **PILLAR_BWD_TOL["latent"])
+    assert res["ok"], res
+    for o, r in zip(out[1:], ref[1:]):
+        res = kernels.compare(o, r, **PILLAR_BWD_TOL["logit"][dtype])
+        assert res["ok"], res
