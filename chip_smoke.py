@@ -32,11 +32,12 @@ line):
    and every stage must launch kernel A' once per scene under the dense
    contract (the grid lift) and 4 x S x K times under the accumulate
    contract (the tri-plane and local tables), kernel B' 2 x S x K times
-   (both levels of every scene-step) and kernel C' S times;
+   (both levels of every scene-step) and kernels C and C' S times;
 7. the serving main path: the same model encodes one in-memory 320x240
    fixture scene once and renders 3 novel views through cli.make_render_fn
    + train.eval.evaluate, the code of `cli.run_eval`; every forward kernel
-   must launch. One more render of a view runs under `torch.profiler`.
+   must launch, kernel C once (the encode, with the first view). One more
+   render of a view runs under `torch.profiler`.
 
 Each kernel's launches per training stage and per rendered view follow
 the last phase. The line before the last is {"kernels": [...]}, the last
@@ -141,8 +142,8 @@ def _rows_read(table_shape, uv, hw, mode, view_offset) -> int:
 
 # the port's kernels (csrc/*.cu) as the profiler names them
 PORT_KERNEL = re.compile(r"::(table_sample|table_scatter|round_to_bf16"
-                         r"|composite_nerfpp(_bwd)?|pillar_(collapse|softmax"
-                         r"|dlogit|dlatent))_kernel\b")
+                         r"|composite_nerfpp(_bwd)?|pillar_(collapse|weights"
+                         r"|softmax|dlogit|dlatent))_kernel\b")
 
 
 def _profile(torch, fn, label: str, top: int = 15):
@@ -739,14 +740,16 @@ def phase_train_main_path(torch):
     if len(got) != 3 or any(x != want for x in got):
         raise AssertionError(f"kernel A' launches per stage {got}, "
                              f"expected {want}")
-    # B' once per level (proposal, fine) per scene-step; C' once per scene
-    want = (2 * cfg.stage_scenes * cfg.stage_k, cfg.stage_scenes)
-    got = [(n["composite_nerfpp_bwd"], n["pillar_collapse_bwd"])
-           for n in per_stage]
-    print(f"[train] kernels B', C' per stage: {got}, expected {want} (B' "
-          f"per level and scene-step, C' per scene)")
+    # B' once per level (proposal, fine) per scene-step; C and C' once per
+    # scene (its one encode)
+    want = (2 * cfg.stage_scenes * cfg.stage_k, cfg.stage_scenes,
+            cfg.stage_scenes)
+    got = [(n["composite_nerfpp_bwd"], n["pillar_collapse_fwd"],
+            n["pillar_collapse_bwd"]) for n in per_stage]
+    print(f"[train] kernels B', C, C' per stage: {got}, expected {want} (B' "
+          f"per level and scene-step, C and C' per scene)")
     if any(x != want for x in got):
-        raise AssertionError(f"kernel B' / C' launches per stage {got}, "
+        raise AssertionError(f"kernel B' / C / C' launches per stage {got}, "
                              f"expected {want}")
     after = {k: v.detach().cpu() for k, v in
              state.model.state_dict().items()}
@@ -866,6 +869,10 @@ def phase_main_path(torch, cfg, dev="cuda"):
     if missing:
         raise AssertionError(f"kernels not launched by the main path: "
                              f"{missing}")
+    encodes = [n["pillar_collapse_fwd"] for n in timed.per_view]
+    if encodes != [1] + [0] * (len(encodes) - 1):
+        raise AssertionError(f"kernel C per view {encodes}, expected one "
+                             f"launch for the scene's one encode (view 0)")
     _profile(torch, lambda: render_fn(samples[1]),
              "rendered view (encode cached)")
     return launches, timed.per_view

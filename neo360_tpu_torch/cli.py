@@ -101,11 +101,13 @@ def resolve_device(cfg: Config, device=None) -> torch.device:
     return dev
 
 
-def build_model(cfg: Config, device="cpu"):
-    """The `neo360_fast` NeRFTP on `device`, initialised from cfg.seed."""
+def build_model(cfg: Config, device=None):
+    """The `neo360_fast` NeRFTP on `device` (default cfg.device, see
+    `resolve_device`), initialised from cfg.seed."""
     if cfg.exp_type != "neo360_fast":
         raise NotImplementedError(
             f"exp_type {cfg.exp_type!r}: only neo360_fast is ported")
+    device = resolve_device(cfg, device)
     from neo360_tpu_torch.models.neo360 import NeRFTP
     size = {k: v for k, v in (("encoder_width", cfg.encoder_width),)
             if v is not None}
@@ -120,14 +122,16 @@ def build_model(cfg: Config, device="cpu"):
     return model.to(device).eval()
 
 
-def make_render_fn(cfg: Config, model, device="cpu"):
+def make_render_fn(cfg: Config, model, device=None):
     """render_fn(sample) -> {"rgb", "depth", "fg_rgb", "bg_rgb", "fg_acc",
-    "bg_acc"} over a full image of rays.
+    "bg_acc"} over a full image of rays, with the sample's arrays placed on
+    `device` (default cfg.device, see `resolve_device`).
 
     The source stack is encoded once per scene: samples carrying the same
     "scene_key" reuse the previous encode (one scene resident at a time);
     a sample without one is encoded anew."""
     from neo360_tpu_torch.train.loop import make_image_renderer
+    device = resolve_device(cfg, device)
     batch_stats = cfg.eval_bn_mode == "batch"
 
     def render_chunk(pack, rays):

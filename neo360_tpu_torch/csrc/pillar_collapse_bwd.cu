@@ -23,9 +23,9 @@
 // with 2-byte loads and wrote d latent in a second launch (~1.2 ms).
 // Design: three launches, one of which touches the latent.
 //   1. pillar_softmax_kernel, one thread per (view, floor, pillar): the f32
-//      softmax exp(l - max) / sum with the sum in axis order, as the
-//      forward kernel computes it, so that wb = round(w32) is the
-//      forward's bit for bit; w32 of the three floors to f32 scratch.
+//      softmax of pillar_common.cuh, which the forward kernel's prologue
+//      computes too, so that wb = round(w32) is the forward's bit for bit;
+//      w32 of the three floors to f32 scratch.
 //   2. pillar_dlatent_kernel, the one pass over the latent: a block owns a
 //      fixed (view, x), a run of kRunY values of y (one warp each) and all
 //      z. Each latent row is loaded once, each d latent row stored once,
@@ -40,96 +40,16 @@
 //   3. pillar_dlogit_kernel, one thread per pillar: s = sum_axis w32 * dw
 //      in axis order, then the logit gradient.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-
-#include <type_traits>
+#include "pillar_common.cuh"
 
 namespace {
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void from_float(float x, float* dst) { *dst = x; }
-__device__ __forceinline__ void from_float(float x, __nv_bfloat16* dst) {
-  *dst = __float2bfloat16_rn(x);
-}
-__device__ __forceinline__ float round_to(float x, float*) { return x; }
-__device__ __forceinline__ float round_to(float x, __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// VEC elements of T as one 16- or 8-byte word
-template <typename T, int VEC>
-struct Vec;
-template <>
-struct Vec<float, 4> {
-  using W = float4;
-  __device__ static void unpack(W w, float* v) {
-    v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
-  }
-  __device__ static W pack(const float* v) {
-    return make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-template <int VEC>
-struct BfVec {
-  using W = typename std::conditional<VEC == 8, uint4, uint2>::type;
-  __device__ static void unpack(W w, float* v) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
-#pragma unroll
-    for (int k = 0; k < VEC / 2; ++k) {
-      const float2 f = __bfloat1622float2(h[k]);
-      v[2 * k] = f.x;
-      v[2 * k + 1] = f.y;
-    }
-  }
-  __device__ static W pack(const float* v) {
-    W w;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&w);
-#pragma unroll
-    for (int k = 0; k < VEC / 2; ++k)
-      h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
-    return w;
-  }
-};
-template <>
-struct Vec<__nv_bfloat16, 8> : BfVec<8> {};
-template <>
-struct Vec<__nv_bfloat16, 4> : BfVec<4> {};
+using namespace pillar;
 
 constexpr int kThreads = 128;  // threads per block, kernels 1 and 3
 constexpr int kRunY = 8;       // warps (values of y) per block, kernel 2
 constexpr int kUnroll = 2;     // vectors per lane loaded together, kernel 2
 constexpr int kStageBytes = 48 * 1024;
-
-struct Pillar {
-  long long cell0, stride;  // first cell of the pillar, step along it
-  int len, floor;           // floor: 0 = yz (over X), 1 = xz (Y), 2 = xy (Z)
-};
-
-// Pillar p of NV * (Y*Z + X*Z + X*Y): view-major, then the floors; within
-// a floor the kept axis that is last in memory varies fastest, so
-// neighbouring threads read neighbouring cells (yz, xz).
-__device__ __forceinline__ Pillar pillar(long long p, int X, int Y, int Z) {
-  const long long n_yz = (long long)Y * Z, n_xz = (long long)X * Z,
-                  n_xy = (long long)X * Y;
-  const long long per_view = n_yz + n_xz + n_xy;
-  const long long xyz = (long long)X * Y * Z;
-  const long long view = p / per_view;
-  long long rem = p - view * per_view;
-  if (rem < n_yz)  // sum over X, keep (y, z)
-    return {view * xyz + rem, (long long)Y * Z, X, 0};
-  rem -= n_yz;
-  if (rem < n_xz) {  // sum over Y, keep (x, z)
-    const long long x = rem / Z, z = rem % Z;
-    return {view * xyz + x * Y * Z + z, Z, Y, 1};
-  }
-  rem -= n_xz;  // sum over Z, keep (x, y)
-  return {view * xyz + rem * Z, 1, Z, 2};
-}
 
 // w32[floor * n_cells + cell] = the floor's f32 softmax weight at the cell
 template <typename T>
@@ -139,19 +59,12 @@ __global__ void __launch_bounds__(kThreads) pillar_softmax_kernel(
     long long n_pillars, long long n_cells, int X, int Y, int Z) {
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n_pillars) return;
-  const Pillar pl = pillar(p, X, Y, Z);
+  const Pillar pl = pillar_at(p, X, Y, Z);
   const T* logit = pl.floor == 0 ? logit_yz : pl.floor == 1 ? logit_xz
                                                             : logit_xy;
-  logit += pl.cell0;
   float* w = w32 + pl.floor * n_cells + pl.cell0;
-  float m = -INFINITY;
-  for (int i = 0; i < pl.len; ++i)
-    m = fmaxf(m, to_float(logit[i * pl.stride]));
-  float sum = 0.0f;
-  for (int i = 0; i < pl.len; ++i)
-    sum += expf(to_float(logit[i * pl.stride]) - m);
-  for (int i = 0; i < pl.len; ++i)
-    w[i * pl.stride] = expf(to_float(logit[i * pl.stride]) - m) / sum;
+  softmax(logit + pl.cell0, pl.stride, pl.len,
+          [&](int i, float v) { w[i * pl.stride] = v; });
 }
 
 template <typename T, int VEC>
@@ -251,7 +164,7 @@ __global__ void __launch_bounds__(kThreads) pillar_dlogit_kernel(
     long long n_pillars, long long n_cells, int X, int Y, int Z) {
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n_pillars) return;
-  const Pillar pl = pillar(p, X, Y, Z);
+  const Pillar pl = pillar_at(p, X, Y, Z);
   T* dlogit = (pl.floor == 0 ? d_yz : pl.floor == 1 ? d_xz : d_xy) +
               pl.cell0;
   const long long off = pl.floor * n_cells + pl.cell0;

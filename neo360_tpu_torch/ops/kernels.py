@@ -4,7 +4,7 @@ The sources are compiled on first use with `nvcc`, one process per source
 started together, and linked into one shared library with a plain C
 interface, `build/neo360_kernels/libneo360_kernels-<hash>.so` at the root
 of the checkout, bound with ctypes. The hash covers the
-sources and the flags, so an edited kernel is rebuilt and a stale library is
+sources, the headers they share (`csrc/*.cuh`) and the flags, so an edited kernel is rebuilt and a stale library is
 never loaded. Every C entry point takes raw pointers and the CUDA stream as
 `void*`, launches on that stream without synchronising, and returns
 `cudaGetLastError()`; `launch` raises on a non-zero code.
@@ -45,10 +45,9 @@ SIGNATURES = {
     # bg_lambda, depth, fg_depth, stream
     "composite_nerfpp_fwd": (_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I,
                              _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
-    # latent, logit_yz, logit_xz, logit_xy, out_yz, out_xz, out_xy, dtype,
-    # nv, X, Y, Z, C, stream
-    "pillar_collapse_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _I, _P),
+    # latent, logit_yz, logit_xz, logit_xy, out_yz, out_xz, out_xy, scratch,
+    # dtype, nv, X, Y, Z, C, stream
+    "pillar_collapse_fwd": (_P,) * 8 + (_I,) * 6 + (_P,),
     # grad, grad_dtype, uv, scratch, dtable, table_dtype, n_views, n_points,
     # h, w, c, zeros_mode, view_offset, total_views, table_elems, stream
     "table_sample_bwd": (_P, _I, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _I,
@@ -91,7 +90,7 @@ def _sources():
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):   # the sources and their headers
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libneo360_kernels-{digest.hexdigest()[:16]}.so"

@@ -56,11 +56,22 @@ def _pillar_forward(args):
                              f"{tuple(logit.shape)}")
     if latent.dtype not in kernels.DTYPE_CODES:
         raise ValueError(f"{name}: dtype must be float32 or bfloat16")
+    # each thread of the one pass holds up to 64 y and 32 z values of a
+    # channel vector (csrc/pillar_collapse.cu)
+    if min(nv, x, y, z) < 1 or y > 64 or z > 32 or c < 4 or c % 4:
+        raise ValueError(f"{name}: needs 1 <= Y <= 64, 1 <= Z <= 32 and C a "
+                         f"positive multiple of 4, got latent "
+                         f"{tuple(latent.shape)}")
+    # the latent is read as 16- or 8-byte vectors; the scratch holds each
+    # cell's three rounded softmax weights (and one word of padding)
+    args = (kernels.dense(latent),) + args[1:]
     outs = tuple(torch.empty(shape, dtype=latent.dtype, device=latent.device)
                  for shape in ((nv, y, z, c), (nv, x, z, c), (nv, x, y, c)))
+    scratch = torch.empty((nv * x * y * z, 4), dtype=latent.dtype,
+                          device=latent.device)
     kernels.launch("pillar_collapse_fwd", latent.device,
                    *(a.data_ptr() for a in args),
-                   *(o.data_ptr() for o in outs),
+                   *(o.data_ptr() for o in outs), scratch.data_ptr(),
                    kernels.DTYPE_CODES[latent.dtype], nv, x, y, z, c)
     pillar_collapse.launches += 1
     return outs

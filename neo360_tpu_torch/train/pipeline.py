@@ -97,8 +97,9 @@ class _Prefetcher:
         self.close()
 
 
-def prefetch_to_device(iterator: Iterator, size: int = 2,
-                       device="cpu") -> _Prefetcher:
+def prefetch_to_device(iterator: Iterator, size: int = 2, *,
+                       device) -> _Prefetcher:
     """Run `iterator` in a daemon thread, place each item on `device`
-    (`to_device`), keep `size` items buffered."""
+    (`to_device`; no default: the caller names the card or the CPU), keep
+    `size` items buffered."""
     return _Prefetcher(iterator, size, lambda item: to_device(item, device))

@@ -91,9 +91,9 @@ def test_run_eval_matches_jax(multi_scene_root, tmp_path, jax_side, capsys):
     assert abs(summary["psnr"] - np.mean([v[3] for v in views])) < 0.01
 
     # rgb of the first view of each scene through the same render_fn
-    model = cli.build_model(cfg)
+    model = cli.build_model(cfg, "cpu")
     assert cli.restore(cfg, model, str(exp_dir)) == npz
-    render_fn = cli.make_render_fn(cfg, model)
+    render_fn = cli.make_render_fn(cfg, model, "cpu")
     keys = [v[0]["scene_key"] for v in views]
     firsts = [v for i, v in enumerate(views) if keys.index(keys[i]) == i]
     assert len(firsts) == 3
@@ -106,10 +106,10 @@ def test_restore_port_checkpoint(tmp_path):
     """A port checkpoint (torch state_dict) in the experiment directory is
     loaded when no --ckpt_path is given."""
     cfg = _cfg("unused", tmp_path, seed=3)
-    saved = cli.build_model(cfg)
+    saved = cli.build_model(cfg, "cpu")
     os.makedirs(tmp_path / "exp")
     torch.save(saved.state_dict(), tmp_path / "exp" / "model.pt")
-    model = cli.build_model(_cfg("unused", tmp_path, seed=4))
+    model = cli.build_model(_cfg("unused", tmp_path, seed=4), "cpu")
     assert cli.restore(cfg, model, str(tmp_path / "exp")).endswith(
         "model.pt")
     for k, v in saved.state_dict().items():

@@ -743,3 +743,113 @@ def test_pillar_backward_order_fits_tolerance(dtype, shape):
     for o, r in zip(out[1:], ref[1:]):
         res = kernels.compare(o, r, **PILLAR_BWD_TOL["logit"][dtype])
         assert res["ok"], res
+
+
+# kernel C's lanes per z (csrc/pillar_collapse.cu: kLanesPerZ); its warps
+# (8 x lanes per z), y slots (64 / warps), z lanes (32 / lanes per z) and z
+# chunks (32 / z lanes) follow from it
+C_LANES_PER_Z = 2
+
+
+def _emulate_pillar_forward(args):
+    """Kernel C in float32, in its order of operations: the prologue's f32
+    softmax (sums in axis order) rounded to the latent's type; warp w, lane
+    (zl, h) of a block take y = w + sy * warps and z = zl + cz * z_lanes,
+    with dead y and z contributing zero; floor_yz sums over x in order,
+    floor_xy over the z chunks and then the xor tree over the z lanes,
+    floor_xz over the y slots and then over the warps in order; one
+    rounding. Channels never mix, so the channel slices need no
+    emulation."""
+    latent, *logits = args
+    dt = latent.dtype
+    nv, x, y, z, c = latent.shape
+    warps, z_lanes = 8 * C_LANES_PER_Z, 32 // C_LANES_PER_Z
+    y_slots, z_chunks = 64 // warps, 32 // z_lanes
+
+    def softmax(logit, axis):
+        lg = logit.float().movedim(axis, -1)
+        m = lg.amax(-1, keepdim=True)
+        total = torch.zeros(lg.shape[:-1])
+        for i in range(lg.shape[-1]):
+            total = total + torch.exp(lg[..., i] - m[..., 0])
+        return (torch.exp(lg - m) / total[..., None]).movedim(-1, axis)
+
+    pad = (0, 0, 0, 32 - z, 0, 64 - y)     # (C, Z, Y) to the kernel's 64 x 32
+    lat = torch.nn.functional.pad(latent.float(), pad)
+    prods = [torch.nn.functional.pad(
+        softmax(lg, axis).to(dt).float()[..., None], pad) * lat
+        for lg, axis in zip(logits, (1, 2, 3))]
+
+    yz = torch.zeros(nv, 64, 32, c)
+    for i in range(x):
+        yz = yz + prods[0][:, i]
+
+    p = prods[2].reshape(nv, x, 64, z_chunks, z_lanes, c)
+    xy = torch.zeros(nv, x, 64, z_lanes, c)
+    for cz in range(z_chunks):
+        xy = xy + p[:, :, :, cz]
+    lane = torch.arange(z_lanes)
+    d = z_lanes // 2
+    while d:
+        xy = xy + xy[:, :, :, lane ^ d]
+        d //= 2
+    xy = xy[:, :, :, 0]
+
+    p = prods[1].reshape(nv, x, y_slots, warps, 32, c)
+    part = torch.zeros(nv, x, warps, 32, c)
+    for sy in range(y_slots):
+        part = part + p[:, :, sy]
+    xz = torch.zeros(nv, x, 32, c)
+    for w in range(warps):
+        xz = xz + part[:, :, w]
+    return (yz[:, :y, :z].to(dt), xz[:, :, :z].to(dt), xy[:, :, :y].to(dt))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 5, 4, 3, 8), (1, 3, 11, 5, 40),
+                                   (2, 4, 10, 2, 12), (1, 7, 19, 9, 12),
+                                   (1, 2, 64, 32, 4)])
+def test_pillar_forward_order_fits_tolerance(dtype, shape):
+    """CPU: kernel C's arithmetic order against its plain version within
+    `kernels.compare`'s tolerance, at grids ragged against the warps, z
+    lanes and channel slices (C = 12 and 40: a slice's second vector
+    missing), and at the largest Y and Z the kernel takes."""
+    g = _gen(19)
+    nv, x, y, z, c = shape
+    args = [torch.randn(shape, generator=g).to(dtype)] + [
+        (torch.randn(nv, x, y, z, generator=g) * 3).to(dtype)
+        for _ in range(3)]
+    for o, r in zip(_emulate_pillar_forward(args),
+                    pillar_collapse_reference(*args)):
+        _assert_ok(o, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(3, 64, 64, 32, 512), (2, 7, 11, 5, 12),
+                                   (1, 5, 64, 32, 40), (2, 3, 1, 1, 4)])
+def test_pillar_collapse_kernel_path_and_ragged(cuda, dtype, shape):
+    """Kernel C at the path's grid latent and at grids ragged in X, Y, Z
+    and the channel slices, twice: the same bits both times."""
+    g = _gen(20)
+    nv, x, y, z, c = shape
+    latent = torch.randn(shape, generator=g).to(dtype).to(cuda)
+    logits = [(torch.randn(nv, x, y, z, generator=g) * 3).to(dtype).to(cuda)
+              for _ in range(3)]
+    ref = pillar_collapse_reference(latent, *logits)
+    before = pillar_collapse.launches
+    out = pillar_collapse(latent, *logits)
+    again = pillar_collapse(latent, *logits)
+    assert pillar_collapse.launches == before + 2
+    for o, a, r in zip(out, again, ref):
+        _assert_ok(o, r)
+        assert torch.equal(o, a)
+
+
+@pytest.mark.cuda
+def test_pillar_collapse_kernel_rejects_shapes_it_does_not_take(cuda):
+    for shape in ((1, 4, 65, 4, 8), (1, 4, 4, 33, 8), (1, 4, 4, 4, 6)):
+        latent = torch.zeros(shape, device=cuda)
+        logit = torch.zeros(shape[:4], device=cuda)
+        with pytest.raises(ValueError, match="pillar_collapse"):
+            pillar_collapse(latent, logit, logit, logit)

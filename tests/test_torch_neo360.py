@@ -75,7 +75,7 @@ def jax_model(sample):
 @pytest.fixture(scope="module")
 def port_model(jax_model):
     cfg = preset("neo360_fast", bf16=False, **TINY)
-    model = cli.build_model(cfg)
+    model = cli.build_model(cfg, "cpu")
     weights.load_into(model, _port_weights(jax_model[1]))
     return model
 
@@ -179,7 +179,7 @@ def test_tiled_render_fn_matches_untiled(sample, port_model, monkeypatch):
     encode = port_model.encode
     monkeypatch.setattr(port_model, "encode",
                         lambda *a: encodes.append(a) or encode(*a))
-    render_fn = cli.make_render_fn(cfg, port_model)
+    render_fn = cli.make_render_fn(cfg, port_model, "cpu")
     out = render_fn(dict(sample, scene_key=0))
     few = {k: sample[k][:4] for k in RAYS}
     for key in (0, 0, 1, 1, None):
@@ -199,7 +199,7 @@ def test_weights_reject_unused_and_missing(jax_model):
     with pytest.raises(KeyError):
         weights.from_flax_flat({**flat, "params/encoder/extra/foo": 1.0})
     sd = weights.from_flax_flat(flat)
-    model = cli.build_model(preset("neo360_fast", bf16=False, **TINY))
+    model = cli.build_model(preset("neo360_fast", bf16=False, **TINY), "cpu")
     with pytest.raises(KeyError):
         weights.load_into(model, {**sd, "encoder.extra.weight":
                                   torch.zeros(1)})

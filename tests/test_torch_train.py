@@ -333,6 +333,27 @@ def test_training_needs_the_device_it_names(tmp_path):
         cli.run_train(cfg.replace(eval_mode=None))
 
 
+def test_entry_points_default_to_the_card():
+    """build_model and make_render_fn without a device take cfg.device
+    (cuda): without one they raise instead of returning a CPU model or
+    renderer; prefetch_to_device has no default device at all."""
+    from neo360_tpu_torch.train.pipeline import prefetch_to_device
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = preset("neo360_fast", bf16=False, **TINY)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.build_model(cfg)
+    model = cli.build_model(cfg, "cpu")
+    assert next(model.parameters()).device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.make_render_fn(cfg, model)
+    assert callable(cli.make_render_fn(cfg.replace(device="cpu"), model))
+    with pytest.raises(TypeError, match="device"):
+        prefetch_to_device(iter([np.zeros(2)]))
+    with prefetch_to_device(iter([np.zeros(2)]), device="cpu") as it:
+        assert [t.device.type for t in it] == ["cpu"]
+
+
 def test_cli_trains_resumes_and_evaluates(tmp_path, monkeypatch, capsys):
     """`cli.main` without --eval_mode trains two stages on a fixture root,
     checkpoints, resumes from that checkpoint for two more, and
