@@ -12,17 +12,19 @@ line):
 3. each kernel, forward and backward, against its plain PyTorch version
    (the backward: autograd of the plain forward, or its index_add_ plain
    version under the accumulate contract) on seeded random inputs at the
-   neo360_fast shapes, with both times (median of 20 runs), the kernel's
-   bound (bytes over the card's memory rate or operations over its f32
-   rate, whichever is larger; `bound`) and its share of it, and for the
-   corner-table kernels the time of `F.grid_sample` (forward, and the
-   autograd of it with respect to the map) on the same points;
+   neo360_fast and neo360 shapes (kernel C also at a ragged Z = 48, and
+   twice, for the same bits), with both times (median of 20 runs), the
+   kernel's bound (bytes over the card's memory rate or operations over
+   its f32 rate, whichever is larger; `bound`) and its share of it, and
+   for the corner-table kernels the time of `F.grid_sample` (forward, and
+   the autograd of it with respect to the map) on the same points;
 4. the render slice at a small size in float32 on the card (kernels)
    against the same slice on the CPU (plain versions), TF32 off;
-5. one tiny float32 train stage (K=2, S=2, deterministic sampling) on the
-   card against the same stage on the CPU, TF32 off: gradients, BatchNorm
-   buffers and parameters;
-6. the training main path: `cli.run_train` at full neo360_fast width
+5. one tiny float32 neo360_fast train stage (K=2, S=2) and one tiny
+   float32 neo360 per-step step (grid (8, 8, 40)), deterministic sampling,
+   on the card against the same on the CPU, TF32 off: gradients,
+   BatchNorm buffers, and the stage's parameters or the step's loss;
+6. the neo360_fast training main path: `cli.run_train` at full width
    (random seeded weights, bf16) on 3 in-memory 320x240 fixture scenes,
    3 stages of K=32 steps, S=2 scenes and 500 rays per step (the third
    under `torch.profiler`, whose top device ops are printed), then its
@@ -33,15 +35,22 @@ line):
    contract (the grid lift) and 4 x S x K times under the accumulate
    contract (the tri-plane and local tables), kernel B' 2 x S x K times
    (both levels of every scene-step) and kernels C and C' S times;
-7. the serving main path: the same model encodes one in-memory 320x240
-   fixture scene once and renders 3 novel views through cli.make_render_fn
-   + train.eval.evaluate, the code of `cli.run_eval`; every forward kernel
-   must launch, kernel C once (the encode, with the first view). One more
-   render of a view runs under `torch.profiler`.
+7. the neo360_fast serving main path: the same model encodes one
+   in-memory 320x240 fixture scene once and renders 3 novel views through
+   cli.make_render_fn + train.eval.evaluate, the code of `cli.run_eval`;
+   every forward kernel must launch, kernel C once (the encode, with the
+   first view). One more render of a view runs under `torch.profiler`;
+8. the neo360 main path (`phase_neo360_main_path`): `cli.run_train` at
+   full width with the per-step trainer (float32, 64^3 grid, 512-channel
+   lift, 128 + 256 samples, the encoder's recompute), 10 steps of 500
+   rays, each launching exactly the kernels `_neo360_step_launches` says;
+   its validation render and checkpoint; 2 rendered views and 16 profiled
+   tiles; one step without the recompute for its time and peak memory.
 
-Each kernel's launches per training stage and per rendered view follow
-the last phase. The line before the last is {"kernels": [...]}, the last
-is {"ok": true, "device": {...}}. Requires a CUDA device: it exits 2
+Each kernel's launches per training stage or step and per rendered view
+follow the last phase. The line before the last is {"kernels": [...]}
+(launches: the sum over the three main paths, each counted from 0), the
+last is {"ok": true, "device": {...}}. Requires a CUDA device: it exits 2
 without one, or without the neo360_tpu_torch package beside it.
 """
 
@@ -349,15 +358,7 @@ def phase_kernels(torch):
     # Kernel B: one 256-ray tile, prop level (65 points) and fine (61)
     for s in (65, 61):
         b = 256
-        fg_t = torch.sort(torch.rand(b, s, device=dev, generator=g), -1).values
-        bg_t = torch.sort(torch.rand(b, s, device=dev, generator=g), -1,
-                          descending=True).values
-        args = (torch.rand(b, s, 3, device=dev, generator=g),
-                torch.rand(b, s, 1, device=dev, generator=g) * 10, fg_t,
-                torch.rand(b, s, 3, device=dev, generator=g),
-                torch.rand(b, s, 1, device=dev, generator=g) * 10, bg_t,
-                torch.randn(b, 3, device=dev, generator=g),
-                fg_t[:, -1:] + torch.rand(b, 1, device=dev, generator=g))
+        args = _composite_args(torch, g, b, s)
         keys = sorted(composite_nerfpp_reference(*args, False))
         kernel = lambda: composite_nerfpp(*args, False)
         plain = lambda: composite_nerfpp_reference(*args, False)
@@ -370,22 +371,81 @@ def phase_kernels(torch):
                nbytes=4.0 * b * (2 * 6 * s + 4 + 14), ops=2 * 20.0 * b * s,
                main=s == 61)
 
-    # Kernel C: the neo360_fast grid latent
-    latent = torch.randn(3, 64, 64, 32, 512, device=dev, generator=g).to(bf16)
-    logits = [(torch.randn(3, 64, 64, 32, device=dev, generator=g) * 3).to(
-        bf16) for _ in range(3)]
-    kernel = lambda: pillar_collapse(latent, *logits)
-    plain = lambda: pillar_collapse_reference(latent, *logits)
-    nv, x, y, z, c = latent.shape
-    cells = nv * x * y * z
-    floor_elems = nv * (y * z + x * z + x * y) * c
-    # the latent and 3 logits read, 3 floors written, bf16; per cell and
-    # floor a softmax term (~4 ops) and a C-wide multiply-add
-    _check("pillar_collapse_fwd", "latent (3,64,64,32,512) bf16", kernel(),
-           plain(), kernel, plain, torch, results,
-           nbytes=2.0 * (latent.numel() + 3 * cells + floor_elems),
-           ops=3.0 * (latent.numel() * 2 + cells * 4), main=True)
+    # Kernel A at the neo360 preset's f32 grid lift: the 512-channel pixel
+    # latent table at every cell of the 64^3 grid of 3 views
+    table = torch.randn(3, 121, 161, 2048, device=dev, generator=g)
+    u = uv(3, 64 ** 3, 1.5)
+    kernel = lambda: table_sample(table, u, hw, "zeros", f32)
+    plain = lambda: table_sample_reference(table, u, hw, "zeros", f32)
+    rows = _rows_read(table.shape, u, hw, "zeros", 0)
+    _check("table_sample_fwd", "neo360 lift zeros f32->f32, 3 x 64^3 pts",
+           kernel(), plain(), kernel, plain, torch, results,
+           nbytes=u.numel() * 4 + rows * 2048 * 4 + u.shape[1] * 3 * 512 * 4,
+           ops=2.0 * 3 * u.shape[1] * 2048,
+           library_fn=_grid_sample_fns(torch, 512, f32, u, hw, "zeros"))
+    del table, u
+
+    # Kernel B at the neo360 tiles: a 256-ray render tile of the merged
+    # fine level (385 points) and a 500-ray train step's coarse level (129)
+    for b, s in ((256, 385), (500, 129)):
+        args = _composite_args(torch, g, b, s)
+        keys = sorted(composite_nerfpp_reference(*args, False))
+        kernel = lambda: composite_nerfpp(*args, False)
+        plain = lambda: composite_nerfpp_reference(*args, False)
+        out, ref = kernel(), plain()
+        _check("composite_nerfpp_fwd", f"neo360 B={b} S={s}",
+               [out[k] for k in keys], [ref[k] for k in keys],
+               kernel, plain, torch, results,
+               nbytes=4.0 * b * (2 * 6 * s + 4 + 14), ops=2 * 20.0 * b * s)
+
+    # Kernel C: the neo360_fast grid latent (bf16, Z = 32), the neo360
+    # preset's (f32, Z = 64; and in bf16), and a ragged Z = 48; two calls
+    # must give the same bits
+    for dt, shape, main in ((bf16, (3, 64, 64, 32, 512), True),
+                            (f32, (3, 64, 64, 64, 512), False),
+                            (bf16, (3, 64, 64, 64, 512), False),
+                            (f32, (3, 64, 64, 48, 512), False),
+                            (bf16, (3, 64, 64, 48, 512), False)):
+        latent = torch.randn(shape, device=dev, generator=g).to(dt)
+        logits = [(torch.randn(shape[:4], device=dev, generator=g) * 3).to(
+            dt) for _ in range(3)]
+        kernel = lambda: pillar_collapse(latent, *logits)
+        plain = lambda: pillar_collapse_reference(latent, *logits)
+        nv, x, y, z, c = shape
+        cells = nv * x * y * z
+        floor_elems = nv * (y * z + x * z + x * y) * c
+        out = kernel()
+        same = all(torch.equal(a, b) for a, b in zip(out, kernel()))
+        name = {bf16: "bf16", f32: "f32"}[dt]
+        print(f"[kernel] pillar_collapse_fwd {shape} {name}: two calls give "
+              f"the same bits: {same}")
+        if not same:
+            raise AssertionError(f"kernel C is not deterministic at {shape} "
+                                 f"{name}")
+        # the latent and 3 logits read, 3 floors written; per cell and
+        # floor a softmax term (~4 ops) and a C-wide multiply-add
+        _check("pillar_collapse_fwd", f"latent {shape} {name}", out,
+               plain(), kernel, plain, torch, results,
+               nbytes=latent.element_size() * (latent.numel() + 3 * cells
+                                               + floor_elems),
+               ops=3.0 * (latent.numel() * 2 + cells * 4), main=main)
+        del latent, logits, out
     return results
+
+
+def _composite_args(torch, g, b, s):
+    """Seeded inputs of kernel B / B' for `b` rays of `s` points: fg t
+    ascending, bg t descending, far past the last fg t."""
+    dev = g.device
+    fg_t = torch.sort(torch.rand(b, s, device=dev, generator=g), -1).values
+    bg_t = torch.sort(torch.rand(b, s, device=dev, generator=g), -1,
+                      descending=True).values
+    return (torch.rand(b, s, 3, device=dev, generator=g),
+            torch.rand(b, s, 1, device=dev, generator=g) * 10, fg_t,
+            torch.rand(b, s, 3, device=dev, generator=g),
+            torch.rand(b, s, 1, device=dev, generator=g) * 10, bg_t,
+            torch.randn(b, 3, device=dev, generator=g),
+            fg_t[:, -1:] + torch.rand(b, 1, device=dev, generator=g))
 
 
 def _ray_uv(torch, g, b, n_rays, s, lim=1.2, reach=0.5):
@@ -503,18 +563,10 @@ def phase_backward_kernels(torch):
         del acc, ref, acc_t, ref_t
 
     # B': one scene's 250 rays, proposal (65 points) and fine (61) levels;
-    # the loss reads rgb and both weight histograms
-    for s in (65, 61):
-        b = 250
-        fg_t = torch.sort(torch.rand(b, s, device=dev, generator=g), -1).values
-        bg_t = torch.sort(torch.rand(b, s, device=dev, generator=g), -1,
-                          descending=True).values
-        args = (torch.rand(b, s, 3, device=dev, generator=g),
-                torch.rand(b, s, 1, device=dev, generator=g) * 10, fg_t,
-                torch.rand(b, s, 3, device=dev, generator=g),
-                torch.rand(b, s, 1, device=dev, generator=g) * 10, bg_t,
-                torch.randn(b, 3, device=dev, generator=g),
-                fg_t[:, -1:] + torch.rand(b, 1, device=dev, generator=g))
+    # the neo360 step's 500 rays, its coarse (129) and merged fine (385)
+    # levels; the loss reads rgb and both weight histograms
+    for b, s in ((250, 65), (250, 61), (500, 129), (500, 385)):
+        args = _composite_args(torch, g, b, s)
         shapes = {"rgb": (b, 3), "fg_weights": (b, s), "bg_weights": (b, s)}
         grads = [torch.randn(shapes[k], device=dev, generator=g)
                  if k in shapes else None for k in OUT_KEYS]
@@ -529,32 +581,54 @@ def phase_backward_kernels(torch):
         # per sample and branch: rgb, sigma, t and one weight cotangent
         # read, d rgb and d sigma written; per ray: dirs, far and the rgb
         # cotangent read
-        _check("composite_nerfpp_bwd", f"B=250 S={s}", list(kernel()),
+        _check("composite_nerfpp_bwd", f"B={b} S={s}", list(kernel()),
                list(plain()), kernel, plain, torch, results, B_TOL,
                nbytes=4.0 * b * (2 * 10 * s + 7), ops=2 * 40.0 * b * s,
                main=s == 61)
 
-    # C': the grid latent of one scene
-    shape = (3, 64, 64, 32, 512)
-    args = [torch.randn(shape, device=dev, generator=g).to(bf16)] + [
-        (torch.randn(shape[:4], device=dev, generator=g) * 3).to(bf16)
-        for _ in range(3)]
-    cots = [torch.randn(s, device=dev, generator=g).to(bf16) for s in
-            ((3, 64, 32, 512), (3, 64, 32, 512), (3, 64, 64, 512))]
-    leaves = [a.detach().requires_grad_() for a in args]
-    floors = pillar_collapse_reference(*leaves)
-    plain = lambda: torch.autograd.grad(floors, leaves, cots,
-                                        retain_graph=True)
-    kernel = lambda: pillar_collapse_backward(args, cots)
-    cells = args[1].numel()
-    floor_elems = sum(c.numel() for c in cots)
-    # the latent, 3 logits and 3 floor cotangents read, d latent and 3 d
-    # logits written, bf16; per cell and floor ~4 C-wide multiply-adds
-    _check("pillar_collapse_bwd", "latent (3,64,64,32,512) bf16",
-           list(kernel()), list(plain()), kernel, plain, torch, results,
-           [C_TOL["latent"]] + [C_TOL["logit"][bf16]] * 3,
-           nbytes=2.0 * (2 * args[0].numel() + 6 * cells + floor_elems),
-           ops=3.0 * (args[0].numel() * 8 + cells * 8), main=True)
+    # A', dense contract, at the neo360 preset's f32 grid lift (the
+    # per-step trainer's one lift backward per step)
+    shape = (3, 121, 161, 2048)
+    u = uv(3, 64 ** 3, 1.5)
+    cot = torch.randn(3, 64 ** 3, 512, device=dev, generator=g)
+    t32 = torch.zeros(shape, device=dev, requires_grad=True)
+    fwd = table_sample_reference(t32, u, hw, "zeros", f32)
+    plain = lambda: torch.autograd.grad(fwd, t32, cot, retain_graph=True)[0]
+    kernel = lambda: table_sample_backward(cot, u, shape, f32, hw, "zeros")
+    _check("table_sample_bwd", "dense neo360 lift zeros f32 cotangent",
+           kernel(), plain(), kernel, plain, torch, results, A_TOL,
+           nbytes=cot.numel() * 4 + u.numel() * 4 + t32.numel() * 4,
+           ops=2.0 * cot.numel() * 4,
+           library_fn=_grid_sample_fns(torch, 512, f32, u, hw, "zeros", cot))
+    del fwd, t32, cot, u
+
+    # C': the grid latent of one scene, neo360_fast (bf16, Z = 32) and the
+    # neo360 preset (f32, Z = 64)
+    for dt, shape, main in ((bf16, (3, 64, 64, 32, 512), True),
+                            (f32, (3, 64, 64, 64, 512), False)):
+        nv, x, y, z, c = shape
+        args = [torch.randn(shape, device=dev, generator=g).to(dt)] + [
+            (torch.randn(shape[:4], device=dev, generator=g) * 3).to(dt)
+            for _ in range(3)]
+        cots = [torch.randn(s, device=dev, generator=g).to(dt) for s in
+                ((nv, y, z, c), (nv, x, z, c), (nv, x, y, c))]
+        leaves = [a.detach().requires_grad_() for a in args]
+        floors = pillar_collapse_reference(*leaves)
+        plain = lambda: torch.autograd.grad(floors, leaves, cots,
+                                            retain_graph=True)
+        kernel = lambda: pillar_collapse_backward(args, cots)
+        cells = args[1].numel()
+        floor_elems = sum(t.numel() for t in cots)
+        # the latent, 3 logits and 3 floor cotangents read, d latent and 3
+        # d logits written; per cell and floor ~4 C-wide multiply-adds
+        name = {bf16: "bf16", f32: "f32"}[dt]
+        _check("pillar_collapse_bwd", f"latent {shape} {name}",
+               list(kernel()), list(plain()), kernel, plain, torch, results,
+               [C_TOL["latent"]] + [C_TOL["logit"][dt]] * 3,
+               nbytes=args[0].element_size() * (2 * args[0].numel()
+                                                 + 6 * cells + floor_elems),
+               ops=3.0 * (args[0].numel() * 8 + cells * 8), main=main)
+        del args, cots, leaves, floors
     return results
 
 
@@ -577,9 +651,8 @@ def phase_small_train(torch):
     from neo360_tpu_torch.ops import kernels
     from neo360_tpu_torch.train import loop
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = _tiny_cfg(seed=SEED, stage_k=2, ray_batch_size=32)
+    cli.float32_matmuls(cfg, torch.device("cuda"))
     scenes = MemoryScenes(3, (40, 30), 3, split="train", ray_batch_size=32)
     stage = scenes.sample_train_stage(np.random.default_rng(SEED), 2, 2)
     runs = {}
@@ -768,6 +841,350 @@ def phase_train_main_path(torch):
     return launches, per_stage, seconds, peak
 
 
+def phase_small_neo360_step(torch):
+    """One tiny float32 per-step training step of the neo360 preset (grid
+    (8, 8, 40): kernel C's four z chunks; deterministic sampling) on the
+    card against the same step on the CPU, TF32 off: the loss, every
+    parameter's gradient and the BatchNorm buffers the step commits.
+
+    Tolerances: the loss 1e-5 relative; gradients 2e-3 of the largest entry
+    (the float32 conditioning of this loss, measured against the JAX
+    package in tests/test_torch_neo360_ref.py); BatchNorm buffers 1e-4
+    relative plus 1e-5 of the largest."""
+    import numpy as np
+
+    from neo360_tpu_torch import cli
+    from neo360_tpu_torch.config import preset
+    from neo360_tpu_torch.data.fixtures import MemoryScenes
+    from neo360_tpu_torch.ops import kernels
+    from neo360_tpu_torch.train import loop
+
+    cfg = preset("neo360", seed=SEED, grid_size=(8, 8, 40), encoder_width=64,
+                 num_coarse_samples=8, num_fine_samples=6, img_wh=(40, 30))
+    cli.float32_matmuls(cfg, torch.device("cuda"))
+    batch = MemoryScenes(2, (40, 30), 3, split="train", ray_batch_size=32
+                         ).sample_train(np.random.default_rng(SEED))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = cli.build_model(cfg, dev).train()
+        grads = []
+
+        class Record:   # keeps the step's gradients, changes nothing
+            def __init__(self, params):
+                pass
+
+            def step(self, gr):
+                grads.append([x.detach().cpu() for x in gr])
+
+        loss_fn = cli.make_loss_fn(cfg, model, randomized=False)
+        losses = []
+
+        def recorded(b, gen):
+            loss, metrics = loss_fn(b, gen)
+            losses.append(float(loss.detach()))
+            return loss, metrics
+
+        state = loop.create_train_state(model, Record)
+        step = loop.make_train_step(recorded, with_model_state=True)
+        step(state, {k: torch.as_tensor(batch[k], device=dev)
+                     for k in cli.STEP_KEYS}, None)
+        runs[dev] = (losses[0], grads[0],
+                     {k: v.detach().cpu() for k, v in
+                      model.named_buffers()})
+    (loss_c, g_c, bn_c), (loss_g, g_g, bn_g) = runs["cpu"], runs["cuda"]
+    scale = max(float(x.abs().max()) for x in g_c)
+    worst = max(float((a - b).abs().max()) / scale for a, b in zip(g_g, g_c))
+    bn_res = [kernels.compare(bn_g[k], bn_c[k], rtol=1e-4, atol_frac=1e-5)
+              for k in sorted(bn_c)]
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    print(f"[small-neo360] per-step f32 step, grid (8,8,40), card vs CPU: "
+          f"loss rel {loss_rel:.3e} (tolerance 1e-5), gradients max "
+          f"{worst:.3e} of the largest entry (tolerance 2e-3), BatchNorm "
+          f"buffers max rel {max(r['max_rel'] for r in bn_res):.3e} "
+          f"({len(bn_c)} buffers)")
+    if not (loss_rel <= 1e-5 and worst <= 2e-3
+            and all(r["ok"] for r in bn_res)):
+        raise AssertionError("the neo360 step on the card disagrees with the "
+                             "CPU")
+
+
+# the neo360 phase: calls of one per-step training step each through
+# cli.run_train (call 0 warms up, the last runs under the profiler)
+NEO_STEPS = 10
+
+
+def _neo360_step_launches(remat: bool) -> dict:
+    """Kernel launches of one neo360 per-step training step, from the
+    code: the encode samples the lift table once (kernel A; once more when
+    the backward recomputes the remat'ed grid part) and collapses the
+    pillars once (C); each of the two conditioned levels samples the 3
+    plane tables and its local table (A x 4) and composites once (B); the
+    backward scatters every table gradient under the dense contract (A',
+    one per A launch of the forward: the recompute's gradient is the
+    forward's), and runs C' once and B' once per level."""
+    return {"table_sample_fwd": 1 + int(remat) + 2 * 4,
+            "table_sample_bwd": 1 + 2 * 4, "table_sample_bwd_acc": 0,
+            "composite_nerfpp_fwd": 2, "composite_nerfpp_bwd": 2,
+            "pillar_collapse_fwd": 1, "pillar_collapse_bwd": 1}
+
+
+def phase_neo360_main_path(torch):
+    """The neo360 preset at full width (conditioned coarse level, 128 +
+    256 merged samples, grid 64^3, 512-channel lift, float32, the grid part
+    recomputed in the backward), random seeded weights, 3 in-memory
+    320x240 fixture scenes:
+    - `cli.run_train` with the per-step trainer (stage_k 0), NEO_STEPS
+      calls of one 500-ray step (call 0 warms up and is reported apart, the
+      last runs under torch.profiler), then its validation render and
+      checkpoint; every step launches the kernels `_neo360_step_launches`
+      says, every loss is finite and every parameter and BatchNorm buffer
+      moves (apart from the zero-gradient leaves);
+    - the trained model encodes one scene (timed alone) and renders 2
+      views through cli.make_render_fn at the CLI's 256-ray tiles, the
+      second with the encode cached; 16 tiles of a third run under the
+      profiler;
+    - run_train turns TF32 off for this float32 model (it is switched on
+      before the call);
+    - models with and without the recompute, one step each in turn
+      (on, off, on, off after a warm-up step each), for their step times
+      and peak memory.
+    Returns the path's launches (training and rendering), per training
+    step and per view."""
+    import gc
+
+    import numpy as np
+
+    from neo360_tpu_torch import cli
+    from neo360_tpu_torch.config import preset
+    from neo360_tpu_torch.data.fixtures import MemoryScenes
+    from neo360_tpu_torch.models import neo360
+    from neo360_tpu_torch.train import loop
+    from neo360_tpu_torch.train.eval import evaluate
+
+    dev = "cuda"
+    fns = counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = preset("neo360", seed=SEED, run_max_steps=NEO_STEPS,
+                     steps_per_call=1, save_every_steps=NEO_STEPS,
+                     log_every_steps=1, ckpt_dir=tmp, device=dev)
+        print(f"[neo360] {cfg.exp_type}: img_wh {cfg.img_wh}, bf16 "
+              f"{cfg.bf16}, stage_k {cfg.stage_k} (per-step trainer), "
+              f"{cfg.ray_batch_size} rays/step, {NEO_STEPS} steps, grid "
+              f"{cfg.grid_size or (64, 64, 64)}, lift 512, "
+              f"{cfg.num_coarse_samples or 128} + "
+              f"{cfg.num_fine_samples or 256} samples, remat "
+              f"{cfg.remat_encoder is not False}, chunk {cfg.chunk}")
+        datasets = tuple(MemoryScenes(3, cfg.img_wh, cfg.num_src_views,
+                                      split=split,
+                                      ray_batch_size=cfg.ray_batch_size)
+                         for split in ("train", "val"))
+        before = cli.build_model(cfg, "cpu").state_dict()
+        losses, seconds, per_call, peaks = [], [], [], []
+        plain_loss = neo360.neo360_coarse_fine_loss
+        plain_factory = loop.make_staged_trainer
+
+        def recorded_loss(out, target):
+            loss, l1 = plain_loss(out, target)
+            losses.append(loss.detach())
+            return loss, l1
+
+        def timed_factory(step_fn):
+            run = plain_factory(step_fn)
+
+            def timed(*args):
+                start = _read(fns)
+                if len(per_call) == NEO_STEPS - 1:     # the last: profiled
+                    box = []
+                    _profile(torch, lambda: box.append(run(*args)),
+                             "neo360 training step (500 rays)")
+                    metrics = box[0]
+                else:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    metrics = run(*args)
+                    torch.cuda.synchronize()
+                    seconds.append(time.perf_counter() - t)
+                peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+                end = _read(fns)
+                per_call.append({k: end[k] - start[k] for k in end})
+                return metrics
+            return timed
+
+        for fn in fns.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        neo360.neo360_coarse_fine_loss = recorded_loss
+        loop.make_staged_trainer = timed_factory
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            t0 = time.perf_counter()
+            state = cli.run_train(cfg, datasets=datasets)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            neo360.neo360_coarse_fine_loss = plain_loss
+            loop.make_staged_trainer = plain_factory
+        if (torch.backends.cuda.matmul.allow_tf32
+                or torch.backends.cudnn.allow_tf32):
+            raise AssertionError("run_train left TF32 on for a float32 model")
+        with open(os.path.join(tmp, "exp", "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        ckpts = sorted(os.listdir(os.path.join(tmp, "exp", "checkpoints")))
+        raw = torch.load(os.path.join(tmp, "exp", "checkpoints",
+                                      f"ckpt_{NEO_STEPS:08d}.pt"),
+                         map_location="cpu", weights_only=True)
+
+    values = torch.stack(losses).float().cpu().numpy()
+    steady = seconds[1:]
+    print(f"[neo360] train call 0 (warm-up): {seconds[0]:.3f} s; steady "
+          f"s/step over {len(steady)} steps: median "
+          f"{statistics.median(steady):.3f} (min {min(steady):.3f}, max "
+          f"{max(steady):.3f}), "
+          f"{cfg.ray_batch_size / statistics.median(steady):.0f} "
+          f"train rays/s; peak device memory of the training steps "
+          f"{max(peaks):.2f} GiB (remat on)")
+    print(f"[neo360] run_train wall {wall:.3f} s (model build, {NEO_STEPS} "
+          f"steps, one under the profiler, validation render, checkpoint); "
+          f"losses first {values[0]:.4f}, last {values[-1]:.4f}; "
+          f"metrics.jsonl val {[r for r in records if 'val_psnr' in r]}; "
+          f"checkpoints {ckpts} (layout {sorted(raw)})")
+    if len(values) != NEO_STEPS or not np.isfinite(values).all():
+        raise AssertionError(f"non-finite or missing losses: {values}")
+    if state.step != NEO_STEPS or "params" not in raw or not any(
+            "val_psnr" in r and np.isfinite(r["val_psnr"]) for r in records):
+        raise AssertionError(f"run_train did not validate and checkpoint at "
+                             f"step {NEO_STEPS}")
+    want = _neo360_step_launches(remat=True)
+    print(f"[neo360] launches per training step: {per_call}; expected "
+          f"{want}")
+    if any(n != want for n in per_call):
+        raise AssertionError(f"neo360 launches per step {per_call}, "
+                             f"expected {want}")
+    after = {k: v.detach().cpu() for k, v in
+             state.model.state_dict().items()}
+    still = [k for k, v in before.items()
+             if torch.equal(v, after[k]) and not ZERO_GRAD.search(k)]
+    print(f"[neo360] {len(before)} parameter and buffer tensors; unchanged: "
+          f"{still}")
+    if still:
+        raise AssertionError(f"tensors the neo360 training did not move: "
+                             f"{still}")
+    train_launches = _read(fns)
+
+    # serving: the trained weights, one scene encoded once
+    model = state.model.eval()
+    scenes = MemoryScenes(1, cfg.img_wh, cfg.num_src_views)
+    samples = [dict(scenes.sample_test(0, d), scene_key=0) for d in range(3)]
+    src = {k: torch.as_tensor(samples[0][k], device=dev)
+           for k in cli.SRC_KEYS}
+    with torch.inference_mode():
+        model.encode(*(src[k] for k in cli.SRC_KEYS), True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.encode(*(src[k] for k in cli.SRC_KEYS), True)
+        torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    render_fn = cli.make_render_fn(cfg, model, dev)
+    for fn in fns.values():
+        fn.launches = 0
+    per_view, view_s = [], []
+
+    def timed(sample):
+        start = _read(fns)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = render_fn(sample)
+        torch.cuda.synchronize()
+        view_s.append(time.perf_counter() - t)
+        end = _read(fns)
+        per_view.append({k: end[k] - start[k] for k in end})
+        w, h = cfg.img_wh
+        for k, v in out.items():
+            if v.shape[0] != w * h or not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"neo360 output {k}: shape "
+                                     f"{tuple(v.shape)} or non-finite")
+        return out
+
+    views = list(evaluate(timed, samples[:2], cfg.img_wh))
+    render_launches = _read(fns)
+    tiles = -(-cfg.img_wh[0] * cfg.img_wh[1] // cfg.chunk)
+    print(f"[neo360] encode {encode_s:.3f} s; view 0 encode + render "
+          f"{view_s[0]:.3f} s, view 1 render {view_s[1]:.3f} s/view (encode "
+          f"cached, {tiles} tiles of {cfg.chunk} rays); PSNR / SSIM "
+          f"{[(round(v.psnr, 3), round(v.ssim, 4)) for v in views]}; "
+          f"launches per view {per_view}")
+    for v in views:
+        if not (np.isfinite(v.psnr) and np.isfinite(v.rgb).all()
+                and np.isfinite(v.depth).all()):
+            raise AssertionError("neo360 view: non-finite output or metrics")
+    # per tile both levels sample 4 tables (A) and composite (B); the
+    # first view also encodes (A once for the lift, C once)
+    want = [{"table_sample_fwd": 8 * tiles + 1, "composite_nerfpp_fwd":
+             2 * tiles, "pillar_collapse_fwd": 1},
+            {"table_sample_fwd": 8 * tiles, "composite_nerfpp_fwd":
+             2 * tiles, "pillar_collapse_fwd": 0}]
+    got = [{k: n[k] for k in want[0]} for n in per_view]
+    if got != want:
+        raise AssertionError(f"neo360 launches per view {got}, expected "
+                             f"{want}")
+    part = dict(samples[2], **{k: samples[2][k][:16 * cfg.chunk]
+                              for k in cli.RAY_KEYS})
+    _profile(torch, lambda: render_fn(part),
+             f"neo360 render, 16 tiles of {cfg.chunk} rays (encode cached)")
+
+    # the recompute's cost: a model with it and one without, both resident,
+    # the same batches, a warm-up step each, then steps in turn on, off,
+    # on, off; the peak is reset before each step
+    del state, model, render_fn, views
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED)
+    batches = [{k: torch.as_tensor(v, device=dev)[None] for k, v in
+                datasets[0].sample_train(rng).items() if k in cli.STEP_KEYS}
+               for _ in range(3)]
+    runs = {}
+    for remat in (True, False):
+        c = cfg.replace(remat_encoder=remat)
+        model = cli.build_model(c, dev).train()
+        runs[remat] = (*cli._per_step_runner(c, model),
+                       torch.Generator(dev).manual_seed(SEED))
+    del model
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    step_s = {True: [], False: []}
+    step_peak = {True: [], False: []}
+    for i in range(3):
+        for remat in (True, False):
+            st, staged, gen = runs[remat]
+            counts = _read(fns)
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            staged(st, batches[i], gen)
+            torch.cuda.synchronize()
+            step_s[remat].append(time.perf_counter() - t)
+            step_peak[remat].append(torch.cuda.max_memory_allocated()
+                                    / 2 ** 30)
+            n = _read(fns)
+            got = {k: n[k] - counts[k] for k in n}
+            if got != _neo360_step_launches(remat=remat):
+                raise AssertionError(f"neo360 launches with remat {remat}: "
+                                     f"{got}")
+    for remat in (True, False):
+        print(f"[neo360] remat {'on' if remat else 'off'}: steps "
+              f"{[round(x, 4) for x in step_s[remat][1:]]} s (warm-up "
+              f"{step_s[remat][0]:.3f} s), peak device memory "
+              f"{max(step_peak[remat]):.2f} GiB (both models resident: "
+              f"{resident:.2f} GiB)")
+    del runs, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: train_launches[k] + render_launches[k]
+                for k in train_launches}
+    return launches, per_call, per_view
+
+
 def _tiny_cfg(**kw):
     from neo360_tpu_torch.config import preset
     return preset("neo360_fast", bf16=False, grid_size=(8, 8, 4),
@@ -781,9 +1198,8 @@ def phase_small_reference(torch):
     from neo360_tpu_torch.data.fixtures import MemoryScenes
     from neo360_tpu_torch.ops import kernels
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = _tiny_cfg(seed=SEED)
+    cli.float32_matmuls(cfg, torch.device("cuda"))
     sample = dict(MemoryScenes(1, (40, 30)).sample_test(0, 0), scene_key=0)
     outs = {}
     for dev in ("cpu", "cuda"):
@@ -891,18 +1307,40 @@ def main() -> int:
               f"script ({e})", file=sys.stderr)
         return 2
 
+    t0 = time.perf_counter()
+
+    def done(phase):
+        print(f"[time] {phase} done at {time.perf_counter() - t0:.1f} s")
+
     phase_card(torch)
     phase_build()
+    done("build")
     checks = phase_kernels(torch) + phase_backward_kernels(torch)
+    done("kernels")
     phase_small_reference(torch)
     phase_small_train(torch)
+    phase_small_neo360_step(torch)
+    done("small card-vs-CPU checks")
     launches, per_stage, _, _ = phase_train_main_path(torch)
+    done("neo360_fast training")
     from neo360_tpu_torch.config import preset
-    _, per_view = phase_main_path(torch, preset("neo360_fast", seed=SEED))
+    serve_launches, per_view = phase_main_path(
+        torch, preset("neo360_fast", seed=SEED))
+    done("neo360_fast serving")
+    neo_launches, neo_per_step, neo_per_view = phase_neo360_main_path(torch)
+    done("neo360 training and serving")
 
     # launches per steady training stage (the second) and per rendered
-    # view with the encode cached (the second view)
+    # view with the encode cached (the second view); the line's launches
+    # sum the three main paths (neo360_fast training and serving, neo360
+    # training and serving), each counted from 0
     steady = _by_kernel(per_stage[1])
+    neo_step, neo_view = _by_kernel(neo_per_step[1]), neo_per_view[1]
+    total = _by_kernel(launches)
+    for k, n in serve_launches.items():
+        total[k] += n
+    for k, n in _by_kernel(neo_launches).items():
+        total[k] += n
     print(f"[kernel] launches: A' per stage dense "
           f"{per_stage[1]['table_sample_bwd']}, accumulate "
           f"{per_stage[1]['table_sample_bwd_acc']}")
@@ -910,8 +1348,10 @@ def main() -> int:
     for name, (source, replaces) in KERNELS.items():
         rows = [r for r in checks if r["name"] == name]
         main = next((r for r in rows if r["main"]), rows[0])
-        print(f"[kernel] {name}: {steady[name]} launches per training "
-              f"stage, {per_view[1].get(name, 0)} per rendered view; "
+        print(f"[kernel] {name}: neo360_fast {steady[name]} launches per "
+              f"training stage, {per_view[1].get(name, 0)} per rendered "
+              f"view; neo360 {neo_step[name]} per training step, "
+              f"{neo_view.get(name, 0)} per rendered view; "
               f"{main['case']}: {main['ms']:.4f} ms (device "
               f"{main['device_ms']:.4f} ms), bound {main['bound_ms']:.4f} ms "
               f"({main['bound_by']}), share "
@@ -919,7 +1359,7 @@ def main() -> int:
               f"{_share(main['bound_ms'], main['device_ms'])})")
         entries.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
-                        "launches": _by_kernel(launches)[name],
+                        "launches": total[name],
                         "max_abs_err": max(r["max_abs"] for r in rows),
                         "ms": main["ms"], "device_ms": main["device_ms"],
                         "plain_ms": main["plain_ms"],

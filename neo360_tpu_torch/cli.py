@@ -1,23 +1,39 @@
-"""Command-line runner for the port (neo360_tpu/cli.py, `neo360_fast`).
+"""Command-line runner for the port (neo360_tpu/cli.py; the `neo360` and
+`neo360_fast` presets).
 
 Usage:
+    python -m neo360_tpu_torch.cli --exp_type neo360 --root_dir <scenes>
     python -m neo360_tpu_torch.cli --exp_type neo360_fast --root_dir <scenes>
-    python -m neo360_tpu_torch.cli --exp_type neo360_fast --root_dir <scenes> \
+    python -m neo360_tpu_torch.cli --exp_type neo360 --root_dir <scenes> \
         --eval_mode full_eval [--ckpt_path model.pt|ckpt_*.pt|variables.npz]
 
-Without --eval_mode it trains with the scene-mixed, encode-once stage
-trainer (K=32 steps per stage, S=2 scenes per step): metrics go to
+`neo360` (alias `triplanar_nocs_fusion_conv_scene`) is the reference
+model: a conditioned coarse level, 128 + 256 merged samples, the 64^3 grid
+with the 512-channel lift, float32. `neo360_fast` is the proposal model
+(bf16, grid (64,64,32), lift 128).
+
+Without --eval_mode it trains. With --stage_k <= 1 (the `neo360` preset)
+the per-step trainer encodes the source views every step and takes one
+Adam step with one global clip over all parameters; with --stage_k > 1
+(the `neo360_fast` preset: K=32 steps per stage, S=2 scenes per step; for
+either model) the scene-mixed, encode-once stage trainer runs, after
+--stage_warmup_steps per-step steps if asked. Metrics go to
 <ckpt_dir>/<exp_name>/metrics.jsonl, checkpoints to
-<ckpt_dir>/<exp_name>/checkpoints/, and a run resumes from the newest one.
+<ckpt_dir>/<exp_name>/checkpoints/, and a run resumes from the newest
+one (a checkpoint of the other trainer's layout raises);
+--ckpt_path warm-starts the weights (parameters and BatchNorm buffers)
+from another run's checkpoint of either layout or a JAX npz, with a fresh
+optimizer at step 0.
 With --eval_mode full_eval it renders every test view of every scene under
 root_dir: each scene's source stack is encoded once, then views are
 rendered in `--chunk`-ray tiles; PSNR / SSIM (+ object PSNR) go to
 <ckpt_dir>/<exp_name>/results.json and images to .../<render_name>/.
 Eval weights come from --ckpt_path (a port state_dict, a training
-checkpoint or a JAX-exported npz, neo360_tpu/utils/io.py:
+checkpoint of either layout or a JAX-exported npz, neo360_tpu/utils/io.py:
 save_variables_npz, converted by weights.py), else <exp_dir>/model.pt,
 else the newest training checkpoint, else a seeded random init (with a
-warning). Both run on --device (default cuda) and raise when it is absent.
+warning). Both run on --device (default cuda) and raise when it is absent;
+a float32 model on the card runs with TF32 off.
 """
 
 from __future__ import annotations
@@ -31,10 +47,14 @@ import torch
 
 from neo360_tpu_torch import weights
 from neo360_tpu_torch.config import Config, preset
+from neo360_tpu_torch.train.loop import TrainState
 
 SRC_KEYS = ("src_imgs", "src_poses", "src_focal", "src_c")
 RAY_KEYS = ("rays_o", "rays_d", "viewdirs")
 STAGE_RAY_KEYS = ("rays_o", "rays_d", "viewdirs", "target")
+# one per-step training batch: a sample_train draw (neo360_tpu/cli.py:
+# RAY_KEYS_FEWSHOT + target)
+STEP_KEYS = RAY_KEYS + SRC_KEYS + ("target",)
 
 
 def parse_args(argv=None) -> Config:
@@ -101,23 +121,52 @@ def resolve_device(cfg: Config, device=None) -> torch.device:
     return dev
 
 
+def float32_matmuls(cfg: Config, device: torch.device) -> None:
+    """For a float32 config on a CUDA device, turn TF32 off for matmuls
+    and convolutions (process-wide), so they round as the CPU computes
+    them, and say so. run_train and run_eval call it once."""
+    if device.type == "cuda" and not cfg.bf16:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(f"{cfg.exp_type}: float32 on {device}, TF32 off for matmuls "
+              f"and convolutions")
+
+
 def build_model(cfg: Config, device=None):
-    """The `neo360_fast` NeRFTP on `device` (default cfg.device, see
-    `resolve_device`), initialised from cfg.seed."""
-    if cfg.exp_type != "neo360_fast":
+    """The `neo360` or `neo360_fast` NeRFTP on `device` (default
+    cfg.device, see `resolve_device`), initialised from cfg.seed.
+
+    neo360 (neo360_tpu/cli.py:117-124): the conditioned coarse level,
+    cfg.num_coarse_samples or 128 coarse and cfg.num_fine_samples or 256
+    fine samples, grid cfg.grid_size or (64, 64, 64), the encoder's grid
+    part recomputed in the backward unless cfg.remat_encoder is False.
+    neo360_fast: the proposal level, 64 proposal and cfg.num_fine_samples
+    or 64 fine samples, grid (64, 64, 32), no recompute. Compute is bf16
+    with cfg.bf16, else float32 (see `float32_matmuls` for TF32)."""
+    if cfg.exp_type not in ("neo360", "neo360_fast"):
         raise NotImplementedError(
-            f"exp_type {cfg.exp_type!r}: only neo360_fast is ported")
+            f"exp_type {cfg.exp_type!r}: only neo360 and neo360_fast are "
+            f"ported")
     device = resolve_device(cfg, device)
     from neo360_tpu_torch.models.neo360 import NeRFTP
     size = {k: v for k, v in (("encoder_width", cfg.encoder_width),)
             if v is not None}
+    if cfg.exp_type == "neo360":
+        size.update(use_proposal=False,
+                    num_coarse_samples=cfg.num_coarse_samples or 128,
+                    num_fine_samples=cfg.num_fine_samples or 256,
+                    grid_size=tuple(cfg.grid_size or (64, 64, 64)),
+                    remat_encoder=cfg.remat_encoder is not False)
+    else:
+        size.update(use_proposal=True,
+                    num_prop_samples=cfg.num_prop_samples or 64,
+                    num_fine_samples=cfg.num_fine_samples or 64,
+                    grid_size=tuple(cfg.grid_size or (64, 64, 32)),
+                    remat_encoder=False)
     model = NeRFTP(
         num_src_views=cfg.num_src_views,
         compute_dtype=torch.bfloat16 if cfg.bf16 else torch.float32,
-        num_prop_samples=cfg.num_prop_samples or 64,
-        num_fine_samples=cfg.num_fine_samples or 64,
         lift_dim=cfg.lift_dim,
-        grid_size=tuple(cfg.grid_size or (64, 64, 32)),
         generator=torch.Generator().manual_seed(cfg.seed), **size)
     return model.to(device).eval()
 
@@ -167,12 +216,24 @@ def make_render_fn(cfg: Config, model, device=None):
     return render_fn
 
 
+def load_weights(model, path: str) -> None:
+    """Load `path` into `model`: a `.npz` is a JAX export
+    (weights.from_flax_flat), a training checkpoint of either trainer gives
+    its parameters and BatchNorm buffers, anything else is a port
+    state_dict. Raises on any key that does not fit."""
+    if path.endswith(".npz"):
+        sd = weights.from_flax_flat(weights.load_variables_npz(path))
+    else:
+        sd = weights.from_checkpoint(
+            torch.load(path, map_location="cpu", weights_only=True))
+    weights.load_into(model, sd)
+
+
 def restore(cfg: Config, model, exp_dir: str) -> Optional[str]:
-    """Load weights into `model` from cfg.ckpt_path, else <exp_dir>/model.pt,
-    else the newest training checkpoint in <exp_dir>/checkpoints: a `.npz`
-    is a JAX export (weights.from_flax_flat), a training checkpoint gives
-    its merged partitions and BatchNorm buffers, anything else is a port
-    state_dict. Returns the path loaded, or None (random init)."""
+    """Load weights into `model` (`load_weights`) from cfg.ckpt_path, else
+    <exp_dir>/model.pt, else the newest training checkpoint in
+    <exp_dir>/checkpoints. Returns the path loaded, or None (random
+    init)."""
     from neo360_tpu_torch.train.checkpoints import CheckpointManager
     path = cfg.ckpt_path or os.path.join(exp_dir, "model.pt")
     if not os.path.exists(path):
@@ -182,20 +243,21 @@ def restore(cfg: Config, model, exp_dir: str) -> Optional[str]:
         if mgr.latest_step() is None:
             return None
         path = mgr.path(mgr.latest_step())
-    if path.endswith(".npz"):
-        sd = weights.from_flax_flat(weights.load_variables_npz(path))
-    else:
-        sd = weights.from_checkpoint(
-            torch.load(path, map_location="cpu", weights_only=True))
-    weights.load_into(model, sd)
+    load_weights(model, path)
     return path
 
 
 def run_eval(cfg: Config, device=None) -> Dict[str, float]:
     from neo360_tpu_torch.data.nerds360_ae import NeRDS360AE
     from neo360_tpu_torch.train.eval import evaluate_and_save
+    from neo360_tpu_torch.train.pipeline import prefetch_to_device
 
+    if cfg.lpips_weights:
+        raise NotImplementedError("--lpips_weights: LPIPS is not ported "
+                                  "(ROADMAP Queue 1, optimize and finetune "
+                                  "modes)")
     device = resolve_device(cfg, device)
+    float32_matmuls(cfg, device)
     model = build_model(cfg, device)
     exp_dir = os.path.join(cfg.ckpt_dir, cfg.exp_name)
     loaded = restore(cfg, model, exp_dir)
@@ -210,11 +272,14 @@ def run_eval(cfg: Config, device=None) -> Dict[str, float]:
     samples = (dict(test_ds.sample_test(s, d), scene_key=s)
                for s in range(len(test_ds.scene_ids))
                for d in range(test_ds.num_test_views(s)))
-    summary = evaluate_and_save(
-        render_fn, samples, cfg.img_wh,
-        os.path.join(exp_dir, cfg.render_name),
-        results_json=os.path.join(exp_dir, "results.json"),
-        extra={"eval_bn_mode": cfg.eval_bn_mode})
+    # each view's rays and target are made on a worker thread while the
+    # previous view renders; render_fn places them on the device
+    with prefetch_to_device(samples, size=2, device=None) as samples:
+        summary = evaluate_and_save(
+            render_fn, samples, cfg.img_wh,
+            os.path.join(exp_dir, cfg.render_name),
+            results_json=os.path.join(exp_dir, "results.json"),
+            extra={"eval_bn_mode": cfg.eval_bn_mode})
     print("eval summary:", summary)
     return summary
 
@@ -225,57 +290,156 @@ def _check_train_mode(cfg: Config) -> None:
         ("--is_optimize", cfg.is_optimize),
         ("--finetune_lpips", cfg.finetune_lpips),
         ("--lpips_weights", cfg.lpips_weights),
-        ("--resnet_weights", cfg.resnet_weights),
-        ("--stage_warmup_steps > 0", cfg.stage_warmup_steps > 0),
-        ("--stage_k <= 1 (the per-step trainer)", cfg.stage_k <= 1)) if on]
+        ("--resnet_weights", cfg.resnet_weights)) if on]
     if unported:
-        raise NotImplementedError(f"not ported: {', '.join(unported)}; the "
-                                  f"port trains neo360_fast with the scene-"
-                                  f"stage trainer only")
-    if cfg.ray_batch_size % cfg.stage_scenes:
+        raise NotImplementedError(f"not ported: {', '.join(unported)} "
+                                  f"(ROADMAP Queue 1, optimize and finetune "
+                                  f"modes)")
+    if cfg.stage_k > 1 and cfg.ray_batch_size % cfg.stage_scenes:
         raise ValueError(f"ray_batch_size {cfg.ray_batch_size} must divide "
                          f"by stage_scenes {cfg.stage_scenes}")
 
 
+def _cpu(tensors: Dict) -> Dict:
+    return {k: v.detach().cpu() for k, v in tensors.items()}
+
+
 def checkpoint_payload(state) -> Dict:
-    """Both parameter partitions, both Adam states, the step and the
-    BatchNorm buffers of a SceneStageState, on the CPU."""
-    cpu = lambda d: {k: v.detach().cpu() for k, v in d.items()}
-    return {"step": state.step, "enc_params": cpu(state.enc_params),
-            "ray_params": cpu(state.ray_params),
-            "batch_stats": cpu(dict(state.model.named_buffers())),
-            "enc_opt": state.enc_opt.state_dict(),
-            "ray_opt": state.ray_opt.state_dict()}
+    """The checkpoint of either trainer's state, on the CPU: the step, the
+    BatchNorm buffers and, for a TrainState (the per-step trainer), all
+    parameters and the one Adam state; for a SceneStageState both
+    parameter partitions and both Adam states."""
+    out = {"step": state.step,
+           "batch_stats": _cpu(dict(state.model.named_buffers()))}
+    if isinstance(state, TrainState):
+        out.update(params=_cpu(state.params), opt=state.opt.state_dict())
+    else:
+        out.update(enc_params=_cpu(state.enc_params),
+                   ray_params=_cpu(state.ray_params),
+                   enc_opt=state.enc_opt.state_dict(),
+                   ray_opt=state.ray_opt.state_dict())
+    return out
 
 
 def resume(ckpt, state) -> int:
     """Load the newest checkpoint of `ckpt` into `state`; returns its step
-    (0 without one)."""
+    (0 without one). A checkpoint written by the other trainer raises, as
+    the JAX CLI's restore does (neo360_tpu/cli.py:529-550)."""
     raw = ckpt.restore()
     if raw is None:
         return 0
+    keys = ("params", "opt") if isinstance(state, TrainState) else (
+        "enc_params", "ray_params", "enc_opt", "ray_opt")
+    missing = [k for k in keys if k not in raw]
+    if missing:
+        raise ValueError(
+            f"failed to restore checkpoint at step {raw['step']}: "
+            f"KeyError: {missing}\n"
+            f"If the error is a tree-structure mismatch, the likely cause "
+            f"is a trainer-layout change — resuming a per-step run with "
+            f"--stage_k (or vice versa) is not supported; start a fresh "
+            f"exp_name or keep the original trainer flags.")
     weights.load_into(state.model, weights.from_checkpoint(raw))
-    state.enc_opt.load_state_dict(raw["enc_opt"])
-    state.ray_opt.load_state_dict(raw["ray_opt"])
+    if isinstance(state, TrainState):
+        state.opt.load_state_dict(raw["opt"])
+    else:
+        state.enc_opt.load_state_dict(raw["enc_opt"])
+        state.ray_opt.load_state_dict(raw["ray_opt"])
     state.step = int(raw["step"])
     print(f"resumed from checkpoint step {state.step}")
     return state.step
 
 
+def make_loss_fn(cfg: Config, model, randomized: bool = True):
+    """loss_fn(batch, generator) -> (loss, {"mse", "psnr"}) of the
+    per-step trainer (neo360_tpu/cli.py:257-301, without LPIPS and cached
+    pixel latents): the batch's source views are encoded with BatchNorm in
+    training mode, its rays rendered with randomized sampling drawn from
+    `generator` (deterministic sampling if not `randomized`), and the loss
+    is the model's: l0 + l1 + distortion for neo360, l1 + interlevel +
+    distortion for neo360_fast."""
+    from neo360_tpu_torch.models.neo360 import RAY_KEYS as MODEL_RAY_KEYS
+    from neo360_tpu_torch.models.neo360 import SRC_KEYS as MODEL_SRC_KEYS
+    from neo360_tpu_torch.models.neo360 import training_loss
+    from neo360_tpu_torch.ops.losses import mse2psnr
+
+    def loss_fn(batch, generator):
+        enc = model.encode(*(batch[k] for k in MODEL_SRC_KEYS), True)
+        rays = {k: batch[k] for k in MODEL_RAY_KEYS + MODEL_SRC_KEYS}
+        out = model(rays, enc, cfg.white_back, randomized=randomized,
+                    generator=generator)
+        loss, l1 = training_loss(model, out, batch["target"])
+        l1 = l1.detach()
+        return loss, {"mse": l1, "psnr": mse2psnr(l1)}
+
+    return loss_fn
+
+
+def _maybe_warm_start(cfg: Config, model) -> None:
+    """--ckpt_path in training (neo360_tpu/cli.py:977-1002): splice the
+    parameters and BatchNorm buffers of another run's checkpoint (either
+    trainer's layout, or a port state_dict) or of a JAX npz into the fresh
+    model. The optimizer state and the step start fresh."""
+    if not cfg.ckpt_path:
+        return
+    if not os.path.exists(cfg.ckpt_path):
+        raise FileNotFoundError(f"--ckpt_path {cfg.ckpt_path}: no checkpoint "
+                                f"found for warm start")
+    load_weights(model, cfg.ckpt_path)
+    print(f"warm-started parameters and BatchNorm buffers from "
+          f"{cfg.ckpt_path}")
+
+
+def _per_step_runner(cfg: Config, model):
+    """(TrainState, staged runner) of the per-step trainer: one Adam with
+    one global clip over every parameter, BatchNorm statistics committed
+    once per step."""
+    from neo360_tpu_torch.train import loop as tl
+    step_fn = tl.make_train_step(make_loss_fn(cfg, model),
+                                 with_model_state=True)
+    state = tl.create_train_state(model,
+                                  lambda params: build_optimizer(cfg, params))
+    return state, tl.make_staged_trainer(step_fn)
+
+
+def _run_warmup(cfg: Config, model, train_ds, device, logger) -> int:
+    """--stage_warmup_steps (neo360_tpu/cli.py:822-857): the per-step
+    trainer for ceil(stage_warmup_steps / per) calls of `per` =
+    min(steps_per_call, stage_warmup_steps) steps before the first stage,
+    its own Adam state, samples from seed + 7 and draws from seed + 9; the
+    stage trainer then starts from the warmed weights with fresh optimizer
+    states. Returns the steps done."""
+    from neo360_tpu_torch.train import loop as tl
+    from neo360_tpu_torch.train.pipeline import to_device
+    per = max(1, min(cfg.steps_per_call, cfg.stage_warmup_steps))
+    n_calls = -(-cfg.stage_warmup_steps // per)
+    state, staged = _per_step_runner(cfg, model)
+    rng = np.random.default_rng(cfg.seed + 7)
+    generator = torch.Generator(device).manual_seed(cfg.seed + 9)
+    for _ in range(n_calls):
+        samples = [train_ds.sample_train(rng) for _ in range(per)]
+        metrics = staged(state, to_device(
+            tl.stack_batches(samples, STEP_KEYS), device), generator)
+        logger.log(state.step, {k: float(v) for k, v in metrics.items()})
+    print(f"stage warmup: {state.step} per-step-encode steps done")
+    return state.step
+
+
 def run_train(cfg: Config, device=None, datasets=None):
-    """Train `neo360_fast` with the scene-mixed, encode-once stage trainer
-    (the stage branch of neo360_tpu/cli.py:run_train, 575-819).
+    """Train (the few-shot branch of neo360_tpu/cli.py:run_train, 575-819).
 
-    Each iteration runs `stage_size` steps as n_stages stages of stage_k
-    steps (stage_size: min(steps_per_call, save_every_steps, run_max_steps)
-    rounded down to a multiple of stage_k); it logs when the step count
-    crosses a multiple of log_every_steps, and validates (view 0 of scene
-    0's held-out tail), logs the val grid and checkpoints when it crosses
-    a multiple of save_every_steps. `datasets`: (train, val) samplers to
-    use instead of NeRDS360AE over cfg.root_dir. Returns the
+    With stage_k <= 1 the per-step trainer runs `stage_size` steps per
+    call (stage_size: min(steps_per_call, save_every_steps,
+    run_max_steps)), each on one `sample_train` draw; with stage_k > 1 the
+    scene-mixed encode-once stage trainer runs stage_size (rounded down to
+    a multiple of stage_k) steps per call as n_stages stages, after
+    `_run_warmup` when stage_warmup_steps > 0 and there is no checkpoint
+    yet. Each call logs when the step count crosses a multiple of
+    log_every_steps, and validates (view 0 of scene 0's held-out tail),
+    logs the val grid and checkpoints when it crosses a multiple of
+    save_every_steps. `datasets`: (train, val) samplers to use instead of
+    NeRDS360AE over cfg.root_dir. Returns the TrainState or
     SceneStageState."""
-    import numpy as np
-
     from neo360_tpu_torch.data.nerds360_ae import NeRDS360AE
     from neo360_tpu_torch.models.neo360 import SRC_KEYS as MODEL_SRC_KEYS
     from neo360_tpu_torch.models.neo360 import make_scene_stage_fns
@@ -288,10 +452,12 @@ def run_train(cfg: Config, device=None, datasets=None):
 
     _check_train_mode(cfg)
     device = resolve_device(cfg, device)
+    float32_matmuls(cfg, device)
     exp_dir = os.path.join(cfg.ckpt_dir, cfg.exp_name)
     logger = MetricsLogger(exp_dir)
     ckpt = CheckpointManager(os.path.join(exp_dir, "checkpoints"))
     model = build_model(cfg, device).train()
+    _maybe_warm_start(cfg, model)
     if datasets is None:
         datasets = (NeRDS360AE(cfg.root_dir, "train", cfg.img_wh,
                                cfg.num_src_views, cfg.ray_batch_size),
@@ -301,37 +467,51 @@ def run_train(cfg: Config, device=None, datasets=None):
 
     stage_size = max(1, min(cfg.steps_per_call, cfg.save_every_steps,
                             cfg.run_max_steps))
-    stage_size = max(cfg.stage_k, stage_size - stage_size % cfg.stage_k)
-    n_stages = stage_size // cfg.stage_k
-    encode_fn, loss_fn = make_scene_stage_fns(
-        model, white_bkgd=cfg.white_back, mixed=cfg.stage_scenes > 1)
-    # each partition gets its own optimizer at the base lr: the encoder's
-    # steps once per stage, so its schedule advances once per stage
-    state = tl.create_scene_stage_state(
-        model, lambda params: build_optimizer(cfg, params))
-    runner = tl.make_scene_stage_trainer(
-        encode_fn, loss_fn, multi_stage=True,
-        cot_dtype=getattr(torch, cfg.stage_cot_dtype))
-    start_step = resume(ckpt, state)
+    use_stage = cfg.stage_k > 1
+    warm_steps = 0
+    if use_stage:
+        if cfg.stage_warmup_steps > 0 and ckpt.latest_step() is None:
+            warm_steps = _run_warmup(cfg, model, train_ds, device, logger)
+        stage_size = max(cfg.stage_k, stage_size - stage_size % cfg.stage_k)
+        n_stages = stage_size // cfg.stage_k
+        encode_fn, loss_fn = make_scene_stage_fns(
+            model, white_bkgd=cfg.white_back, mixed=cfg.stage_scenes > 1)
+        # each partition gets its own optimizer at the base lr: the
+        # encoder's steps once per stage, so its schedule advances once per
+        # stage
+        state = tl.create_scene_stage_state(
+            model, lambda params: build_optimizer(cfg, params))
+        state.step = warm_steps
+        runner = tl.make_scene_stage_trainer(
+            encode_fn, loss_fn, multi_stage=True,
+            cot_dtype=getattr(torch, cfg.stage_cot_dtype))
+    else:
+        state, runner = _per_step_runner(cfg, model)
+    start_step = max(resume(ckpt, state), warm_steps)
 
     def staged_iterator():
         rng = np.random.default_rng(cfg.seed)
         while True:
-            stages = [train_ds.sample_train_stage(rng, cfg.stage_k,
-                                                  n_scenes=cfg.stage_scenes)
-                      for _ in range(n_stages)]
-            yield (tl.stack_batches(stages, MODEL_SRC_KEYS),
-                   tl.stack_batches(stages, STAGE_RAY_KEYS))
+            if use_stage:
+                stages = [train_ds.sample_train_stage(
+                              rng, cfg.stage_k, n_scenes=cfg.stage_scenes)
+                          for _ in range(n_stages)]
+                yield (tl.stack_batches(stages, MODEL_SRC_KEYS),
+                       tl.stack_batches(stages, STAGE_RAY_KEYS))
+            else:
+                samples = [train_ds.sample_train(rng)
+                           for _ in range(stage_size)]
+                yield (tl.stack_batches(samples, STEP_KEYS),)
 
     render_fn = make_render_fn(cfg, model, device)
     generator = torch.Generator(device).manual_seed(cfg.seed + 2)
     step = start_step
     with prefetch_to_device(staged_iterator(), size=2,
                             device=device) as it:
-        for srcs, rays in it:
+        for batches in it:
             if step >= cfg.run_max_steps:
                 break
-            metrics = runner(state, srcs, rays, generator)
+            metrics = runner(state, *batches, generator)
             step += stage_size
             if step % cfg.log_every_steps < stage_size:
                 logger.log(step, {k: float(v) for k, v in metrics.items()})

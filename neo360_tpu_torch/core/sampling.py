@@ -158,6 +158,7 @@ def sample_pdf_nerfpp(
     weights: torch.Tensor,
     origins: torch.Tensor,
     directions: torch.Tensor,
+    t_vals: torch.Tensor,
     num_samples: int,
     in_sphere: bool,
     far=None,
@@ -165,13 +166,21 @@ def sample_pdf_nerfpp(
     randomized: bool = False,
     u: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    merge: bool = True,
 ):
-    """Proposal resampling without the union with the level-0 edges (the
-    `merge=False` path of neo360_tpu/core/sampling.py:196-235):
-    num_samples+1 points are drawn, detached and sorted."""
-    t_vals = sorted_piecewise_constant_pdf(bins, weights, num_samples + 1,
-                                           randomized, u, generator)
-    t_vals = torch.sort(t_vals.detach(), dim=-1).values
+    """Fine-level NeRF++ resampling (neo360_tpu/core/sampling.py:196-235).
+
+    merge=True: num_samples points are drawn, detached, concatenated after
+    the level-0 `t_vals` and sorted together (for bg the level-0 t_vals
+    descend and the union is flipped back to descend), num_samples + N + 1
+    points per ray. merge=False (the proposal path): num_samples + 1 points
+    are drawn, detached and sorted, and `t_vals` is not read."""
+    t_samples = sorted_piecewise_constant_pdf(
+        bins, weights, num_samples if merge else num_samples + 1,
+        randomized, u, generator).detach()
+    if merge:
+        t_samples = torch.cat([t_vals, t_samples], dim=-1)
+    t_vals = torch.sort(t_samples, dim=-1).values
 
     if in_sphere:
         return t_vals, cast_rays(t_vals, origins, directions)

@@ -17,9 +17,10 @@
 //
 // Bound: device memory. The latent is 403 MB in bf16 at neo360_fast
 // (3 x 64 x 64 x 32 x 512); read once, with the logits and the floors it
-// is ~430 MB, 0.128 ms at 3.35 TB/s. The first version gave each floor its
-// own blocks, so the latent came from device memory three times, 2 bytes a
-// load (~0.51 ms).
+// is ~430 MB, 0.128 ms at 3.35 TB/s; at the neo360 preset's f32 latent
+// (3 x 64 x 64 x 64 x 512, 1.61 GB) ~1.70 GB, 0.51 ms. The first version
+// gave each floor its own blocks, so the latent came from device memory
+// three times, 2 bytes a load (~0.51 ms at neo360_fast).
 //
 // Design: two launches, one of which touches the latent.
 //   1. pillar_weights_kernel, one thread per (view, floor, pillar): the f32
@@ -45,14 +46,22 @@
 //          shared memory (two buffers, by x parity: one barrier per x),
 //          summed over the warps in order.
 //      Latent words and weights come in by cp.async into the thread's own
-//      shared-memory words, one commit group per slot and x: a slot's row
-//      of the next x is requested as soon as the current one is used, so
-//      every slot keeps one load in flight without holding registers
-//      (16-byte copies bypass L1). At the path's shape: 96 blocks of 512
-//      threads, one per SM (128 registers a thread, 160 KB of shared
-//      memory). On an H100 the one pass runs at ~1.85 TB/s; one lane per z
-//      (16 bytes a row, 192 blocks of 256), the y range split over two
-//      blocks, and clusters of slices stepping x together were all slower.
+//      shared-memory words, one commit group per slot and x, in a ring of
+//      kDepth slots: the row kDepth slots ahead in (x, slot) order is
+//      requested as soon as the current one is used, so kDepth loads stay in
+//      flight without holding registers (16-byte copies bypass L1).
+//      At the neo360_fast shape (Z <= 32: 2 z chunks, the ring as deep as
+//      the 8 slots): 96 blocks of 512 threads, one per SM (128 registers a
+//      thread, 160 KB of shared memory). On an H100 the one pass runs at
+//      ~1.85 TB/s; one lane per z (16 bytes a row, 192 blocks of 256), the
+//      y range split over two blocks, and clusters of slices stepping x
+//      together were all slower.
+//   Z in 33..64 (the neo360 preset's 64^3 grid) takes 4 z chunks. Doubling
+//   the slots doubles floor_yz's accumulators, so the slice halves instead:
+//   4-channel vectors in both types (16 bytes of each f32 row, 8 of each
+//   bf16 row, 192 blocks), which keeps 64 accumulators a thread; the ring
+//   holds 8 slots in f32 and all 16 in bf16, 192 KB of shared memory with
+//   the floor_xz partials of 64 z.
 // Every sum has a fixed order, so the output is the same bits on every run.
 
 #include "pillar_common.cuh"
@@ -64,7 +73,7 @@ using namespace pillar;
 constexpr int kThreads = 128;    // threads per block, kernel 1
 constexpr int kLanesPerZ = 2;    // lanes sharing one z: vectors per slice
 constexpr int kMaxY = 64;        // kWarps x y slots
-constexpr int kMaxZ = 32;        // z lanes x z chunks
+constexpr int kMaxZ = 64;        // z lanes x z chunks, at most 4 chunks
 
 // wb[cell * 4 + floor] = the floor's softmax weight at the cell, rounded
 template <typename T>
@@ -130,44 +139,48 @@ __device__ __forceinline__ void wait_async() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-template <typename T, int VEC>
+// ZC: z chunks a thread holds (Z <= 16 * ZC); D: slots in the load ring
+// (a divisor of the thread's 4 * ZC slots)
+template <typename T, int VEC, int ZC, int D>
 struct Shape {
   static constexpr int H = kLanesPerZ;
   static constexpr int kWarps = 8 * H;    // y values in flight
   static constexpr int kBlock = 32 * kWarps;
   static constexpr int kZLanes = 32 / H;  // z values in flight
   static constexpr int kYSlots = kMaxY / kWarps;
-  static constexpr int kZChunks = kMaxZ / kZLanes;
+  static constexpr int kZChunks = ZC;
   static constexpr int kSlots = kYSlots * kZChunks;
+  static constexpr int kDepth = D;
+  static_assert(kSlots % kDepth == 0, "the ring must divide the slots");
   using W = typename Vec<T, VEC>::W;
   using W4 = typename Vec<T, 4>::W;
-  // shared memory: each thread's latent words and weights of its slots,
+  // shared memory: the ring of each thread's latent words and weights,
   // then the per-warp floor_xz partials, two buffers
   static constexpr int kSlabBytes =
-      kSlots * kBlock * (sizeof(W) + sizeof(W4));
+      kDepth * kBlock * (sizeof(W) + sizeof(W4));
   static int bytes(int Z) {
     return kSlabBytes + 2 * kWarps * Z * H * VEC * (int)sizeof(float);
   }
 };
 
-template <typename T, int VEC>
+template <typename T, int VEC, int ZC, int D>
 __global__ void __launch_bounds__(256 * kLanesPerZ, 2 / kLanesPerZ)
     pillar_collapse_kernel(const T* __restrict__ latent,
                            const T* __restrict__ wb, T* __restrict__ out_yz,
                            T* __restrict__ out_xz, T* __restrict__ out_xy,
                            int X, int Y, int Z, int C) {
-  using S = Shape<T, VEC>;
+  using S = Shape<T, VEC, ZC, D>;
   constexpr int H = kLanesPerZ;
   constexpr int kWarps = S::kWarps, kZLanes = S::kZLanes;
   constexpr int kYSlots = S::kYSlots, kZChunks = S::kZChunks;
-  constexpr int kSlots = S::kSlots;
+  constexpr int kSlots = S::kSlots, kDepth = S::kDepth;
   using V = Vec<T, VEC>;
   using V4 = Vec<T, 4>;
   using W = typename S::W;
   using W4 = typename S::W4;
   extern __shared__ __align__(16) unsigned char smem[];
-  W* s_lat = reinterpret_cast<W*>(smem);                   // [slot][thread]
-  W4* s_w = reinterpret_cast<W4*>(s_lat + kSlots * S::kBlock);
+  W* s_lat = reinterpret_cast<W*>(smem);                   // [ring][thread]
+  W4* s_w = reinterpret_cast<W4*>(s_lat + kDepth * S::kBlock);
   float* s_xz = reinterpret_cast<float*>(smem + S::kSlabBytes);
 
   const int n_vec = C / VEC;
@@ -182,18 +195,19 @@ __global__ void __launch_bounds__(256 * kLanesPerZ, 2 / kLanesPerZ)
   auto live = [&](int sy, int cz) {
     return v_ok && sy * kWarps + warp < Y && cz * kZLanes + zl < Z;
   };
-  // slot (sy, cz) of x into this thread's shared words: one commit group
-  // per slot and x, empty where the slot is dead or x is past the end, so
-  // that the group of (x, slot) is always kSlots - 1 groups behind
+  // slot (sy, cz) of x into this thread's words of ring entry slot % kDepth:
+  // one commit group per slot and x, empty where the slot is dead or x is
+  // past the end, so that the group of (x, slot) is always kDepth - 1
+  // groups behind
   auto fetch = [&](int x, int sy, int cz) {
-    const int slot = sy * kZChunks + cz;
+    const int ring = (sy * kZChunks + cz) % kDepth;
     if (x < X && live(sy, cz)) {
       const long long cell =
           (((long long)n * X + x) * Y + sy * kWarps + warp) * Z +
           cz * kZLanes + zl;
-      copy_async<sizeof(W)>(s_lat + slot * S::kBlock + threadIdx.x,
+      copy_async<sizeof(W)>(s_lat + ring * S::kBlock + threadIdx.x,
                             reinterpret_cast<const W*>(latent + cell * C) + v);
-      copy_async<sizeof(W4)>(s_w + slot * S::kBlock + threadIdx.x,
+      copy_async<sizeof(W4)>(s_w + ring * S::kBlock + threadIdx.x,
                              wb + cell * 4);
     }
     commit_async();
@@ -201,7 +215,8 @@ __global__ void __launch_bounds__(256 * kLanesPerZ, 2 / kLanesPerZ)
 #pragma unroll
   for (int sy = 0; sy < kYSlots; ++sy)
 #pragma unroll
-    for (int cz = 0; cz < kZChunks; ++cz) fetch(0, sy, cz);
+    for (int cz = 0; cz < kZChunks; ++cz)
+      if (sy * kZChunks + cz < kDepth) fetch(0, sy, cz);
 
   float acc[kYSlots][kZChunks][VEC] = {};  // floor_yz over x
   for (int x = 0; x < X; ++x) {
@@ -213,11 +228,11 @@ __global__ void __launch_bounds__(256 * kLanesPerZ, 2 / kLanesPerZ)
 #pragma unroll
       for (int cz = 0; cz < kZChunks; ++cz) {
         const int slot = sy * kZChunks + cz;
-        wait_async<kSlots - 1>();
+        wait_async<kDepth - 1>();
         if (live(sy, cz)) {
           float l[VEC], w[4];
-          V::unpack(s_lat[slot * S::kBlock + threadIdx.x], l);
-          V4::unpack(s_w[slot * S::kBlock + threadIdx.x], w);
+          V::unpack(s_lat[(slot % kDepth) * S::kBlock + threadIdx.x], l);
+          V4::unpack(s_w[(slot % kDepth) * S::kBlock + threadIdx.x], w);
 #pragma unroll
           for (int k = 0; k < VEC; ++k) {
             acc[sy][cz][k] += w[0] * l[k];
@@ -225,9 +240,16 @@ __global__ void __launch_bounds__(256 * kLanesPerZ, 2 / kLanesPerZ)
             pxy[k] += w[2] * l[k];
           }
         }
-        // the next x into the words just read (the products above have
-        // waited for them)
-        fetch(x + 1, sy, cz);
+        // the row kDepth slots ahead into the words just read (the
+        // products above have waited for them): with the ring as deep as
+        // the slots, the same slot of the next x
+        if constexpr (kDepth == kSlots) {
+          fetch(x + 1, sy, cz);
+        } else {
+          const int next = (slot + kDepth) % kSlots;
+          fetch(slot + kDepth < kSlots ? x : x + 1, next / kZChunks,
+                next % kZChunks);
+        }
       }
       const int y = sy * kWarps + warp;
       if (y < Y) {  // the same for the whole warp
@@ -275,13 +297,13 @@ __global__ void __launch_bounds__(256 * kLanesPerZ, 2 / kLanesPerZ)
     }
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, int ZC, int D>
 int launch(const void* latent, const void* l_yz, const void* l_xz,
            const void* l_xy, void* o_yz, void* o_xz, void* o_xy,
            void* scratch, int nv, int X, int Y, int Z, int C,
            cudaStream_t stream) {
   constexpr int H = kLanesPerZ;
-  using S = Shape<T, VEC>;
+  using S = Shape<T, VEC, ZC, D>;
   const long long n_pillars =
       (long long)nv * ((long long)Y * Z + (long long)X * Z + (long long)X * Y);
   T* wb = static_cast<T*>(scratch);
@@ -291,7 +313,7 @@ int launch(const void* latent, const void* l_yz, const void* l_xz,
       static_cast<const T*>(l_xy), wb, n_pillars, X, Y, Z);
   const long long blocks = (long long)nv * ((C / VEC + H - 1) / H);
   const int smem = S::bytes(Z);
-  auto kernel = pillar_collapse_kernel<T, VEC>;
+  auto kernel = pillar_collapse_kernel<T, VEC, ZC, D>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -309,8 +331,10 @@ int launch(const void* latent, const void* l_yz, const void* l_xz,
 // outputs alike. latent (NV,X,Y,Z,C), 16-byte aligned; logits (NV,X,Y,Z);
 // outputs (NV,Y,Z,C), (NV,X,Z,C), (NV,X,Y,C); scratch: NV*X*Y*Z*4 elements
 // of the latent's type, 16-byte aligned. Takes 1 <= X, 1 <= Y <= 64,
-// 1 <= Z <= 32, 4 <= C with C % 4 == 0; the wrapper (ops/pillar.py)
-// checks all of it.
+// 1 <= Z <= 64, 4 <= C with C % 4 == 0; the wrapper (ops/pillar.py)
+// checks all of it. Z <= 32 keeps two z chunks (and bf16 its 8-channel
+// vectors where 8 divides C); 32 < Z <= 64 takes four, with 4-channel
+// vectors.
 extern "C" int pillar_collapse_fwd(const void* latent, const void* logit_yz,
                                    const void* logit_xz, const void* logit_xy,
                                    void* out_yz, void* out_xz, void* out_xy,
@@ -320,16 +344,26 @@ extern "C" int pillar_collapse_fwd(const void* latent, const void* logit_yz,
   if (nv < 1 || X < 1 || Y < 1 || Y > kMaxY || Z < 1 || Z > kMaxZ || C < 4 ||
       C % 4)
     return (int)cudaErrorInvalidValue;
+  const bool wide = Z > 32;
+  if (dtype == 0 && !wide)
+    return launch<float, 4, 2, 8>(latent, logit_yz, logit_xz, logit_xy,
+                                  out_yz, out_xz, out_xy, scratch, nv, X, Y,
+                                  Z, C, s);
   if (dtype == 0)
-    return launch<float, 4>(latent, logit_yz, logit_xz, logit_xy, out_yz,
-                            out_xz, out_xy, scratch, nv, X, Y, Z, C, s);
-  if (dtype == 1 && C % 8 == 0)
-    return launch<__nv_bfloat16, 8>(latent, logit_yz, logit_xz, logit_xy,
-                                    out_yz, out_xz, out_xy, scratch, nv, X, Y,
-                                    Z, C, s);
+    return launch<float, 4, 4, 8>(latent, logit_yz, logit_xz, logit_xy,
+                                  out_yz, out_xz, out_xy, scratch, nv, X, Y,
+                                  Z, C, s);
+  if (dtype == 1 && !wide && C % 8 == 0)
+    return launch<__nv_bfloat16, 8, 2, 8>(latent, logit_yz, logit_xz,
+                                          logit_xy, out_yz, out_xz, out_xy,
+                                          scratch, nv, X, Y, Z, C, s);
+  if (dtype == 1 && !wide)
+    return launch<__nv_bfloat16, 4, 2, 8>(latent, logit_yz, logit_xz,
+                                          logit_xy, out_yz, out_xz, out_xy,
+                                          scratch, nv, X, Y, Z, C, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16, 4>(latent, logit_yz, logit_xz, logit_xy,
-                                    out_yz, out_xz, out_xy, scratch, nv, X, Y,
-                                    Z, C, s);
+    return launch<__nv_bfloat16, 4, 4, 16>(latent, logit_yz, logit_xz,
+                                           logit_xy, out_yz, out_xz, out_xy,
+                                           scratch, nv, X, Y, Z, C, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,13 +1,20 @@
-"""NeO-360 with the proposal fast path (port of
-neo360_tpu/models/neo360.py:47-656, `use_proposal=True`): the model, its
+"""NeO-360 (port of neo360_tpu/models/neo360.py:47-656): the model, its
 training losses and the scene-stage loss functions.
 
-Level 0: unconditioned PropMLP densities on 64+1 fg and bg points.
-Level 1: 60+1 points per branch resampled from the level-0 histograms
-(no union with the level-0 edges), conditioned on the tri-plane world
-latent and the pixel-aligned local latent of every source view, through
-NeRFTPMLP with mean view fusion. Each level composites fg and bg with the
-NeRF++ rule (kernel B).
+Two variants, as the JAX NeRFTP's `use_proposal`:
+- `use_proposal=False` (the `neo360` reference preset): level 0 draws
+  num_coarse_samples+1 stratified fg and bg points and conditions them
+  like the fine level, through its own fg/bg coarse NeRFTPMLPs and its own
+  local table ("c"); level 1 resamples num_fine_samples points from level
+  0's histograms and merges them with level 0's edges (merge=True), so it
+  evaluates num_coarse + num_fine + 1 points per branch against table "f".
+- `use_proposal=True` (the `neo360_fast` model): level 0 is unconditioned
+  PropMLP densities on num_prop_samples+1 fg and bg points; level 1 draws
+  num_fine_samples+1 points from level 0's padded histograms without the
+  union (merge=False).
+A conditioned level reads the tri-plane world latent and the pixel-aligned
+local latent of every source view and runs NeRFTPMLP with mean view
+fusion. Each level composites fg and bg with the NeRF++ rule (kernel B).
 
 `encode` runs once per source stack and returns corner tables; `forward`
 renders a ray batch against them, deterministically or (training) with
@@ -122,7 +129,8 @@ class PropMLP(nn.Module):
 
 
 class NeRFTP(nn.Module):
-    """NeO-360 with `use_proposal=True` (the neo360_fast model)."""
+    """NeO-360's NeRFTP: `use_proposal=False` is the neo360 reference
+    model, `use_proposal=True` the neo360_fast model (module docstring)."""
 
     # the JAX model's fixed hyperparameters (neo360_tpu/models/neo360.py
     # NeRFTP fields and __call__ defaults)
@@ -130,64 +138,81 @@ class NeRFTP(nn.Module):
     far_uncontracted = 3.0
     rgb_padding = 0.001
     density_bias = -1.0
-    resample_padding = 0.01
     local_proj_dim = 128
 
     def __init__(self, num_src_views: int = 3, num_prop_samples: int = 64,
-                 num_fine_samples: int = 64,
+                 num_fine_samples: int = 256,
                  grid_size: Tuple[int, int, int] = (64, 64, 64),
                  compute_dtype=torch.float32, lift_dim: Optional[int] = None,
                  encoder_width: int = 512,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 use_proposal: bool = False, num_coarse_samples: int = 128,
+                 remat_encoder: bool = True):
         super().__init__()
         self.num_src_views = num_src_views
         self.num_prop_samples = num_prop_samples
+        self.num_coarse_samples = num_coarse_samples
         self.num_fine_samples = num_fine_samples
         self.compute_dtype = compute_dtype
+        self.use_proposal = use_proposal
+        # uniform mass added to the proposal histogram before resampling;
+        # the conditioned coarse level resamples its own histogram as is
+        self.resample_padding = 0.01 if use_proposal else 0.0
         g = generator
 
         self.encoder = GridEncoder(grid_size=grid_size, dtype=compute_dtype,
                                    lift_dim=lift_dim,
-                                   latent_size=encoder_width, generator=g)
-        self.fg_prop_mlp = PropMLP(3, dtype=compute_dtype, generator=g)
-        self.bg_prop_mlp = PropMLP(4, dtype=compute_dtype, generator=g)
+                                   latent_size=encoder_width, generator=g,
+                                   remat=remat_encoder)
         pe = lambda d: d * (1 + 2 * (self.max_deg_point - self.min_deg_point))
         vd = 3 * (1 + 2 * self.deg_view)
         local_proj_dim = self.local_proj_dim
         cond = local_proj_dim + GridEncoder.plane_dim
-        self.fg_fine_mlp = NeRFTPMLP(pe(3) + cond, vd, dtype=compute_dtype,
-                                     generator=g)
-        self.bg_fine_mlp = NeRFTPMLP(pe(4) + cond, vd, dtype=compute_dtype,
-                                     generator=g)
-        # project-then-gather: each fine MLP's first-layer local block is
-        # applied to the pixel-latent map once per encode (neo360.py:216-230)
-        self.local_proj_fg_f = Dense(512, local_proj_dim, use_bias=False,
-                                     dtype=compute_dtype, generator=g)
-        self.local_proj_bg_f = Dense(512, local_proj_dim, use_bias=False,
-                                     dtype=compute_dtype, generator=g)
+        mlp = lambda d: NeRFTPMLP(pe(d) + cond, vd, dtype=compute_dtype,
+                                  generator=g)
+        if use_proposal:
+            self.fg_prop_mlp = PropMLP(3, dtype=compute_dtype, generator=g)
+            self.bg_prop_mlp = PropMLP(4, dtype=compute_dtype, generator=g)
+        else:
+            self.fg_coarse_mlp = mlp(3)
+            self.bg_coarse_mlp = mlp(4)
+        self.fg_fine_mlp = mlp(3)
+        self.bg_fine_mlp = mlp(4)
+        # project-then-gather: each conditioned MLP's first-layer local block
+        # is applied to the pixel-latent map once per encode
+        # (neo360.py:216-230); "c" feeds the coarse level, "f" the fine one
+        self.local_names = ("f",) if use_proposal else ("c", "f")
+        for name in self.local_names:
+            for branch in ("fg", "bg"):
+                self.add_module(f"local_proj_{branch}_{name}", Dense(
+                    512, local_proj_dim, use_bias=False, dtype=compute_dtype,
+                    generator=g))
 
     def encode(self, src_imgs, src_poses, src_focal, src_c,
                batch_stats: bool):
-        """-> (plane corner tables (xz, xy, yz), stacked fg/bg local corner
-        table, (plane_hw, latent_hw)).
+        """-> (plane corner tables (xz, xy, yz), local corner table(s),
+        (plane_hw, latent_hw)).
 
         `batch_stats`: BatchNorm with the source stack's own statistics
         (eval_bn_mode "batch") or the stored running ones ("running"); in
         training mode (`model.train()`) BatchNorm always uses the batch's
-        statistics and records its running-statistics update. The
-        fg branch's projected pixel latent fills view rows [:NV] of the local
-        table and the bg branch's rows [NV:], so the fine level samples both
-        with one gather."""
+        statistics and records its running-statistics update. A local
+        table stacks the fg branch's projected pixel latent in view rows
+        [:NV] and the bg branch's in rows [NV:], so a level samples both
+        with one gather. With the proposal there is one local table (the
+        fine level's); without it a tuple of two, (coarse "c", fine
+        "f")."""
         planes, pixel_latent = self.encoder(src_imgs, src_poses, src_focal,
                                             src_c, batch_stats)
         dt = self.compute_dtype
         plane_tables = tuple(build_corner_table(p, "zeros", dtype=dt)
                              for p in planes)
-        stacked = torch.cat([self.local_proj_fg_f(pixel_latent),
-                             self.local_proj_bg_f(pixel_latent)], dim=0)
-        local_table = build_corner_table(stacked, "border", dtype=dt)
+        local = tuple(build_corner_table(torch.cat(
+            [getattr(self, f"local_proj_fg_{name}")(pixel_latent),
+             getattr(self, f"local_proj_bg_{name}")(pixel_latent)], dim=0),
+            "border", dtype=dt) for name in self.local_names)
         hw = (tuple(planes[0].shape[1:3]), tuple(pixel_latent.shape[1:3]))
-        return plane_tables, local_table, hw
+        return plane_tables, local[0] if self.use_proposal else local, hw
 
     def _local_feats_pair(self, fg_samples, bg_samples, poses, focal, c,
                           stacked_table, latent_hw, image_size,
@@ -240,18 +265,18 @@ class NeRFTP(nn.Module):
         the output of `encode`, optionally with a 4th element
         (scene index, scene count) when the tables are flat multi-scene
         tables (the scene-mixed stage trainer): this scene's rows start at
-        view index * NV of the plane tables and * 2NV of the local table;
+        view index * NV of the plane tables and * 2NV of the local tables;
         None for a single scene. An optional 5th element, ((3 plane
-        accumulators), local accumulator), f32 tensors of the tables'
-        shapes, makes the backward add the tables' gradients into them
-        instead of returning them (the stage trainer's accumulate path).
-        `randomized`: stratified level-0 samples and random inverse-CDF
-        resampling, drawn from `generator` in the JAX order (fg then bg,
-        per level). Returns one dict per level with rgb, fg_rgb, bg_rgb,
-        fg_acc, bg_acc, bg_lambda, fg/bg weights, fg/bg sdist (distortion
-        midpoints), fg/bg tvals and far, and with `out_depth` depth and
-        fg_depth."""
-        plane_tables, local_table = encoded[0], encoded[1]
+        accumulators), local accumulator(s) shaped as `encoded[1]`), f32
+        tensors of the tables' shapes, makes the backward add the tables'
+        gradients into them instead of returning them (the stage trainer's
+        accumulate path). `randomized`: stratified level-0 samples and
+        random inverse-CDF resampling, drawn from `generator` in the JAX
+        order (fg then bg, per level). Returns one dict per level with rgb,
+        fg_rgb, bg_rgb, fg_acc, bg_acc, bg_lambda, fg/bg weights, fg/bg
+        sdist (distortion midpoints), fg/bg tvals and far, and with
+        `out_depth` depth and fg_depth."""
+        plane_tables, local_tables = encoded[0], encoded[1]
         nv = self.num_src_views
         plane_off = local_off = 0
         if len(encoded) > 3 and encoded[3] is not None:
@@ -259,9 +284,14 @@ class NeRFTP(nn.Module):
             plane_off, local_off = s_idx * nv, s_idx * 2 * nv
         plane_acc, local_acc = (encoded[4] if len(encoded) > 4
                                 and encoded[4] is not None else (None, None))
+        if self.use_proposal:   # one local table: the fine level's
+            local_tables, local_acc = (local_tables,), (local_acc,)
+        elif local_acc is None:
+            local_acc = (None, None)
         plane_hw = (plane_tables[0].shape[1] - 1,
                     plane_tables[0].shape[2] - 1)
-        latent_hw = (local_table.shape[1] - 1, local_table.shape[2] - 1)
+        latent_hw = (local_tables[0].shape[1] - 1,
+                     local_tables[0].shape[2] - 1)
         h_img, w_img = rays["src_imgs"].shape[1:3]
         image_size = (w_img, h_img)
         poses = rays["src_poses"]
@@ -280,14 +310,32 @@ class NeRFTP(nn.Module):
         results: List[Dict[str, torch.Tensor]] = []
         for level in range(2):
             if level == 0:
+                n0 = (self.num_prop_samples if self.use_proposal
+                      else self.num_coarse_samples)
                 fg_t, fg_samples = sampling.sample_along_rays_nerfpp(
-                    rays_o, rays_d, self.num_prop_samples, near, far,
-                    in_sphere=True, **rnd)
+                    rays_o, rays_d, n0, near, far, in_sphere=True, **rnd)
                 bg_t, bg_samples, bg_linear = (
                     sampling.sample_along_rays_nerfpp(
-                        rays_o, rays_d, self.num_prop_samples, near, far,
-                        in_sphere=False,
+                        rays_o, rays_d, n0, near, far, in_sphere=False,
                         far_uncontracted=self.far_uncontracted, **rnd))
+            else:
+                pad = self.resample_padding
+                merge = not self.use_proposal
+                prev = results[-1]
+                fg_mids = 0.5 * (fg_t[..., 1:] + fg_t[..., :-1])
+                fg_t, fg_samples = sampling.sample_pdf_nerfpp(
+                    fg_mids, prev["fg_weights"][..., 1:-1].detach() + pad,
+                    rays_o, rays_d, fg_t, self.num_fine_samples,
+                    in_sphere=True, merge=merge, **rnd)
+                bg_mids = 0.5 * (bg_t[..., 1:] + bg_t[..., :-1])
+                bg_t, bg_samples, bg_linear = sampling.sample_pdf_nerfpp(
+                    bg_mids, prev["bg_weights"][..., 1:-1].detach() + pad,
+                    rays_o, rays_d, bg_t, self.num_fine_samples,
+                    in_sphere=False, far=far,
+                    far_uncontracted=self.far_uncontracted, merge=merge,
+                    **rnd)
+
+            if self.use_proposal and level == 0:
                 fg_sigma = F.softplus(self.fg_prop_mlp(fg_samples)
                                       + self.density_bias)
                 bg_sigma = F.softplus(self.bg_prop_mlp(bg_samples)
@@ -297,19 +345,8 @@ class NeRFTP(nn.Module):
                 bg_rgb = torch.zeros(bg_sigma.shape[:-1] + (3,),
                                      device=bg_sigma.device)
             else:
-                pad = self.resample_padding
-                prev = results[-1]
-                fg_mids = 0.5 * (fg_t[..., 1:] + fg_t[..., :-1])
-                fg_t, fg_samples = sampling.sample_pdf_nerfpp(
-                    fg_mids, prev["fg_weights"][..., 1:-1].detach() + pad,
-                    rays_o, rays_d, self.num_fine_samples, in_sphere=True,
-                    **rnd)
-                bg_mids = 0.5 * (bg_t[..., 1:] + bg_t[..., :-1])
-                bg_t, bg_samples, bg_linear = sampling.sample_pdf_nerfpp(
-                    bg_mids, prev["bg_weights"][..., 1:-1].detach() + pad,
-                    rays_o, rays_d, self.num_fine_samples, in_sphere=False,
-                    far=far, far_uncontracted=self.far_uncontracted, **rnd)
-
+                which = "coarse" if level == 0 else "fine"
+                tab = 0 if self.use_proposal else level
                 b, s = fg_samples.shape[:2]
                 bg_pts = bg_linear[..., :3]
                 # fg + bg in one tri-plane gather and one local gather
@@ -320,8 +357,8 @@ class NeRFTP(nn.Module):
                 world_fg, world_bg = world[:, :b * s], world[:, b * s:]
                 local_fg, local_bg, fg_cam = self._local_feats_pair(
                     fg_samples, bg_pts, poses, rays["src_focal"],
-                    rays["src_c"], local_table, latent_hw, image_size,
-                    view_offset=local_off, grad_acc=local_acc)
+                    rays["src_c"], local_tables[tab], latent_hw, image_size,
+                    view_offset=local_off, grad_acc=local_acc[tab])
 
                 bg_cam = geometry.world2camera(
                     bg_samples[..., :3].reshape(1, -1, 3), poses, ns=nv)
@@ -330,11 +367,11 @@ class NeRFTP(nn.Module):
                 bg_cam4 = torch.cat([bg_cam, bg_depth_ch], dim=-1)
 
                 fg_rgb, fg_sigma = self._predict(
-                    self.fg_fine_mlp, fg_cam, world_fg, local_fg,
-                    viewdirs_enc, b, s)
+                    getattr(self, f"fg_{which}_mlp"), fg_cam, world_fg,
+                    local_fg, viewdirs_enc, b, s)
                 bg_rgb, bg_sigma = self._predict(
-                    self.bg_fine_mlp, bg_cam4, world_bg, local_bg,
-                    viewdirs_enc, b, bg_samples.shape[1])
+                    getattr(self, f"bg_{which}_mlp"), bg_cam4, world_bg,
+                    local_bg, viewdirs_enc, b, bg_samples.shape[1])
 
             out = composite_nerfpp(fg_rgb, fg_sigma, fg_t, bg_rgb, bg_sigma,
                                    bg_t, rays_d, far, white_bkgd)
@@ -409,17 +446,35 @@ def neo360_loss(results, target: torch.Tensor):
             + neo360_distortion_loss(results)), l1
 
 
+def neo360_coarse_fine_loss(results, target: torch.Tensor):
+    """(training loss, fine MSE): MSE on the coarse and the fine level +
+    distortion, the loss of the JAX trainer without the proposal
+    (neo360_tpu/cli.py:291-293)."""
+    l0 = losses.img2mse(results[0]["rgb"], target)
+    l1 = losses.img2mse(results[1]["rgb"], target)
+    return l0 + l1 + neo360_distortion_loss(results), l1
+
+
+def training_loss(model: NeRFTP, results, target: torch.Tensor):
+    """The JAX trainer's loss for `model`'s variant: `neo360_loss` with the
+    proposal, `neo360_coarse_fine_loss` without (looked up when called)."""
+    fn = neo360_loss if model.use_proposal else neo360_coarse_fine_loss
+    return fn(results, target)
+
+
 def make_scene_stage_fns(model: NeRFTP, white_bkgd: bool = False,
                          mixed: bool = False, randomized: bool = True
                          ) -> Tuple[Callable, Callable]:
     """(encode_fn, loss_fn) for train.loop.make_scene_stage_trainer (port of
     neo360_tpu/models/neo360.py:505-596).
 
-    encode_fn(src) -> tables: `NeRFTP.encode` with BatchNorm in training
-    mode; the running statistics are committed once the stage's scenes are
+    encode_fn(src) -> tables (the 3 plane tables, then the local table,
+    or the coarse and fine local tables without the proposal):
+    `NeRFTP.encode` with BatchNorm in training mode; the running statistics are committed once the stage's scenes are
     encoded. loss_fn(tables, src, batch, generator, grad_acc=None) ->
     (loss, {"mse"}): the ray branch against the tables, with randomized
-    sampling (drawn from `generator`) unless `randomized` is False.
+    sampling (drawn from `generator`) unless `randomized` is False, and the
+    model variant's `training_loss`.
     `grad_acc`: one f32 accumulator per table; the backward then adds the
     tables' gradients into them and returns None for the tables.
 
@@ -431,19 +486,22 @@ def make_scene_stage_fns(model: NeRFTP, white_bkgd: bool = False,
     addressed from view s * NV (plane tables) and s * 2NV (local table).
     The loss is the mean over scenes."""
 
+    def _local(tables):   # the local table(s) as encode returns them
+        return tables[3] if model.use_proposal else tuple(tables[3:])
+
     def _encode_one(src):
         pt, lt, _ = model.encode(*(src[k] for k in SRC_KEYS), True)
-        return tuple(pt) + (lt,)
+        return tuple(pt) + ((lt,) if model.use_proposal else lt)
 
     def _loss_one(tables, src, batch, generator, scene=None, grad_acc=None):
         rays = {k: batch[k] for k in RAY_KEYS}
         rays.update({k: src[k] for k in SRC_KEYS})
         acc = None if grad_acc is None else (tuple(grad_acc[:3]),
-                                             grad_acc[3])
-        enc = (tables[:3], tables[3], None, scene, acc)
+                                             _local(grad_acc))
+        enc = (tables[:3], _local(tables), None, scene, acc)
         out = model(rays, enc, white_bkgd, randomized=randomized,
                     generator=generator)
-        return neo360_loss(out, batch["target"])
+        return training_loss(model, out, batch["target"])
 
     if not mixed:
         def encode_fn(src):

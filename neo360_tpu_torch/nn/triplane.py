@@ -14,6 +14,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from neo360_tpu_torch.core import geometry
@@ -130,10 +131,12 @@ class GridEncoder(nn.Module):
     def __init__(self, grid_size: Sequence[int] = (64, 64, 64),
                  latent_size: int = 512, dtype=torch.float32,
                  lift_dim: Optional[int] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 remat: bool = False):
         super().__init__()
         self.grid_size = tuple(grid_size)
         self.latent_size = latent_size
+        self.remat = remat
         self.spatial_encoder = SpatialEncoder(dtype, generator)
         self.lift_proj = None
         if lift_dim is not None:
@@ -153,13 +156,37 @@ class GridEncoder(nn.Module):
         """images (NV, H, W, 3) in [-1, 1]; poses (NV, 4, 4); focal (NV,);
         c (NV, 2). Returns ((plane_xz, plane_xy, plane_yz) each
         (NV, Hp, Wp, plane_dim) f32, pixel latent (NV, H/2, W/2, 512) f32).
-        """
-        nv, h, w, _ = images.shape
+
+        With `remat` and grad enabled, the grid part (`_grid`: lift,
+        depth_fc, pillar logits) runs under `torch.utils.checkpoint`: its
+        activations, several grid-sized tensors, are recomputed in the
+        backward instead of kept (the JAX model's `remat_encoder`). The
+        BatchNorms of the ResNet and the floorplan convs lie outside it, so
+        each still records one running-statistics update per forward."""
+        pixel_latent = self.spatial_encoder(images, batch_stats)
+        args = (pixel_latent, poses, focal, c, tuple(images.shape[1:3]))
+        if self.remat and torch.is_grad_enabled():
+            latent, *logits = torch.utils.checkpoint.checkpoint(
+                self._grid, *args, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            latent, *logits = self._grid(*args)
+        floor_yz, floor_xz, floor_xy = pillar_collapse(latent, *logits)
+
+        plane_yz = self.floorplan_yz(floor_yz, batch_stats).float()
+        plane_xz = self.floorplan_xz(floor_xz, batch_stats).float()
+        plane_xy = self.floorplan_xy(floor_xy, batch_stats).float()
+        return (plane_xz, plane_xy, plane_yz), pixel_latent.float()
+
+    def _grid(self, pixel_latent, poses, focal, c, image_hw):
+        """The world grid lifted from the pixel latent and encoded: latent
+        (NV, X, Y, Z, latent_size) and the yz, xz and xy pillar logits
+        (NV, X, Y, Z)."""
+        nv = pixel_latent.shape[0]
+        h, w = image_hw
         gx, gy, gz = self.grid_size
         sx, sy, sz = self.side_lengths
-        dev = images.device
-
-        pixel_latent = self.spatial_encoder(images, batch_stats)
+        dev = pixel_latent.device
 
         world_grid = geometry.get_world_grid(
             [[-sx, sx], [-sy, sy], [0.0, sz]], list(self.grid_size),
@@ -167,7 +194,7 @@ class GridEncoder(nn.Module):
         world_grids = geometry.repeat_interleave(world_grid, nv)  # (NV,G,3)
         camera_grids = geometry.world2camera(world_grids, poses)
 
-        mask = (camera_grids[..., 2] < 1e-3).to(images.dtype)
+        mask = (camera_grids[..., 2] < 1e-3).to(torch.float32)
         cam_dir = world_grids - poses[:, None, :3, 3]
         cam_dir = cam_dir / torch.linalg.norm(cam_dir + 1e-9, dim=-1,
                                               keepdim=True)
@@ -193,14 +220,8 @@ class GridEncoder(nn.Module):
 
         coords = world_grid.reshape(1, gx, gy, gz, 3).expand(
             latent.shape[:-1] + (3,))
-        logit_yz, logit_xz, logit_xy = self.tri_pillar(latent, coords)
-        floor_yz, floor_xz, floor_xy = pillar_collapse(
-            latent, logit_yz[..., 0], logit_xz[..., 0], logit_xy[..., 0])
-
-        plane_yz = self.floorplan_yz(floor_yz, batch_stats).float()
-        plane_xz = self.floorplan_xz(floor_xz, batch_stats).float()
-        plane_xy = self.floorplan_xy(floor_xy, batch_stats).float()
-        return (plane_xz, plane_xy, plane_yz), pixel_latent.float()
+        logits = self.tri_pillar(latent, coords)
+        return (latent,) + tuple(lg[..., 0] for lg in logits)
 
 
 def index_grid_tables(samples: torch.Tensor, tables, plane_hw,

@@ -56,10 +56,10 @@ def _pillar_forward(args):
                              f"{tuple(logit.shape)}")
     if latent.dtype not in kernels.DTYPE_CODES:
         raise ValueError(f"{name}: dtype must be float32 or bfloat16")
-    # each thread of the one pass holds up to 64 y and 32 z values of a
+    # each thread of the one pass holds up to 64 y and 64 z values of a
     # channel vector (csrc/pillar_collapse.cu)
-    if min(nv, x, y, z) < 1 or y > 64 or z > 32 or c < 4 or c % 4:
-        raise ValueError(f"{name}: needs 1 <= Y <= 64, 1 <= Z <= 32 and C a "
+    if min(nv, x, y, z) < 1 or y > 64 or z > 64 or c < 4 or c % 4:
+        raise ValueError(f"{name}: needs 1 <= Y <= 64, 1 <= Z <= 64 and C a "
                          f"positive multiple of 4, got latent "
                          f"{tuple(latent.shape)}")
     # the latent is read as 16- or 8-byte vectors; the scratch holds each

@@ -1,6 +1,15 @@
-"""Training loop building blocks: the scene-mixed, encode-once stage
-trainer (port of neo360_tpu/train/loop.py:169-308) and tiled full-image
-rendering (make_image_renderer, 311-366).
+"""Training loop building blocks: the per-step trainer (port of
+neo360_tpu/train/loop.py:29-80, 127-166), the scene-mixed, encode-once
+stage trainer (169-308) and tiled full-image rendering (make_image_renderer,
+311-366).
+
+The per-step trainer differentiates one loss with respect to every
+parameter, steps one optimizer (one global clip), and commits the
+BatchNorm running statistics its forward recorded, once per step (Flax
+semantics: momentum 0.9, biased batch variance; nn/layers.py:BatchNorm).
+`make_staged_trainer` runs it over the K stacked batches of one call in a
+Python loop and returns the last step's metrics; K = 1 takes no other
+path.
 
 The stage trainer runs the encoder once per stage of K steps. Each step
 differentiates the loss with respect to the ray-branch parameters and to
@@ -25,6 +34,64 @@ from typing import Callable, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+
+@dataclass
+class TrainState:
+    """The per-step trainer's state: the model (parameters and BatchNorm
+    buffers, updated in place), its parameters by name, the one optimizer
+    over all of them, and the step count."""
+    step: int
+    model: nn.Module
+    params: Dict[str, nn.Parameter]
+    opt: object
+
+
+def create_train_state(model: nn.Module,
+                       make_optimizer: Callable[[List[torch.Tensor]], object]
+                       ) -> TrainState:
+    """`make_optimizer(params)` builds the optimizer of every parameter
+    (the CLI's build_optimizer)."""
+    params = dict(model.named_parameters())
+    return TrainState(step=0, model=model, params=params,
+                      opt=make_optimizer(list(params.values())))
+
+
+def make_train_step(loss_fn: Callable, with_model_state: bool = False):
+    """train_step(state, batch, generator) -> metrics: loss_fn(batch,
+    generator) -> (loss, metrics), the gradient of the loss with respect to
+    every parameter (zero where it does not reach one), one optimizer step.
+    `with_model_state`: the model has BatchNorm layers in training mode;
+    the running statistics the step's forward recorded are committed after
+    the step (`nn.layers.commit_running_stats`)."""
+    from neo360_tpu_torch.nn.layers import commit_running_stats
+
+    def train_step(state: TrainState, batch, generator):
+        loss, metrics = loss_fn(batch, generator)
+        params = list(state.params.values())
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        state.opt.step(_grads(grads, params))
+        if with_model_state:
+            commit_running_stats(state.model)
+        state.step += 1
+        return metrics
+
+    return train_step
+
+
+def make_staged_trainer(train_step: Callable):
+    """run(state, batches, generator) -> the last step's metrics:
+    `train_step` over the K stacked batches of `batches` (a dict of
+    (K, ...) tensors), in order."""
+
+    def run(state, batches, generator):
+        metrics = {}
+        for i in range(next(iter(batches.values())).shape[0]):
+            metrics = train_step(state, {k: v[i] for k, v in batches.items()},
+                                 generator)
+        return metrics
+
+    return run
 
 
 def partition_encoder_params(model: nn.Module

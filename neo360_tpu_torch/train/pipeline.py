@@ -1,8 +1,9 @@
 """Host -> device input pipeline (port of
 neo360_tpu/train/pipeline.py:prefetch_to_device).
 
-A daemon thread runs the host sampler, places each item on the device and
-keeps `size` items buffered, so the device never waits on ray generation.
+A daemon thread runs the host sampler, places each item on the device (or
+leaves it on the host) and keeps `size` items buffered, so the device never
+waits on ray generation.
 Placement copies numpy arrays into pinned host memory and from
 there to the device with `non_blocking=True`: the copy is queued on the
 device's stream, ordered before the kernels that read it.
@@ -100,6 +101,10 @@ class _Prefetcher:
 def prefetch_to_device(iterator: Iterator, size: int = 2, *,
                        device) -> _Prefetcher:
     """Run `iterator` in a daemon thread, place each item on `device`
-    (`to_device`; no default: the caller names the card or the CPU), keep
-    `size` items buffered."""
-    return _Prefetcher(iterator, size, lambda item: to_device(item, device))
+    (`to_device`; no default: the caller names the card or the CPU, or
+    None to leave the items on the host as the iterator yields them, as
+    the JAX run_eval's identity placement does), keep `size` items
+    buffered."""
+    place = (lambda item: item) if device is None else (
+        lambda item: to_device(item, device))
+    return _Prefetcher(iterator, size, place)

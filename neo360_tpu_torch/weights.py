@@ -65,12 +65,15 @@ def from_flax_flat(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 def from_checkpoint(raw: Dict) -> Dict[str, torch.Tensor]:
     """The state_dict in a port file: a training checkpoint
-    (train/checkpoints.py, written by cli.run_train) gives its two parameter
-    partitions and BatchNorm buffers merged; anything else is taken to be a
+    (train/checkpoints.py, written by cli.run_train) gives its parameters
+    (the stage trainer's two partitions merged, or the per-step trainer's
+    one set) and BatchNorm buffers; anything else is taken to be a
     state_dict already."""
     if "enc_params" in raw:
         return {**raw["enc_params"], **raw["ray_params"],
                 **raw["batch_stats"]}
+    if "params" in raw and "batch_stats" in raw:
+        return {**raw["params"], **raw["batch_stats"]}
     return raw
 
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Device time per call of the PyTorch port's CUDA kernels at the
-neo360_fast training and render shapes, on one NVIDIA GPU.
+neo360_fast and neo360 training and render shapes, on one NVIDIA GPU.
 
     python3 scripts/torch_kernel_times.py [--tree DIR]
 
@@ -16,7 +16,9 @@ device time does not. A last case times a device copy of the grid latent
 (a checkout of another commit, unpacked with `git archive`), so that two
 versions can be compared in one run on one card. The cases call only
 wrappers that every version of the port has, apart from the accumulate
-contract of kernel A', which is skipped where it is missing.
+contract of kernel A', which is skipped where it is missing; a case whose
+shape the imported version refuses (kernel C at Z > 32 before it took
+them) prints the refusal.
 """
 
 from __future__ import annotations
@@ -132,6 +134,35 @@ def cases(torch):
     # written once, as C' reads it and writes d latent
     out.append(("(copy)", "latent.clone(), 403 MB read + 403 MB written",
                 latent.clone))
+
+    # the neo360 preset: the f32 lift of the 512-channel pixel latent at
+    # the 64^3 grid (A, and A' dense once per step), the f32 grid latent
+    # (3,64,64,64,512) through C and C' (and C in bf16)
+    lift = rand(3, 121, 161, 2048)
+    lift_uv = uniform_uv(3, 64 ** 3, 1.5)
+    out.append(("A table_sample_fwd", "neo360 lift f32->f32, 3 x 64^3 pts",
+                lambda: interpolate.table_sample(lift, lift_uv, hw, "zeros",
+                                                 f32)))
+    lift_cot = torch.randn(3, 64 ** 3, 512, device=dev, generator=g)
+    out.append(("A' table_sample_bwd", "dense neo360 lift, f32 cotangent",
+                lambda: interpolate.table_sample_backward(
+                    lift_cot, lift_uv, lift.shape, f32, hw, "zeros")))
+    for dt, name in ((f32, "f32"), (bf16, "bf16")):
+        lat = torch.randn(3, 64, 64, 64, 512, device=dev, generator=g).to(dt)
+        lgs = [(torch.randn(3, 64, 64, 64, device=dev, generator=g) * 3).to(
+            dt) for _ in range(3)]
+        out.append(("C pillar_collapse_fwd", f"latent (3,64,64,64,512) {name}",
+                    lambda lat=lat, lgs=lgs: pillar.pillar_collapse(lat,
+                                                                    *lgs)))
+        if dt == f32:
+            cts = [torch.randn(s, device=dev, generator=g) for s in
+                   ((3, 64, 64, 512), (3, 64, 64, 512), (3, 64, 64, 512))]
+            out.append(("C' pillar_collapse_bwd",
+                        "latent (3,64,64,64,512) f32",
+                        lambda lat=lat, lgs=lgs, cts=cts:
+                        pillar.pillar_collapse_backward([lat, *lgs], cts)))
+            out.append(("(copy)", "latent.clone(), 1.61 GB read + written",
+                        lat.clone))
     return out
 
 
@@ -151,7 +182,11 @@ def main() -> int:
     print(f"[times] {card.strip()}; package "
           f"{os.path.dirname(neo360_tpu_torch.__file__)}")
     for kernel, case, fn in cases(torch):
-        per = {k: v * 1e3 for k, v in _device_ms(torch, fn).items()}
+        try:
+            per = {k: v * 1e3 for k, v in _device_ms(torch, fn).items()}
+        except ValueError as e:
+            print(f"[times] {kernel} {case}: refused: {e}")
+            continue
         parts = ", ".join(f"{short(k)} {v:.1f}" for k, v in sorted(
             per.items(), key=lambda kv: -kv[1]))
         print(f"[times] {kernel} {case}: device {sum(per.values()):.1f} "

@@ -144,7 +144,8 @@ def test_sample_pdf_nerfpp_matches_jax(in_sphere):
     mids = 0.5 * (t[:, 1:] + t[:, :-1])
     w = rng.uniform(0, 1, size=(8, 7)).astype(np.float32) + 0.01
     ours = sampling.sample_pdf_nerfpp(
-        _t(mids), _t(w), _t(o), _t(d), 5, in_sphere, far=_t(far))
+        _t(mids), _t(w), _t(o), _t(d), _t(t), 5, in_sphere, far=_t(far),
+        merge=False)
     ref = jsamp.sample_pdf_nerfpp(
         jnp.asarray(mids), jnp.asarray(w), jnp.asarray(o), jnp.asarray(d),
         jnp.asarray(t), 5, False, in_sphere, far=jnp.asarray(far),

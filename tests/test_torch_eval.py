@@ -133,7 +133,8 @@ def test_parse_args_matches_jax_cli():
     """The port's CLI builds the same neo360_fast config as the JAX CLI,
     for eval and for training flags, except bf16: the JAX CLI's `--bf16`
     flag defaults to False and overrides the preset's bf16=True; the port
-    keeps the preset's value."""
+    keeps the preset's value. For neo360, under its name and the
+    reference's alias, the two configs are the same."""
     import dataclasses
     argv = ["--exp_type", "neo360_fast", "--root_dir", "/data",
             "--eval_mode", "full_eval", "--render_name", "3views_test",
@@ -152,5 +153,10 @@ def test_parse_args_matches_jax_cli():
     if not torch.cuda.is_available():   # training runs on cuda by default
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main(argv[:4])
-    with pytest.raises(NotImplementedError):
-        cli.build_model(preset("neo360"))
+    for exp_type in ("neo360", "triplanar_nocs_fusion_conv_scene"):
+        argv = ["--exp_type", exp_type, "--root_dir", "/data"]
+        cfg, ref = cli.parse_args(argv), jcli.parse_args(argv)
+        for f in dataclasses.fields(ref):
+            assert getattr(cfg, f.name) == getattr(ref, f.name), f.name
+        assert (cfg.exp_type, cfg.bf16, cfg.stage_k, cfg.lift_dim,
+                cfg.grad_max_norm) == ("neo360", False, 0, None, 0.05)

@@ -282,10 +282,11 @@ def test_composite_backward_kernel(cuda, white_bkgd, subset, s_fg, s_bg):
 # C' cases: the first two are the original ones; then tiles that are
 # ragged against the kernel's 8-value runs of y (Y = 5, 11, 10), Z = 3 and
 # 5, C = 8 and 40 (16-byte vectors), C = 12 (bf16: 8-byte vectors), and the
-# path's full width (float32: g_xz too large to stage in shared memory)
+# neo360_fast and neo360 paths' full widths (float32: g_xz too large to
+# stage in shared memory)
 PILLAR_BWD_SHAPES = [(2, 8, 6, 4, 40), (3, 16, 16, 8, 512), (2, 3, 5, 3, 8),
                      (1, 7, 11, 5, 40), (2, 4, 10, 5, 12),
-                     (3, 64, 64, 32, 512)]
+                     (3, 64, 64, 32, 512), (3, 64, 64, 64, 512)]
 
 
 @pytest.mark.cuda
@@ -469,9 +470,28 @@ def test_table_sample_backward_kernel_path_shapes(cuda, mode):
 
 
 @pytest.mark.cuda
+def test_table_sample_kernels_at_the_neo360_lift(cuda):
+    """Kernels A and A' (dense) at the neo360 preset's float32 grid lift:
+    the 512-channel pixel-latent table at every cell of a 64^3 grid of 3
+    views."""
+    g = _gen(22)
+    table = torch.randn(3, 121, 161, 2048, generator=g).to(cuda)
+    uv = _uv(3, 64 ** 3, g, lim=1.5).to(cuda)
+    out = table_sample(table, uv, (120, 160), "zeros")
+    _assert_ok(out, table_sample_reference(table, uv, (120, 160), "zeros"))
+    cot = torch.randn(3, 64 ** 3, 512, generator=g).to(cuda)
+    ref = table_sample_backward_reference(cot, uv, table.shape,
+                                          torch.float32, (120, 160), "zeros")
+    out = table_sample_backward(cot, uv, table.shape, torch.float32,
+                                (120, 160), "zeros")
+    res = kernels.compare(out, ref, **INTERP_BWD_TOL)
+    assert res["ok"], res
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,s_fg,s_bg", [
     (7, 1, 1), (33, 32, 33), (33, 33, 32), (5, 64, 1), (1, 97, 31),
-    (256, 65, 65), (256, 61, 61)])
+    (256, 65, 65), (256, 61, 61), (256, 385, 385), (500, 129, 129)])
 def test_composite_kernel_chunk_edges(cuda, b, s_fg, s_bg):
     """Kernel B (one warp per ray, 32-sample chunks) at sample counts on
     and around the chunk edges and at the path's 256-ray tiles."""
@@ -487,7 +507,7 @@ def test_composite_kernel_chunk_edges(cuda, b, s_fg, s_bg):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s_fg,s_bg", [
     (7, 1, 1), (33, 32, 33), (33, 33, 32), (5, 64, 1), (1, 97, 31),
-    (250, 65, 65), (250, 61, 61)])
+    (250, 65, 65), (250, 61, 61), (500, 129, 129), (500, 385, 385)])
 def test_composite_backward_kernel_chunk_edges(cuda, b, s_fg, s_bg):
     """Kernel B' (one warp per ray, forward product scans, reverse affine
     suffix scans over 32-sample chunks) at sample counts on and around the
@@ -746,8 +766,8 @@ def test_pillar_backward_order_fits_tolerance(dtype, shape):
 
 
 # kernel C's lanes per z (csrc/pillar_collapse.cu: kLanesPerZ); its warps
-# (8 x lanes per z), y slots (64 / warps), z lanes (32 / lanes per z) and z
-# chunks (32 / z lanes) follow from it
+# (8 x lanes per z), y slots (64 / warps) and z lanes (32 / lanes per z)
+# follow from it; its z chunks are 2 up to Z = 32 and 4 up to Z = 64
 C_LANES_PER_Z = 2
 
 
@@ -764,7 +784,8 @@ def _emulate_pillar_forward(args):
     dt = latent.dtype
     nv, x, y, z, c = latent.shape
     warps, z_lanes = 8 * C_LANES_PER_Z, 32 // C_LANES_PER_Z
-    y_slots, z_chunks = 64 // warps, 32 // z_lanes
+    y_slots, z_chunks = 64 // warps, 2 if z <= 32 else 4
+    zmax = z_chunks * z_lanes
 
     def softmax(logit, axis):
         lg = logit.float().movedim(axis, -1)
@@ -774,13 +795,13 @@ def _emulate_pillar_forward(args):
             total = total + torch.exp(lg[..., i] - m[..., 0])
         return (torch.exp(lg - m) / total[..., None]).movedim(-1, axis)
 
-    pad = (0, 0, 0, 32 - z, 0, 64 - y)     # (C, Z, Y) to the kernel's 64 x 32
+    pad = (0, 0, 0, zmax - z, 0, 64 - y)   # (C, Z, Y) to 64 x zmax
     lat = torch.nn.functional.pad(latent.float(), pad)
     prods = [torch.nn.functional.pad(
         softmax(lg, axis).to(dt).float()[..., None], pad) * lat
         for lg, axis in zip(logits, (1, 2, 3))]
 
-    yz = torch.zeros(nv, 64, 32, c)
+    yz = torch.zeros(nv, 64, zmax, c)
     for i in range(x):
         yz = yz + prods[0][:, i]
 
@@ -795,11 +816,11 @@ def _emulate_pillar_forward(args):
         d //= 2
     xy = xy[:, :, :, 0]
 
-    p = prods[1].reshape(nv, x, y_slots, warps, 32, c)
-    part = torch.zeros(nv, x, warps, 32, c)
+    p = prods[1].reshape(nv, x, y_slots, warps, zmax, c)
+    part = torch.zeros(nv, x, warps, zmax, c)
     for sy in range(y_slots):
         part = part + p[:, :, sy]
-    xz = torch.zeros(nv, x, 32, c)
+    xz = torch.zeros(nv, x, zmax, c)
     for w in range(warps):
         xz = xz + part[:, :, w]
     return (yz[:, :y, :z].to(dt), xz[:, :, :z].to(dt), xy[:, :, :y].to(dt))
@@ -824,13 +845,34 @@ def test_pillar_forward_order_fits_tolerance(dtype, shape):
         _assert_ok(o, r)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 3, 5, 33, 8), (2, 4, 19, 48, 12),
+                                   (1, 2, 64, 64, 4)])
+def test_pillar_forward_order_fits_tolerance_above_32_z(dtype, shape):
+    """CPU: kernel C's order with four z chunks (33 <= Z <= 64, the neo360
+    preset's 64^3 grid) against its plain version within
+    `kernels.compare`'s tolerance: one z of the last chunk, a ragged
+    chunk, and the largest Y and Z the kernel takes."""
+    g = _gen(21)
+    nv, x, y, z, c = shape
+    args = [torch.randn(shape, generator=g).to(dtype)] + [
+        (torch.randn(nv, x, y, z, generator=g) * 3).to(dtype)
+        for _ in range(3)]
+    for o, r in zip(_emulate_pillar_forward(args),
+                    pillar_collapse_reference(*args)):
+        _assert_ok(o, r)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(3, 64, 64, 32, 512), (2, 7, 11, 5, 12),
-                                   (1, 5, 64, 32, 40), (2, 3, 1, 1, 4)])
+                                   (1, 5, 64, 32, 40), (2, 3, 1, 1, 4),
+                                   (3, 64, 64, 64, 512), (2, 5, 19, 48, 12),
+                                   (1, 3, 64, 33, 40)])
 def test_pillar_collapse_kernel_path_and_ragged(cuda, dtype, shape):
-    """Kernel C at the path's grid latent and at grids ragged in X, Y, Z
-    and the channel slices, twice: the same bits both times."""
+    """Kernel C at the neo360_fast (Z = 32) and neo360 (Z = 64) grid
+    latents and at grids ragged in X, Y, Z and the channel slices, on both
+    sides of Z = 32, twice: the same bits both times."""
     g = _gen(20)
     nv, x, y, z, c = shape
     latent = torch.randn(shape, generator=g).to(dtype).to(cuda)
@@ -848,7 +890,7 @@ def test_pillar_collapse_kernel_path_and_ragged(cuda, dtype, shape):
 
 @pytest.mark.cuda
 def test_pillar_collapse_kernel_rejects_shapes_it_does_not_take(cuda):
-    for shape in ((1, 4, 65, 4, 8), (1, 4, 4, 33, 8), (1, 4, 4, 4, 6)):
+    for shape in ((1, 4, 65, 4, 8), (1, 4, 4, 65, 8), (1, 4, 4, 4, 6)):
         latent = torch.zeros(shape, device=cuda)
         logit = torch.zeros(shape[:4], device=cuda)
         with pytest.raises(ValueError, match="pillar_collapse"):

@@ -192,8 +192,8 @@ def test_random_resampling_matches_jax_and_is_detached(in_sphere):
     u = np.asarray(jax.random.uniform(key, (8, 6), dtype=jnp.float32))
     tw = _t(w).requires_grad_()
     ours = sampling.sample_pdf_nerfpp(
-        _t(mids), tw, _t(o), _t(d), 5, in_sphere, far=_t(far),
-        randomized=True, u=_t(u))
+        _t(mids), tw, _t(o), _t(d), _t(t), 5, in_sphere, far=_t(far),
+        randomized=True, u=_t(u), merge=False)
     ref = jsamp.sample_pdf_nerfpp(
         jnp.asarray(mids), jnp.asarray(w), jnp.asarray(o), jnp.asarray(d),
         jnp.asarray(t), 5, True, in_sphere, far=jnp.asarray(far), key=key,
