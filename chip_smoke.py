@@ -13,7 +13,11 @@ line):
    (the backward: autograd of the plain forward, or its index_add_ plain
    version under the accumulate contract) on seeded random inputs at the
    neo360_fast and neo360 shapes (kernel C also at a ragged Z = 48, and
-   twice, for the same bits), with both times (median of 20 runs), the
+   twice, for the same bits; kernel A at the neo360 lift also at the
+   grid's own uv; the fused tri-plane and local gathers at a level's
+   points of a fixture view, in bf16 and f32 tables, with flat
+   two-scene view offsets and non-finite points), with both times
+   (median of 20 runs), the
    kernel's bound (bytes over the card's memory rate or operations over
    its f32 rate, whichever is larger; `bound`) and its share of it, and
    for the corner-table kernels the time of `F.grid_sample` (forward, and
@@ -30,16 +34,19 @@ line):
    under `torch.profiler`, whose top device ops are printed), then its
    validation render and checkpoint; every step's loss must be finite,
    every parameter and BatchNorm buffer must move (apart from the leaves
-   whose gradient is zero by construction), all six kernels must launch,
-   and every stage must launch kernel A' once per scene under the dense
-   contract (the grid lift) and 4 x S x K times under the accumulate
-   contract (the tri-plane and local tables), kernel B' 2 x S x K times
-   (both levels of every scene-step) and kernels C and C' S times;
+   whose gradient is zero by construction), all eight kernels must
+   launch, and every stage must launch kernel A (the lift), C and C' S
+   times, the fused tri-plane and local gathers S x K times each, kernel
+   A' once per scene under the dense contract (the grid lift) and 4 x S x
+   K times under the accumulate contract (the tri-plane and local
+   tables), and kernel B' 2 x S x K times (both levels of every
+   scene-step);
 7. the neo360_fast serving main path: the same model encodes one
    in-memory 320x240 fixture scene once and renders 3 novel views through
    cli.make_render_fn + train.eval.evaluate, the code of `cli.run_eval`;
-   every forward kernel must launch, kernel C once (the encode, with the
-   first view). One more render of a view runs under `torch.profiler`;
+   every forward kernel must launch: A and C once (the encode, with the
+   first view), the fused gathers once per 256-ray tile, B twice. One
+   more render of a view runs under `torch.profiler`;
 8. the neo360 main path (`phase_neo360_main_path`): `cli.run_train` at
    full width with the per-step trainer (float32, 64^3 grid, 512-channel
    lift, 128 + 256 samples, the encoder's recompute), 10 steps of 500
@@ -49,7 +56,8 @@ line):
 
 Each kernel's launches per training stage or step and per rendered view
 follow the last phase. The line before the last is {"kernels": [...]}
-(launches: the sum over the three main paths, each counted from 0), the
+(the eight kernels; launches: the sum over the four main paths, each
+counted from 0), the
 last is {"ok": true, "device": {...}}. Requires a CUDA device: it exits 2
 without one, or without the neo360_tpu_torch package beside it.
 """
@@ -77,6 +85,10 @@ F32_OPS_PER_S = 67e12
 KERNELS = {
     "table_sample_fwd": ("neo360_tpu_torch/csrc/table_sample.cu",
                          "neo360_tpu/ops/interpolate.py:147"),
+    "triplane_sample_fwd": ("neo360_tpu_torch/csrc/triplane_sample.cu",
+                            "neo360_tpu/nn/triplane.py:328"),
+    "local_sample_fwd": ("neo360_tpu_torch/csrc/local_sample.cu",
+                         "neo360_tpu/models/neo360.py:276"),
     "composite_nerfpp_fwd": ("neo360_tpu_torch/csrc/composite_nerfpp.cu",
                              "neo360_tpu/core/render.py:55"),
     "pillar_collapse_fwd": ("neo360_tpu_torch/csrc/pillar_collapse.cu",
@@ -101,11 +113,14 @@ def counters():
     accumulate)."""
     from neo360_tpu_torch.core.render import composite_nerfpp, \
         composite_nerfpp_backward
-    from neo360_tpu_torch.ops.interpolate import table_sample, \
-        table_sample_accumulate, table_sample_backward
+    from neo360_tpu_torch.ops.interpolate import local_sample, \
+        table_sample, table_sample_accumulate, table_sample_backward, \
+        triplane_sample
     from neo360_tpu_torch.ops.pillar import pillar_collapse, \
         pillar_collapse_backward
     return {"table_sample_fwd": table_sample,
+            "triplane_sample_fwd": triplane_sample,
+            "local_sample_fwd": local_sample,
             "composite_nerfpp_fwd": composite_nerfpp,
             "pillar_collapse_fwd": pillar_collapse,
             "table_sample_bwd": table_sample_backward,
@@ -150,7 +165,8 @@ def _rows_read(table_shape, uv, hw, mode, view_offset) -> int:
 
 
 # the port's kernels (csrc/*.cu) as the profiler names them
-PORT_KERNEL = re.compile(r"::(table_sample|table_scatter|round_to_bf16"
+PORT_KERNEL = re.compile(r"::(table_sample|triplane_sample|local_sample"
+                         r"|table_scatter|round_to_bf16"
                          r"|composite_nerfpp(_bwd)?|pillar_(collapse|weights"
                          r"|softmax|dlogit|dlatent))_kernel\b")
 
@@ -353,7 +369,7 @@ def phase_kernels(torch):
                torch, results, nbytes=nbytes, ops=2.0 * b * n * c4,
                library_fn=_grid_sample_fns(torch, c4 // 4, table.dtype, u,
                                            hw, mode),
-               main=case.startswith("plane"))
+               main=case.startswith("lift"))
 
     # Kernel B: one 256-ray tile, prop level (65 points) and fine (61)
     for s in (65, 61):
@@ -372,18 +388,25 @@ def phase_kernels(torch):
                main=s == 61)
 
     # Kernel A at the neo360 preset's f32 grid lift: the 512-channel pixel
-    # latent table at every cell of the 64^3 grid of 3 views
+    # latent table at every cell of the 64^3 grid of 3 views, at uniform
+    # uv and at the grid's own uv (a fixture scene's source views)
     table = torch.randn(3, 121, 161, 2048, device=dev, generator=g)
-    u = uv(3, 64 ** 3, 1.5)
-    kernel = lambda: table_sample(table, u, hw, "zeros", f32)
-    plain = lambda: table_sample_reference(table, u, hw, "zeros", f32)
-    rows = _rows_read(table.shape, u, hw, "zeros", 0)
-    _check("table_sample_fwd", "neo360 lift zeros f32->f32, 3 x 64^3 pts",
-           kernel(), plain(), kernel, plain, torch, results,
-           nbytes=u.numel() * 4 + rows * 2048 * 4 + u.shape[1] * 3 * 512 * 4,
-           ops=2.0 * 3 * u.shape[1] * 2048,
-           library_fn=_grid_sample_fns(torch, 512, f32, u, hw, "zeros"))
+    view = _fixture_view(torch)
+    for what, u in (("uniform uv", uv(3, 64 ** 3, 1.5)),
+                    ("grid uv", _lift_uv(torch, view, (64, 64, 64)))):
+        kernel = lambda: table_sample(table, u, hw, "zeros", f32)
+        plain = lambda: table_sample_reference(table, u, hw, "zeros", f32)
+        rows = _rows_read(table.shape, u, hw, "zeros", 0)
+        _check("table_sample_fwd",
+               f"neo360 lift zeros f32->f32, 3 x 64^3 pts, {what}",
+               kernel(), plain(), kernel, plain, torch, results,
+               nbytes=(u.numel() * 4 + rows * 2048 * 4
+                       + u.shape[1] * 3 * 512 * 4),
+               ops=2.0 * 3 * u.shape[1] * 2048,
+               library_fn=_grid_sample_fns(torch, 512, f32, u, hw, "zeros"))
     del table, u
+
+    results += _check_fused(torch, g, view)
 
     # Kernel B at the neo360 tiles: a 256-ray render tile of the merged
     # fine level (385 points) and a 500-ray train step's coarse level (129)
@@ -433,6 +456,82 @@ def phase_kernels(torch):
     return results
 
 
+def _check_fused(torch, g, view):
+    """The fused tri-plane and local gathers against their plain versions
+    at a level's points (`_level_cam`): neo360_fast (bf16 tables) at a
+    256-ray render tile of 61 points a branch and at scene 1 of a stage
+    step (flat two-scene tables: view offsets 3 and 6), neo360 (f32) at a
+    256-ray render tile and a 500-ray training step of its fine (385) and
+    coarse (129) level; some points are non-finite, on a camera plane or
+    behind the cameras."""
+    from neo360_tpu_torch.nn.resnet import latent_scaling
+    from neo360_tpu_torch.ops.interpolate import FUSED_TOL, local_sample, \
+        local_sample_reference, local_uv, triplane_sample, \
+        triplane_sample_reference, triplane_uvs
+
+    dev = g.device
+    bf16, f32 = torch.bfloat16, torch.float32
+    hw = (120, 160)
+    focal, c = view["src_focal"], view["src_c"]
+    scale = (latent_scaling(hw) / torch.tensor([320.0, 240.0])).tolist()
+    inf, nan = float("inf"), float("nan")
+    odd = torch.tensor([[inf, 0.2, -1.0], [0.1, -inf, -0.5], [0.1, 0.2, 0.0],
+                        [0.3, -0.2, 0.7], [1e30, 0.1, -1.0]], device=dev)
+    results = []
+    for what, dt, n_rays, s, scene, main in (
+            ("neo360_fast tile", bf16, 256, 61, 0, True),
+            ("neo360_fast stage scene 1", bf16, 250, 61, 1, False),
+            ("neo360 fine tile", f32, 256, 385, 0, False),
+            ("neo360 coarse tile", f32, 256, 129, 0, False),
+            ("neo360 fine step", f32, 500, 385, 0, False),
+            ("neo360 coarse step", f32, 500, 129, 0, False)):
+        cam = _level_cam(torch, view, n_rays, s)
+        half = cam.shape[1] // 2
+        cam[0, :5] = odd
+        cam[1, half:half + 5] = odd
+        tri_cam = cam.clone()
+        tri_cam[2, :2] = nan       # zeros mode: NaN samples zeros
+        nv, n = cam.shape[:2]
+        name = {bf16: "bf16", f32: "f32"}[dt]
+        case = f"{what}, {n_rays} rays x {s}, {name} tables"
+        planes = [torch.randn(3 * (1 + scene), 121, 161, 512, device=dev,
+                              generator=g).to(dt) for _ in range(3)]
+        kernel = lambda: triplane_sample(planes, tri_cam, hw, 3 * scene)
+        plain = lambda: triplane_sample_reference(planes, tri_cam, hw,
+                                                  3 * scene)
+        uvs = triplane_uvs(tri_cam)
+        rows = sum(_rows_read(t.shape, u, hw, "zeros", 3 * scene)
+                   for t, u in zip(planes, uvs))
+        # cam read once, the rows touched read once, the f32 sum written
+        _check("triplane_sample_fwd", case, kernel(), plain(), kernel, plain,
+               torch, results, FUSED_TOL,
+               nbytes=(cam.numel() * 4 + rows * 512 * planes[0].element_size()
+                       + nv * n * 128 * 4),
+               ops=3 * 2.0 * nv * n * 512 + 2.0 * nv * n * 128,
+               library_fn=_grid_sample_fns(torch, 128, dt, torch.cat(uvs, 0),
+                                           hw, "zeros"),
+               main=main)
+        table = torch.randn(6 * (1 + scene), 121, 161, 512, device=dev,
+                            generator=g).to(dt)
+        kernel = lambda: local_sample(table, cam, focal, c, scale, hw,
+                                      6 * scene)
+        plain = lambda: local_sample_reference(table, cam, focal, c, scale,
+                                               hw, 6 * scene)
+        u = local_uv(cam, focal, c, scale)
+        rows = _rows_read(table.shape, u, hw, "border", 6 * scene)
+        # cam read once, the rows touched read once, the output written;
+        # per point ~8 operations of projection and a 4C-wide fold
+        _check("local_sample_fwd", case, kernel(), plain(), kernel, plain,
+               torch, results, FUSED_TOL,
+               nbytes=(cam.numel() * 4 + rows * 512 * table.element_size()
+                       + nv * n * 128 * 4),
+               ops=2.0 * nv * n * 512 + 8.0 * nv * n,
+               library_fn=_grid_sample_fns(torch, 128, dt, u, hw, "border"),
+               main=main)
+        del planes, table, cam, tri_cam, uvs, u
+    return results
+
+
 def _composite_args(torch, g, b, s):
     """Seeded inputs of kernel B / B' for `b` rays of `s` points: fg t
     ascending, bg t descending, far past the last fg t."""
@@ -460,6 +559,62 @@ def _ray_uv(torch, g, b, n_rays, s, lim=1.2, reach=0.5):
     t = torch.sort(torch.rand(b, n_rays, s, 1, device=dev, generator=g),
                    2).values
     return (start + t * step).reshape(b, n_rays * s, 2)
+
+
+def _fixture_view(torch):
+    """One 320x240 fixture view of a seeded in-memory scene, as tensors on
+    the card: its rays and its 3 source views' poses, focal and centre."""
+    from neo360_tpu_torch.data.fixtures import MemoryScenes
+    sample = MemoryScenes(1, (320, 240), 3).sample_test(0, 0)
+    return {k: torch.as_tensor(v, device="cuda") for k, v in sample.items()
+            if k in ("rays_o", "rays_d", "src_poses", "src_focal", "src_c")}
+
+
+def _level_points(torch, view, n_rays, s):
+    """World points (fg, bg), each (n_rays, s, 3), of a conditioned level:
+    `s` evenly spaced fg points inside the unit sphere and `s` bg points
+    beyond it on each of `n_rays` consecutive rays of the view's middle
+    rows (the level's [fg | bg] halves)."""
+    from neo360_tpu_torch.core import sampling, spherical
+    start = 120 * 320
+    rays_o = view["rays_o"][start:start + n_rays]
+    rays_d = view["rays_d"][start:start + n_rays]
+    near = torch.full_like(rays_o[..., :1], 1e-4)
+    far = torch.clamp(spherical.intersect_sphere(rays_o, rays_d), min=2e-4)
+    _, fg = sampling.sample_along_rays_nerfpp(rays_o, rays_d, s - 1, near,
+                                              far, in_sphere=True)
+    _, _, bg = sampling.sample_along_rays_nerfpp(
+        rays_o, rays_d, s - 1, near, far, in_sphere=False,
+        far_uncontracted=3.0)
+    return fg, bg
+
+
+def _level_cam(torch, view, n_rays, s):
+    """Camera points (3, 2 * n_rays * s, 3) of `_level_points`, [fg | bg],
+    seen from the view's 3 source views."""
+    from neo360_tpu_torch.core import geometry
+    fg, bg = _level_points(torch, view, n_rays, s)
+    return geometry.world2camera(torch.cat([fg, bg], 0).reshape(1, -1, 3),
+                                 view["src_poses"], ns=3)
+
+
+def _lift_uv(torch, view, grid):
+    """uv (3, X*Y*Z, 2) of the grid lift: the world grid of `grid` cells
+    projected into the 3 source views' 120x160 latent, as
+    GridEncoder._grid computes it."""
+    from neo360_tpu_torch.core import geometry
+    from neo360_tpu_torch.nn.resnet import latent_scaling
+    dev = view["src_poses"].device
+    world = geometry.get_world_grid([[-1.0, 1.0], [-1.0, 1.0], [0.0, 1.0]],
+                                    list(grid), device=dev)
+    cam = geometry.world2camera(geometry.repeat_interleave(world, 3),
+                                view["src_poses"])
+    focal = view["src_focal"]
+    uv = geometry.projection(cam, torch.stack([focal[0], -focal[0]])[None],
+                             view["src_c"][:1], 3)
+    scale = latent_scaling((120, 160), dev) / torch.tensor(
+        [320.0, 240.0], device=dev)
+    return uv * scale - 1.0
 
 
 def phase_backward_kernels(torch):
@@ -824,6 +979,17 @@ def phase_train_main_path(torch):
     if any(x != want for x in got):
         raise AssertionError(f"kernel B' / C / C' launches per stage {got}, "
                              f"expected {want}")
+    # A once per scene (its one encode's lift); the fine level's tri-plane
+    # and local gathers once each per scene-step
+    sk = cfg.stage_scenes * cfg.stage_k
+    want = (cfg.stage_scenes, sk, sk)
+    got = [(n["table_sample_fwd"], n["triplane_sample_fwd"],
+            n["local_sample_fwd"]) for n in per_stage]
+    print(f"[train] kernels A, A-tri, A-loc per stage: {got}, expected "
+          f"{want} (A per scene, the fused gathers per scene-step)")
+    if any(x != want for x in got):
+        raise AssertionError(f"kernel A / A-tri / A-loc launches per stage "
+                             f"{got}, expected {want}")
     after = {k: v.detach().cpu() for k, v in
              state.model.state_dict().items()}
     still = [k for k, v in before.items()
@@ -917,12 +1083,13 @@ def _neo360_step_launches(remat: bool) -> dict:
     """Kernel launches of one neo360 per-step training step, from the
     code: the encode samples the lift table once (kernel A; once more when
     the backward recomputes the remat'ed grid part) and collapses the
-    pillars once (C); each of the two conditioned levels samples the 3
-    plane tables and its local table (A x 4) and composites once (B); the
-    backward scatters every table gradient under the dense contract (A',
-    one per A launch of the forward: the recompute's gradient is the
-    forward's), and runs C' once and B' once per level."""
-    return {"table_sample_fwd": 1 + int(remat) + 2 * 4,
+    pillars once (C); each of the two conditioned levels gathers the 3
+    plane tables (A-tri) and its local table (A-loc) once and composites
+    once (B); the backward scatters every table gradient under the dense
+    contract (A': the lift once, each level's 3 planes and local table),
+    and runs C' once and B' once per level."""
+    return {"table_sample_fwd": 1 + int(remat), "triplane_sample_fwd": 2,
+            "local_sample_fwd": 2,
             "table_sample_bwd": 1 + 2 * 4, "table_sample_bwd_acc": 0,
             "composite_nerfpp_fwd": 2, "composite_nerfpp_bwd": 2,
             "pillar_collapse_fwd": 1, "pillar_collapse_bwd": 1}
@@ -1118,12 +1285,13 @@ def phase_neo360_main_path(torch):
         if not (np.isfinite(v.psnr) and np.isfinite(v.rgb).all()
                 and np.isfinite(v.depth).all()):
             raise AssertionError("neo360 view: non-finite output or metrics")
-    # per tile both levels sample 4 tables (A) and composite (B); the
-    # first view also encodes (A once for the lift, C once)
-    want = [{"table_sample_fwd": 8 * tiles + 1, "composite_nerfpp_fwd":
-             2 * tiles, "pillar_collapse_fwd": 1},
-            {"table_sample_fwd": 8 * tiles, "composite_nerfpp_fwd":
-             2 * tiles, "pillar_collapse_fwd": 0}]
+    # per tile both levels gather the planes (A-tri) and the local table
+    # (A-loc) and composite (B); the first view also encodes (A once for
+    # the lift, C once)
+    want = [{"table_sample_fwd": first, "triplane_sample_fwd": 2 * tiles,
+             "local_sample_fwd": 2 * tiles,
+             "composite_nerfpp_fwd": 2 * tiles, "pillar_collapse_fwd": first}
+            for first in (1, 0)]
     got = [{k: n[k] for k in want[0]} for n in per_view]
     if got != want:
         raise AssertionError(f"neo360 launches per view {got}, expected "
@@ -1222,7 +1390,8 @@ def phase_main_path(torch, cfg, dev="cuda"):
     from neo360_tpu_torch import cli
     from neo360_tpu_torch.core.render import composite_nerfpp
     from neo360_tpu_torch.data.fixtures import MemoryScenes
-    from neo360_tpu_torch.ops.interpolate import table_sample
+    from neo360_tpu_torch.ops.interpolate import local_sample, \
+        table_sample, triplane_sample
     from neo360_tpu_torch.ops.pillar import pillar_collapse
     from neo360_tpu_torch.train.eval import evaluate
 
@@ -1245,6 +1414,8 @@ def phase_main_path(torch, cfg, dev="cuda"):
     print(f"[main] encode {time.perf_counter() - t0:.3f} s")
 
     counted = {"table_sample_fwd": table_sample,
+               "triplane_sample_fwd": triplane_sample,
+               "local_sample_fwd": local_sample,
                "composite_nerfpp_fwd": composite_nerfpp,
                "pillar_collapse_fwd": pillar_collapse}
     for fn in counted.values():
@@ -1285,10 +1456,17 @@ def phase_main_path(torch, cfg, dev="cuda"):
     if missing:
         raise AssertionError(f"kernels not launched by the main path: "
                              f"{missing}")
-    encodes = [n["pillar_collapse_fwd"] for n in timed.per_view]
-    if encodes != [1] + [0] * (len(encodes) - 1):
-        raise AssertionError(f"kernel C per view {encodes}, expected one "
-                             f"launch for the scene's one encode (view 0)")
+    # per view: A and C once for the scene's one encode (view 0); per
+    # tile the fine level's tri-plane and local gathers and both levels'
+    # composites
+    tiles = -(-w * h // cfg.chunk)
+    want = [{"table_sample_fwd": first, "triplane_sample_fwd": tiles,
+             "local_sample_fwd": tiles, "composite_nerfpp_fwd": 2 * tiles,
+             "pillar_collapse_fwd": first}
+            for first in [1] + [0] * (len(views) - 1)]
+    if timed.per_view != want:
+        raise AssertionError(f"launches per view {timed.per_view}, expected "
+                             f"{want}")
     _profile(torch, lambda: render_fn(samples[1]),
              "rendered view (encode cached)")
     return launches, timed.per_view

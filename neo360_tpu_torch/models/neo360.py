@@ -37,9 +37,10 @@ from neo360_tpu_torch.nn.layers import Dense
 from neo360_tpu_torch.nn.mlp import combine_interleaved
 from neo360_tpu_torch.nn.resnet import latent_scaling
 from neo360_tpu_torch.nn.layers import commit_running_stats
-from neo360_tpu_torch.nn.triplane import GridEncoder, index_grid_tables
+from neo360_tpu_torch.nn.triplane import GridEncoder
 from neo360_tpu_torch.ops import losses
-from neo360_tpu_torch.ops.interpolate import build_corner_table, table_sample
+from neo360_tpu_torch.ops.interpolate import build_corner_table, \
+    local_sample, triplane_sample
 
 
 class NeRFTPMLP(nn.Module):
@@ -214,30 +215,21 @@ class NeRFTP(nn.Module):
         hw = (tuple(planes[0].shape[1:3]), tuple(pixel_latent.shape[1:3]))
         return plane_tables, local[0] if self.use_proposal else local, hw
 
-    def _local_feats_pair(self, fg_samples, bg_samples, poses, focal, c,
-                          stacked_table, latent_hw, image_size,
-                          view_offset: int = 0, grad_acc=None):
+    def _local_feats_pair(self, cam, focal, c, stacked_table, latent_hw,
+                          image_size, view_offset: int = 0, grad_acc=None):
         """Pixel-aligned projected latents for the fg and bg branches in one
-        border-mode gather (neo360_tpu/models/neo360.py:276-305). Returns
-        (fg latent, bg latent, fg camera points), latents (NV, B*S, D).
-        `view_offset`: the first view row of this scene in a flat
-        multi-scene table; `grad_acc`: the table's f32 gradient accumulator
-        (`table_sample`'s accumulate contract)."""
+        border-mode gather (neo360_tpu/models/neo360.py:276-305) from the
+        camera points cam (NV, 2M, 3) of [fg | bg]: `local_sample`, one
+        fused kernel on the card. Returns (fg latent, bg latent), each
+        (NV, M, D). `view_offset`: the first view row of this scene in a
+        flat multi-scene table; `grad_acc`: the table's f32 gradient
+        accumulator (`table_sample`'s accumulate contract)."""
         nv = self.num_src_views
-        fg_cam = geometry.world2camera(fg_samples.reshape(1, -1, 3), poses,
-                                       ns=nv)
-        bg_cam = geometry.world2camera(bg_samples.reshape(1, -1, 3), poses,
-                                       ns=nv)
-        focal2 = torch.stack([focal[0], -focal[0]])[None]
-        uv_fg = geometry.projection(fg_cam, focal2, c[:1], nv)
-        uv_bg = geometry.projection(bg_cam, focal2, c[:1], nv)
-        scale = latent_scaling(latent_hw, fg_cam.device) / torch.tensor(
-            image_size, dtype=torch.float32, device=fg_cam.device)
-        uv = torch.cat([uv_fg, uv_bg], dim=0) * scale - 1.0
-        latent = table_sample(stacked_table, uv, latent_hw,
-                              padding_mode="border", view_offset=view_offset,
-                              grad_acc=grad_acc)
-        return latent[:nv], latent[nv:], fg_cam
+        scale = (latent_scaling(latent_hw)
+                 / torch.tensor(image_size, dtype=torch.float32)).tolist()
+        latent = local_sample(stacked_table, cam, focal, c, scale, latent_hw,
+                              view_offset=view_offset, grad_acc=grad_acc)
+        return latent[:nv], latent[nv:]
 
     def _predict(self, mlp, cam_pts, world_lat, local_lat, viewdirs_enc,
                  b: int, n_samples: int):
@@ -349,16 +341,20 @@ class NeRFTP(nn.Module):
                 tab = 0 if self.use_proposal else level
                 b, s = fg_samples.shape[:2]
                 bg_pts = bg_linear[..., :3]
-                # fg + bg in one tri-plane gather and one local gather
-                world = index_grid_tables(
-                    torch.cat([fg_samples, bg_pts], dim=0), plane_tables,
-                    plane_hw, poses, nv, view_offset=plane_off,
-                    grad_acc=plane_acc)
+                # fg + bg: one world2camera, one tri-plane gather and one
+                # local gather
+                cam = geometry.world2camera(
+                    torch.cat([fg_samples, bg_pts], dim=0).reshape(1, -1, 3),
+                    poses, ns=nv)                      # (NV, 2*B*S, 3)
+                world = triplane_sample(plane_tables, cam, plane_hw,
+                                        view_offset=plane_off,
+                                        grad_acc=plane_acc)
                 world_fg, world_bg = world[:, :b * s], world[:, b * s:]
-                local_fg, local_bg, fg_cam = self._local_feats_pair(
-                    fg_samples, bg_pts, poses, rays["src_focal"],
-                    rays["src_c"], local_tables[tab], latent_hw, image_size,
-                    view_offset=local_off, grad_acc=local_acc[tab])
+                local_fg, local_bg = self._local_feats_pair(
+                    cam, rays["src_focal"], rays["src_c"], local_tables[tab],
+                    latent_hw, image_size, view_offset=local_off,
+                    grad_acc=local_acc[tab])
+                fg_cam = cam[:, :b * s]
 
                 bg_cam = geometry.world2camera(
                     bg_samples[..., :3].reshape(1, -1, 3), poses, ns=nv)

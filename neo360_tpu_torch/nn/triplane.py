@@ -222,23 +222,3 @@ class GridEncoder(nn.Module):
             latent.shape[:-1] + (3,))
         logits = self.tri_pillar(latent, coords)
         return (latent,) + tuple(lg[..., 0] for lg in logits)
-
-
-def index_grid_tables(samples: torch.Tensor, tables, plane_hw,
-                      poses: torch.Tensor, num_src_views: int,
-                      view_offset: int = 0, grad_acc=None) -> torch.Tensor:
-    """Sample and sum the three plane corner tables (zeros mode) at the
-    camera-frame coordinate pairs (x,z), (x,y), (y,z) used directly as uv.
-    samples (B, S, 3) world points -> (NV, B*S, plane_dim) f32.
-    `view_offset`: the first view row of this scene in flat multi-scene
-    tables. `grad_acc`: three f32 accumulators, one per table, into which
-    the backward adds the tables' gradients (`table_sample`'s accumulate
-    contract)."""
-    flat = samples.reshape(1, -1, 3)
-    cam = geometry.world2camera(flat, poses, ns=num_src_views)  # (NV, N, 3)
-    uvs = (cam[..., [0, 2]], cam[..., [0, 1]], cam[..., [1, 2]])
-    accs = grad_acc if grad_acc is not None else (None,) * 3
-    xz, xy, yz = (table_sample(t, uv, plane_hw, "zeros",
-                               view_offset=view_offset, grad_acc=acc)
-                  for t, uv, acc in zip(tables, uvs, accs))
-    return xz + xy + yz

@@ -1,5 +1,5 @@
 """Corner-table bilinear sampling (port of neo360_tpu/ops/interpolate.py:
-117-232).
+117-232) and the model's two fused gathers over it.
 
 `table_sample` is kernel A (csrc/table_sample.cu) on CUDA tensors and its
 plain PyTorch version, `table_sample_reference`, on CPU tensors. With
@@ -12,6 +12,16 @@ and its plain version on the CPU, under one of two contracts:
   the gradient is added into `acc`, an f32 tensor of the table's shape that
   the caller owns, and autograd gets None for the table.
 uv takes no gradient.
+
+`triplane_sample` (csrc/triplane_sample.cu) samples and sums the three
+plane tables at camera points, and `local_sample` (csrc/local_sample.cu)
+projects camera points into the stacked fg/bg local table and samples it;
+both take the camera points themselves, so no uv tensor reaches device
+memory, and both hand kernel A' the (cotangent, uv) pairs of the unfused
+calls in their backward. Their plain versions
+(`triplane_sample_reference`, `local_sample_reference`) are the unfused
+chains over `table_sample_reference`.
+
 Maps are NHWC at these functions, as in the JAX package. The JAX package's
 `resize_bilinear_align_corners` becomes F.interpolate(mode="bilinear",
 align_corners=True) at its call sites.
@@ -22,7 +32,15 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from neo360_tpu_torch.core import geometry
 from neo360_tpu_torch.ops import kernels
+
+# consecutive points a group of threads walks, reusing the corner rows of
+# a run of points that fall in one cell (csrc/table_sample_common.cuh),
+# per entry point; chosen by measurement on the card (PERF.md). The port
+# never changes it: only `scripts/torch_kernel_times.py --sweep` and the
+# card tests of every run length do
+RUN = {"table_sample": 4, "triplane_sample": 8, "local_sample": 4}
 
 
 def build_corner_table(image: torch.Tensor, padding_mode: str = "zeros",
@@ -156,6 +174,9 @@ def _table_shape_ok(name: str, table_shape, hw, c_multiple: int) -> int:
         raise ValueError(f"{name}: table {tuple(table_shape)} does not fit "
                          f"hw {hw}, or C={c} is not a multiple of "
                          f"{c_multiple} up to {256 * c_multiple}")
+    if v * hp * wp >= 2 ** 31:
+        raise ValueError(f"{name}: table {tuple(table_shape)} has 2^31 rows "
+                         f"or more")
     return c
 
 
@@ -182,7 +203,7 @@ def _table_sample_forward(table, uv, hw, padding_mode, out_dtype,
                    kernels.DTYPE_CODES[table.dtype], uv.data_ptr(),
                    out.data_ptr(), kernels.DTYPE_CODES[out_dtype], b, n, h,
                    w, c, int(padding_mode == "zeros"), int(view_offset),
-                   table.shape[0])
+                   table.shape[0], RUN["table_sample"])
     table_sample.launches += 1
     return out
 
@@ -317,13 +338,7 @@ def table_sample(table: torch.Tensor, uv: torch.Tensor, hw: tuple,
                                      view_offset)
     if uv.requires_grad:
         raise ValueError("table_sample: uv takes no gradient (detach it)")
-    if grad_acc is not None and (
-            grad_acc.shape != table.shape or grad_acc.dtype != torch.float32
-            or grad_acc.device != table.device
-            or not grad_acc.is_contiguous()):
-        raise ValueError(f"table_sample: grad_acc must be a contiguous "
-                         f"float32 tensor of the table's shape "
-                         f"{tuple(table.shape)} on {table.device}")
+    _check_acc("table_sample", grad_acc, table)
     return _TableSample.apply(table, uv, tuple(hw), padding_mode, out_dtype,
                               int(view_offset), grad_acc)
 
@@ -337,3 +352,239 @@ table_sample_accumulate.launches = 0
 # the atomic adds sum each row's contributions in another order than
 # index_add_, which matters where they cancel.
 BACKWARD_TOL = dict(rtol=1e-5, atol_frac=1e-5)
+
+
+# the fused tri-plane and local gathers against their plain versions
+# (ops.kernels.compare): 1e-5 relative plus 1e-5 * max|ref|. Each fold
+# contracts its multiply-adds differently from the plain version's bmm,
+# and the tri-plane sum of three folds can cancel.
+FUSED_TOL = dict(rtol=1e-5, atol_frac=1e-5)
+
+
+def _check_acc(name, grad_acc, table):
+    if grad_acc is not None and (
+            grad_acc.shape != table.shape or grad_acc.dtype != torch.float32
+            or grad_acc.device != table.device
+            or not grad_acc.is_contiguous()):
+        raise ValueError(f"{name}: grad_acc must be a contiguous float32 "
+                         f"tensor of the table's shape {tuple(table.shape)} "
+                         f"on {table.device}")
+
+
+def _table_grad(grad, uv, shape, dtype, hw, mode, offset, acc):
+    """The table's gradient for one (cotangent, uv) pair: dense, or added
+    into `acc` (then None)."""
+    if acc is None:
+        return table_sample_backward(grad, uv, shape, dtype, hw, mode,
+                                     offset)
+    table_sample_accumulate(grad, uv, acc, hw, mode, offset)
+    return None
+
+
+def _cam_ok(name, cam):
+    if cam.dtype != torch.float32 or cam.dim() != 3 or cam.shape[-1] != 3:
+        raise ValueError(f"{name}: cam must be float32 (NV, N, 3)")
+
+
+def triplane_uvs(cam: torch.Tensor):
+    """The uv of the three planes at camera points (NV, N, 3): (x, z),
+    (x, y), (y, z), the camera coordinates used directly
+    (neo360_tpu/nn/triplane.py:343-345)."""
+    return cam[..., [0, 2]], cam[..., [0, 1]], cam[..., [1, 2]]
+
+
+def triplane_sample_reference(tables, cam: torch.Tensor, hw: tuple,
+                              view_offset: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of the fused tri-plane gather: the xz, xy and
+    yz tables (zeros mode) sampled at `triplane_uvs(cam)` and summed in f32
+    as (xz + xy) + yz (neo360_tpu/nn/triplane.py:328-352) -> (NV, N, C)."""
+    xz, xy, yz = (table_sample_reference(t, uv, hw, "zeros", torch.float32,
+                                         view_offset)
+                  for t, uv in zip(tables, triplane_uvs(cam)))
+    return xz + xy + yz
+
+
+def _triplane_forward(tables, cam, hw, view_offset):
+    if all(t.device.type == "cpu" for t in (*tables, cam)):
+        return triplane_sample_reference(tables, cam, hw, view_offset)
+    name = "triplane_sample"
+    tables = [kernels.dense(t) for t in tables]
+    cam = cam.contiguous()
+    kernels.require_cuda(name, *tables, cam)
+    _cam_ok(name, cam)
+    shape, dtype = tables[0].shape, tables[0].dtype
+    if any(t.shape != shape or t.dtype != dtype for t in tables) \
+            or dtype not in kernels.DTYPE_CODES:
+        raise ValueError(f"{name}: the three tables must share one shape "
+                         f"and a float32 or bfloat16 type")
+    h, w = hw
+    c = _table_shape_ok(name, shape, hw, 16 // tables[0].element_size())
+    b, n = cam.shape[:2]
+    out = torch.empty((b, n, c), dtype=torch.float32, device=cam.device)
+    kernels.launch("triplane_sample_fwd", cam.device,
+                   *(t.data_ptr() for t in tables), kernels.DTYPE_CODES[dtype],
+                   cam.data_ptr(), out.data_ptr(), b, n, h, w, c,
+                   int(view_offset), shape[0], RUN["triplane_sample"])
+    triplane_sample.launches += 1
+    return out
+
+
+class _TriplaneSample(torch.autograd.Function):
+    """triplane_sample; the backward rebuilds the three uv from the saved
+    camera points and hands each table's (cotangent, uv) pair to
+    `table_sample_backward`, or to `table_sample_accumulate` given
+    accumulators (the table then gets None)."""
+
+    @staticmethod
+    def forward(ctx, t_xz, t_xy, t_yz, cam, hw, view_offset, grad_acc):
+        tables = (t_xz, t_xy, t_yz)
+        ctx.save_for_backward(cam)
+        ctx.meta = ([(tuple(t.shape), t.dtype) for t in tables], hw,
+                    view_offset)
+        ctx.grad_acc = grad_acc or (None,) * 3
+        return _triplane_forward(tables, cam, hw, view_offset)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (cam,) = ctx.saved_tensors
+        metas, hw, offset = ctx.meta
+        grads = [_table_grad(grad, uv, shape, dtype, hw, "zeros", offset,
+                             acc) if need else None
+                 for uv, (shape, dtype), acc, need in zip(
+                     triplane_uvs(cam), metas, ctx.grad_acc,
+                     ctx.needs_input_grad[:3])]
+        return (*grads, None, None, None, None)
+
+
+def triplane_sample(tables, cam: torch.Tensor, hw: tuple,
+                    view_offset: int = 0, grad_acc=None) -> torch.Tensor:
+    """The tri-plane world latent (NV, N, C) f32 of camera points cam
+    (NV, N, 3): the three zeros-mode plane tables (xz, xy, yz) sampled at
+    `triplane_uvs(cam)` and summed (semantics of
+    neo360_tpu/nn/triplane.py:index_grid_tables after its world2camera).
+    View b reads table view clip(b + view_offset, 0, V-1).
+
+    CPU tensors run `triplane_sample_reference`; CUDA tensors launch the
+    fused kernel (csrc/triplane_sample.cu) and add one to
+    `triplane_sample.launches`. With grad enabled the call is a
+    `_TriplaneSample` autograd Function; cam must not require grad
+    (raises). `grad_acc`: three f32 accumulators of the tables' shapes;
+    the backward then adds the tables' gradients into them (kernel A''s
+    accumulate contract) and returns None for the tables."""
+    tables = tuple(tables)
+    if not torch.is_grad_enabled():
+        return _triplane_forward(tables, cam, hw, view_offset)
+    if cam.requires_grad:
+        raise ValueError("triplane_sample: cam takes no gradient (detach "
+                         "it)")
+    if grad_acc is not None:
+        for acc, t in zip(grad_acc, tables):
+            _check_acc("triplane_sample", acc, t)
+        grad_acc = tuple(grad_acc)
+    return _TriplaneSample.apply(*tables, cam, tuple(hw), int(view_offset),
+                                 grad_acc)
+
+
+def local_uv(cam: torch.Tensor, focal: torch.Tensor, c: torch.Tensor,
+             scale) -> torch.Tensor:
+    """uv (2NV, M, 2) of the stacked fg/bg local table's rows: the camera
+    points (NV, 2M, 3) of [fg | bg] projected with view 0's focal
+    (f, -f) and centre, times `scale` (sx, sy), minus 1
+    (neo360_tpu/models/neo360.py:293-299); row r holds branch r // NV,
+    view r % NV."""
+    nv, m = cam.shape[0], cam.shape[1] // 2
+    focal2 = torch.stack([focal[0], -focal[0]])[None]
+    uv = geometry.projection(cam, focal2, c[:1], nv)
+    uv = torch.cat([uv[:, :m], uv[:, m:]], dim=0)
+    return uv * torch.tensor(scale, dtype=torch.float32,
+                             device=cam.device) - 1.0
+
+
+def local_sample_reference(table: torch.Tensor, cam: torch.Tensor,
+                           focal: torch.Tensor, c: torch.Tensor, scale,
+                           hw: tuple, view_offset: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of the fused local gather: `local_uv` and a
+    border-mode `table_sample_reference` -> (2NV, M, C) f32."""
+    return table_sample_reference(table, local_uv(cam, focal, c, scale), hw,
+                                  "border", torch.float32, view_offset)
+
+
+def _local_forward(table, cam, focal, c, scale, hw, view_offset):
+    if all(t.device.type == "cpu" for t in (table, cam, focal, c)):
+        return local_sample_reference(table, cam, focal, c, scale, hw,
+                                      view_offset)
+    name = "local_sample"
+    table, cam = kernels.dense(table), cam.contiguous()
+    focal, c = focal.contiguous(), c.contiguous()
+    kernels.require_cuda(name, table, cam, focal, c)
+    _cam_ok(name, cam)
+    if table.dtype not in kernels.DTYPE_CODES or focal.dtype != torch.float32 \
+            or c.dtype != torch.float32 or cam.shape[1] % 2:
+        raise ValueError(f"{name}: table float32 or bfloat16, focal and c "
+                         f"float32, cam (NV, 2M, 3)")
+    h, w = hw
+    cc = _table_shape_ok(name, table.shape, hw, 16 // table.element_size())
+    nv, m = cam.shape[0], cam.shape[1] // 2
+    out = torch.empty((2 * nv, m, cc), dtype=torch.float32, device=cam.device)
+    kernels.launch("local_sample_fwd", cam.device, table.data_ptr(),
+                   kernels.DTYPE_CODES[table.dtype], cam.data_ptr(),
+                   focal.data_ptr(), c.data_ptr(), float(scale[0]),
+                   float(scale[1]), out.data_ptr(), nv, m, h, w, cc,
+                   int(view_offset), table.shape[0], RUN["local_sample"])
+    local_sample.launches += 1
+    return out
+
+
+class _LocalSample(torch.autograd.Function):
+    """local_sample; the backward rebuilds the uv from the saved camera
+    points with `local_uv` and hands (cotangent, uv) to
+    `table_sample_backward`, or to `table_sample_accumulate` given an
+    accumulator (the table then gets None)."""
+
+    @staticmethod
+    def forward(ctx, table, cam, focal, c, scale, hw, view_offset,
+                grad_acc):
+        ctx.save_for_backward(cam, focal, c)
+        ctx.meta = (tuple(table.shape), table.dtype, scale, hw, view_offset)
+        ctx.grad_acc = grad_acc
+        return _local_forward(table, cam, focal, c, scale, hw, view_offset)
+
+    @staticmethod
+    def backward(ctx, grad):
+        cam, focal, c = ctx.saved_tensors
+        shape, dtype, scale, hw, offset = ctx.meta
+        dtable = None
+        if ctx.needs_input_grad[0]:
+            dtable = _table_grad(grad, local_uv(cam, focal, c, scale), shape,
+                                 dtype, hw, "border", offset, ctx.grad_acc)
+        return dtable, None, None, None, None, None, None, None
+
+
+def local_sample(table: torch.Tensor, cam: torch.Tensor, focal: torch.Tensor,
+                 c: torch.Tensor, scale, hw: tuple, view_offset: int = 0,
+                 grad_acc: torch.Tensor = None) -> torch.Tensor:
+    """Pixel-aligned local latents (2NV, M, C) f32 of the fg and bg points
+    from the stacked fg/bg table (semantics of the uv prologue and gather
+    of neo360_tpu/models/neo360.py:NeRFTP._local_feats_pair). cam
+    (NV, 2M, 3): the camera points of [fg | bg]; focal (NV,), c (NV, 2):
+    the source views' intrinsics (view 0's are used); scale: (sx, sy),
+    latent_scaling / image size, as Python floats. Row r reads table view
+    clip(r + view_offset, 0, V-1), border mode.
+
+    CPU tensors run `local_sample_reference`; CUDA tensors launch the fused
+    kernel (csrc/local_sample.cu) and add one to `local_sample.launches`.
+    With grad enabled the call is a `_LocalSample` autograd Function; cam
+    must not require grad (raises). `grad_acc`: an f32 accumulator of the
+    table's shape (kernel A''s accumulate contract)."""
+    scale = (float(scale[0]), float(scale[1]))
+    if not torch.is_grad_enabled():
+        return _local_forward(table, cam, focal, c, scale, hw, view_offset)
+    if cam.requires_grad:
+        raise ValueError("local_sample: cam takes no gradient (detach it)")
+    _check_acc("local_sample", grad_acc, table)
+    return _LocalSample.apply(table, cam, focal, c, scale, tuple(hw),
+                              int(view_offset), grad_acc)
+
+
+triplane_sample.launches = 0
+local_sample.launches = 0

@@ -34,12 +34,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C signatures of csrc/*.cu (all return int = cudaError_t)
 SIGNATURES = {
     # table, table_dtype, uv, out, out_dtype, n_views, n_points, h, w, c,
-    # zeros_mode, view_offset, total_views, stream
+    # zeros_mode, view_offset, total_views, run, stream
     "table_sample_fwd": (_P, _I, _P, _P, _I, _I, _L, _I, _I, _I, _I, _I, _I,
-                         _P),
+                         _I, _P),
+    # t_xz, t_xy, t_yz, table_dtype, cam, out, n_views, n_points, h, w, c,
+    # view_offset, total_views, run, stream
+    "triplane_sample_fwd": (_P, _P, _P, _I, _P, _P, _I, _L, _I, _I, _I, _I,
+                            _I, _I, _P),
+    # table, table_dtype, cam, focal, centre, sx, sy, out, n_views,
+    # m_points, h, w, c, view_offset, total_views, run, stream
+    "local_sample_fwd": (_P, _I, _P, _P, _P, _F, _F, _P, _I, _L, _I, _I, _I,
+                         _I, _I, _I, _P),
     # fg rgb/sigma/t, s_fg, bg rgb/sigma/t, s_bg, dirs, far, n_rays,
     # white_bkgd, comp, fg_comp, bg_comp, fg_acc, bg_acc, fg_w, bg_w,
     # bg_lambda, depth, fg_depth, stream

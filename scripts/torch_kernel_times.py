@@ -2,15 +2,26 @@
 """Device time per call of the PyTorch port's CUDA kernels at the
 neo360_fast and neo360 training and render shapes, on one NVIDIA GPU.
 
-    python3 scripts/torch_kernel_times.py [--tree DIR]
+    python3 scripts/torch_kernel_times.py [--tree DIR] [--only PREFIXES]
+    python3 scripts/torch_kernel_times.py --sweep [--only PREFIXES]
 
 Each case runs its wrapper 20 times under torch.profiler and prints the
 device time per call of every kernel it launched (memsets included) and
 their sum, beside the wrapper's CUDA-event time (median of 20 single
 calls); both helpers are chip_smoke.py's. For a kernel of a few
 microseconds the event time measures the wrapper's host work, while the
-device time does not. A last case times a device copy of the grid latent
-(`clone`), the memory rate that kernel C′'s one pass over it can reach.
+device time does not. Yardsticks that are no kernel of the port: a device
+copy of the grid latent (`clone`), the memory rate that kernel C′'s one
+pass over it can reach, a memset of the neo360 lift's output, and at
+kernel A's unfused calls at the neo360 level shapes (no call site since
+the fused gathers) its plain version and `F.grid_sample`, with A's bound
+in the case's name.
+
+Kernel A at the neo360 lift is timed at uniform uv, at the grid's own uv
+(a fixture scene's source views) and with every point in one cell; the
+"level gathers" cases time one conditioned level's tri-plane and local
+gathers from its world points (a fixture view's rays): the fused kernels
+where the imported version has them, else its unfused chain.
 
 `--tree DIR` imports neo360_tpu_torch from DIR instead of this checkout
 (a checkout of another commit, unpacked with `git archive`), so that two
@@ -18,7 +29,10 @@ versions can be compared in one run on one card. The cases call only
 wrappers that every version of the port has, apart from the accumulate
 contract of kernel A', which is skipped where it is missing; a case whose
 shape the imported version refuses (kernel C at Z > 32 before it took
-them) prints the refusal.
+them) prints the refusal. `--only` keeps the cases whose kernel name
+starts with one of the comma-separated prefixes. `--sweep` times kernel
+A's and the level gathers' cases at every run length of `SWEEP_RUNS`
+(ops.interpolate.RUN, points a group of threads walks).
 """
 
 from __future__ import annotations
@@ -31,7 +45,12 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-from chip_smoke import _device_ms, _median_ms  # noqa: E402
+from chip_smoke import _bound, _device_ms, _fixture_view, \
+    _grid_sample_fns, _level_cam, _level_points, _lift_uv, _median_ms, \
+    _rows_read  # noqa: E402
+
+# run lengths that --sweep tries (ops.interpolate.RUN)
+SWEEP_RUNS = (1, 2, 4, 8, 16, 32)
 
 
 def short(name: str) -> str:
@@ -163,12 +182,127 @@ def cases(torch):
                         pillar.pillar_collapse_backward([lat, *lgs], cts)))
             out.append(("(copy)", "latent.clone(), 1.61 GB read + written",
                         lat.clone))
+
+    # kernel A at the neo360 lift with the grid's own uv (a fixture
+    # scene's source poses: the z cells of a pillar share corner rows), and
+    # with every point in one cell (the rows stay in L2: the L2-to-SM
+    # path and the writes alone); the lift's output written by a memset
+    view = _fixture_view(torch)
+    fast_uv = _lift_uv(torch, view, (64, 64, 32))
+    out.append(("A table_sample_fwd", "neo360_fast lift bf16->bf16, grid uv",
+                lambda: interpolate.table_sample(table[:3], fast_uv, hw,
+                                                 "zeros", bf16)))
+    grid_uv = _lift_uv(torch, view, (64, 64, 64))
+    one_uv = torch.full_like(grid_uv, 0.1)
+    for case, u in (("grid uv", grid_uv), ("one cell", one_uv)):
+        out.append(("A table_sample_fwd", f"neo360 lift f32->f32, {case}",
+                    lambda u=u: interpolate.table_sample(lift, u, hw,
+                                                         "zeros", f32)))
+    lift_out = torch.empty(3, 64 ** 3, 512, device=dev)
+    out.append(("(write)", "lift output zero_(), 1.61 GB written",
+                lift_out.zero_))
+
+    # the tri-plane and local gathers of one conditioned level, from its
+    # world points: the fused kernels where the version has them, else
+    # the unfused chain (world2camera, 3 + 1 kernel A, the sums and the
+    # projections); flat two-scene tables for a stage step's scene 1
+    for what, dt, n_rays, s, scene in (
+            ("neo360 tile", f32, 256, 385, 0),
+            ("neo360 tile", f32, 256, 129, 0),
+            ("neo360 step", f32, 500, 385, 0),
+            ("neo360 step", f32, 500, 129, 0),
+            ("neo360_fast tile", bf16, 256, 61, 0),
+            ("neo360_fast stage step, scene 1", bf16, 250, 61, 1)):
+        planes = [rand(3 * (1 + scene), 121, 161, 512).to(dt)
+                  for _ in range(3)]
+        local = rand(6 * (1 + scene), 121, 161, 512).to(dt)
+        fn = level_gathers(torch, view, planes, local,
+                           _level_points(torch, view, n_rays, s), scene)
+        name = {f32: "f32", bf16: "bf16"}[dt]
+        out.append(("level gathers", f"{what}, {n_rays} rays x {s} {name}",
+                    fn))
+        if dt == f32:   # kernel A per call of the unfused chain
+            cam = _level_cam(torch, view, n_rays, s)
+            uvs = {"plane xz zeros": (planes[0], cam[..., [0, 2]],
+                                      "zeros"),
+                   "local border": (local, local_uv(cam, view), "border")}
+            for which, (t, u, mode) in uvs.items():
+                # the uv, the rows the points touch and the output once;
+                # a 4C-wide fold a point
+                rows = _rows_read(t.shape, u, hw, mode, 0)
+                points = u.shape[0] * u.shape[1]
+                bound_ms, _ = _bound(u.numel() * 4 + rows * 512 * 4
+                                     + points * 128 * 4, 2.0 * points * 512)
+                case = (f"{which}, {what}, {n_rays} rays x {s} (bound "
+                        f"{bound_ms:.4f} ms)")
+                out.append(("A table_sample_fwd", case,
+                            lambda t=t, u=u, mode=mode:
+                            interpolate.table_sample(t, u, hw, mode, f32)))
+                out.append(("(plain) table_sample_reference", case,
+                            lambda t=t, u=u, mode=mode:
+                            interpolate.table_sample_reference(
+                                t, u, hw, mode, f32)))
+                out.append(("(F.grid_sample)", case,
+                            _grid_sample_fns(torch, 128, f32, u, hw, mode)))
     return out
+
+
+def local_uv(cam, view):
+    """The local table's uv at camera points [fg | bg] (NV, 2M, 3), as the
+    model computes them before its gather."""
+    import torch
+
+    from neo360_tpu_torch.core import geometry
+    from neo360_tpu_torch.nn.resnet import latent_scaling
+    focal, c = view["src_focal"], view["src_c"]
+    uv = geometry.projection(cam, torch.stack([focal[0], -focal[0]])[None],
+                             c[:1], cam.shape[0])
+    m = cam.shape[1] // 2
+    scale = latent_scaling((120, 160), cam.device) / torch.tensor(
+        [320.0, 240.0], device=cam.device)
+    return torch.cat([uv[:, :m], uv[:, m:]], 0) * scale - 1.0
+
+
+def level_gathers(torch, view, planes, local, points, scene):
+    """The call that gathers one level's tri-plane and local latents in
+    the imported version of the port."""
+    from types import SimpleNamespace
+
+    from neo360_tpu_torch.core import geometry
+    from neo360_tpu_torch.models.neo360 import NeRFTP
+    from neo360_tpu_torch.ops import interpolate
+
+    fg, bg = points
+    poses, focal, c = view["src_poses"], view["src_focal"], view["src_c"]
+    model = SimpleNamespace(num_src_views=3)
+    hw, size = (120, 160), (320, 240)
+    if hasattr(interpolate, "triplane_sample"):
+        def fn():
+            cam = geometry.world2camera(torch.cat([fg, bg], 0).reshape(
+                1, -1, 3), poses, ns=3)
+            interpolate.triplane_sample(planes, cam, hw, 3 * scene)
+            NeRFTP._local_feats_pair(model, cam, focal, c, local, hw, size,
+                                     6 * scene)
+        return fn
+    from neo360_tpu_torch.nn.triplane import index_grid_tables
+
+    def fn():
+        index_grid_tables(torch.cat([fg, bg], 0), planes, hw, poses, 3,
+                          3 * scene)
+        NeRFTP._local_feats_pair(model, fg, bg, poses, focal, c, local, hw,
+                                 size, 6 * scene)
+    return fn
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", default=ROOT)
+    parser.add_argument("--only", default="",
+                        help="comma-separated prefixes: time only the "
+                        "cases whose kernel name starts with one")
+    parser.add_argument("--sweep", action="store_true",
+                        help="time the corner-table cases at every run "
+                        f"length of {SWEEP_RUNS} instead")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -181,7 +315,12 @@ def main() -> int:
                           text=True, check=True, timeout=60).stdout
     print(f"[times] {card.strip()}; package "
           f"{os.path.dirname(neo360_tpu_torch.__file__)}")
+    only = tuple(p for p in args.only.split(",") if p)
+    if args.sweep:
+        return sweep(torch, only)
     for kernel, case, fn in cases(torch):
+        if only and not kernel.startswith(only):
+            continue
         try:
             per = {k: v * 1e3 for k, v in _device_ms(torch, fn).items()}
         except ValueError as e:
@@ -191,6 +330,26 @@ def main() -> int:
             per.items(), key=lambda kv: -kv[1]))
         print(f"[times] {kernel} {case}: device {sum(per.values()):.1f} "
               f"us/call ({parts}); event {_median_ms(fn, torch):.4f} ms")
+    return 0
+
+
+def sweep(torch, only=()) -> int:
+    """Device time of kernel A's and the fused gathers' cases (those of
+    `only`, if given) at each run length, the same for the three entry
+    points."""
+    from neo360_tpu_torch.ops import interpolate
+    chosen = dict(interpolate.RUN)
+    for kernel, case, fn in cases(torch):
+        if not kernel.startswith(only or ("A ", "level")):
+            continue
+        for run in SWEEP_RUNS:
+            interpolate.RUN.update({k: run for k in chosen})
+            per = {k: v * 1e3 for k, v in _device_ms(torch, fn).items()}
+            parts = ", ".join(f"{short(k)} {v:.1f}" for k, v in sorted(
+                per.items(), key=lambda kv: -kv[1]) if v >= 1.0)
+            print(f"[sweep] {kernel} {case} run {run}: device "
+                  f"{sum(per.values()):.1f} us/call ({parts})")
+        interpolate.RUN.update(chosen)
     return 0
 
 

@@ -23,10 +23,13 @@ from neo360_tpu_torch.core.render import OUT_KEYS, composite_nerfpp, \
     composite_nerfpp_backward, composite_nerfpp_reference
 from neo360_tpu_torch.ops import kernels
 from neo360_tpu_torch.ops.interpolate import BACKWARD_TOL as INTERP_BWD_TOL
-from neo360_tpu_torch.ops.interpolate import build_corner_table, \
-    table_sample, table_sample_accumulate, \
-    table_sample_accumulate_reference, table_sample_backward, \
-    table_sample_backward_reference, table_sample_reference
+from neo360_tpu_torch.ops import interpolate
+from neo360_tpu_torch.ops.interpolate import FUSED_TOL, build_corner_table, \
+    local_sample, local_sample_reference, local_uv, table_sample, \
+    table_sample_accumulate, table_sample_accumulate_reference, \
+    table_sample_backward, table_sample_backward_reference, \
+    table_sample_reference, triplane_sample, triplane_sample_reference, \
+    triplane_uvs
 from neo360_tpu_torch.ops.pillar import BACKWARD_TOL as PILLAR_BWD_TOL
 from neo360_tpu_torch.ops.pillar import pillar_collapse, \
     pillar_collapse_backward, pillar_collapse_reference
@@ -895,3 +898,297 @@ def test_pillar_collapse_kernel_rejects_shapes_it_does_not_take(cuda):
         logit = torch.zeros(shape[:4], device=cuda)
         with pytest.raises(ValueError, match="pillar_collapse"):
             pillar_collapse(latent, logit, logit, logit)
+
+
+# --- kernel A's fold and the fused tri-plane / local gathers -------------
+# (csrc/table_sample_common.cuh, table_sample.cu, triplane_sample.cu,
+# local_sample.cu)
+
+def _emulate_corners(u, v, hw, zeros, view):
+    """Each point's row (-1: outside) and four f32 weights, in the order of
+    `neo360::corner`: border mode clamps keeping NaN; zeros mode leaves
+    points outside the one-pixel pad (and non-finite ones) out."""
+    h, w = hw
+    ix = (u + 1.0) * 0.5 * (w - 1)
+    iy = (v + 1.0) * 0.5 * (h - 1)
+    if not zeros:
+        ix = torch.where(ix.isnan(), ix, ix.clamp(0.0, w - 1.0))
+        iy = torch.where(iy.isnan(), iy, iy.clamp(0.0, h - 1.0))
+    x0, y0 = torch.floor(ix), torch.floor(iy)
+    fx, fy = ix - x0, iy - y0
+    wts = torch.stack([(1.0 - fx) * (1.0 - fy), fx * (1.0 - fy),
+                       (1.0 - fx) * fy, fx * fy], -1)
+    xb = torch.nan_to_num(torch.clamp(x0 + 1.0, 0.0, w)).long()
+    yb = torch.nan_to_num(torch.clamp(y0 + 1.0, 0.0, h)).long()
+    row = (view * (h + 1) + yb) * (w + 1) + xb
+    if zeros:
+        inside = (x0 >= -1) & (x0 <= w - 1) & (y0 >= -1) & (y0 <= h - 1)
+        row = torch.where(inside, row, torch.full_like(row, -1))
+    return row, wts
+
+
+def _emulate_walk(corners, tables, c, vec, run):
+    """The kernels' walk in float32: blocks of 256 threads hold groups of
+    C/vec lanes, each walking `run` consecutive points (cut so that a
+    block's corners fit 48 KB) with one row cache per table, reloading a
+    row only when the point's row changes; the tables' folds are summed in
+    table order ((xz + xy) + yz). corners: per table (rows (P,), weights
+    (P, 4)); tables: per table its flat (rows, 4C) f32 view."""
+    k = len(tables)
+    points = corners[0][0].numel()
+    groups = 256 // (c // vec)
+    run = max(1, min(run, 48 * 1024 // (groups * k * 32)))
+    out = torch.zeros(points, c)
+    for first in range(0, points, run):      # a group's run
+        cache = [(-1, None)] * k
+        for p in range(first, min(first + run, points)):
+            total = None
+            for j, ((rows, wts), table) in enumerate(zip(corners, tables)):
+                row = int(rows[p])
+                if row < 0:
+                    val = torch.zeros(c)
+                else:
+                    if row != cache[j][0]:
+                        cache[j] = (row, table[row])
+                    r = cache[j][1].reshape(4, c)
+                    wp = wts[p]
+                    val = (r[0] * wp[0] + r[1] * wp[1] + r[2] * wp[2]
+                           + r[3] * wp[3])
+                total = val if total is None else total + val
+            out[p] = total
+    return out
+
+
+def _table_views(b, n, view_offset, total):
+    return torch.clamp(torch.arange(b) + view_offset, 0,
+                       total - 1)[:, None].expand(b, n).reshape(-1)
+
+
+def _emulate_triplane(tables, cam, hw, view_offset, run):
+    b, n = cam.shape[:2]
+    c = tables[0].shape[-1] // 4
+    view = _table_views(b, n, view_offset, tables[0].shape[0])
+    x, y, z = (cam[..., i].reshape(-1) for i in range(3))
+    corners = [_emulate_corners(u, v, hw, True, view)
+               for u, v in ((x, z), (x, y), (y, z))]
+    flat = [t.float().reshape(-1, 4 * c) for t in tables]
+    vec = 16 // tables[0].element_size()
+    return _emulate_walk(corners, flat, c, vec, run).reshape(b, n, c)
+
+
+def _emulate_local(table, cam, focal, cc, scale, hw, view_offset, run):
+    """Row r of the output takes branch r // NV, view r % NV, point
+    q = (view * 2 + branch) * M + m of cam; uv as the kernel's rounded
+    operations."""
+    nv, m = cam.shape[0], cam.shape[1] // 2
+    c = table.shape[-1] // 4
+    r = torch.arange(2 * nv)[:, None].expand(2 * nv, m)
+    branch, view = r // nv, r % nv
+    q = ((view * 2 + branch) * m + torch.arange(m)[None]).reshape(-1)
+    pts = cam.reshape(-1, 3)[q]
+    zd = pts[:, 2] + torch.tensor(1e-9, dtype=torch.float32)
+    f = focal[0]
+    u = (-pts[:, 0] / zd * f + cc[0, 0]) * scale[0] - 1.0
+    v = (-pts[:, 1] / zd * -f + cc[0, 1]) * scale[1] - 1.0
+    tview = torch.clamp(r.reshape(-1) + view_offset, 0, table.shape[0] - 1)
+    corners = [_emulate_corners(u, v, hw, False, tview)]
+    flat = [table.float().reshape(-1, 4 * c)]
+    vec = 16 // table.element_size()
+    return _emulate_walk(corners, flat, c, vec, run).reshape(2 * nv, m, c)
+
+
+def _ray_cam(nv, n_rays, s, g, lim=1.2):
+    """Camera points (nv, 2 * n_rays * s, 3) of [fg | bg] halves: `s`
+    consecutive samples along each of `n_rays` short segments (consecutive
+    points often share a cell), some behind the camera (z > 0), the first
+    few non-finite, huge or on the camera plane."""
+    start = (torch.rand(nv, 2 * n_rays, 1, 3, generator=g) * 2 - 1) * lim
+    step = torch.randn(nv, 2 * n_rays, 1, 3, generator=g) * 0.2
+    t = torch.sort(torch.rand(nv, 2 * n_rays, s, 1, generator=g), 2).values
+    cam = (start + t * step).reshape(nv, 2 * n_rays * s, 3)
+    cam[..., 2] -= 1.0
+    cam[0, :4] = torch.tensor([[float("inf"), 0.2, -1.0],
+                               [0.1, -float("inf"), -0.5],
+                               [0.1, 0.2, 0.0], [1e30, 0.1, -1.0]])
+    return cam
+
+
+FOCAL, CENTRE, SCALE = (torch.tensor([9.0, 8.5, 9.5]),
+                        torch.tensor([[10.0, 7.5], [9.0, 7.0], [11.0, 8.0]]),
+                        (0.11, 0.13))
+
+
+@pytest.mark.parametrize("run", [1, 4, 7, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_gather_order_fits_tolerance(dtype, run):
+    """CPU: the walk of the fused kernels (a run of points per group of
+    lanes, a row cache per table, the tri-plane sum in table order, the
+    local kernel's row -> (branch, view) map and projection) against their
+    plain versions within FUSED_TOL, at flat two-scene tables (scene 1:
+    view offsets 3 and 6), views whose point counts the run does not
+    divide, and non-finite points (NaN in the tri-plane's zeros mode)."""
+    g = _gen(40)
+    hw, c = (11, 13), 16
+    planes = [build_corner_table(torch.randn(6, *hw, c, generator=g),
+                                 "zeros", dtype=dtype) for _ in range(3)]
+    local = build_corner_table(torch.randn(12, *hw, c, generator=g),
+                               "border", dtype=dtype)
+    cam = _ray_cam(3, 5, 7, g)
+    tri_cam = cam.clone()
+    tri_cam[1, 3] = float("nan")
+    res = kernels.compare(_emulate_triplane(planes, tri_cam, hw, 3, run),
+                          triplane_sample_reference(planes, tri_cam, hw, 3),
+                          **FUSED_TOL)
+    assert res["ok"], res
+    res = kernels.compare(
+        _emulate_local(local, cam, FOCAL, CENTRE, SCALE, hw, 6, run),
+        local_sample_reference(local, cam, FOCAL, CENTRE, SCALE, hw, 6),
+        **FUSED_TOL)
+    assert res["ok"], res
+
+
+@pytest.mark.parametrize("run", [1, 16])
+def test_table_sample_walk_fits_tolerance(run):
+    """CPU: kernel A's walk (one table) against its plain version at a
+    grid lift's uv, consecutive z cells of a pillar sharing rows, views
+    crossing inside a run."""
+    g = _gen(41)
+    hw, c = (15, 20), 8
+    table = build_corner_table(torch.randn(3, *hw, c, generator=g), "zeros")
+    pillar = torch.rand(3, 10, 1, 2, generator=g) * 2 - 1
+    uv = (pillar + torch.linspace(0, 0.3, 9)[None, None, :, None]).reshape(
+        3, 90, 2)
+    view = _table_views(3, 90, 0, 3)
+    corners = [_emulate_corners(uv[..., 0].reshape(-1),
+                                uv[..., 1].reshape(-1), hw, True, view)]
+    out = _emulate_walk(corners, [table.reshape(-1, 4 * c)], c, 4, run)
+    _assert_ok(out.reshape(3, 90, c),
+               table_sample_reference(table, uv, hw, "zeros"))
+
+
+def _fused_case(cuda, dtype, hw, c, nv, n_rays, s, scenes, g):
+    planes = [build_corner_table(torch.randn(nv * scenes, *hw, c,
+                                             generator=g), "zeros",
+                                 dtype=dtype).to(cuda) for _ in range(3)]
+    local = build_corner_table(torch.randn(2 * nv * scenes, *hw, c,
+                                           generator=g), "border",
+                               dtype=dtype).to(cuda)
+    cam = _ray_cam(nv, n_rays, s, g).to(cuda)
+    return planes, local, cam
+
+
+def _assert_unfused_bits(tri, loc, planes, local, tri_cam, cam, focal,
+                         centre, scale, hw, off):
+    """The fused kernels' outputs `tri` and `loc` are the bits of the
+    unfused chain they replace: three kernel A calls summed as
+    (xz + xy) + yz, and `local_uv` then kernel A in border mode (NaN where
+    a non-finite point keeps it)."""
+    xz, xy, yz = (table_sample(t, uv, hw, "zeros", torch.float32, off)
+                  for t, uv in zip(planes, triplane_uvs(tri_cam)))
+    torch.testing.assert_close(tri, xz + xy + yz, rtol=0, atol=0)
+    unfused = table_sample(local, local_uv(cam, focal, centre, scale), hw,
+                           "border", torch.float32, 2 * off)
+    torch.testing.assert_close(loc, unfused, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", [1, 3, 4, 16, 64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_gather_kernels(cuda, dtype, run, monkeypatch):
+    """The fused tri-plane and local kernels and kernel A against their
+    plain versions on the card at small ragged shapes, at every run length
+    (a run of 64 is cut to what 48 KB of corners allow), with flat
+    two-scene tables and non-finite points; the fused kernels also against
+    the unfused chain, bit for bit."""
+    monkeypatch.setattr(interpolate, "RUN", {k: run for k in
+                                             interpolate.RUN})
+    g = _gen(42)
+    hw = (15, 20)
+    planes, local, cam = _fused_case(cuda, dtype, hw, 32, 3, 7, 13, 2, g)
+    tri_cam = cam.clone()
+    tri_cam[1, 3] = float("nan")
+    focal, centre = FOCAL.to(cuda), CENTRE.to(cuda)
+    for off in (0, 3):
+        before = triplane_sample.launches
+        tri = triplane_sample(planes, tri_cam, hw, off)
+        assert triplane_sample.launches == before + 1
+        res = kernels.compare(tri, triplane_sample_reference(
+            planes, tri_cam, hw, off), **FUSED_TOL)
+        assert res["ok"], res
+        before = local_sample.launches
+        loc = local_sample(local, cam, focal, centre, SCALE, hw, 2 * off)
+        assert local_sample.launches == before + 1
+        res = kernels.compare(loc, local_sample_reference(
+            local, cam, focal, centre, SCALE, hw, 2 * off), **FUSED_TOL)
+        assert res["ok"], res
+        _assert_unfused_bits(tri, loc, planes, local, tri_cam, cam, focal,
+                             centre, SCALE, hw, off)
+        uv = local_uv(cam, focal, centre, SCALE)
+        _assert_ok(table_sample(local, uv, hw, "border", view_offset=off),
+                   table_sample_reference(local, uv, hw, "border",
+                                          view_offset=off))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n_rays,s", [(256, 61), (256, 385), (500, 129)])
+def test_fused_gather_kernels_at_path_shapes(cuda, dtype, n_rays, s):
+    """The fused kernels at the render tiles and training steps of both
+    presets: 120x160 tables of 128 channels, 3 views, [fg | bg] points;
+    against their plain versions and, bit for bit, the unfused chain."""
+    g = _gen(43)
+    hw = (120, 160)
+    planes, local, cam = _fused_case(cuda, dtype, hw, 128, 3, n_rays, s, 1,
+                                     g)
+    tri = triplane_sample(planes, cam, hw)
+    res = kernels.compare(tri, triplane_sample_reference(planes, cam, hw),
+                          **FUSED_TOL)
+    assert res["ok"], res
+    focal, centre = FOCAL.to(cuda) * 16, CENTRE.to(cuda) * 16
+    scale = (0.0063, 0.0084)
+    loc = local_sample(local, cam, focal, centre, scale, hw)
+    res = kernels.compare(loc, local_sample_reference(local, cam, focal,
+                                                      centre, scale, hw),
+                          **FUSED_TOL)
+    assert res["ok"], res
+    _assert_unfused_bits(tri, loc, planes, local, cam, cam, focal, centre,
+                         scale, hw, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_fused_gather_gradients_on_the_card(cuda, accumulate):
+    """The fused Functions' table gradients on the card (kernel A' fed
+    their rebuilt uv) against the unfused calls' (kernel A' fed the uv
+    tensors), within kernel A''s BACKWARD_TOL (its atomics add in another
+    order each run)."""
+    g = _gen(44)
+    hw = (15, 20)
+    planes, local, cam = _fused_case(cuda, torch.float32, hw, 32, 3, 7, 13,
+                                     2, g)
+    focal, centre = FOCAL.to(cuda), CENTRE.to(cuda)
+    cot_w = torch.randn(3, cam.shape[1], 32, generator=g).to(cuda)
+    cot_l = torch.randn(6, cam.shape[1] // 2, 32, generator=g).to(cuda)
+    grads = []
+    for fused in (True, False):
+        leaves = [t.clone().requires_grad_() for t in planes + [local]]
+        accs = [torch.zeros(t.shape, device=cuda) for t in leaves] \
+            if accumulate else [None] * 4
+        if fused:
+            world = triplane_sample(leaves[:3], cam, hw, 3, grad_acc=(
+                tuple(accs[:3]) if accumulate else None))
+            loc = local_sample(leaves[3], cam, focal, centre, SCALE, hw, 6,
+                               grad_acc=accs[3])
+        else:
+            world = sum(table_sample(t, uv, hw, "zeros", view_offset=3,
+                                     grad_acc=a) for t, uv, a in zip(
+                leaves[:3], triplane_uvs(cam), accs[:3]))
+            loc = table_sample(leaves[3], local_uv(cam, focal, centre,
+                                                   SCALE), hw, "border",
+                               view_offset=6, grad_acc=accs[3])
+        got = torch.autograd.grad((world, loc), leaves, (cot_w, cot_l),
+                                  allow_unused=True)
+        grads.append(accs if accumulate else got)
+    for ours, ref in zip(*grads):
+        res = kernels.compare(ours, ref, **INTERP_BWD_TOL)
+        assert res["ok"], res
