@@ -52,11 +52,19 @@ line):
    lift, 128 + 256 samples, the encoder's recompute), 10 steps of 500
    rays, each launching exactly the kernels `_neo360_step_launches` says;
    its validation render and checkpoint; 2 rendered views and 16 profiled
-   tiles; one step without the recompute for its time and peak memory.
+   tiles; one step without the recompute for its time and peak memory;
+9. the optimize and LPIPS-finetune modes (`phase_optimize_finetune`):
+   `cli.run_train` at full neo360_fast width, warm-started from phase 6's
+   checkpoint, OPT_STEPS optimize steps (the frozen SpatialEncoder's
+   latents cached once per scene) and FT_STEPS finetune steps (synthetic
+   LPIPS weights, 30x30 patches) on 3 in-memory scenes; every step
+   launches exactly the kernels `_optimize_step_launches` says, every loss
+   is finite, the SpatialEncoder's tensors and every BatchNorm buffer keep
+   the warm start's bits and the trained tensors move.
 
 Each kernel's launches per training stage or step and per rendered view
 follow the last phase. The line before the last is {"kernels": [...]}
-(the eight kernels; launches: the sum over the four main paths, each
+(the eight kernels; launches: the sum over the five main paths, each
 counted from 0), the
 last is {"ok": true, "device": {...}}. Requires a CUDA device: it exits 2
 without one, or without the neo360_tpu_torch package beside it.
@@ -863,12 +871,14 @@ def phase_small_train(torch):
                              "the CPU")
 
 
-def phase_train_main_path(torch):
+def phase_train_main_path(torch, keep: str):
     """`cli.run_train` at full neo360_fast width: 3 stages of K=32, S=2,
     500 rays per step, on 3 in-memory 320x240 scenes (the third under
-    torch.profiler), then its validation render and checkpoint. Returns
-    the path's launches, each stage's launches, the unprofiled stages'
-    seconds and the peak memory."""
+    torch.profiler), then its validation render and checkpoint, copied to
+    `keep`. Returns the path's launches, each stage's launches, the
+    unprofiled stages' seconds and the peak memory."""
+    import shutil
+
     import numpy as np
 
     from neo360_tpu_torch import cli
@@ -939,6 +949,9 @@ def phase_train_main_path(torch):
         with open(os.path.join(tmp, "exp", "metrics.jsonl")) as f:
             records = [json.loads(line) for line in f]
         ckpts = sorted(os.listdir(os.path.join(tmp, "exp", "checkpoints")))
+        if "ckpt_00000096.pt" in ckpts:
+            shutil.copy(os.path.join(tmp, "exp", "checkpoints",
+                                     "ckpt_00000096.pt"), keep)
 
     values = torch.stack(losses).float().cpu().numpy()
     rays = cfg.ray_batch_size * cfg.stage_k
@@ -1353,6 +1366,148 @@ def phase_neo360_main_path(torch):
     return launches, per_call, per_view
 
 
+# the optimize / finetune phase: steps of each mode, one per run_train
+# call (the first warms up, the last runs under the profiler)
+OPT_STEPS = 4
+FT_STEPS = 3
+
+
+def _optimize_step_launches() -> dict:
+    """Kernel launches of one neo360_fast optimize or finetune step, from
+    the code: the per-step trainer encodes once with the SpatialEncoder's
+    latents given (cached) or computed without a kernel, so the lift
+    samples its table once (A) and the pillars collapse once (C); the
+    proposal level gathers nothing, the fine level gathers the 3 planes
+    (A-tri) and its local table (A-loc) once, both levels composite (B);
+    the backward scatters the lift table's gradient (`lift_proj` still
+    trains), the 3 planes' and the local table's under the dense
+    contract (A' 5 times), and runs C' once and B' once per level."""
+    return {"table_sample_fwd": 1, "triplane_sample_fwd": 1,
+            "local_sample_fwd": 1,
+            "table_sample_bwd": 1 + 4, "table_sample_bwd_acc": 0,
+            "composite_nerfpp_fwd": 2, "composite_nerfpp_bwd": 2,
+            "pillar_collapse_fwd": 1, "pillar_collapse_bwd": 1}
+
+
+def phase_optimize_finetune(torch, warm_path: str):
+    """The optimize and LPIPS-finetune modes of `cli.run_train` at full
+    neo360_fast width, warm-started from `warm_path` (phase 6's trained
+    checkpoint), on 3 in-memory 320x240 scenes: OPT_STEPS optimize steps
+    (fixed source views, latents cached), then FT_STEPS finetune steps
+    (30x30 patches, 0.3 x LPIPS with synthetic weights), one step a call
+    (the first warms up, the last runs under torch.profiler), then each
+    run's validation render and checkpoint. Every step launches
+    exactly `_optimize_step_launches()`, every loss is finite, the
+    SpatialEncoder's tensors and every BatchNorm buffer equal the warm
+    start's bit for bit and most trained tensors move. Returns the
+    phase's launches and the launches of each step."""
+    import numpy as np
+
+    from neo360_tpu_torch import cli, weights
+    from neo360_tpu_torch.config import preset
+    from neo360_tpu_torch.data.fixtures import MemoryScenes
+    from neo360_tpu_torch.nn.lpips import random_torch_state
+    from neo360_tpu_torch.train import loop
+
+    fns = counters()
+    warm = weights.from_checkpoint(torch.load(warm_path, map_location="cpu",
+                                              weights_only=True))
+    want = _optimize_step_launches()
+    per_step, total = [], {k: 0 for k in fns}
+    with tempfile.TemporaryDirectory() as tmp:
+        lpips = os.path.join(tmp, "lpips.pt")
+        torch.save(random_torch_state(SEED), lpips)
+        for mode, steps, flags in (
+                ("optimize", OPT_STEPS, dict(is_optimize=True)),
+                ("finetune", FT_STEPS, dict(finetune_lpips=True,
+                                            lpips_weights=lpips))):
+            cfg = preset("neo360_fast", seed=SEED, run_max_steps=steps,
+                         steps_per_call=1, log_every_steps=1,
+                         save_every_steps=steps, ckpt_dir=tmp,
+                         exp_name=mode, ckpt_path=warm_path, device="cuda",
+                         **flags)
+            sampling = dict(optimize=cfg.is_optimize,
+                            finetune_lpips=cfg.finetune_lpips)
+            datasets = (MemoryScenes(3, cfg.img_wh, cfg.num_src_views,
+                                     split="train",
+                                     ray_batch_size=cfg.ray_batch_size,
+                                     **sampling),
+                        MemoryScenes(3, cfg.img_wh, cfg.num_src_views,
+                                     split="val"))
+            seconds, losses, steps_here = [], [], []
+            plain_factory = loop.make_staged_trainer
+
+            def timed_factory(step_fn):
+                run = plain_factory(step_fn)
+
+                def timed(*args):
+                    start = _read(fns)
+                    if len(steps_here) == steps - 1:   # the last: profiled
+                        box = []
+                        _profile(torch, lambda: box.append(run(*args)),
+                                 f"neo360_fast {mode} step")
+                        metrics = box[0]
+                    else:
+                        torch.cuda.synchronize()
+                        t = time.perf_counter()
+                        metrics = run(*args)
+                        torch.cuda.synchronize()
+                        seconds.append(time.perf_counter() - t)
+                    end = _read(fns)
+                    steps_here.append({k: end[k] - start[k] for k in end})
+                    losses.append(float(metrics["loss"]))
+                    return metrics
+                return timed
+
+            for fn in fns.values():
+                fn.launches = 0
+            loop.make_staged_trainer = timed_factory
+            try:
+                state = cli.run_train(cfg, datasets=datasets)
+                torch.cuda.synchronize()
+            finally:
+                loop.make_staged_trainer = plain_factory
+            launches = _read(fns)
+            for k, n in launches.items():
+                total[k] += n
+            ckpts = sorted(os.listdir(os.path.join(tmp, mode,
+                                                   "checkpoints")))
+            rays = (datasets[0].patch_size ** 2 if cfg.finetune_lpips
+                    else cfg.ray_batch_size)
+            secs = [round(x, 4) for x in seconds]
+            print(f"[{mode}] {steps} steps from {os.path.basename(warm_path)}"
+                  f" (step 96 of phase 6): s/step {secs} (the first includes "
+                  f"warm-up; the last step ran under the profiler), "
+                  f"{rays / statistics.median(seconds[1:]):.0f} "
+                  f"rays/s at {rays} rays/step; losses "
+                  f"{[round(x, 4) for x in losses]}; checkpoints {ckpts}; "
+                  f"launches per step {steps_here}")
+            after = {k: v.detach().cpu() for k, v in
+                     state.model.state_dict().items()}
+            frozen = [k for k in warm if "spatial_encoder" in k
+                      or k.endswith(("running_mean", "running_var"))]
+            moved = [k for k in frozen if not torch.equal(warm[k], after[k])]
+            trained = [k for k in warm if k not in frozen]
+            changed = sum(not torch.equal(warm[k], after[k])
+                          for k in trained)
+            print(f"[{mode}] frozen tensors bit-equal to the warm start: "
+                  f"{len(frozen) - len(moved)} / {len(frozen)}; trained "
+                  f"tensors moved: {changed} / {len(trained)}")
+            if moved or changed < 0.8 * len(trained):
+                raise AssertionError(f"{mode}: frozen tensors moved "
+                                     f"{moved[:5]} or too few trained "
+                                     f"tensors moved ({changed})")
+            if len(losses) != steps or not np.isfinite(losses).all():
+                raise AssertionError(f"{mode}: losses {losses}")
+            if state.step != steps or f"ckpt_{steps:08d}.pt" not in ckpts:
+                raise AssertionError(f"{mode}: no checkpoint at {steps}")
+            if any(n != want for n in steps_here):
+                raise AssertionError(f"{mode}: launches per step "
+                                     f"{steps_here}, expected {want}")
+            per_step.extend(steps_here)
+    return total, per_step
+
+
 def _tiny_cfg(**kw):
     from neo360_tpu_torch.config import preset
     return preset("neo360_fast", bf16=False, grid_size=(8, 8, 4),
@@ -1499,7 +1654,9 @@ def main() -> int:
     phase_small_train(torch)
     phase_small_neo360_step(torch)
     done("small card-vs-CPU checks")
-    launches, per_stage, _, _ = phase_train_main_path(torch)
+    work = tempfile.TemporaryDirectory()
+    trained = os.path.join(work.name, "neo360_fast_96.pt")
+    launches, per_stage, _, _ = phase_train_main_path(torch, trained)
     done("neo360_fast training")
     from neo360_tpu_torch.config import preset
     serve_launches, per_view = phase_main_path(
@@ -1507,17 +1664,24 @@ def main() -> int:
     done("neo360_fast serving")
     neo_launches, neo_per_step, neo_per_view = phase_neo360_main_path(torch)
     done("neo360 training and serving")
+    opt_launches, opt_per_step = phase_optimize_finetune(torch, trained)
+    work.cleanup()
+    done("neo360_fast optimize and finetune")
 
-    # launches per steady training stage (the second) and per rendered
-    # view with the encode cached (the second view); the line's launches
-    # sum the three main paths (neo360_fast training and serving, neo360
-    # training and serving), each counted from 0
+    # launches per steady training stage (the second), per rendered view
+    # with the encode cached (the second view) and per optimize step; the
+    # line's launches sum the main paths (neo360_fast training and
+    # serving, neo360 training and serving, neo360_fast optimize and
+    # finetune), each counted from 0
     steady = _by_kernel(per_stage[1])
     neo_step, neo_view = _by_kernel(neo_per_step[1]), neo_per_view[1]
+    opt_step = _by_kernel(opt_per_step[0])
     total = _by_kernel(launches)
     for k, n in serve_launches.items():
         total[k] += n
     for k, n in _by_kernel(neo_launches).items():
+        total[k] += n
+    for k, n in _by_kernel(opt_launches).items():
         total[k] += n
     print(f"[kernel] launches: A' per stage dense "
           f"{per_stage[1]['table_sample_bwd']}, accumulate "
@@ -1529,7 +1693,8 @@ def main() -> int:
         print(f"[kernel] {name}: neo360_fast {steady[name]} launches per "
               f"training stage, {per_view[1].get(name, 0)} per rendered "
               f"view; neo360 {neo_step[name]} per training step, "
-              f"{neo_view.get(name, 0)} per rendered view; "
+              f"{neo_view.get(name, 0)} per rendered view; neo360_fast "
+              f"{opt_step[name]} per optimize step; "
               f"{main['case']}: {main['ms']:.4f} ms (device "
               f"{main['device_ms']:.4f} ms), bound {main['bound_ms']:.4f} ms "
               f"({main['bound_by']}), share "

@@ -23,7 +23,14 @@ either model) the scene-mixed, encode-once stage trainer runs, after
 one (a checkpoint of the other trainer's layout raises);
 --ckpt_path warm-starts the weights (parameters and BatchNorm buffers)
 from another run's checkpoint of either layout or a JAX npz, with a fresh
-optimizer at step 0.
+optimizer at step 0; --resnet_weights loads a torchvision resnet34 (or the
+npz of scripts/convert_weights.py) into the SpatialEncoder's backbone.
+--is_optimize (per-scene optimize) and --finetune_lpips (stage 2, with
+--lpips_weights) train with the per-step trainer whatever --stage_k says:
+the SpatialEncoder frozen, every BatchNorm on its running statistics, lr
+pinned to 5e-6; optimize draws the fixed source views [0, 38, 44] and
+caches each scene's frozen pixel latents once, and keeps every
+checkpoint; the finetune adds 0.3 x LPIPS on one 30x30 patch per step.
 With --eval_mode full_eval it renders every test view of every scene under
 root_dir: each scene's source stack is encoded once, then views are
 rendered in `--chunk`-ray tiles; PSNR / SSIM (+ object PSNR) go to
@@ -32,13 +39,15 @@ Eval weights come from --ckpt_path (a port state_dict, a training
 checkpoint of either layout or a JAX-exported npz, neo360_tpu/utils/io.py:
 save_variables_npz, converted by weights.py), else <exp_dir>/model.pt,
 else the newest training checkpoint, else a seeded random init (with a
-warning). Both run on --device (default cuda) and raise when it is absent;
-a float32 model on the card runs with TF32 off.
+warning); with --lpips_weights each view's LPIPS is reported too. Both
+run on --device (default cuda) and raise when it is absent; a float32
+model on the card runs with TF32 off.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import os
 from typing import Dict, Optional
 
@@ -55,6 +64,10 @@ STAGE_RAY_KEYS = ("rays_o", "rays_d", "viewdirs", "target")
 # one per-step training batch: a sample_train draw (neo360_tpu/cli.py:
 # RAY_KEYS_FEWSHOT + target)
 STEP_KEYS = RAY_KEYS + SRC_KEYS + ("target",)
+# optimize and finetune: the pinned lr (neo360_tpu/cli.py:153) and the
+# weight of the finetune's LPIPS term (neo360_tpu/cli.py:298)
+FROZEN_LR = 5.0e-6
+LPIPS_WEIGHT = 0.3
 
 
 def parse_args(argv=None) -> Config:
@@ -97,18 +110,34 @@ def parse_args(argv=None) -> Config:
     return preset(a.exp_type, img_wh=tuple(a.img_wh), **overrides)
 
 
+def frozen_encoder(cfg: Config) -> bool:
+    """The optimize and finetune modes freeze the SpatialEncoder and run
+    every BatchNorm on its running statistics."""
+    return cfg.is_optimize or cfg.finetune_lpips
+
+
 def build_optimizer(cfg: Config, params):
-    """Adam on the warm-up-sine x log-lerp schedule, clipped to
-    cfg.grad_max_norm (neo360_tpu/cli.py:139-174, normal training): the
-    `optax.chain(clip_by_global_norm, adam(nerf_schedule))` of the JAX CLI
-    over `params` alone, so each partition clips to its own norm."""
+    """Adam clipped to cfg.grad_max_norm over `params` alone, so each
+    partition clips to its own norm (neo360_tpu/cli.py:139-174): on the
+    warm-up-sine x log-lerp schedule in normal training; at the pinned
+    FROZEN_LR in the optimize and finetune modes, whose `params` are the
+    trained partition only (`freeze_spatial_encoder`), as the JAX CLI's
+    `optax.multi_transform` splits the gradients before its clip."""
     from neo360_tpu_torch.train.optim import Adam
     from neo360_tpu_torch.train.schedules import nerf_schedule
-    if cfg.is_optimize or cfg.finetune_lpips:
-        raise NotImplementedError("optimize / finetune modes are not ported")
+    if frozen_encoder(cfg):
+        return Adam(params, FROZEN_LR, max_norm=cfg.grad_max_norm)
     sched = nerf_schedule(cfg.lr_init, cfg.lr_final, cfg.run_max_steps,
                           cfg.lr_delay_steps, cfg.lr_delay_mult)
     return Adam(params, sched, max_norm=cfg.grad_max_norm)
+
+
+def freeze_spatial_encoder(model) -> None:
+    """The frozen partition of the optimize and finetune modes: the
+    SpatialEncoder's parameters take no gradient, so the per-step trainer
+    leaves them out of its optimizer and its clip norm (the JAX CLI's
+    `set_to_zero` partition)."""
+    model.encoder.spatial_encoder.requires_grad_(False)
 
 
 def resolve_device(cfg: Config, device=None) -> torch.device:
@@ -252,12 +281,15 @@ def run_eval(cfg: Config, device=None) -> Dict[str, float]:
     from neo360_tpu_torch.train.eval import evaluate_and_save
     from neo360_tpu_torch.train.pipeline import prefetch_to_device
 
-    if cfg.lpips_weights:
-        raise NotImplementedError("--lpips_weights: LPIPS is not ported "
-                                  "(ROADMAP Queue 1, optimize and finetune "
-                                  "modes)")
+    from neo360_tpu_torch.nn.lpips import LPIPSModel
+
+    if cfg.lpips_weights and not os.path.exists(cfg.lpips_weights):
+        raise FileNotFoundError(f"--lpips_weights {cfg.lpips_weights}: no "
+                                f"such file")
     device = resolve_device(cfg, device)
     float32_matmuls(cfg, device)
+    lpips_model = (LPIPSModel(cfg.lpips_weights).to(device)
+                   if cfg.lpips_weights else None)
     model = build_model(cfg, device)
     exp_dir = os.path.join(cfg.ckpt_dir, cfg.exp_name)
     loaded = restore(cfg, model, exp_dir)
@@ -279,23 +311,17 @@ def run_eval(cfg: Config, device=None) -> Dict[str, float]:
             render_fn, samples, cfg.img_wh,
             os.path.join(exp_dir, cfg.render_name),
             results_json=os.path.join(exp_dir, "results.json"),
-            extra={"eval_bn_mode": cfg.eval_bn_mode})
+            extra={"eval_bn_mode": cfg.eval_bn_mode},
+            lpips_model=lpips_model)
     print("eval summary:", summary)
     return summary
 
 
 def _check_train_mode(cfg: Config) -> None:
-    """Raise on the training modes the port does not have yet."""
-    unported = [name for name, on in (
-        ("--is_optimize", cfg.is_optimize),
-        ("--finetune_lpips", cfg.finetune_lpips),
-        ("--lpips_weights", cfg.lpips_weights),
-        ("--resnet_weights", cfg.resnet_weights)) if on]
-    if unported:
-        raise NotImplementedError(f"not ported: {', '.join(unported)} "
-                                  f"(ROADMAP Queue 1, optimize and finetune "
-                                  f"modes)")
-    if cfg.stage_k > 1 and cfg.ray_batch_size % cfg.stage_scenes:
+    """Raise on a training configuration the trainers cannot run: the
+    stage trainer's ray batch must split evenly over its scenes."""
+    if cfg.stage_k > 1 and not frozen_encoder(cfg) and \
+            cfg.ray_batch_size % cfg.stage_scenes:
         raise ValueError(f"ray_batch_size {cfg.ray_batch_size} must divide "
                          f"by stage_scenes {cfg.stage_scenes}")
 
@@ -307,12 +333,14 @@ def _cpu(tensors: Dict) -> Dict:
 def checkpoint_payload(state) -> Dict:
     """The checkpoint of either trainer's state, on the CPU: the step, the
     BatchNorm buffers and, for a TrainState (the per-step trainer), all
-    parameters and the one Adam state; for a SceneStageState both
-    parameter partitions and both Adam states."""
+    parameters (the frozen ones too) and the one Adam state of the trained
+    ones; for a SceneStageState both parameter partitions and both Adam
+    states."""
     out = {"step": state.step,
            "batch_stats": _cpu(dict(state.model.named_buffers()))}
     if isinstance(state, TrainState):
-        out.update(params=_cpu(state.params), opt=state.opt.state_dict())
+        out.update(params=_cpu(dict(state.model.named_parameters())),
+                   opt=state.opt.state_dict())
     else:
         out.update(enc_params=_cpu(state.enc_params),
                    ray_params=_cpu(state.ray_params),
@@ -350,29 +378,69 @@ def resume(ckpt, state) -> int:
     return state.step
 
 
-def make_loss_fn(cfg: Config, model, randomized: bool = True):
-    """loss_fn(batch, generator) -> (loss, {"mse", "psnr"}) of the
-    per-step trainer (neo360_tpu/cli.py:257-301, without LPIPS and cached
-    pixel latents): the batch's source views are encoded with BatchNorm in
-    training mode, its rays rendered with randomized sampling drawn from
-    `generator` (deterministic sampling if not `randomized`), and the loss
-    is the model's: l0 + l1 + distortion for neo360, l1 + interlevel +
-    distortion for neo360_fast."""
+def make_loss_fn(cfg: Config, model, randomized: bool = True,
+                 lpips_model=None):
+    """loss_fn(batch, generator) -> (loss, {"mse", "psnr", "loss"}) of the
+    per-step trainer (neo360_tpu/cli.py:257-301): the batch's source views
+    are encoded with BatchNorm in training mode (in the optimize and
+    finetune modes on its running statistics, the model in eval mode), its
+    rays rendered with randomized sampling drawn from `generator`
+    (deterministic sampling if not `randomized`), and the loss is the
+    model's: l0 + l1 + distortion for neo360, l1 + interlevel + distortion
+    for neo360_fast. A batch with "pixel_latents" (the optimize mode's
+    cache, one row per scene) encodes from row "scene_idx" instead of
+    running the SpatialEncoder. With --finetune_lpips and a pretrained
+    `lpips_model`, LPIPS_WEIGHT x LPIPS of the fine rgb against the target
+    is added; the batch must then be a square patch (raises otherwise)."""
     from neo360_tpu_torch.models.neo360 import RAY_KEYS as MODEL_RAY_KEYS
     from neo360_tpu_torch.models.neo360 import SRC_KEYS as MODEL_SRC_KEYS
     from neo360_tpu_torch.models.neo360 import training_loss
     from neo360_tpu_torch.ops.losses import mse2psnr
+    train_bn = not frozen_encoder(cfg)
+    use_lpips = (cfg.finetune_lpips and lpips_model is not None
+                 and lpips_model.pretrained)
 
     def loss_fn(batch, generator):
-        enc = model.encode(*(batch[k] for k in MODEL_SRC_KEYS), True)
+        latent = None
+        if "pixel_latents" in batch:
+            latent = batch["pixel_latents"].index_select(
+                0, batch["scene_idx"].reshape(1).long())[0]
+        enc = model.encode(*(batch[k] for k in MODEL_SRC_KEYS), train_bn,
+                           pixel_latent=latent)
         rays = {k: batch[k] for k in MODEL_RAY_KEYS + MODEL_SRC_KEYS}
         out = model(rays, enc, cfg.white_back, randomized=randomized,
                     generator=generator)
         loss, l1 = training_loss(model, out, batch["target"])
+        if use_lpips:
+            n = batch["target"].shape[0]
+            side = math.isqrt(n)
+            if side * side != n:
+                raise ValueError(f"the LPIPS patch loss needs a square ray "
+                                 f"batch (patch_size**2), got {n} rays")
+            pred, gt = (torch.clamp(t, 0, 1).reshape(1, side, side, 3)
+                        for t in (out[1]["rgb"], batch["target"]))
+            loss = loss + LPIPS_WEIGHT * lpips_model(pred, gt).mean()
         l1 = l1.detach()
-        return loss, {"mse": l1, "psnr": mse2psnr(l1)}
+        return loss, {"mse": l1, "psnr": mse2psnr(l1),
+                      "loss": loss.detach()}
 
     return loss_fn
+
+
+def _maybe_load_resnet(cfg: Config, model) -> None:
+    """--resnet_weights (neo360_tpu/cli.py:177-199): copy a torchvision
+    resnet34 state dict, or the npz of scripts/convert_weights.py, into
+    the SpatialEncoder's backbone, every entry whose name and shape fit,
+    and print how many arrays were loaded."""
+    if not cfg.resnet_weights:
+        return
+    from neo360_tpu_torch.nn.resnet import load_pretrained
+    backbone = model.encoder.spatial_encoder.backbone
+    own = backbone.state_dict()
+    fit = {k: v for k, v in load_pretrained(cfg.resnet_weights).items()
+           if k in own and tuple(v.shape) == tuple(own[k].shape)}
+    backbone.load_state_dict(fit, strict=False)
+    print(f"loaded {len(fit)} pretrained ResNet34 arrays")
 
 
 def _maybe_warm_start(cfg: Config, model) -> None:
@@ -390,12 +458,16 @@ def _maybe_warm_start(cfg: Config, model) -> None:
           f"{cfg.ckpt_path}")
 
 
-def _per_step_runner(cfg: Config, model):
+def _per_step_runner(cfg: Config, model, lpips_model=None):
     """(TrainState, staged runner) of the per-step trainer: one Adam with
-    one global clip over every parameter, BatchNorm statistics committed
-    once per step."""
+    one global clip over every trained parameter (all of them, or all but
+    the SpatialEncoder's in the optimize and finetune modes), BatchNorm
+    statistics committed once per step."""
     from neo360_tpu_torch.train import loop as tl
-    step_fn = tl.make_train_step(make_loss_fn(cfg, model),
+    if frozen_encoder(cfg):
+        freeze_spatial_encoder(model)
+    step_fn = tl.make_train_step(make_loss_fn(cfg, model,
+                                              lpips_model=lpips_model),
                                  with_model_state=True)
     state = tl.create_train_state(model,
                                   lambda params: build_optimizer(cfg, params))
@@ -425,6 +497,21 @@ def _run_warmup(cfg: Config, model, train_ds, device, logger) -> int:
     return state.step
 
 
+def _optimize_latents(model, train_ds, device) -> Dict[str, torch.Tensor]:
+    """The optimize mode's run constant (neo360_tpu/cli.py:552-573): each
+    scene's frozen SpatialEncoder latents of its fixed source stack,
+    encoded once without grad with BatchNorm on its running statistics,
+    stacked (S, NV, H/2, W/2, 512). Built from the model's weights as they
+    stand, so run_train calls it after resume and warm start."""
+    with torch.no_grad():
+        lats = [model.encode_images(torch.as_tensor(
+            train_ds.optimize_source_stack(s)["src_imgs"], device=device))
+            for s in range(len(train_ds.scene_ids))]
+    print(f"optimize mode: cached frozen spatial-encoder latents for "
+          f"{len(lats)} scene(s); ResNet fwd+bwd dropped from the step")
+    return {"pixel_latents": torch.stack(lats)}
+
+
 def run_train(cfg: Config, device=None, datasets=None):
     """Train (the few-shot branch of neo360_tpu/cli.py:run_train, 575-819).
 
@@ -434,7 +521,11 @@ def run_train(cfg: Config, device=None, datasets=None):
     scene-mixed encode-once stage trainer runs stage_size (rounded down to
     a multiple of stage_k) steps per call as n_stages stages, after
     `_run_warmup` when stage_warmup_steps > 0 and there is no checkpoint
-    yet. Each call logs when the step count crosses a multiple of
+    yet. The optimize and finetune modes always run the per-step trainer
+    (`freeze_spatial_encoder`, the model in eval mode); optimize passes
+    `_optimize_latents` to every step, keeps every checkpoint, and the
+    finetune needs pretrained --lpips_weights (raises otherwise). Each
+    call logs when the step count crosses a multiple of
     log_every_steps, and validates (view 0 of scene 0's held-out tail),
     logs the val grid and checkpoints when it crosses a multiple of
     save_every_steps. `datasets`: (train, val) samplers to use instead of
@@ -443,6 +534,7 @@ def run_train(cfg: Config, device=None, datasets=None):
     from neo360_tpu_torch.data.nerds360_ae import NeRDS360AE
     from neo360_tpu_torch.models.neo360 import SRC_KEYS as MODEL_SRC_KEYS
     from neo360_tpu_torch.models.neo360 import make_scene_stage_fns
+    from neo360_tpu_torch.nn.lpips import LPIPSModel
     from neo360_tpu_torch.train import loop as tl
     from neo360_tpu_torch.train.checkpoints import CheckpointManager
     from neo360_tpu_torch.train.logging import MetricsLogger
@@ -453,21 +545,35 @@ def run_train(cfg: Config, device=None, datasets=None):
     _check_train_mode(cfg)
     device = resolve_device(cfg, device)
     float32_matmuls(cfg, device)
+    lpips_model = None
+    if cfg.finetune_lpips:
+        lpips_model = LPIPSModel(cfg.lpips_weights).to(device)
+    if cfg.finetune_lpips and not lpips_model.pretrained:
+        # stage 2 is the LPIPS loss: without the weights it would run
+        # stage 1 at the pinned lr
+        raise ValueError("--finetune_lpips requires pretrained LPIPS "
+                         "weights: pass --lpips_weights <pt|npz> (see "
+                         "scripts/convert_weights.py)")
+    frozen = frozen_encoder(cfg)
     exp_dir = os.path.join(cfg.ckpt_dir, cfg.exp_name)
     logger = MetricsLogger(exp_dir)
-    ckpt = CheckpointManager(os.path.join(exp_dir, "checkpoints"))
-    model = build_model(cfg, device).train()
+    ckpt = CheckpointManager(os.path.join(exp_dir, "checkpoints"),
+                             keep_all=cfg.is_optimize)
+    model = build_model(cfg, device).train(not frozen)
+    _maybe_load_resnet(cfg, model)
     _maybe_warm_start(cfg, model)
     if datasets is None:
         datasets = (NeRDS360AE(cfg.root_dir, "train", cfg.img_wh,
-                               cfg.num_src_views, cfg.ray_batch_size),
+                               cfg.num_src_views, cfg.ray_batch_size,
+                               optimize=cfg.is_optimize,
+                               finetune_lpips=cfg.finetune_lpips),
                     NeRDS360AE(cfg.root_dir, "val", cfg.img_wh,
                                cfg.num_src_views))
     train_ds, val_ds = datasets
 
     stage_size = max(1, min(cfg.steps_per_call, cfg.save_every_steps,
                             cfg.run_max_steps))
-    use_stage = cfg.stage_k > 1
+    use_stage = cfg.stage_k > 1 and not frozen
     warm_steps = 0
     if use_stage:
         if cfg.stage_warmup_steps > 0 and ckpt.latest_step() is None:
@@ -486,8 +592,11 @@ def run_train(cfg: Config, device=None, datasets=None):
             encode_fn, loss_fn, multi_stage=True,
             cot_dtype=getattr(torch, cfg.stage_cot_dtype))
     else:
-        state, runner = _per_step_runner(cfg, model)
+        state, runner = _per_step_runner(cfg, model, lpips_model)
     start_step = max(resume(ckpt, state), warm_steps)
+    const = (_optimize_latents(model, train_ds, device) if cfg.is_optimize
+             else None)
+    step_keys = STEP_KEYS + (("scene_idx",) if const is not None else ())
 
     def staged_iterator():
         rng = np.random.default_rng(cfg.seed)
@@ -501,7 +610,7 @@ def run_train(cfg: Config, device=None, datasets=None):
             else:
                 samples = [train_ds.sample_train(rng)
                            for _ in range(stage_size)]
-                yield (tl.stack_batches(samples, STEP_KEYS),)
+                yield (tl.stack_batches(samples, step_keys),)
 
     render_fn = make_render_fn(cfg, model, device)
     generator = torch.Generator(device).manual_seed(cfg.seed + 2)
@@ -511,7 +620,10 @@ def run_train(cfg: Config, device=None, datasets=None):
         for batches in it:
             if step >= cfg.run_max_steps:
                 break
-            metrics = runner(state, *batches, generator)
+            if use_stage:
+                metrics = runner(state, *batches, generator)
+            else:
+                metrics = runner(state, *batches, generator, const)
             step += stage_size
             if step % cfg.log_every_steps < stage_size:
                 logger.log(step, {k: float(v) for k, v in metrics.items()})
@@ -519,7 +631,7 @@ def run_train(cfg: Config, device=None, datasets=None):
                 sample = val_ds.sample_val(0)
                 model.eval()
                 out = render_fn(sample)
-                model.train()
+                model.train(not frozen)
                 w, h = cfg.img_wh
                 target = torch.as_tensor(sample["target"], device=device)
                 val_psnr = float(psnr(out["rgb"].reshape(h, w, 3),

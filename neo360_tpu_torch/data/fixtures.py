@@ -77,14 +77,16 @@ def render(c2w: np.ndarray, w: int, h: int, focal: float,
 class MemoryScenes(NeRDS360AE):
     """Scenes of `make_multi_scene_root(n_scenes=...)` held in memory
     (scene s uses camera seeds 100 + s and 101 + s); `split` only names the
-    split, every sampler works."""
+    split, every sampler works; `sampling` takes NeRDS360AE's optimize,
+    finetune_lpips and patch_size."""
 
     def __init__(self, n_scenes: int = 1, img_wh: Tuple[int, int] = (320, 240),
                  num_src_views: int = 3, n_train: int = 103, n_val: int = 5,
                  radius: float = 8.0, split: str = "test",
-                 ray_batch_size: int = 500):
+                 ray_batch_size: int = 500, **sampling):
         self.n_scenes = n_scenes
-        super().__init__("", split, img_wh, num_src_views, ray_batch_size)
+        super().__init__("", split, img_wh, num_src_views, ray_batch_size,
+                         **sampling)
         w = self.img_wh[0]
         self.focal = 1.1 * w
         self.sphere_radius = radius * SPHERE_RADIUS_FRAC

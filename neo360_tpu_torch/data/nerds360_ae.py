@@ -5,7 +5,13 @@ neo360_tpu/data/nerds360_ae.py:57-489): the train, val and test splits.
   train cameras and `ray_batch_size` rays drawn across up to 20 of the
   other views (`sample_train`); the scene-stage sampler draws S distinct
   scenes and K ray batches per scene with the same rng order
-  (`sample_train_stage`).
+  (`sample_train_stage`). With `optimize` the source views are the fixed
+  list [0, 38, 44] ([0, 38, 44, 94, 48] for 5 views) and the rays are
+  drawn from those views (`optimize_source_stack` gives a scene's stack);
+  with `finetune_lpips` a sample's rays are one `patch_size`^2 patch of
+  one destination view (neo360_tpu/data/nerds360_ae.py:242-253,
+  299-339: the same draws from the same numpy Generator calls, in the
+  same order).
 - val: a full image of a held-out train camera (index 100 + i) with the
   fixed source stack [0, 38, 44] (5 views: [0, 38, 44, 94, 48]).
 - test: a full image of a scene's val/ directory (poses at the train
@@ -31,6 +37,7 @@ CAR_SEMANTIC_ID = 5
 SRC_VIEWS_3 = [0, 38, 44]
 SRC_VIEWS_5_OPTIMIZE = [0, 38, 44, 94, 48]
 SRC_VIEWS_5_TEST = [0, 15, 38, 52, 70]
+PATCH_SIZE = 30
 RAY_KEYS = ("rays_o", "viewdirs", "rays_d", "target")
 
 
@@ -98,7 +105,9 @@ class NeRDS360AE:
     def __init__(self, root_dir: str, split: str = "test",
                  img_wh: Tuple[int, int] = (320, 240),
                  num_src_views: int = 3, ray_batch_size: int = 500,
-                 dest_views_per_sample: int = 20):
+                 dest_views_per_sample: int = 20, optimize: bool = False,
+                 finetune_lpips: bool = False,
+                 patch_size: int = PATCH_SIZE):
         if split not in ("train", "val", "test"):
             raise ValueError(f"split {split!r}: expected train, val or test")
         self.root_dir = root_dir
@@ -107,6 +116,9 @@ class NeRDS360AE:
         self.num_src_views = num_src_views
         self.ray_batch_size = ray_batch_size
         self.dest_views_per_sample = dest_views_per_sample
+        self.optimize = optimize
+        self.finetune_lpips = finetune_lpips
+        self.patch_size = patch_size
         self.scene_ids = self._scene_ids()
         if not self.scene_ids:
             raise ValueError(f"no scene directories under {root_dir!r}")
@@ -194,27 +206,57 @@ class NeRDS360AE:
             out["target"][sel] = rgb[ys[sel], xs[sel]]
         return out
 
+    def _optimize_src(self) -> List[int]:
+        """The optimize mode's fixed source views."""
+        if self.num_src_views == 3:
+            return SRC_VIEWS_3
+        if self.num_src_views == 5:
+            return SRC_VIEWS_5_OPTIMIZE
+        return SRC_VIEWS_3[:1]
+
     def _draw(self, rng: np.random.Generator, meta: SceneMeta):
-        """(source views, destination pool) of one training sample."""
+        """(source views, destination pool) of one training sample: in
+        optimize mode the fixed list for both, else random source views and
+        the other train views."""
+        if self.optimize:
+            src = self._optimize_src()
+            return src, np.asarray(src)
         n_train = len(meta.c2w_train)
         src = rng.choice(n_train, self.num_src_views, replace=False)
         return src, np.setdiff1d(np.arange(n_train), src)
 
+    def optimize_source_stack(self, scene_idx: int) -> Dict[str, np.ndarray]:
+        """Scene `scene_idx`'s optimize-mode source stack, the one every
+        optimize-mode sample of it carries (for caching its frozen pixel
+        latents, cli._optimize_latents)."""
+        meta = self.scene_meta(self.scene_ids[scene_idx])
+        return self._source_stack(meta, self._optimize_src())
+
     def sample_train(self, rng: np.random.Generator) -> Dict[str,
                                                               np.ndarray]:
         """One training sample: a random scene's source stack and
-        `ray_batch_size` rays across up to 20 of its other views, with
-        `scene_idx`."""
+        `ray_batch_size` rays across up to 20 of its destination views (with
+        `finetune_lpips`: one `patch_size`^2 patch, row-major, of one
+        destination view), with `scene_idx`."""
         sid = int(rng.integers(len(self.scene_ids)))
         meta = self.scene_meta(self.scene_ids[sid])
         w, h = self.img_wh
         src, dest_pool = self._draw(rng, meta)
         sample = self._source_stack(meta, list(src))
-        n_dest = min(self.dest_views_per_sample, len(dest_pool))
-        dest = rng.choice(dest_pool, n_dest, replace=False)
-        view_ids = dest[rng.integers(0, n_dest, self.ray_batch_size)]
-        xs = rng.integers(0, w, self.ray_batch_size)
-        ys = rng.integers(0, h, self.ray_batch_size)
+        if self.finetune_lpips:
+            p = self.patch_size
+            vid = int(rng.choice(dest_pool))
+            x0 = int(rng.integers(0, w - p + 1))
+            y0 = int(rng.integers(0, h - p + 1))
+            ys_g, xs_g = np.mgrid[y0:y0 + p, x0:x0 + p]
+            xs, ys = xs_g.reshape(-1), ys_g.reshape(-1)
+            view_ids = np.full_like(xs, vid)
+        else:
+            n_dest = min(self.dest_views_per_sample, len(dest_pool))
+            dest = rng.choice(dest_pool, n_dest, replace=False)
+            view_ids = dest[rng.integers(0, n_dest, self.ray_batch_size)]
+            xs = rng.integers(0, w, self.ray_batch_size)
+            ys = rng.integers(0, h, self.ray_batch_size)
         sample.update(self._dest_rays(meta, view_ids, xs, ys, meta.c2w_train,
                                       meta.img_files_train, "train"))
         sample["scene_idx"] = np.asarray(sid, np.int32)

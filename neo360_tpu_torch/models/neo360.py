@@ -189,8 +189,17 @@ class NeRFTP(nn.Module):
                     512, local_proj_dim, use_bias=False, dtype=compute_dtype,
                     generator=g))
 
+    def encode_images(self, src_imgs, batch_stats: bool = False):
+        """The SpatialEncoder's pixel latents (NV, H/2, W/2, 512) in the
+        compute dtype (neo360_tpu/models/neo360.py:232-239): the part of
+        `encode` that the optimize and finetune modes freeze, with
+        BatchNorm on its running statistics unless `batch_stats`. For a
+        fixed source stack it is a run constant, to be passed to `encode`
+        as `pixel_latent`."""
+        return self.encoder.spatial_encoder(src_imgs, batch_stats)
+
     def encode(self, src_imgs, src_poses, src_focal, src_c,
-               batch_stats: bool):
+               batch_stats: bool, pixel_latent=None):
         """-> (plane corner tables (xz, xy, yz), local corner table(s),
         (plane_hw, latent_hw)).
 
@@ -202,9 +211,11 @@ class NeRFTP(nn.Module):
         [:NV] and the bg branch's in rows [NV:], so a level samples both
         with one gather. With the proposal there is one local table (the
         fine level's); without it a tuple of two, (coarse "c", fine
-        "f")."""
+        "f"). `pixel_latent`: `encode_images(src_imgs)` computed
+        beforehand; the SpatialEncoder is then skipped
+        (neo360_tpu/models/neo360.py:241-254)."""
         planes, pixel_latent = self.encoder(src_imgs, src_poses, src_focal,
-                                            src_c, batch_stats)
+                                            src_c, batch_stats, pixel_latent)
         dt = self.compute_dtype
         plane_tables = tuple(build_corner_table(p, "zeros", dtype=dt)
                              for p in planes)

@@ -9,7 +9,9 @@ Convolutions run NCHW; SpatialEncoder takes and returns NHWC.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import os
+import re
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -106,3 +108,37 @@ def latent_scaling(latent_hw, device=None) -> torch.Tensor:
     h, w = latent_hw
     s = torch.tensor([w, h], dtype=torch.float32, device=device)
     return s / (s - 1.0) * 2.0
+
+
+def from_torchvision(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A torchvision resnet34 state dict -> `ResNet34Features` names
+    (`layer1.0.conv1` -> `layer1_0.conv1`, `downsample.0` / `.1` ->
+    `downsample_conv` / `downsample_bn`); layer4, fc and the BatchNorms'
+    `num_batches_tracked` have no counterpart and are dropped. Flax
+    BatchNorm's momentum 0.9 is torch's 0.1, so the running statistics
+    carry over as they are."""
+    out = {}
+    for key, value in sd.items():
+        if key.endswith("num_batches_tracked") or not re.match(
+                r"(conv1|bn1|layer[123])\.", key):
+            continue
+        key = re.sub(r"^(layer\d)\.(\d+)\.", r"\1_\2.", key)
+        key = key.replace("downsample.0.", "downsample_conv.").replace(
+            "downsample.1.", "downsample_bn.")
+        out[key] = value.float()
+    return out
+
+
+def load_pretrained(path: str) -> Dict[str, torch.Tensor]:
+    """Backbone weights for `ResNet34Features` (neo360_tpu/nn/resnet.py:
+    136-201) from a torchvision resnet34 state dict or the `.npz` that
+    scripts/convert_weights.py writes (Flax names and layouts, converted
+    by `weights.from_flax_flat`), keyed by the backbone's own names.
+    Raises when `path` does not exist."""
+    from neo360_tpu_torch import weights
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"resnet weights {path}: no such file")
+    if path.endswith(".npz"):
+        return weights.from_flax_flat(weights.load_variables_npz(path))
+    return from_torchvision(torch.load(path, map_location="cpu",
+                                       weights_only=True))

@@ -152,10 +152,17 @@ class GridEncoder(nn.Module):
                 generator))
 
     def forward(self, images: torch.Tensor, poses: torch.Tensor,
-                focal: torch.Tensor, c: torch.Tensor, batch_stats: bool):
+                focal: torch.Tensor, c: torch.Tensor, batch_stats: bool,
+                pixel_latent: Optional[torch.Tensor] = None):
         """images (NV, H, W, 3) in [-1, 1]; poses (NV, 4, 4); focal (NV,);
         c (NV, 2). Returns ((plane_xz, plane_xy, plane_yz) each
         (NV, Hp, Wp, plane_dim) f32, pixel latent (NV, H/2, W/2, 512) f32).
+
+        `pixel_latent`: the SpatialEncoder's output for `images`, computed
+        beforehand (neo360_tpu/nn/triplane.py:214-256); the SpatialEncoder
+        is then skipped. The optimize and finetune modes freeze it with
+        BatchNorm on its running statistics, so for a fixed source stack
+        its output is a run constant (NeRFTP.encode_images).
 
         With `remat` and grad enabled, the grid part (`_grid`: lift,
         depth_fc, pillar logits) runs under `torch.utils.checkpoint`: its
@@ -163,7 +170,8 @@ class GridEncoder(nn.Module):
         backward instead of kept (the JAX model's `remat_encoder`). The
         BatchNorms of the ResNet and the floorplan convs lie outside it, so
         each still records one running-statistics update per forward."""
-        pixel_latent = self.spatial_encoder(images, batch_stats)
+        if pixel_latent is None:
+            pixel_latent = self.spatial_encoder(images, batch_stats)
         args = (pixel_latent, poses, focal, c, tuple(images.shape[1:3]))
         if self.remat and torch.is_grad_enabled():
             latent, *logits = torch.utils.checkpoint.checkpoint(

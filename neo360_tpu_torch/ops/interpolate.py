@@ -37,10 +37,13 @@ from neo360_tpu_torch.ops import kernels
 
 # consecutive points a group of threads walks, reusing the corner rows of
 # a run of points that fall in one cell (csrc/table_sample_common.cuh),
-# per entry point; chosen by measurement on the card (PERF.md). The port
-# never changes it: only `scripts/torch_kernel_times.py --sweep` and the
-# card tests of every run length do
-RUN = {"table_sample": 4, "triplane_sample": 8, "local_sample": 4}
+# one constant per entry point, adopted by measurement on the card
+# (PERF.md). The path always runs these; only
+# `scripts/torch_kernel_times.py --sweep` and the card tests of every run
+# length pass another, as the wrappers' `run` argument
+TABLE_SAMPLE_RUN = 4
+TRIPLANE_SAMPLE_RUN = 8
+LOCAL_SAMPLE_RUN = 4
 
 
 def build_corner_table(image: torch.Tensor, padding_mode: str = "zeros",
@@ -181,7 +184,7 @@ def _table_shape_ok(name: str, table_shape, hw, c_multiple: int) -> int:
 
 
 def _table_sample_forward(table, uv, hw, padding_mode, out_dtype,
-                          view_offset):
+                          view_offset, run=None):
     if table.device.type == "cpu" and uv.device.type == "cpu":
         return table_sample_reference(table, uv, hw, padding_mode,
                                       out_dtype, view_offset)
@@ -203,7 +206,7 @@ def _table_sample_forward(table, uv, hw, padding_mode, out_dtype,
                    kernels.DTYPE_CODES[table.dtype], uv.data_ptr(),
                    out.data_ptr(), kernels.DTYPE_CODES[out_dtype], b, n, h,
                    w, c, int(padding_mode == "zeros"), int(view_offset),
-                   table.shape[0], RUN["table_sample"])
+                   table.shape[0], run or TABLE_SAMPLE_RUN)
     table_sample.launches += 1
     return out
 
@@ -296,13 +299,13 @@ class _TableSample(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, uv, hw, padding_mode, out_dtype, view_offset,
-                grad_acc):
+                grad_acc, run):
         ctx.save_for_backward(uv)
         ctx.meta = (tuple(table.shape), table.dtype, hw, padding_mode,
                     view_offset)
         ctx.grad_acc = grad_acc
         return _table_sample_forward(table, uv, hw, padding_mode, out_dtype,
-                                     view_offset)
+                                     view_offset, run)
 
     @staticmethod
     def backward(ctx, grad):
@@ -316,13 +319,13 @@ class _TableSample(torch.autograd.Function):
             else:
                 table_sample_accumulate(grad, uv, ctx.grad_acc, hw, mode,
                                         offset)
-        return dtable, None, None, None, None, None, None
+        return dtable, None, None, None, None, None, None, None
 
 
 def table_sample(table: torch.Tensor, uv: torch.Tensor, hw: tuple,
                  padding_mode: str = "zeros", out_dtype=torch.float32,
-                 view_offset: int = 0, grad_acc: torch.Tensor = None
-                 ) -> torch.Tensor:
+                 view_offset: int = 0, grad_acc: torch.Tensor = None,
+                 run: int = None) -> torch.Tensor:
     """Bilinear sample via one row gather from a `build_corner_table` table
     (semantics of neo360_tpu/ops/interpolate.py:table_sample, flat mode:
     total_views = table.shape[0]).
@@ -332,15 +335,16 @@ def table_sample(table: torch.Tensor, uv: torch.Tensor, hw: tuple,
     grad enabled the call is a `_TableSample` autograd Function; uv must
     not require grad (raises). `grad_acc`: an f32 tensor of the table's
     shape; the backward then adds the table's gradient into it and returns
-    None for the table (the accumulate contract)."""
+    None for the table (the accumulate contract). `run`: the kernel's run
+    length, TABLE_SAMPLE_RUN unless given."""
     if not torch.is_grad_enabled():
         return _table_sample_forward(table, uv, hw, padding_mode, out_dtype,
-                                     view_offset)
+                                     view_offset, run)
     if uv.requires_grad:
         raise ValueError("table_sample: uv takes no gradient (detach it)")
     _check_acc("table_sample", grad_acc, table)
     return _TableSample.apply(table, uv, tuple(hw), padding_mode, out_dtype,
-                              int(view_offset), grad_acc)
+                              int(view_offset), grad_acc, run)
 
 
 table_sample.launches = 0
@@ -404,7 +408,7 @@ def triplane_sample_reference(tables, cam: torch.Tensor, hw: tuple,
     return xz + xy + yz
 
 
-def _triplane_forward(tables, cam, hw, view_offset):
+def _triplane_forward(tables, cam, hw, view_offset, run=None):
     if all(t.device.type == "cpu" for t in (*tables, cam)):
         return triplane_sample_reference(tables, cam, hw, view_offset)
     name = "triplane_sample"
@@ -424,7 +428,7 @@ def _triplane_forward(tables, cam, hw, view_offset):
     kernels.launch("triplane_sample_fwd", cam.device,
                    *(t.data_ptr() for t in tables), kernels.DTYPE_CODES[dtype],
                    cam.data_ptr(), out.data_ptr(), b, n, h, w, c,
-                   int(view_offset), shape[0], RUN["triplane_sample"])
+                   int(view_offset), shape[0], run or TRIPLANE_SAMPLE_RUN)
     triplane_sample.launches += 1
     return out
 
@@ -436,13 +440,13 @@ class _TriplaneSample(torch.autograd.Function):
     accumulators (the table then gets None)."""
 
     @staticmethod
-    def forward(ctx, t_xz, t_xy, t_yz, cam, hw, view_offset, grad_acc):
+    def forward(ctx, t_xz, t_xy, t_yz, cam, hw, view_offset, grad_acc, run):
         tables = (t_xz, t_xy, t_yz)
         ctx.save_for_backward(cam)
         ctx.meta = ([(tuple(t.shape), t.dtype) for t in tables], hw,
                     view_offset)
         ctx.grad_acc = grad_acc or (None,) * 3
-        return _triplane_forward(tables, cam, hw, view_offset)
+        return _triplane_forward(tables, cam, hw, view_offset, run)
 
     @staticmethod
     def backward(ctx, grad):
@@ -453,11 +457,12 @@ class _TriplaneSample(torch.autograd.Function):
                  for uv, (shape, dtype), acc, need in zip(
                      triplane_uvs(cam), metas, ctx.grad_acc,
                      ctx.needs_input_grad[:3])]
-        return (*grads, None, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
 def triplane_sample(tables, cam: torch.Tensor, hw: tuple,
-                    view_offset: int = 0, grad_acc=None) -> torch.Tensor:
+                    view_offset: int = 0, grad_acc=None,
+                    run: int = None) -> torch.Tensor:
     """The tri-plane world latent (NV, N, C) f32 of camera points cam
     (NV, N, 3): the three zeros-mode plane tables (xz, xy, yz) sampled at
     `triplane_uvs(cam)` and summed (semantics of
@@ -470,10 +475,11 @@ def triplane_sample(tables, cam: torch.Tensor, hw: tuple,
     `_TriplaneSample` autograd Function; cam must not require grad
     (raises). `grad_acc`: three f32 accumulators of the tables' shapes;
     the backward then adds the tables' gradients into them (kernel A''s
-    accumulate contract) and returns None for the tables."""
+    accumulate contract) and returns None for the tables. `run`: the
+    kernel's run length, TRIPLANE_SAMPLE_RUN unless given."""
     tables = tuple(tables)
     if not torch.is_grad_enabled():
-        return _triplane_forward(tables, cam, hw, view_offset)
+        return _triplane_forward(tables, cam, hw, view_offset, run)
     if cam.requires_grad:
         raise ValueError("triplane_sample: cam takes no gradient (detach "
                          "it)")
@@ -482,7 +488,7 @@ def triplane_sample(tables, cam: torch.Tensor, hw: tuple,
             _check_acc("triplane_sample", acc, t)
         grad_acc = tuple(grad_acc)
     return _TriplaneSample.apply(*tables, cam, tuple(hw), int(view_offset),
-                                 grad_acc)
+                                 grad_acc, run)
 
 
 def local_uv(cam: torch.Tensor, focal: torch.Tensor, c: torch.Tensor,
@@ -509,7 +515,7 @@ def local_sample_reference(table: torch.Tensor, cam: torch.Tensor,
                                   "border", torch.float32, view_offset)
 
 
-def _local_forward(table, cam, focal, c, scale, hw, view_offset):
+def _local_forward(table, cam, focal, c, scale, hw, view_offset, run=None):
     if all(t.device.type == "cpu" for t in (table, cam, focal, c)):
         return local_sample_reference(table, cam, focal, c, scale, hw,
                                       view_offset)
@@ -530,7 +536,7 @@ def _local_forward(table, cam, focal, c, scale, hw, view_offset):
                    kernels.DTYPE_CODES[table.dtype], cam.data_ptr(),
                    focal.data_ptr(), c.data_ptr(), float(scale[0]),
                    float(scale[1]), out.data_ptr(), nv, m, h, w, cc,
-                   int(view_offset), table.shape[0], RUN["local_sample"])
+                   int(view_offset), table.shape[0], run or LOCAL_SAMPLE_RUN)
     local_sample.launches += 1
     return out
 
@@ -543,11 +549,12 @@ class _LocalSample(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, cam, focal, c, scale, hw, view_offset,
-                grad_acc):
+                grad_acc, run):
         ctx.save_for_backward(cam, focal, c)
         ctx.meta = (tuple(table.shape), table.dtype, scale, hw, view_offset)
         ctx.grad_acc = grad_acc
-        return _local_forward(table, cam, focal, c, scale, hw, view_offset)
+        return _local_forward(table, cam, focal, c, scale, hw, view_offset,
+                              run)
 
     @staticmethod
     def backward(ctx, grad):
@@ -557,12 +564,13 @@ class _LocalSample(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dtable = _table_grad(grad, local_uv(cam, focal, c, scale), shape,
                                  dtype, hw, "border", offset, ctx.grad_acc)
-        return dtable, None, None, None, None, None, None, None
+        return dtable, None, None, None, None, None, None, None, None
 
 
 def local_sample(table: torch.Tensor, cam: torch.Tensor, focal: torch.Tensor,
                  c: torch.Tensor, scale, hw: tuple, view_offset: int = 0,
-                 grad_acc: torch.Tensor = None) -> torch.Tensor:
+                 grad_acc: torch.Tensor = None, run: int = None
+                 ) -> torch.Tensor:
     """Pixel-aligned local latents (2NV, M, C) f32 of the fg and bg points
     from the stacked fg/bg table (semantics of the uv prologue and gather
     of neo360_tpu/models/neo360.py:NeRFTP._local_feats_pair). cam
@@ -575,15 +583,17 @@ def local_sample(table: torch.Tensor, cam: torch.Tensor, focal: torch.Tensor,
     kernel (csrc/local_sample.cu) and add one to `local_sample.launches`.
     With grad enabled the call is a `_LocalSample` autograd Function; cam
     must not require grad (raises). `grad_acc`: an f32 accumulator of the
-    table's shape (kernel A''s accumulate contract)."""
+    table's shape (kernel A''s accumulate contract). `run`: the kernel's run
+    length, LOCAL_SAMPLE_RUN unless given."""
     scale = (float(scale[0]), float(scale[1]))
     if not torch.is_grad_enabled():
-        return _local_forward(table, cam, focal, c, scale, hw, view_offset)
+        return _local_forward(table, cam, focal, c, scale, hw, view_offset,
+                              run)
     if cam.requires_grad:
         raise ValueError("local_sample: cam takes no gradient (detach it)")
     _check_acc("local_sample", grad_acc, table)
     return _LocalSample.apply(table, cam, focal, c, scale, tuple(hw),
-                              int(view_offset), grad_acc)
+                              int(view_offset), grad_acc, run)
 
 
 triplane_sample.launches = 0

@@ -5,7 +5,8 @@ A checkpoint is one file, `ckpt_<step:08d>.pt`, holding what the caller
 gives `save` (the stage trainer: both parameter partitions, both Adam
 states, the step and the BatchNorm buffers) and the metrics it was saved
 with. Retention: the newest checkpoint plus the MAX_TO_KEEP best by
-val_psnr (higher is better), as the reference's save_last + top-k.
+val_psnr (higher is better), as the reference's save_last + top-k; with
+`keep_all` (optimize runs) every checkpoint.
 """
 
 from __future__ import annotations
@@ -23,8 +24,9 @@ MONITOR = "val_psnr"
 
 
 class CheckpointManager:
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, keep_all: bool = False):
         self.directory = os.path.abspath(directory)
+        self.keep_all = keep_all
 
     def path(self, step: int) -> str:
         return os.path.join(self.directory, f"ckpt_{step:08d}.pt")
@@ -62,7 +64,8 @@ class CheckpointManager:
         table[str(step)] = {k: float(v) for k, v in (metrics or {}).items()}
         steps = self.steps()
         score = lambda s: table.get(str(s), {}).get(MONITOR, -1e30)
-        keep = set(sorted(steps, key=score, reverse=True)[:MAX_TO_KEEP])
+        keep = set(steps if self.keep_all else
+                   sorted(steps, key=score, reverse=True)[:MAX_TO_KEEP])
         keep.add(steps[-1])
         for s in steps:
             if s not in keep:

@@ -1,5 +1,6 @@
-"""Few-shot evaluation: render every test view, PSNR / SSIM on the device,
-stream artifacts to disk (port of neo360_tpu/train/eval.py:42-52, 100-236).
+"""Few-shot evaluation: render every test view, PSNR / SSIM (and, with
+pretrained LPIPS weights, LPIPS) on the device, stream artifacts to disk
+(port of neo360_tpu/train/eval.py:42-52, 55-90, 100-236).
 
 `evaluate` yields one `ViewResult` per view and holds nothing else, so
 memory stays constant in the number of views. `evaluate_and_save` writes
@@ -28,6 +29,7 @@ class ViewResult:
     psnr: float
     ssim: float
     psnr_obj: Optional[float]
+    lpips: Optional[float] = None
 
 
 def object_psnr(rgb: np.ndarray, target: np.ndarray,
@@ -42,9 +44,12 @@ def object_psnr(rgb: np.ndarray, target: np.ndarray,
 
 
 def evaluate(render_fn: Callable[[Dict], Dict[str, torch.Tensor]],
-             samples: Iterable[Dict], img_wh) -> Iterator[ViewResult]:
+             samples: Iterable[Dict], img_wh,
+             lpips_model=None) -> Iterator[ViewResult]:
     """render_fn(sample) -> {"rgb": (N, 3)[, "depth": (N,)]} tensors; each
-    sample carries "target" (N, 3) and optionally "instance_mask"."""
+    sample carries "target" (N, 3) and optionally "instance_mask". A
+    pretrained `lpips_model` (nn.lpips.LPIPSModel, on the render's device)
+    adds each view's LPIPS."""
     w, h = img_wh
     for sample in samples:
         out = render_fn(sample)
@@ -52,6 +57,10 @@ def evaluate(render_fn: Callable[[Dict], Dict[str, torch.Tensor]],
         target = np.asarray(sample["target"], np.float32).reshape(h, w, 3)
         tgt = torch.as_tensor(target, device=pred.device)
         p, s = M.psnr(pred, tgt), M.ssim(pred, tgt)
+        lp = None
+        if lpips_model is not None and lpips_model.pretrained:
+            with torch.no_grad():
+                lp = float(lpips_model(pred[None], tgt[None])[0])
         rgb = pred.cpu().numpy()
         depth = None
         if "depth" in out:
@@ -60,7 +69,7 @@ def evaluate(render_fn: Callable[[Dict], Dict[str, torch.Tensor]],
         if "instance_mask" in sample:
             mask = np.asarray(sample["instance_mask"]).reshape(h, w) > 0
             op = object_psnr(rgb, target, mask)
-        yield ViewResult(rgb, depth, float(p), float(s), op)
+        yield ViewResult(rgb, depth, float(p), float(s), op, lp)
 
 
 def _write(kind: str, path: str, arr: np.ndarray) -> None:
@@ -73,16 +82,19 @@ def _write(kind: str, path: str, arr: np.ndarray) -> None:
 
 def evaluate_and_save(render_fn, samples, img_wh, out_dir: str,
                       results_json: Optional[str] = None,
-                      extra: Optional[Dict[str, str]] = None
-                      ) -> Dict[str, float]:
+                      extra: Optional[Dict[str, str]] = None,
+                      lpips_model=None) -> Dict[str, float]:
     """`evaluate` + image{i}.jpg / depth_raw{i}.npz under `out_dir`, and
-    each metric's mean and per-view values in `results_json`. Returns the
-    means {psnr, ssim[, psnr_obj]}."""
+    each metric's mean and per-view values in `results_json` (without a
+    pretrained `lpips_model`, "lpips_status" says LPIPS was skipped).
+    Returns the means {psnr, ssim[, psnr_obj][, lpips]}."""
     os.makedirs(out_dir, exist_ok=True)
-    vals: Dict[str, List[float]] = {"psnr": [], "ssim": [], "psnr_obj": []}
+    vals: Dict[str, List[float]] = {"psnr": [], "ssim": [], "psnr_obj": [],
+                                    "lpips": []}
     with ThreadPoolExecutor(max_workers=1) as writer:
         jobs = []
-        for i, view in enumerate(evaluate(render_fn, samples, img_wh)):
+        for i, view in enumerate(evaluate(render_fn, samples, img_wh,
+                                          lpips_model)):
             jobs.append(writer.submit(
                 _write, "jpg", os.path.join(out_dir, f"image{i:03d}.jpg"),
                 io.to8b(view.rgb)))
@@ -95,13 +107,16 @@ def evaluate_and_save(render_fn, samples, img_wh, out_dir: str,
             vals["ssim"].append(view.ssim)
             if view.psnr_obj is not None:
                 vals["psnr_obj"].append(view.psnr_obj)
+            if view.lpips is not None:
+                vals["lpips"].append(view.lpips)
         for job in jobs:
             job.result()  # raise the first write error, if any
     summary = {k: float(np.mean(v)) for k, v in vals.items() if v}
     if results_json is not None:
         payload = {k: {"mean": v, "views": vals[k]}
                    for k, v in summary.items()}
-        payload["lpips_status"] = "skipped: not ported"
+        if not vals["lpips"]:
+            payload["lpips_status"] = "skipped: no pretrained weights"
         payload.update(extra or {})
         io.write_stats(results_json, **payload)
     return summary

@@ -39,8 +39,9 @@ from torch import nn
 @dataclass
 class TrainState:
     """The per-step trainer's state: the model (parameters and BatchNorm
-    buffers, updated in place), its parameters by name, the one optimizer
-    over all of them, and the step count."""
+    buffers, updated in place), its trained parameters by name (those that
+    require grad), the one optimizer over all of them, and the step
+    count."""
     step: int
     model: nn.Module
     params: Dict[str, nn.Parameter]
@@ -51,8 +52,9 @@ def create_train_state(model: nn.Module,
                        make_optimizer: Callable[[List[torch.Tensor]], object]
                        ) -> TrainState:
     """`make_optimizer(params)` builds the optimizer of every parameter
-    (the CLI's build_optimizer)."""
-    params = dict(model.named_parameters())
+    that requires grad (the CLI's build_optimizer); a frozen parameter
+    (`requires_grad_(False)`) gets neither a gradient nor an update."""
+    params = {k: p for k, p in model.named_parameters() if p.requires_grad}
     return TrainState(step=0, model=model, params=params,
                       opt=make_optimizer(list(params.values())))
 
@@ -80,14 +82,17 @@ def make_train_step(loss_fn: Callable, with_model_state: bool = False):
 
 
 def make_staged_trainer(train_step: Callable):
-    """run(state, batches, generator) -> the last step's metrics:
-    `train_step` over the K stacked batches of `batches` (a dict of
-    (K, ...) tensors), in order."""
+    """run(state, batches, generator, const=None) -> the last step's
+    metrics: `train_step` over the K stacked batches of `batches` (a dict of
+    (K, ...) tensors), in order. `const`: a dict merged into every step's
+    batch as it is, without the K axis (the optimize mode's cached pixel
+    latents)."""
 
-    def run(state, batches, generator):
+    def run(state, batches, generator, const=None):
         metrics = {}
         for i in range(next(iter(batches.values())).shape[0]):
-            metrics = train_step(state, {k: v[i] for k, v in batches.items()},
+            batch = {k: v[i] for k, v in batches.items()}
+            metrics = train_step(state, dict(batch, **(const or {})),
                                  generator)
         return metrics
 

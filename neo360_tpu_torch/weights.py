@@ -63,6 +63,20 @@ def from_flax_flat(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def lpips_from_flax_flat(flat: Dict[str, np.ndarray]
+                         ) -> Dict[str, torch.Tensor]:
+    """The LPIPS npz of scripts/convert_weights.py (`params/vgg/conv{b}_{i}/
+    kernel|bias`, HWIO kernels, and the lin weights `params/lin{i}`, (C,))
+    -> nn.lpips.LPIPSModel's parameters (`vgg.conv{b}_{i}.weight` OIHW,
+    `lin{i}`)."""
+    lins = {k for k in flat if k.count("/") == 1 and
+            k.startswith("params/lin")}
+    sd = from_flax_flat({k: v for k, v in flat.items() if k not in lins})
+    sd.update({k.split("/")[1]: torch.tensor(np.asarray(flat[k], np.float32))
+               for k in lins})
+    return sd
+
+
 def from_checkpoint(raw: Dict) -> Dict[str, torch.Tensor]:
     """The state_dict in a port file: a training checkpoint
     (train/checkpoints.py, written by cli.run_train) gives its parameters

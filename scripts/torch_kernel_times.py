@@ -32,7 +32,9 @@ shape the imported version refuses (kernel C at Z > 32 before it took
 them) prints the refusal. `--only` keeps the cases whose kernel name
 starts with one of the comma-separated prefixes. `--sweep` times kernel
 A's and the level gathers' cases at every run length of `SWEEP_RUNS`
-(ops.interpolate.RUN, points a group of threads walks).
+(the points a group of threads walks: the wrappers' `run` argument, else
+ops.interpolate's TABLE_SAMPLE_RUN, TRIPLANE_SAMPLE_RUN and
+LOCAL_SAMPLE_RUN).
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ from chip_smoke import _bound, _device_ms, _fixture_view, \
     _grid_sample_fns, _level_cam, _level_points, _lift_uv, _median_ms, \
     _rows_read  # noqa: E402
 
-# run lengths that --sweep tries (ops.interpolate.RUN)
+# run lengths that --sweep tries (the wrappers' `run` argument)
 SWEEP_RUNS = (1, 2, 4, 8, 16, 32)
 
 
@@ -59,8 +61,9 @@ def short(name: str) -> str:
     return re.split(r"[<(]", name, 1)[0].split("::")[-1].strip()
 
 
-def cases(torch):
-    """(kernel, case, fn) at the path's shapes, seeded."""
+def cases(torch, run=None):
+    """(kernel, case, fn) at the path's shapes, seeded; the corner-table
+    wrappers at run length `run` where given (else the path's)."""
     from neo360_tpu_torch.core import render
     from neo360_tpu_torch.ops import interpolate, pillar
 
@@ -81,12 +84,13 @@ def cases(torch):
         t = torch.sort(rand(b, n_rays, s, 1), 2).values
         return (start + t * step).reshape(b, n_rays * s, 2)
 
+    kw = {} if run is None else {"run": run}
     out = []
     table = rand(6, 121, 161, 512).to(bf16)
     plane_uv = uniform_uv(3, 2 * 250 * 61)
     out.append(("A table_sample_fwd", "plane bf16->f32, view_offset=3",
                 lambda: interpolate.table_sample(table, plane_uv, hw,
-                                                 "zeros", f32, 3)))
+                                                 "zeros", f32, 3, **kw)))
     lift_uv = uniform_uv(3, 64 * 64 * 32, 1.5)
     for case, shape, uv, mode, gdt, off in (
             ("dense lift, bf16 cotangent", (3, 121, 161, 512), lift_uv,
@@ -161,7 +165,7 @@ def cases(torch):
     lift_uv = uniform_uv(3, 64 ** 3, 1.5)
     out.append(("A table_sample_fwd", "neo360 lift f32->f32, 3 x 64^3 pts",
                 lambda: interpolate.table_sample(lift, lift_uv, hw, "zeros",
-                                                 f32)))
+                                                 f32, **kw)))
     lift_cot = torch.randn(3, 64 ** 3, 512, device=dev, generator=g)
     out.append(("A' table_sample_bwd", "dense neo360 lift, f32 cotangent",
                 lambda: interpolate.table_sample_backward(
@@ -191,13 +195,14 @@ def cases(torch):
     fast_uv = _lift_uv(torch, view, (64, 64, 32))
     out.append(("A table_sample_fwd", "neo360_fast lift bf16->bf16, grid uv",
                 lambda: interpolate.table_sample(table[:3], fast_uv, hw,
-                                                 "zeros", bf16)))
+                                                 "zeros", bf16, **kw)))
     grid_uv = _lift_uv(torch, view, (64, 64, 64))
     one_uv = torch.full_like(grid_uv, 0.1)
     for case, u in (("grid uv", grid_uv), ("one cell", one_uv)):
         out.append(("A table_sample_fwd", f"neo360 lift f32->f32, {case}",
                     lambda u=u: interpolate.table_sample(lift, u, hw,
-                                                         "zeros", f32)))
+                                                         "zeros", f32,
+                                                         **kw)))
     lift_out = torch.empty(3, 64 ** 3, 512, device=dev)
     out.append(("(write)", "lift output zero_(), 1.61 GB written",
                 lift_out.zero_))
@@ -217,7 +222,8 @@ def cases(torch):
                   for _ in range(3)]
         local = rand(6 * (1 + scene), 121, 161, 512).to(dt)
         fn = level_gathers(torch, view, planes, local,
-                           _level_points(torch, view, n_rays, s), scene)
+                           _level_points(torch, view, n_rays, s), scene,
+                           run)
         name = {f32: "f32", bf16: "bf16"}[dt]
         out.append(("level gathers", f"{what}, {n_rays} rays x {s} {name}",
                     fn))
@@ -237,7 +243,8 @@ def cases(torch):
                         f"{bound_ms:.4f} ms)")
                 out.append(("A table_sample_fwd", case,
                             lambda t=t, u=u, mode=mode:
-                            interpolate.table_sample(t, u, hw, mode, f32)))
+                            interpolate.table_sample(t, u, hw, mode, f32,
+                                                     **kw)))
                 out.append(("(plain) table_sample_reference", case,
                             lambda t=t, u=u, mode=mode:
                             interpolate.table_sample_reference(
@@ -263,9 +270,11 @@ def local_uv(cam, view):
     return torch.cat([uv[:, :m], uv[:, m:]], 0) * scale - 1.0
 
 
-def level_gathers(torch, view, planes, local, points, scene):
+def level_gathers(torch, view, planes, local, points, scene, run=None):
     """The call that gathers one level's tri-plane and local latents in
-    the imported version of the port."""
+    the imported version of the port (at run length `run` where given:
+    the fused wrappers called directly, as `NeRFTP._local_feats_pair`
+    calls the local one)."""
     from types import SimpleNamespace
 
     from neo360_tpu_torch.core import geometry
@@ -276,6 +285,18 @@ def level_gathers(torch, view, planes, local, points, scene):
     poses, focal, c = view["src_poses"], view["src_focal"], view["src_c"]
     model = SimpleNamespace(num_src_views=3)
     hw, size = (120, 160), (320, 240)
+    if run is not None:
+        from neo360_tpu_torch.nn.resnet import latent_scaling
+        scale = (latent_scaling(hw) / torch.tensor(size, dtype=torch.float32)
+                 ).tolist()
+
+        def fn():
+            cam = geometry.world2camera(torch.cat([fg, bg], 0).reshape(
+                1, -1, 3), poses, ns=3)
+            interpolate.triplane_sample(planes, cam, hw, 3 * scene, run=run)
+            interpolate.local_sample(local, cam, focal, c, scale, hw,
+                                     6 * scene, run=run)
+        return fn
     if hasattr(interpolate, "triplane_sample"):
         def fn():
             cam = geometry.world2camera(torch.cat([fg, bg], 0).reshape(
@@ -335,21 +356,17 @@ def main() -> int:
 
 def sweep(torch, only=()) -> int:
     """Device time of kernel A's and the fused gathers' cases (those of
-    `only`, if given) at each run length, the same for the three entry
+    `only`, if given) at each run length, passed to the three entry
     points."""
-    from neo360_tpu_torch.ops import interpolate
-    chosen = dict(interpolate.RUN)
-    for kernel, case, fn in cases(torch):
-        if not kernel.startswith(only or ("A ", "level")):
-            continue
-        for run in SWEEP_RUNS:
-            interpolate.RUN.update({k: run for k in chosen})
+    for run in SWEEP_RUNS:
+        for kernel, case, fn in cases(torch, run):
+            if not kernel.startswith(only or ("A ", "level")):
+                continue
             per = {k: v * 1e3 for k, v in _device_ms(torch, fn).items()}
             parts = ", ".join(f"{short(k)} {v:.1f}" for k, v in sorted(
                 per.items(), key=lambda kv: -kv[1]) if v >= 1.0)
             print(f"[sweep] {kernel} {case} run {run}: device "
                   f"{sum(per.values()):.1f} us/call ({parts})")
-        interpolate.RUN.update(chosen)
     return 0
 
 

@@ -5,8 +5,9 @@ neo360_fast; 40x30 fixture scenes, 16 rays a step, float32, tri-planes
 shrunk to 30x40): the per-step trainer of the neo360 preset with its
 checkpoints, resume, warm start and evaluation; the refusal to resume
 across trainer layouts; the stage trainer's per-step warm-up; and the
-eval loop's host prefetch and LPIPS refusal. The CLI has no size flags,
-so `parse_args` is wrapped to apply the tiny sizes.
+eval loop's host prefetch and its refusal of a missing LPIPS file. The
+CLI has no size flags, so `parse_args` is wrapped to apply the tiny
+sizes.
 """
 
 import json
@@ -213,12 +214,12 @@ def test_run_eval_prefetches_samples_on_a_thread(root, tmp_path, tiny_cli,
 
 
 def test_run_eval_refuses_lpips_weights(tmp_path):
-    """--lpips_weights in eval raises until LPIPS is ported, instead of
-    writing results without it."""
+    """--lpips_weights in eval naming a file that does not exist raises
+    before anything runs, instead of writing results without LPIPS."""
     cfg = cli.parse_args(["--exp_type", "neo360_fast", "--root_dir",
                           str(tmp_path), "--eval_mode", "full_eval",
                           "--lpips_weights", "lpips.npz", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="lpips"):
+    with pytest.raises(FileNotFoundError, match="lpips"):
         cli.run_eval(cfg)
 
 

@@ -23,7 +23,6 @@ from neo360_tpu_torch.core.render import OUT_KEYS, composite_nerfpp, \
     composite_nerfpp_backward, composite_nerfpp_reference
 from neo360_tpu_torch.ops import kernels
 from neo360_tpu_torch.ops.interpolate import BACKWARD_TOL as INTERP_BWD_TOL
-from neo360_tpu_torch.ops import interpolate
 from neo360_tpu_torch.ops.interpolate import FUSED_TOL, build_corner_table, \
     local_sample, local_sample_reference, local_uv, table_sample, \
     table_sample_accumulate, table_sample_accumulate_reference, \
@@ -1078,30 +1077,29 @@ def _fused_case(cuda, dtype, hw, c, nv, n_rays, s, scenes, g):
 
 
 def _assert_unfused_bits(tri, loc, planes, local, tri_cam, cam, focal,
-                         centre, scale, hw, off):
+                         centre, scale, hw, off, run=None):
     """The fused kernels' outputs `tri` and `loc` are the bits of the
-    unfused chain they replace: three kernel A calls summed as
-    (xz + xy) + yz, and `local_uv` then kernel A in border mode (NaN where
-    a non-finite point keeps it)."""
-    xz, xy, yz = (table_sample(t, uv, hw, "zeros", torch.float32, off)
+    unfused chain they replace: three kernel A calls (at run length `run`)
+    summed as (xz + xy) + yz, and `local_uv` then kernel A in border mode
+    (NaN where a non-finite point keeps it)."""
+    xz, xy, yz = (table_sample(t, uv, hw, "zeros", torch.float32, off,
+                               run=run)
                   for t, uv in zip(planes, triplane_uvs(tri_cam)))
     torch.testing.assert_close(tri, xz + xy + yz, rtol=0, atol=0)
     unfused = table_sample(local, local_uv(cam, focal, centre, scale), hw,
-                           "border", torch.float32, 2 * off)
+                           "border", torch.float32, 2 * off, run=run)
     torch.testing.assert_close(loc, unfused, rtol=0, atol=0, equal_nan=True)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("run", [1, 3, 4, 16, 64])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_fused_gather_kernels(cuda, dtype, run, monkeypatch):
+def test_fused_gather_kernels(cuda, dtype, run):
     """The fused tri-plane and local kernels and kernel A against their
     plain versions on the card at small ragged shapes, at every run length
     (a run of 64 is cut to what 48 KB of corners allow), with flat
     two-scene tables and non-finite points; the fused kernels also against
     the unfused chain, bit for bit."""
-    monkeypatch.setattr(interpolate, "RUN", {k: run for k in
-                                             interpolate.RUN})
     g = _gen(42)
     hw = (15, 20)
     planes, local, cam = _fused_case(cuda, dtype, hw, 32, 3, 7, 13, 2, g)
@@ -1110,21 +1108,23 @@ def test_fused_gather_kernels(cuda, dtype, run, monkeypatch):
     focal, centre = FOCAL.to(cuda), CENTRE.to(cuda)
     for off in (0, 3):
         before = triplane_sample.launches
-        tri = triplane_sample(planes, tri_cam, hw, off)
+        tri = triplane_sample(planes, tri_cam, hw, off, run=run)
         assert triplane_sample.launches == before + 1
         res = kernels.compare(tri, triplane_sample_reference(
             planes, tri_cam, hw, off), **FUSED_TOL)
         assert res["ok"], res
         before = local_sample.launches
-        loc = local_sample(local, cam, focal, centre, SCALE, hw, 2 * off)
+        loc = local_sample(local, cam, focal, centre, SCALE, hw, 2 * off,
+                           run=run)
         assert local_sample.launches == before + 1
         res = kernels.compare(loc, local_sample_reference(
             local, cam, focal, centre, SCALE, hw, 2 * off), **FUSED_TOL)
         assert res["ok"], res
         _assert_unfused_bits(tri, loc, planes, local, tri_cam, cam, focal,
-                             centre, SCALE, hw, off)
+                             centre, SCALE, hw, off, run)
         uv = local_uv(cam, focal, centre, SCALE)
-        _assert_ok(table_sample(local, uv, hw, "border", view_offset=off),
+        _assert_ok(table_sample(local, uv, hw, "border", view_offset=off,
+                                run=run),
                    table_sample_reference(local, uv, hw, "border",
                                           view_offset=off))
 
