@@ -34,7 +34,7 @@ line):
    under `torch.profiler`, whose top device ops are printed), then its
    validation render and checkpoint; every step's loss must be finite,
    every parameter and BatchNorm buffer must move (apart from the leaves
-   whose gradient is zero by construction), all eight kernels must
+   whose gradient is zero by construction), all eight NeO-360 kernels must
    launch, and every stage must launch kernel A (the lift), C and C' S
    times, the fused tri-plane and local gathers S x K times each, kernel
    A' once per scene under the dense contract (the grid lift) and 4 x S x
@@ -60,11 +60,26 @@ line):
    LPIPS weights, 30x30 patches) on 3 in-memory scenes; every step
    launches exactly the kernels `_optimize_step_launches` says, every loss
    is finite, the SpatialEncoder's tensors and every BatchNorm buffer keep
-   the warm start's bits and the trained tensors move.
+   the warm start's bits and the trained tensors move;
+10. the vanilla NeRF (`phase_vanilla_main_path`): a 320x240 micro scene
+   written by the port's `make_micro_scene`, `cli.run_train` at full
+   width (8 x 256 MLP, 64 + 128 samples, 2048 rays a step, the ray-buffer
+   trainer) for VAN_STEPS steps, then `cli.run_eval` full_eval of its 2
+   test views and vis_only with VIS_FRAMES spiral frames; every step
+   launches kernels D and D' twice and nothing else, every view D twice
+   per tile;
+11. PixelNeRF (`phase_pixelnerf_main_path`): `cli.run_train` at full
+   width (ResNet34 encoder trained every step, 4 x 128 MLP, 64 + 64
+   samples, 512 rays, float32) for PIX_STEPS steps on 3 in-memory
+   scenes, then 2 rendered views of one scene with one encode; every step
+   launches A, A' (dense), D and D' twice each, every view A and D twice
+   per tile.
+Kernel D / D' are also checked against their plain versions at the
+baselines' shapes in phase 3, and A / A' at the PixelNeRF levels.
 
 Each kernel's launches per training stage or step and per rendered view
 follow the last phase. The line before the last is {"kernels": [...]}
-(the eight kernels; launches: the sum over the five main paths, each
+(the ten kernels; launches: the sum over the seven main paths, each
 counted from 0), the
 last is {"ok": true, "device": {...}}. Requires a CUDA device: it exits 2
 without one, or without the neo360_tpu_torch package beside it.
@@ -107,6 +122,11 @@ KERNELS = {
                              "neo360_tpu/core/render.py:55"),
     "pillar_collapse_bwd": ("neo360_tpu_torch/csrc/pillar_collapse_bwd.cu",
                             "neo360_tpu/nn/triplane.py:268"),
+    "composite_vanilla_fwd": ("neo360_tpu_torch/csrc/composite_vanilla.cu",
+                              "neo360_tpu/core/render.py:26"),
+    "composite_vanilla_bwd": (
+        "neo360_tpu_torch/csrc/composite_vanilla_bwd.cu",
+        "neo360_tpu/core/render.py:26"),
 }
 # leaves whose gradient is zero by construction: conv biases ahead of
 # train-mode BatchNorm, and the pillar heads' biases (a softmax ignores a
@@ -120,7 +140,8 @@ def counters():
     kernel, and kernel A' under each of its two contracts (dense and
     accumulate)."""
     from neo360_tpu_torch.core.render import composite_nerfpp, \
-        composite_nerfpp_backward
+        composite_nerfpp_backward, composite_vanilla, \
+        composite_vanilla_backward
     from neo360_tpu_torch.ops.interpolate import local_sample, \
         table_sample, table_sample_accumulate, table_sample_backward, \
         triplane_sample
@@ -134,7 +155,9 @@ def counters():
             "table_sample_bwd": table_sample_backward,
             "table_sample_bwd_acc": table_sample_accumulate,
             "composite_nerfpp_bwd": composite_nerfpp_backward,
-            "pillar_collapse_bwd": pillar_collapse_backward}
+            "pillar_collapse_bwd": pillar_collapse_backward,
+            "composite_vanilla_fwd": composite_vanilla,
+            "composite_vanilla_bwd": composite_vanilla_backward}
 
 
 def _read(fns) -> dict:
@@ -175,7 +198,8 @@ def _rows_read(table_shape, uv, hw, mode, view_offset) -> int:
 # the port's kernels (csrc/*.cu) as the profiler names them
 PORT_KERNEL = re.compile(r"::(table_sample|triplane_sample|local_sample"
                          r"|table_scatter|round_to_bf16"
-                         r"|composite_nerfpp(_bwd)?|pillar_(collapse|weights"
+                         r"|composite_(nerfpp|vanilla)(_bwd)?"
+                         r"|pillar_(collapse|weights"
                          r"|softmax|dlogit|dlatent))_kernel\b")
 
 
@@ -332,7 +356,8 @@ def _grid_sample_fns(torch, c, dtype, uv, hw, mode, cot=None):
 
 def phase_kernels(torch):
     from neo360_tpu_torch.core.render import composite_nerfpp, \
-        composite_nerfpp_reference
+        composite_nerfpp_reference, composite_vanilla, \
+        composite_vanilla_reference
     from neo360_tpu_torch.ops.interpolate import table_sample, \
         table_sample_reference
     from neo360_tpu_torch.ops.pillar import pillar_collapse, \
@@ -461,7 +486,82 @@ def phase_kernels(torch):
                                                + floor_elems),
                ops=3.0 * (latent.numel() * 2 + cells * 4), main=main)
         del latent, logits, out
+
+    # Kernel D: a vanilla training step's two levels (2048 rays x 65 and
+    # x 193 points), a PixelNeRF step's (512 x 65, x 129) and a 256-ray
+    # render tile of each model's fine level, white background off (the
+    # presets'); no PyTorch call computes the composite
+    for b, s in VANILLA_SHAPES:
+        args = _vanilla_args(torch, g, b, s)
+        kernel = lambda: composite_vanilla(*args, False)
+        plain = lambda: composite_vanilla_reference(*args, False)
+        # per sample: rgb, sigma, t read, one weight written; per ray:
+        # dirs read, comp, acc, depth written
+        _check("composite_vanilla_fwd", f"B={b} S={s}", list(kernel()),
+               list(plain()), kernel, plain, torch, results,
+               nbytes=4.0 * b * (6 * s + 8), ops=20.0 * b * s,
+               main=(b, s) == (2048, 193))
+
+    # Kernel A at the PixelNeRF levels: the 512-channel pixel latent of 3
+    # views as one zeros-padded table (f32, and bf16 as the JAX
+    # acceptance ran), sampled at a training step's coarse (512 x 65) and
+    # fine (512 x 129) points of a fixture view, projected with (f, -f)
+    for dt in (f32, bf16):
+        table = torch.randn(3, 121, 161, 2048, device=dev,
+                            generator=g).to(dt)
+        for n_rays, s in ((512, 65), (512, 129)):
+            u = _pixelnerf_uv(torch, view, n_rays, s)
+            kernel = lambda: table_sample(table, u, hw, "zeros", dt)
+            plain = lambda: table_sample_reference(table, u, hw, "zeros",
+                                                   dt)
+            rows = _rows_read(table.shape, u, hw, "zeros", 0)
+            _check("table_sample_fwd",
+                   f"pixelnerf level zeros {dt} 3 x {n_rays} x {s} pts",
+                   kernel(), plain(), kernel, plain, torch, results,
+                   nbytes=(u.numel() * 4 + rows * 2048 * table.element_size()
+                           + u.shape[1] * 3 * 512 * table.element_size()),
+                   ops=2.0 * 3 * u.shape[1] * 2048,
+                   library_fn=_grid_sample_fns(torch, 512, dt, u, hw,
+                                               "zeros"))
+        del table
     return results
+
+
+# (rays, points a ray) of kernels D and D' on the baselines' paths
+VANILLA_SHAPES = ((2048, 65), (2048, 193), (512, 65), (512, 129),
+                  (256, 193), (256, 129))
+
+
+def _vanilla_args(torch, g, b, s):
+    """Seeded inputs of kernel D / D' for `b` rays of `s` points: t
+    ascending in [0.2, 3], densities in [0, 10), unnormalized dirs."""
+    dev = g.device
+    t = 0.2 + 2.8 * torch.sort(torch.rand(b, s, device=dev, generator=g),
+                               -1).values
+    return (torch.rand(b, s, 3, device=dev, generator=g),
+            torch.rand(b, s, 1, device=dev, generator=g) * 10, t,
+            torch.randn(b, 3, device=dev, generator=g))
+
+
+def _pixelnerf_uv(torch, view, n_rays, s):
+    """uv (3, n_rays * s, 2) of a PixelNeRF level's points: `s` evenly
+    spaced points in [0.02, 3] along each of `n_rays` consecutive rays of
+    the view's middle rows, seen from its 3 source views with (f, -f) and
+    scaled to the 120x160 latent, as PixelNeRF._latents computes them."""
+    from neo360_tpu_torch.core import geometry, sampling
+    from neo360_tpu_torch.nn.resnet import latent_scaling
+    start = 120 * 320
+    rays_o = view["rays_o"][start:start + n_rays]
+    rays_d = view["rays_d"][start:start + n_rays]
+    _, pts = sampling.sample_along_rays(rays_o, rays_d, s - 1, 0.02, 3.0)
+    cam = geometry.world2camera(pts.reshape(1, -1, 3), view["src_poses"],
+                                ns=3)
+    focal = view["src_focal"]
+    uv = geometry.projection(cam, torch.stack([focal[0], -focal[0]])[None],
+                             view["src_c"][:1], 3)
+    scale = latent_scaling((120, 160), cam.device) / torch.tensor(
+        [320.0, 240.0], device=cam.device)
+    return (uv * scale - 1.0).contiguous()
 
 
 def _check_fused(torch, g, view):
@@ -631,7 +731,8 @@ def phase_backward_kernels(torch):
     accumulate contract: against its index_add_ plain version)."""
     from neo360_tpu_torch.core.render import BACKWARD_TOL as B_TOL
     from neo360_tpu_torch.core.render import OUT_KEYS, \
-        composite_nerfpp_backward, composite_nerfpp_reference
+        composite_nerfpp_backward, composite_nerfpp_reference, \
+        composite_vanilla_backward, composite_vanilla_reference
     from neo360_tpu_torch.ops.interpolate import BACKWARD_TOL as A_TOL
     from neo360_tpu_torch.ops.interpolate import table_sample_accumulate, \
         table_sample_accumulate_reference, table_sample_backward, \
@@ -792,6 +893,39 @@ def phase_backward_kernels(torch):
                                                  + 6 * cells + floor_elems),
                ops=3.0 * (args[0].numel() * 8 + cells * 8), main=main)
         del args, cots, leaves, floors
+
+    # D': the baselines' training levels; the loss reads rgb alone
+    for b, s in VANILLA_SHAPES[:4]:
+        args = _vanilla_args(torch, g, b, s)
+        grads = [torch.randn(b, 3, device=dev, generator=g), None, None,
+                 None]
+        leaves = [a.detach().requires_grad_(i < 2)
+                  for i, a in enumerate(args)]
+        comp = composite_vanilla_reference(*leaves, False)[0]
+        plain = lambda: torch.autograd.grad(comp, leaves[:2], grads[0],
+                                            retain_graph=True)
+        kernel = lambda: composite_vanilla_backward(args, grads, False)
+        # per sample: rgb, sigma, t read, d rgb and d sigma written; per
+        # ray: dirs and the rgb cotangent read
+        _check("composite_vanilla_bwd", f"B={b} S={s}", list(kernel()),
+               list(plain()), kernel, plain, torch, results, B_TOL,
+               nbytes=4.0 * b * (9 * s + 6), ops=40.0 * b * s,
+               main=(b, s) == (2048, 193))
+
+    # A', dense contract, at a PixelNeRF step's fine level (f32 table)
+    shape = (3, 121, 161, 2048)
+    u = _pixelnerf_uv(torch, _fixture_view(torch), 512, 129)
+    cot = torch.randn(3, u.shape[1], 512, device=dev, generator=g)
+    t32 = torch.zeros(shape, device=dev, requires_grad=True)
+    fwd = table_sample_reference(t32, u, hw, "zeros", f32)
+    plain = lambda: torch.autograd.grad(fwd, t32, cot, retain_graph=True)[0]
+    kernel = lambda: table_sample_backward(cot, u, shape, f32, hw, "zeros")
+    _check("table_sample_bwd", "dense pixelnerf level zeros f32 cotangent",
+           kernel(), plain(), kernel, plain, torch, results, A_TOL,
+           nbytes=cot.numel() * 4 + u.numel() * 4 + t32.numel() * 4,
+           ops=2.0 * cot.numel() * 4,
+           library_fn=_grid_sample_fns(torch, 512, f32, u, hw, "zeros", cot))
+    del fwd, t32, cot, u
     return results
 
 
@@ -1013,7 +1147,8 @@ def phase_train_main_path(torch, keep: str):
     if still:
         raise AssertionError(f"tensors the training path did not move: "
                              f"{still}")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k, n in launches.items()
+               if n == 0 and not k.startswith("composite_vanilla")]
     if missing:
         raise AssertionError(f"kernels not launched by the training path: "
                              f"{missing}")
@@ -1105,7 +1240,8 @@ def _neo360_step_launches(remat: bool) -> dict:
             "local_sample_fwd": 2,
             "table_sample_bwd": 1 + 2 * 4, "table_sample_bwd_acc": 0,
             "composite_nerfpp_fwd": 2, "composite_nerfpp_bwd": 2,
-            "pillar_collapse_fwd": 1, "pillar_collapse_bwd": 1}
+            "pillar_collapse_fwd": 1, "pillar_collapse_bwd": 1,
+            "composite_vanilla_fwd": 0, "composite_vanilla_bwd": 0}
 
 
 def phase_neo360_main_path(torch):
@@ -1386,7 +1522,8 @@ def _optimize_step_launches() -> dict:
             "local_sample_fwd": 1,
             "table_sample_bwd": 1 + 4, "table_sample_bwd_acc": 0,
             "composite_nerfpp_fwd": 2, "composite_nerfpp_bwd": 2,
-            "pillar_collapse_fwd": 1, "pillar_collapse_bwd": 1}
+            "pillar_collapse_fwd": 1, "pillar_collapse_bwd": 1,
+            "composite_vanilla_fwd": 0, "composite_vanilla_bwd": 0}
 
 
 def phase_optimize_finetune(torch, warm_path: str):
@@ -1627,6 +1764,324 @@ def phase_main_path(torch, cfg, dev="cuda"):
     return launches, timed.per_view
 
 
+# the baselines' phases: vanilla trains VAN_STEPS steps in calls of
+# VAN_CALL through cli.run_train, then run_eval renders the scene's 2 test
+# views (full_eval) and, with vis_only, the views and VIS_FRAMES spiral
+# frames; PixelNeRF trains PIX_STEPS steps, one a call, then renders 2
+# test views of one scene (the second with the encode cached)
+VAN_STEPS, VAN_CALL, VIS_FRAMES = 20, 10, 3
+PIX_STEPS = 10
+
+
+def _baseline_step_launches(exp_type: str) -> dict:
+    """Kernel launches of one training step of a baseline, from the code:
+    both levels composite with kernel D and back with D'; PixelNeRF also
+    samples its latent table once per level (A, all views in one launch)
+    and scatters each level's cotangent into a table-shaped gradient (A',
+    dense contract). No other kernel of the port."""
+    out = {k: 0 for k in KERNELS}
+    out["table_sample_bwd_acc"] = 0
+    out.update(composite_vanilla_fwd=2, composite_vanilla_bwd=2)
+    if exp_type == "pixelnerf":
+        out.update(table_sample_fwd=2, table_sample_bwd=2)
+    return out
+
+
+def _baseline_view_launches(exp_type: str, tiles: int) -> dict:
+    """Kernel launches of one rendered view of a baseline: both levels of
+    every tile composite (D); PixelNeRF samples its table per level too
+    (A)."""
+    out = {k: 0 for k in KERNELS}
+    out["table_sample_bwd_acc"] = 0
+    out["composite_vanilla_fwd"] = 2 * tiles
+    if exp_type == "pixelnerf":
+        out["table_sample_fwd"] = 2 * tiles
+    return out
+
+
+def _counting(fns, per, seconds, profile_at=None, label=""):
+    """Wrap a function so that each call's launches (a dict per call in
+    `per`) and seconds (host clock around a synchronized call) are
+    recorded; call number `profile_at` runs under torch.profiler
+    instead of being timed."""
+    import torch
+
+    def wrap(fn):
+        def run(*args, **kw):
+            start = _read(fns)
+            if len(per) == profile_at:
+                box = []
+                _profile(torch, lambda: box.append(fn(*args, **kw)), label)
+                out = box[0]
+            else:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t)
+            end = _read(fns)
+            per.append({k: end[k] - start[k] for k in end})
+            return out
+        return run
+    return wrap
+
+
+def _counted_renders(cli, fns, per_view, seconds, img_wh):
+    """A make_render_fn whose render functions record each view's
+    launches and seconds and check its outputs: one value per ray,
+    finite."""
+    plain = cli.make_render_fn
+    n = img_wh[0] * img_wh[1]
+
+    def make(*args, **kw):
+        render = _counting(fns, per_view, seconds)(plain(*args, **kw))
+
+        def checked(sample):
+            out = render(sample)
+            for k, v in out.items():
+                if v.shape[0] != n or not bool(v.isfinite().all()):
+                    raise AssertionError(f"render output {k}: shape "
+                                         f"{tuple(v.shape)} or non-finite")
+            return out
+        return checked
+    return make
+
+
+def phase_vanilla_main_path(torch):
+    """The vanilla NeRF at full width (8 x 256 MLP, 64 + 128 samples,
+    float32, TF32 off) on a 320x240 micro scene that the port's own
+    `make_micro_scene` writes under a temp dir: `cli.run_train` with the
+    ray-buffer trainer, VAN_STEPS steps of 2048 rays in calls of VAN_CALL
+    (the last step under torch.profiler), its validation render and
+    checkpoint; then `cli.run_eval` full_eval of the scene's 2 test views
+    and vis_only with VIS_FRAMES spiral frames. Every step launches
+    exactly `_baseline_step_launches("vanilla")`, every view and frame
+    `_baseline_view_launches`, every loss and metric is finite and the
+    flythrough is written. Returns the path's launches, per step and per
+    view."""
+    import numpy as np
+
+    from neo360_tpu_torch import cli
+    from neo360_tpu_torch.config import preset
+    from neo360_tpu_torch.data.fixtures import make_micro_scene
+    from neo360_tpu_torch.train import loop
+
+    fns = counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root = make_micro_scene(os.path.join(tmp, "scene"), n_val=2,
+                                wh=(320, 240))
+        print(f"[vanilla] make_micro_scene wrote a 320x240 scene (103 train "
+              f"+ 2 test views) in {time.perf_counter() - t0:.1f} s")
+        cfg = preset("vanilla", root_dir=root, seed=SEED,
+                     run_max_steps=VAN_STEPS, steps_per_call=VAN_CALL,
+                     save_every_steps=VAN_STEPS, ckpt_dir=tmp, device="cuda")
+        print(f"[vanilla] img_wh {cfg.img_wh}, batch {cfg.batch_size} rays, "
+              f"64 + 128 samples, 8 x 256 MLP, float32, {VAN_STEPS} steps "
+              f"in calls of {VAN_CALL}, chunk {cfg.chunk}")
+        per_step, step_s, losses = [], [], []
+        plain_step = loop.make_train_step
+
+        def counted_step(loss_fn, **kw):
+            step = _counting(fns, per_step, step_s, VAN_STEPS - 1,
+                             "vanilla training step (2048 rays)")(
+                plain_step(loss_fn, **kw))
+
+            def run(*args):
+                metrics = step(*args)
+                losses.append(float(metrics["loss"]))
+                return metrics
+            return run
+
+        for fn in fns.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        loop.make_train_step = counted_step
+        try:
+            t0 = time.perf_counter()
+            state = cli.run_train(cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            loop.make_train_step = plain_step
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        train_launches = _read(fns)
+        exp = os.path.join(tmp, "exp")
+        with open(os.path.join(exp, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        ckpts = sorted(os.listdir(os.path.join(exp, "checkpoints")))
+
+        per_view, view_s = [], []
+        plain_render = cli.make_render_fn
+        cli.make_render_fn = _counted_renders(cli, fns, per_view, view_s,
+                                              cfg.img_wh)
+        try:
+            summary = cli.run_eval(cfg.replace(eval_mode="full_eval"))
+            cli.run_eval(cfg.replace(eval_mode="vis_only"),
+                         n_frames=VIS_FRAMES)
+        finally:
+            cli.make_render_fn = plain_render
+        outputs = sorted(os.listdir(os.path.join(exp, cfg.render_name)))
+        launches = _read(fns)
+
+    steady = statistics.median(step_s[1:])
+    print(f"[vanilla] s/step: first {step_s[0]:.4f} (warm-up), steady "
+          f"median {steady:.4f} (min {min(step_s[1:]):.4f}, max "
+          f"{max(step_s[1:]):.4f}), {cfg.batch_size / steady:.0f} train "
+          f"rays/s; peak device memory {peak:.2f} GiB; run_train wall "
+          f"{wall:.2f} s (ray buffers, {VAN_STEPS} steps, validation "
+          f"render, checkpoint)")
+    print(f"[vanilla] losses first {losses[0]:.4f} last {losses[-1]:.4f}; "
+          f"metrics.jsonl {records}; checkpoints {ckpts}")
+    print(f"[vanilla] run_eval: {len(per_view)} renders (2 full_eval, 2 + "
+          f"{VIS_FRAMES} vis_only), s/view {[round(x, 3) for x in view_s]}; "
+          f"summary {summary}; outputs {outputs}")
+    want = _baseline_step_launches("vanilla")
+    tiles = -(-cfg.img_wh[0] * cfg.img_wh[1] // cfg.chunk)
+    want_view = _baseline_view_launches("vanilla", tiles)
+    print(f"[vanilla] launches per step {per_step[1]} (expected {want}); "
+          f"per view {per_view[0]}")
+    if len(losses) != VAN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"vanilla: losses {losses}")
+    if state.step != VAN_STEPS or f"ckpt_{VAN_STEPS:08d}.pt" not in ckpts \
+            or not any(np.isfinite(r.get("val_psnr", np.nan))
+                       for r in records):
+        raise AssertionError("vanilla: run_train did not validate and "
+                             "checkpoint")
+    if any(n != want for n in per_step):
+        raise AssertionError(f"vanilla: launches per step {per_step}")
+    if len(per_view) != 4 + VIS_FRAMES or any(n != want_view
+                                             for n in per_view):
+        raise AssertionError(f"vanilla: launches per view {per_view}, "
+                             f"expected {want_view}")
+    if not (np.isfinite(summary["psnr"]) and np.isfinite(summary["ssim"])
+            and any(o.startswith("video360.") for o in outputs)):
+        raise AssertionError(f"vanilla: eval {summary}, outputs {outputs}")
+    return launches, per_step, per_view, {"s_step": steady,
+                                          "peak_gib": peak,
+                                          "s_view": view_s}
+
+
+def phase_pixelnerf_main_path(torch):
+    """PixelNeRF at full width (ResNet34 SpatialEncoder, 4 x 128 MLP, 64 +
+    64 samples, 3 source views, float32, TF32 off) on 3 in-memory 320x240
+    fixture scenes: `cli.run_train` with the per-step trainer, PIX_STEPS
+    calls of one 512-ray step (the last under torch.profiler), its
+    validation render and checkpoint; then the trained model renders 2
+    test views of one scene through cli.make_render_fn (the encode
+    once). Every step launches exactly `_baseline_step_launches
+    ("pixelnerf")` and every view `_baseline_view_launches`, every loss is
+    finite and every BatchNorm buffer moves. Returns the path's launches,
+    per step and per view."""
+    import numpy as np
+
+    from neo360_tpu_torch import cli
+    from neo360_tpu_torch.config import preset
+    from neo360_tpu_torch.data.fixtures import MemoryScenes
+    from neo360_tpu_torch.train import loop
+    from neo360_tpu_torch.train.eval import evaluate
+
+    fns = counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = preset("pixelnerf", seed=SEED, ray_batch_size=512,
+                     run_max_steps=PIX_STEPS, steps_per_call=1,
+                     log_every_steps=1, save_every_steps=PIX_STEPS,
+                     ckpt_dir=tmp, device="cuda")
+        print(f"[pixelnerf] img_wh {cfg.img_wh}, {cfg.num_src_views} source "
+              f"views, {cfg.ray_batch_size} rays/step, 64 + 64 samples, "
+              f"bf16 {cfg.bf16}, {PIX_STEPS} steps, chunk {cfg.chunk}")
+        datasets = tuple(MemoryScenes(3, cfg.img_wh, cfg.num_src_views,
+                                      split=split,
+                                      ray_batch_size=cfg.ray_batch_size)
+                         for split in ("train", "val"))
+        before = {k: v.clone() for k, v in cli.build_model(
+            cfg, "cpu").state_dict().items() if "running" in k}
+        per_step, step_s, losses = [], [], []
+        plain_factory = loop.make_staged_trainer
+
+        def counted_factory(step_fn):
+            run = _counting(fns, per_step, step_s, PIX_STEPS - 1,
+                            "pixelnerf training step (512 rays)")(
+                plain_factory(step_fn))
+
+            def staged(*args):
+                metrics = run(*args)
+                losses.append(float(metrics["loss"]))
+                return metrics
+            return staged
+
+        for fn in fns.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        loop.make_staged_trainer = counted_factory
+        try:
+            t0 = time.perf_counter()
+            state = cli.run_train(cfg, datasets=datasets)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            loop.make_staged_trainer = plain_factory
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ckpts = sorted(os.listdir(os.path.join(tmp, "exp", "checkpoints")))
+
+    model = state.model.eval()
+    after = {k: v.cpu() for k, v in model.state_dict().items()
+             if "running" in k}
+    unmoved = [k for k in before if torch.equal(before[k], after[k])]
+    encodes = []
+    plain_encode = model.encode
+
+    def counted_encode(*args, **kw):
+        encodes.append(1)
+        return plain_encode(*args, **kw)
+
+    model.encode = counted_encode
+    per_view, view_s = [], []
+    render_fn = _counted_renders(cli, fns, per_view, view_s, cfg.img_wh)(
+        cfg, model)
+    scenes = MemoryScenes(1, cfg.img_wh, cfg.num_src_views)
+    samples = [dict(scenes.sample_test(0, d), scene_key=0) for d in range(2)]
+    views = list(evaluate(render_fn, samples, cfg.img_wh))
+    del model.encode
+    launches = _read(fns)
+
+    steady = statistics.median(step_s[1:])
+    print(f"[pixelnerf] s/step: first {step_s[0]:.4f} (warm-up), steady "
+          f"median {steady:.4f} (min {min(step_s[1:]):.4f}, max "
+          f"{max(step_s[1:]):.4f}), {cfg.ray_batch_size / steady:.0f} train "
+          f"rays/s; peak device memory {peak:.2f} GiB; run_train wall "
+          f"{wall:.2f} s; losses first {losses[0]:.4f} last "
+          f"{losses[-1]:.4f}; checkpoints {ckpts}; BatchNorm buffers "
+          f"unmoved {len(unmoved)} / {len(before)}")
+    print(f"[pixelnerf] views: s/view {[round(x, 3) for x in view_s]} "
+          f"(view 0 with the encode), PSNR / SSIM "
+          f"{[(round(v.psnr, 3), round(v.ssim, 4)) for v in views]}, "
+          f"encodes {len(encodes)}")
+    want = _baseline_step_launches("pixelnerf")
+    tiles = -(-cfg.img_wh[0] * cfg.img_wh[1] // cfg.chunk)
+    want_view = _baseline_view_launches("pixelnerf", tiles)
+    print(f"[pixelnerf] launches per step {per_step[1]} (expected {want}); "
+          f"per view {per_view}")
+    if len(losses) != PIX_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"pixelnerf: losses {losses}")
+    if state.step != PIX_STEPS or f"ckpt_{PIX_STEPS:08d}.pt" not in ckpts:
+        raise AssertionError("pixelnerf: no checkpoint")
+    if unmoved:
+        raise AssertionError(f"pixelnerf: BatchNorm buffers did not move: "
+                             f"{unmoved[:5]}")
+    if any(n != want for n in per_step):
+        raise AssertionError(f"pixelnerf: launches per step {per_step}")
+    if per_view != [want_view] * 2 or len(encodes) != 1:
+        raise AssertionError(f"pixelnerf: launches per view {per_view} "
+                             f"(expected {want_view}), encodes {encodes}")
+    if not all(np.isfinite(v.psnr) and np.isfinite(v.rgb).all()
+               for v in views):
+        raise AssertionError("pixelnerf: non-finite render")
+    return launches, per_step, per_view, {"s_step": steady,
+                                          "peak_gib": peak,
+                                          "s_view": view_s}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1667,6 +2122,12 @@ def main() -> int:
     opt_launches, opt_per_step = phase_optimize_finetune(torch, trained)
     work.cleanup()
     done("neo360_fast optimize and finetune")
+    van_launches, van_per_step, van_per_view, _ = phase_vanilla_main_path(
+        torch)
+    done("vanilla training and evaluation")
+    pix_launches, pix_per_step, pix_per_view, _ = \
+        phase_pixelnerf_main_path(torch)
+    done("pixelnerf training and serving")
 
     # launches per steady training stage (the second), per rendered view
     # with the encode cached (the second view) and per optimize step; the
@@ -1681,8 +2142,9 @@ def main() -> int:
         total[k] += n
     for k, n in _by_kernel(neo_launches).items():
         total[k] += n
-    for k, n in _by_kernel(opt_launches).items():
-        total[k] += n
+    for launches_ in (opt_launches, van_launches, pix_launches):
+        for k, n in _by_kernel(launches_).items():
+            total[k] += n
     print(f"[kernel] launches: A' per stage dense "
           f"{per_stage[1]['table_sample_bwd']}, accumulate "
           f"{per_stage[1]['table_sample_bwd_acc']}")
@@ -1694,7 +2156,11 @@ def main() -> int:
               f"training stage, {per_view[1].get(name, 0)} per rendered "
               f"view; neo360 {neo_step[name]} per training step, "
               f"{neo_view.get(name, 0)} per rendered view; neo360_fast "
-              f"{opt_step[name]} per optimize step; "
+              f"{opt_step[name]} per optimize step; vanilla "
+              f"{van_per_step[1][name]} per training step, "
+              f"{van_per_view[0][name]} per view; pixelnerf "
+              f"{pix_per_step[1][name]} per training step, "
+              f"{pix_per_view[0][name]} per view; "
               f"{main['case']}: {main['ms']:.4f} ms (device "
               f"{main['device_ms']:.4f} ms), bound {main['bound_ms']:.4f} ms "
               f"({main['bound_by']}), share "

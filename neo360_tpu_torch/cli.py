@@ -1,11 +1,21 @@
-"""Command-line runner for the port (neo360_tpu/cli.py; the `neo360` and
-`neo360_fast` presets).
+"""Command-line runner for the port (neo360_tpu/cli.py; the `vanilla`,
+`pixelnerf`, `neo360` and `neo360_fast` presets).
 
 Usage:
     python -m neo360_tpu_torch.cli --exp_type neo360 --root_dir <scenes>
     python -m neo360_tpu_torch.cli --exp_type neo360_fast --root_dir <scenes>
+    python -m neo360_tpu_torch.cli --exp_type vanilla --root_dir <scene>
+    python -m neo360_tpu_torch.cli --exp_type pixelnerf --root_dir <scenes>
     python -m neo360_tpu_torch.cli --exp_type neo360 --root_dir <scenes> \
-        --eval_mode full_eval [--ckpt_path model.pt|ckpt_*.pt|variables.npz]
+        --eval_mode full_eval|vis_only \
+        [--ckpt_path model.pt|ckpt_*.pt|variables.npz]
+
+`vanilla` is the vanilla NeRF of one scene (64 + 128 samples, 8 x 256
+MLP, float32): it trains with the ray-buffer trainer, --batch_size rays a
+step drawn on the device from every train ray of the scene, and evaluates
+the scene's val/ views. `pixelnerf` is PixelNeRF (ResNet34 pixel latents,
+64 + 64 samples, 4 x 128 MLP): it trains with the per-step trainer like
+`neo360`, the encoder every step. `mipnerf360` is not ported yet (raises).
 
 `neo360` (alias `triplanar_nocs_fusion_conv_scene`) is the reference
 model: a conditioned coarse level, 128 + 256 merged samples, the 64^3 grid
@@ -32,14 +42,18 @@ pinned to 5e-6; optimize draws the fixed source views [0, 38, 44] and
 caches each scene's frozen pixel latents once, and keeps every
 checkpoint; the finetune adds 0.3 x LPIPS on one 30x30 patch per step.
 With --eval_mode full_eval it renders every test view of every scene under
-root_dir: each scene's source stack is encoded once, then views are
-rendered in `--chunk`-ray tiles; PSNR / SSIM (+ object PSNR) go to
-<ckpt_dir>/<exp_name>/results.json and images to .../<render_name>/.
+root_dir (vanilla: of the one scene): each scene's source stack is encoded
+once, then views are rendered in `--chunk`-ray tiles; PSNR / SSIM (+
+object PSNR) go to <ckpt_dir>/<exp_name>/results.json and images to
+.../<render_name>/.
 Eval weights come from --ckpt_path (a port state_dict, a training
 checkpoint of either layout or a JAX-exported npz, neo360_tpu/utils/io.py:
 save_variables_npz, converted by weights.py), else <exp_dir>/model.pt,
 else the newest training checkpoint, else a seeded random init (with a
-warning); with --lpips_weights each view's LPIPS is reported too. Both
+warning); with --lpips_weights each view's LPIPS is reported too.
+--eval_mode vis_only does the same, writes the views as a video and
+renders a 40-frame 360-degree spiral around the first test pose (the
+few-shot models: scene 0's) as video360.mp4 (or .gif). Both
 run on --device (default cuda) and raise when it is absent; a float32
 model on the card runs with TF32 off.
 """
@@ -56,6 +70,9 @@ import torch
 
 from neo360_tpu_torch import weights
 from neo360_tpu_torch.config import Config, preset
+# the vanilla model's sampling bounds (neo360_tpu/cli.py:215, 371)
+from neo360_tpu_torch.data.nerds360 import FAR as VANILLA_FAR
+from neo360_tpu_torch.data.nerds360 import NEAR as VANILLA_NEAR
 from neo360_tpu_torch.train.loop import TrainState
 
 SRC_KEYS = ("src_imgs", "src_poses", "src_focal", "src_c")
@@ -83,7 +100,8 @@ def parse_args(argv=None) -> Config:
     p.add_argument("--num_src_views", type=int, default=None)
     p.add_argument("--run_max_steps", type=int, default=100000)
     p.add_argument("--lr_init", type=float, default=None)
-    p.add_argument("--eval_mode", choices=["full_eval"], default=None)
+    p.add_argument("--eval_mode", choices=["full_eval", "vis_only"],
+                   default=None)
     p.add_argument("--render_name", default="3views")
     p.add_argument("--is_optimize", action="store_true")
     p.add_argument("--finetune_lpips", action="store_true")
@@ -136,8 +154,11 @@ def freeze_spatial_encoder(model) -> None:
     """The frozen partition of the optimize and finetune modes: the
     SpatialEncoder's parameters take no gradient, so the per-step trainer
     leaves them out of its optimizer and its clip norm (the JAX CLI's
-    `set_to_zero` partition)."""
-    model.encoder.spatial_encoder.requires_grad_(False)
+    `set_to_zero` partition, which labels the `spatial_encoder` subtree:
+    PixelNeRF's encoder is named `encoder`, so nothing of it is frozen)."""
+    spatial = getattr(model.encoder, "spatial_encoder", None)
+    if spatial is not None:
+        spatial.requires_grad_(False)
 
 
 def resolve_device(cfg: Config, device=None) -> torch.device:
@@ -162,8 +183,13 @@ def float32_matmuls(cfg: Config, device: torch.device) -> None:
 
 
 def build_model(cfg: Config, device=None):
-    """The `neo360` or `neo360_fast` NeRFTP on `device` (default
-    cfg.device, see `resolve_device`), initialised from cfg.seed.
+    """The preset's model on `device` (default cfg.device, see
+    `resolve_device`), initialised from cfg.seed.
+
+    vanilla: VanillaNeRF, cfg.num_coarse_samples or 64 coarse and
+    cfg.num_fine_samples or 128 fine samples, float32. pixelnerf:
+    PixelNeRF over cfg.num_src_views views, 64 + 64 samples unless
+    overridden, bf16 compute with cfg.bf16.
 
     neo360 (neo360_tpu/cli.py:117-124): the conditioned coarse level,
     cfg.num_coarse_samples or 128 coarse and cfg.num_fine_samples or 256
@@ -172,11 +198,26 @@ def build_model(cfg: Config, device=None):
     neo360_fast: the proposal level, 64 proposal and cfg.num_fine_samples
     or 64 fine samples, grid (64, 64, 32), no recompute. Compute is bf16
     with cfg.bf16, else float32 (see `float32_matmuls` for TF32)."""
-    if cfg.exp_type not in ("neo360", "neo360_fast"):
-        raise NotImplementedError(
-            f"exp_type {cfg.exp_type!r}: only neo360 and neo360_fast are "
-            f"ported")
+    if cfg.exp_type == "mipnerf360":
+        raise NotImplementedError("exp_type 'mipnerf360' is not ported yet")
     device = resolve_device(cfg, device)
+    generator = torch.Generator().manual_seed(cfg.seed)
+    dtype = torch.bfloat16 if cfg.bf16 else torch.float32
+    if cfg.exp_type == "vanilla":
+        from neo360_tpu_torch.models.vanilla import VanillaNeRF
+        model = VanillaNeRF(
+            num_coarse_samples=cfg.num_coarse_samples or 64,
+            num_fine_samples=cfg.num_fine_samples or 128,
+            generator=generator)
+        return model.to(device).eval()
+    if cfg.exp_type == "pixelnerf":
+        from neo360_tpu_torch.models.pixelnerf import PixelNeRF
+        model = PixelNeRF(
+            num_src_views=cfg.num_src_views, compute_dtype=dtype,
+            num_coarse_samples=cfg.num_coarse_samples or 64,
+            num_fine_samples=cfg.num_fine_samples or 64,
+            generator=generator)
+        return model.to(device).eval()
     from neo360_tpu_torch.models.neo360 import NeRFTP
     size = {k: v for k, v in (("encoder_width", cfg.encoder_width),)
             if v is not None}
@@ -192,31 +233,54 @@ def build_model(cfg: Config, device=None):
                     num_fine_samples=cfg.num_fine_samples or 64,
                     grid_size=tuple(cfg.grid_size or (64, 64, 32)),
                     remat_encoder=False)
-    model = NeRFTP(
-        num_src_views=cfg.num_src_views,
-        compute_dtype=torch.bfloat16 if cfg.bf16 else torch.float32,
-        lift_dim=cfg.lift_dim,
-        generator=torch.Generator().manual_seed(cfg.seed), **size)
+    model = NeRFTP(num_src_views=cfg.num_src_views, compute_dtype=dtype,
+                   lift_dim=cfg.lift_dim, generator=generator, **size)
     return model.to(device).eval()
 
 
 def make_render_fn(cfg: Config, model, device=None):
-    """render_fn(sample) -> {"rgb", "depth", "fg_rgb", "bg_rgb", "fg_acc",
-    "bg_acc"} over a full image of rays, with the sample's arrays placed on
-    `device` (default cfg.device, see `resolve_device`).
+    """render_fn(sample) -> the fine level's outputs over a full image of
+    rays, with the sample's arrays placed on `device` (default cfg.device,
+    see `resolve_device`): {"rgb", "depth", "acc"} for vanilla, {"rgb",
+    "depth"} for pixelnerf, {"rgb", "depth", "fg_rgb", "bg_rgb", "fg_acc",
+    "bg_acc"} for the NeO-360 models.
 
-    The source stack is encoded once per scene: samples carrying the same
-    "scene_key" reuse the previous encode (one scene resident at a time);
-    a sample without one is encoded anew."""
+    A few-shot model encodes the source stack once per scene: samples
+    carrying the same "scene_key" reuse the previous encode (one scene
+    resident at a time); a sample without one is encoded anew."""
     from neo360_tpu_torch.train.loop import make_image_renderer
     device = resolve_device(cfg, device)
     batch_stats = cfg.eval_bn_mode == "batch"
+    place = lambda sample, keys: {
+        k: torch.as_tensor(np.asarray(sample[k]), device=device)
+        for k in keys}
 
-    def render_chunk(pack, rays):
-        out = model(dict(rays, **pack["src"]), pack["enc"], cfg.white_back,
-                    out_depth=True)[1]
-        return {k: out[k] for k in ("rgb", "depth", "fg_rgb", "bg_rgb",
-                                    "fg_acc", "bg_acc")}
+    if cfg.exp_type == "vanilla":
+        def render_chunk(_, rays):
+            out = model(rays, cfg.white_back, VANILLA_NEAR, VANILLA_FAR)[1]
+            return {k: out[k] for k in ("rgb", "depth", "acc")}
+
+        renderer = make_image_renderer(render_chunk, cfg.chunk)
+        return lambda sample: renderer(None, place(sample, RAY_KEYS))
+
+    if cfg.exp_type == "pixelnerf":
+        def render_chunk(pack, rays):
+            out = model(dict(rays, **pack["src"]), pack["enc"],
+                        cfg.white_back)[1]
+            return {"rgb": out["rgb"], "depth": out["depth"]}
+
+        def encode(src):
+            return model.encode(src["src_imgs"], batch_stats)
+    else:
+        def render_chunk(pack, rays):
+            out = model(dict(rays, **pack["src"]), pack["enc"],
+                        cfg.white_back, out_depth=True)[1]
+            return {k: out[k] for k in ("rgb", "depth", "fg_rgb", "bg_rgb",
+                                        "fg_acc", "bg_acc")}
+
+        def encode(src):
+            return model.encode(src["src_imgs"], src["src_poses"],
+                                src["src_focal"], src["src_c"], batch_stats)
 
     renderer = make_image_renderer(render_chunk, cfg.chunk)
     cache: Dict = {}
@@ -226,23 +290,14 @@ def make_render_fn(cfg: Config, model, device=None):
         key = sample.get("scene_key")
         if key is not None and key in cache:
             return cache[key]
-        src = {k: torch.as_tensor(np.asarray(sample[k]), device=device)
-               for k in SRC_KEYS}
-        enc = model.encode(src["src_imgs"], src["src_poses"],
-                           src["src_focal"], src["src_c"], batch_stats)
-        pack = {"src": src, "enc": enc}
+        src = place(sample, SRC_KEYS)
+        pack = {"src": src, "enc": encode(src)}
         cache.clear()
         if key is not None:
             cache[key] = pack
         return pack
 
-    def render_fn(sample):
-        pack = get_pack(sample)
-        rays = {k: torch.as_tensor(np.asarray(sample[k]), device=device)
-                for k in RAY_KEYS}
-        return renderer(pack, rays)
-
-    return render_fn
+    return lambda sample: renderer(get_pack(sample), place(sample, RAY_KEYS))
 
 
 def load_weights(model, path: str) -> None:
@@ -276,12 +331,18 @@ def restore(cfg: Config, model, exp_dir: str) -> Optional[str]:
     return path
 
 
-def run_eval(cfg: Config, device=None) -> Dict[str, float]:
-    from neo360_tpu_torch.data.nerds360_ae import NeRDS360AE
+def run_eval(cfg: Config, device=None, n_frames: int = 40
+             ) -> Dict[str, float]:
+    """Evaluate (neo360_tpu/cli.py:run_eval, 860-950): every test view of
+    the root (vanilla: the scene's val/ views; the few-shot models: every
+    scene's, each scene's source stack encoded once), metrics to
+    results.json and images under <exp_dir>/<render_name>. With
+    --eval_mode vis_only the views also become a video and an
+    `n_frames`-frame spiral becomes video360 (`_render_trajectory`).
+    Returns the summary."""
+    from neo360_tpu_torch.nn.lpips import LPIPSModel
     from neo360_tpu_torch.train.eval import evaluate_and_save
     from neo360_tpu_torch.train.pipeline import prefetch_to_device
-
-    from neo360_tpu_torch.nn.lpips import LPIPSModel
 
     if cfg.lpips_weights and not os.path.exists(cfg.lpips_weights):
         raise FileNotFoundError(f"--lpips_weights {cfg.lpips_weights}: no "
@@ -297,24 +358,68 @@ def run_eval(cfg: Config, device=None) -> Dict[str, float]:
         print("WARNING: no checkpoint found; evaluating random init")
     else:
         print(f"loaded weights from {loaded}")
-    print(f"eval encode BN mode: {cfg.eval_bn_mode}")
 
-    test_ds = NeRDS360AE(cfg.root_dir, "test", cfg.img_wh, cfg.num_src_views)
     render_fn = make_render_fn(cfg, model, device)
-    samples = (dict(test_ds.sample_test(s, d), scene_key=s)
-               for s in range(len(test_ds.scene_ids))
-               for d in range(test_ds.num_test_views(s)))
+    if cfg.exp_type == "vanilla":
+        from neo360_tpu_torch.data.nerds360 import NeRDS360
+        test_ds = NeRDS360(cfg.root_dir, "test", cfg.img_wh)
+        samples = (test_ds.image_rays(i) for i in range(test_ds.num_images))
+        extra = {}
+    else:
+        from neo360_tpu_torch.data.nerds360_ae import NeRDS360AE
+        print(f"eval encode BN mode: {cfg.eval_bn_mode}")
+        test_ds = NeRDS360AE(cfg.root_dir, "test", cfg.img_wh,
+                             cfg.num_src_views)
+        samples = (dict(test_ds.sample_test(s, d), scene_key=s)
+                   for s in range(len(test_ds.scene_ids))
+                   for d in range(test_ds.num_test_views(s)))
+        extra = {"eval_bn_mode": cfg.eval_bn_mode}
+    out_dir = os.path.join(exp_dir, cfg.render_name)
+    vis = cfg.eval_mode == "vis_only"
     # each view's rays and target are made on a worker thread while the
     # previous view renders; render_fn places them on the device
     with prefetch_to_device(samples, size=2, device=None) as samples:
         summary = evaluate_and_save(
-            render_fn, samples, cfg.img_wh,
-            os.path.join(exp_dir, cfg.render_name),
+            render_fn, samples, cfg.img_wh, out_dir,
             results_json=os.path.join(exp_dir, "results.json"),
-            extra={"eval_bn_mode": cfg.eval_bn_mode},
-            lpips_model=lpips_model)
+            extra=extra, lpips_model=lpips_model, video=vis)
+    if vis:
+        path = _render_trajectory(cfg, render_fn, test_ds, out_dir, n_frames)
+        print("wrote 360 flythrough:", path)
     print("eval summary:", summary)
     return summary
+
+
+def _render_trajectory(cfg: Config, render_fn, test_ds, out_dir: str,
+                       n_frames: int = 40) -> str:
+    """vis_only: render `n_frames` poses of a 360-degree spiral
+    (train.eval.trajectory_360) around the first test pose (vanilla:
+    `test_ds.c2w[0]`; the few-shot models: scene 0's first test pose, else
+    its first train pose, with its test source stack, so its cached encode
+    serves every frame) and store them as video360.mp4 (or .gif);
+    returns the path (neo360_tpu/cli.py:952-974)."""
+    from neo360_tpu_torch.train.eval import trajectory_360
+    from neo360_tpu_torch.utils import io
+    w, h = cfg.img_wh
+    if cfg.exp_type == "vanilla":
+        samples = (test_ds.pose_rays(p)
+                   for p in trajectory_360(np.asarray(test_ds.c2w[0]),
+                                           n_frames))
+    else:
+        meta = test_ds.scene_meta(test_ds.scene_ids[0])
+        base = (meta.c2w_test[0] if len(meta.c2w_test)
+                else meta.c2w_train[0])
+        samples = (dict(test_ds.sample_pose(0, p), scene_key=0)
+                   for p in trajectory_360(base, n_frames))
+    frames = [_host(render_fn(s)["rgb"]).reshape(h, w, 3) for s in samples]
+    return io.store_video(out_dir, frames, name="video360.mp4")
+
+
+def _host(x) -> np.ndarray:
+    """A rendered tensor (or array) as a float32 host array."""
+    if torch.is_tensor(x):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(x, np.float32)
 
 
 def _check_train_mode(cfg: Config) -> None:
@@ -391,11 +496,39 @@ def make_loss_fn(cfg: Config, model, randomized: bool = True,
     cache, one row per scene) encodes from row "scene_idx" instead of
     running the SpatialEncoder. With --finetune_lpips and a pretrained
     `lpips_model`, LPIPS_WEIGHT x LPIPS of the fine rgb against the target
-    is added; the batch must then be a square patch (raises otherwise)."""
+    is added; the batch must then be a square patch (raises otherwise).
+
+    vanilla and pixelnerf (neo360_tpu/cli.py:210-255): the two levels'
+    MSE, l0 + l1; pixelnerf encodes the batch's source views with
+    BatchNorm in training mode (on its running statistics in the optimize
+    and finetune modes, which for pixelnerf only pin the lr and freeze
+    nothing, as the JAX CLI's partition matches no PixelNeRF parameter)."""
+    from neo360_tpu_torch.ops.losses import img2mse, mse2psnr
+    if cfg.exp_type in ("vanilla", "pixelnerf"):
+        train_bn = not frozen_encoder(cfg)
+
+        def two_level_loss(batch, generator):
+            rays = {k: batch[k] for k in RAY_KEYS}
+            if cfg.exp_type == "vanilla":
+                out = model(rays, cfg.white_back, VANILLA_NEAR, VANILLA_FAR,
+                            randomized=randomized, generator=generator)
+            else:
+                rays.update({k: batch[k] for k in SRC_KEYS})
+                enc = model.encode(batch["src_imgs"], train_bn)
+                out = model(rays, enc, cfg.white_back, randomized=randomized,
+                            generator=generator)
+            l0 = img2mse(out[0]["rgb"], batch["target"])
+            l1 = img2mse(out[1]["rgb"], batch["target"])
+            loss = l0 + l1
+            l1 = l1.detach()
+            return loss, {"mse": l1, "psnr": mse2psnr(l1),
+                          "loss": loss.detach()}
+
+        return two_level_loss
+
     from neo360_tpu_torch.models.neo360 import RAY_KEYS as MODEL_RAY_KEYS
     from neo360_tpu_torch.models.neo360 import SRC_KEYS as MODEL_SRC_KEYS
     from neo360_tpu_torch.models.neo360 import training_loss
-    from neo360_tpu_torch.ops.losses import mse2psnr
     train_bn = not frozen_encoder(cfg)
     use_lpips = (cfg.finetune_lpips and lpips_model is not None
                  and lpips_model.pretrained)
@@ -435,7 +568,8 @@ def _maybe_load_resnet(cfg: Config, model) -> None:
     if not cfg.resnet_weights:
         return
     from neo360_tpu_torch.nn.resnet import load_pretrained
-    backbone = model.encoder.spatial_encoder.backbone
+    encoder = model.encoder
+    backbone = getattr(encoder, "spatial_encoder", encoder).backbone
     own = backbone.state_dict()
     fit = {k: v for k, v in load_pretrained(cfg.resnet_weights).items()
            if k in own and tuple(v.shape) == tuple(own[k].shape)}
@@ -512,8 +646,65 @@ def _optimize_latents(model, train_ds, device) -> Dict[str, torch.Tensor]:
     return {"pixel_latents": torch.stack(lats)}
 
 
+def _validate_and_save(cfg: Config, state, step: int, render_fn, sample,
+                       train_mode, logger, ckpt, device) -> None:
+    """Render the validation `sample` with the model in eval mode, log its
+    PSNR and val grid (utils.visualize.build_val_grid) at `step` and
+    checkpoint the state there with the PSNR; the model's training mode is
+    then `train_mode`."""
+    from neo360_tpu_torch.train.metrics import psnr
+    from neo360_tpu_torch.utils.visualize import build_val_grid
+    state.model.eval()
+    out = render_fn(sample)
+    state.model.train(train_mode)
+    w, h = cfg.img_wh
+    target = torch.as_tensor(np.asarray(sample["target"]), device=device)
+    val_psnr = float(psnr(out["rgb"].reshape(h, w, 3),
+                          target.reshape(h, w, 3)))
+    logger.log(step, {"val_psnr": val_psnr})
+    logger.log_image(step, "val_grid", build_val_grid(
+        cfg.img_wh, np.asarray(sample["target"]).reshape(h, w, 3),
+        {k: _host(v) for k, v in out.items()}))
+    ckpt.save(step, checkpoint_payload(state), {"val_psnr": val_psnr})
+
+
+def _run_train_buffers(cfg: Config, model, device, datasets, logger, ckpt):
+    """The vanilla branch of neo360_tpu/cli.py:run_train (601-652): every
+    train ray of the scene in device buffers, `steps_per_call` steps of
+    cfg.batch_size rays per call (`make_buffer_trainer`), one Adam over
+    every parameter, metrics logged every call; when the step count
+    crosses a multiple of save_every_steps, validation of the val split's
+    image 0, its grid and a checkpoint. Resumes from the newest
+    checkpoint. Returns the TrainState."""
+    from neo360_tpu_torch.data.nerds360 import NeRDS360
+    from neo360_tpu_torch.train import loop as tl
+    if datasets is None:
+        datasets = (NeRDS360(cfg.root_dir, "train", cfg.img_wh),
+                    NeRDS360(cfg.root_dir, "val", cfg.img_wh))
+    train_ds, val_ds = datasets
+    buffers = train_ds.ray_buffers(device)
+    state = tl.create_train_state(model,
+                                  lambda params: build_optimizer(cfg, params))
+    runner = tl.make_buffer_trainer(
+        tl.make_train_step(make_loss_fn(cfg, model)), cfg.batch_size,
+        cfg.steps_per_call)
+    resume(ckpt, state)
+    render_fn = make_render_fn(cfg, model, device)
+    generator = torch.Generator(device).manual_seed(cfg.seed + 2)
+    while state.step < cfg.run_max_steps:
+        metrics = runner(state, buffers, generator)
+        logger.log(state.step, {k: float(v) for k, v in metrics.items()})
+        if state.step % cfg.save_every_steps < cfg.steps_per_call:
+            _validate_and_save(cfg, state, state.step, render_fn,
+                               val_ds.image_rays(0), True, logger, ckpt,
+                               device)
+    return state
+
+
 def run_train(cfg: Config, device=None, datasets=None):
-    """Train (the few-shot branch of neo360_tpu/cli.py:run_train, 575-819).
+    """Train (neo360_tpu/cli.py:run_train, 575-819). vanilla runs the
+    ray-buffer trainer (`_run_train_buffers`); the few-shot models run the
+    branch below.
 
     With stage_k <= 1 the per-step trainer runs `stage_size` steps per
     call (stage_size: min(steps_per_call, save_every_steps,
@@ -528,8 +719,10 @@ def run_train(cfg: Config, device=None, datasets=None):
     call logs when the step count crosses a multiple of
     log_every_steps, and validates (view 0 of scene 0's held-out tail),
     logs the val grid and checkpoints when it crosses a multiple of
-    save_every_steps. `datasets`: (train, val) samplers to use instead of
-    NeRDS360AE over cfg.root_dir. Returns the TrainState or
+    save_every_steps. The stage trainer and the optimize mode's cached
+    latents are NeO-360's; pixelnerf always runs the per-step trainer.
+    `datasets`: (train, val) samplers to use instead of NeRDS360AE (vanilla:
+    NeRDS360) over cfg.root_dir. Returns the TrainState or
     SceneStageState."""
     from neo360_tpu_torch.data.nerds360_ae import NeRDS360AE
     from neo360_tpu_torch.models.neo360 import SRC_KEYS as MODEL_SRC_KEYS
@@ -538,9 +731,7 @@ def run_train(cfg: Config, device=None, datasets=None):
     from neo360_tpu_torch.train import loop as tl
     from neo360_tpu_torch.train.checkpoints import CheckpointManager
     from neo360_tpu_torch.train.logging import MetricsLogger
-    from neo360_tpu_torch.train.metrics import psnr
     from neo360_tpu_torch.train.pipeline import prefetch_to_device
-    from neo360_tpu_torch.utils.visualize import visualize_val_fg_bg_opacity
 
     _check_train_mode(cfg)
     device = resolve_device(cfg, device)
@@ -562,6 +753,12 @@ def run_train(cfg: Config, device=None, datasets=None):
     model = build_model(cfg, device).train(not frozen)
     _maybe_load_resnet(cfg, model)
     _maybe_warm_start(cfg, model)
+    neo360 = cfg.exp_type in ("neo360", "neo360_fast")
+    if cfg.exp_type == "vanilla":
+        state = _run_train_buffers(cfg, model, device, datasets, logger,
+                                   ckpt)
+        logger.close()
+        return state
     if datasets is None:
         datasets = (NeRDS360AE(cfg.root_dir, "train", cfg.img_wh,
                                cfg.num_src_views, cfg.ray_batch_size,
@@ -573,7 +770,7 @@ def run_train(cfg: Config, device=None, datasets=None):
 
     stage_size = max(1, min(cfg.steps_per_call, cfg.save_every_steps,
                             cfg.run_max_steps))
-    use_stage = cfg.stage_k > 1 and not frozen
+    use_stage = cfg.stage_k > 1 and not frozen and neo360
     warm_steps = 0
     if use_stage:
         if cfg.stage_warmup_steps > 0 and ckpt.latest_step() is None:
@@ -594,8 +791,8 @@ def run_train(cfg: Config, device=None, datasets=None):
     else:
         state, runner = _per_step_runner(cfg, model, lpips_model)
     start_step = max(resume(ckpt, state), warm_steps)
-    const = (_optimize_latents(model, train_ds, device) if cfg.is_optimize
-             else None)
+    const = (_optimize_latents(model, train_ds, device)
+             if cfg.is_optimize and neo360 else None)
     step_keys = STEP_KEYS + (("scene_idx",) if const is not None else ())
 
     def staged_iterator():
@@ -628,22 +825,9 @@ def run_train(cfg: Config, device=None, datasets=None):
             if step % cfg.log_every_steps < stage_size:
                 logger.log(step, {k: float(v) for k, v in metrics.items()})
             if step > 0 and step % cfg.save_every_steps < stage_size:
-                sample = val_ds.sample_val(0)
-                model.eval()
-                out = render_fn(sample)
-                model.train(not frozen)
-                w, h = cfg.img_wh
-                target = torch.as_tensor(sample["target"], device=device)
-                val_psnr = float(psnr(out["rgb"].reshape(h, w, 3),
-                                      target.reshape(h, w, 3)))
-                logger.log(step, {"val_psnr": val_psnr})
-                host = {k: v.float().cpu().numpy() for k, v in out.items()}
-                logger.log_image(step, "val_grid", visualize_val_fg_bg_opacity(
-                    cfg.img_wh, sample["target"], host["rgb"],
-                    host["fg_rgb"], host["bg_rgb"], host["fg_acc"],
-                    host["bg_acc"]))
-                ckpt.save(step, checkpoint_payload(state),
-                          {"val_psnr": val_psnr})
+                _validate_and_save(cfg, state, step, render_fn,
+                                   val_ds.sample_val(0), not frozen, logger,
+                                   ckpt, device)
     logger.close()
     return state
 

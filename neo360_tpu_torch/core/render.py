@@ -1,4 +1,14 @@
-"""NeRF++ volumetric compositing (port of neo360_tpu/core/render.py:55-96).
+"""Volumetric compositing (port of neo360_tpu/core/render.py:26-96): the
+plain NeRF rule and the NeRF++ fg/bg rule.
+
+`composite_vanilla` is one level's plain NeRF composite
+(neo360_tpu/core/render.py:volumetric_rendering), which the vanilla NeRF
+and PixelNeRF models call. On CUDA tensors it is kernel D
+(csrc/composite_vanilla.cu); on CPU tensors it is
+`composite_vanilla_reference`. With autograd on it runs as a
+`torch.autograd.Function` whose backward is kernel D'
+(csrc/composite_vanilla_bwd.cu) on CUDA and autograd of the plain version
+on the CPU; t and dirs take no gradient.
 
 `composite_nerfpp` renders one level's fg and bg branches and combines
 them (neo360_tpu/models/neo360.py:471-500). On CUDA tensors it is kernel B
@@ -216,3 +226,148 @@ composite_nerfpp_backward.launches = 0
 # kernel's reverse scan does neither. A float32 emulation of the scan
 # differs from float64 autograd by ~2e-6 relative at S=9.
 BACKWARD_TOL = dict(rtol=1e-4, atol_frac=1e-5)
+
+
+# --- the plain NeRF composite (kernels D and D') -------------------------
+
+VANILLA_OUT_KEYS = ("rgb", "acc", "weights", "depth")
+
+
+def composite_vanilla_reference(rgb: torch.Tensor, density: torch.Tensor,
+                                t_vals: torch.Tensor, dirs: torch.Tensor,
+                                white_bkgd: bool):
+    """Plain PyTorch version of kernel D, in the order of operations of
+    neo360_tpu/core/render.py:volumetric_rendering.
+
+    rgb (B,S,3), density (B,S,1), t_vals (B,S), dirs (B,3). The last
+    interval is 1e10 wide; every interval is scaled by |dirs|. Returns
+    comp_rgb (B,3), acc (B,), weights (B,S), depth (B,)."""
+    dists = torch.cat([t_vals[..., 1:] - t_vals[..., :-1],
+                       torch.full_like(t_vals[..., :1], 1e10)], dim=-1)
+    dists = dists * torch.linalg.norm(dirs[..., None, :], dim=-1)
+    alpha = 1.0 - torch.exp(-density[..., 0] * dists)
+    accum_prod = torch.cat([torch.ones_like(alpha[..., :1]),
+                            torch.cumprod(1.0 - alpha[..., :-1] + _EPS,
+                                          dim=-1)], dim=-1)
+    weights = alpha * accum_prod
+
+    comp_rgb = torch.sum(weights[..., None] * rgb, dim=-2)
+    depth = torch.sum(weights * t_vals, dim=-1)
+    acc = torch.sum(weights, dim=-1)
+    if white_bkgd:
+        comp_rgb = comp_rgb + (1.0 - acc[..., None])
+    return comp_rgb, acc, weights, depth
+
+
+def _vanilla_checked(name, args):
+    """rgb, density, t, dirs contiguous on one CUDA device with the shapes
+    and type the kernels take; returns them and (B, S)."""
+    args = tuple(a.contiguous() for a in args)
+    kernels.require_cuda(name, *args)
+    rgb, density, t, dirs = args
+    if t.dim() != 2 or t.shape[1] < 1:
+        raise ValueError(f"{name}: t_vals must be (B, S) with S >= 1, got "
+                         f"{tuple(t.shape)}")
+    b, s = t.shape
+    for x, shape in ((rgb, (b, s, 3)), (density, (b, s, 1)), (t, (b, s)),
+                     (dirs, (b, 3))):
+        if tuple(x.shape) != shape or x.dtype != torch.float32:
+            raise ValueError(f"{name}: expected float32 {shape}, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+    return args, (b, s)
+
+
+def _vanilla_forward(args, white_bkgd: bool):
+    if all(a.device.type == "cpu" for a in args):
+        return composite_vanilla_reference(*args, white_bkgd)
+    args, (b, s) = _vanilla_checked("composite_vanilla", args)
+    rgb, density, t, dirs = args
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32,
+                                     device=dirs.device)
+    out = (new(b, 3), new(b), new(b, s), new(b))
+    kernels.launch("composite_vanilla_fwd", dirs.device, rgb.data_ptr(),
+                   density.data_ptr(), t.data_ptr(), s, dirs.data_ptr(), b,
+                   int(white_bkgd), *(o.data_ptr() for o in out))
+    composite_vanilla.launches += 1
+    return out
+
+
+def composite_vanilla_backward(args, grads, white_bkgd: bool = False):
+    """Gradients (d rgb, d density) of `composite_vanilla` at inputs `args`
+    (rgb, density, t_vals, dirs) for the output cotangents `grads` (one per
+    VANILLA_OUT_KEYS entry, None = zero).
+
+    CPU tensors: autograd of `composite_vanilla_reference`. CUDA tensors
+    launch kernel D' (csrc/composite_vanilla_bwd.cu) and add one to
+    `composite_vanilla_backward.launches`."""
+    if all(a.device.type == "cpu" for a in args):
+        with torch.enable_grad():
+            leaves = [a.detach().requires_grad_(i < 2)
+                      for i, a in enumerate(args)]
+            out = composite_vanilla_reference(*leaves, white_bkgd)
+            pairs = [(o, g) for o, g in zip(out, grads) if g is not None]
+            d = torch.autograd.grad([o for o, _ in pairs], leaves[:2],
+                                    [g for _, g in pairs],
+                                    allow_unused=True) if pairs else [None] * 2
+            return tuple(torch.zeros_like(a) if g is None else g
+                         for a, g in zip(leaves[:2], d))
+    name = "composite_vanilla_backward"
+    args, (b, s) = _vanilla_checked(name, args)
+    rgb, density, t, dirs = args
+    cots = []
+    for key, g in zip(VANILLA_OUT_KEYS, grads):
+        if g is not None:
+            g = g.contiguous()
+            if g.dtype != torch.float32 or g.device != dirs.device:
+                raise ValueError(f"{name}: cotangent of {key} must be "
+                                 f"float32 on {dirs.device}")
+        cots.append(g)
+    d = (torch.empty_like(rgb), torch.empty_like(density))
+    kernels.launch("composite_vanilla_bwd", dirs.device, rgb.data_ptr(),
+                   density.data_ptr(), t.data_ptr(), s, dirs.data_ptr(), b,
+                   int(white_bkgd),
+                   *(None if g is None else g.data_ptr() for g in cots),
+                   *(x.data_ptr() for x in d))
+    composite_vanilla_backward.launches += 1
+    return d
+
+
+class _CompositeVanilla(torch.autograd.Function):
+    """composite_vanilla with the gradient of
+    `composite_vanilla_backward`."""
+
+    @staticmethod
+    def forward(ctx, white_bkgd, *args):
+        ctx.set_materialize_grads(False)
+        ctx.white_bkgd = white_bkgd
+        ctx.save_for_backward(*args)
+        return _vanilla_forward(args, white_bkgd)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        d = composite_vanilla_backward(ctx.saved_tensors, grads,
+                                       ctx.white_bkgd)
+        return None, d[0], d[1], None, None
+
+
+def composite_vanilla(rgb, density, t_vals, dirs, white_bkgd: bool = False):
+    """One level's plain NeRF composite: (comp_rgb (B,3), acc (B,),
+    weights (B,S), depth (B,)), float32, as
+    neo360_tpu/core/render.py:volumetric_rendering returns them.
+
+    CPU tensors run `composite_vanilla_reference`; CUDA tensors launch
+    kernel D and add one to `composite_vanilla.launches`. With grad enabled
+    the call is a `_CompositeVanilla` autograd Function; t_vals and dirs
+    must not require grad (raises)."""
+    args = (rgb, density, t_vals, dirs)
+    if not torch.is_grad_enabled():
+        return _vanilla_forward(args, white_bkgd)
+    for name, a in (("t_vals", t_vals), ("dirs", dirs)):
+        if a.requires_grad:
+            raise ValueError(f"composite_vanilla: {name} takes no gradient "
+                             f"(detach it)")
+    return _CompositeVanilla.apply(bool(white_bkgd), *args)
+
+
+composite_vanilla.launches = 0
+composite_vanilla_backward.launches = 0

@@ -1,5 +1,5 @@
-"""Ray sampling for the NeRF++ fg/bg split (port of
-neo360_tpu/core/sampling.py:29-41, 72-121, 150-235).
+"""Ray sampling: the vanilla stratified and inverse-CDF samplers and the
+NeRF++ fg/bg split (port of neo360_tpu/core/sampling.py:29-145, 150-235).
 
 The inverse-CDF lookup uses `torch.searchsorted` instead of the JAX
 package's dense (B, N+1, M) mask, with the same results: the mask
@@ -112,6 +112,55 @@ def sorted_piecewise_constant_pdf(
                     torch.zeros_like(denom))
     t = torch.clamp(torch.nan_to_num(t, nan=0.0), 0.0, 1.0)
     return bin0 + t * (bin1 - bin0)
+
+
+def sample_along_rays(
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    num_samples: int,
+    near,
+    far,
+    randomized: bool = False,
+    lindisp: bool = False,
+    u: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+):
+    """Stratified samples over [near, far] (neo360_tpu/core/sampling.py:
+    44-69): (t_vals (B, N+1), coords (B, N+1, 3)), evenly spaced in depth,
+    or in inverse depth with `lindisp`; `randomized` jitters them
+    (`stratify`)."""
+    bsz = rays_o.shape[0]
+    t_vals = linspace(0.0, 1.0, num_samples + 1, rays_o.dtype, rays_o.device)
+    if lindisp:
+        t_vals = 1.0 / (1.0 / near * (1.0 - t_vals) + 1.0 / far * t_vals)
+    else:
+        t_vals = near * (1.0 - t_vals) + far * t_vals
+    t_vals = t_vals.expand(bsz, num_samples + 1)
+    if randomized:
+        t_vals = stratify(t_vals, u, generator)
+    return t_vals, cast_rays(t_vals, rays_o, rays_d)
+
+
+def sample_pdf(
+    bins: torch.Tensor,
+    weights: torch.Tensor,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    t_vals: torch.Tensor,
+    num_samples: int,
+    randomized: bool = False,
+    u: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+):
+    """Fine-level resampling (neo360_tpu/core/sampling.py:124-145):
+    `num_samples` inverse-CDF draws from the histogram (bins, weights),
+    detached, merged with `t_vals` and sorted -> (t_vals (B, N + M),
+    coords (B, N + M, 3))."""
+    t_samples = sorted_piecewise_constant_pdf(
+        bins, weights, num_samples, randomized, u, generator).detach()
+    t_vals = torch.sort(torch.cat([t_vals, t_samples], dim=-1),
+                        dim=-1).values
+    return t_vals, cast_rays(t_vals, origins, directions)
 
 
 def sample_along_rays_nerfpp(

@@ -1,5 +1,12 @@
-"""In-memory synthetic scenes (numpy port of neo360_tpu/data/fixtures.py
-`_camera_ring` / `_render`).
+"""Synthetic scenes (port of neo360_tpu/data/fixtures.py): on disk in the
+NERDS360 layout, or in memory.
+
+`make_micro_scene` and `make_multi_scene_root` write what the JAX
+package's functions of the same names write, byte for byte (the same PNGs
+through PIL and the same pose.json): rgb/, semantic_segmentation_2d/,
+nocs_2d/ and pose/pose.json under train/ and val/, poses in
+Parallel-Domain axes with a non-zero obj_location, so the disk loaders
+(data/nerds360.py, data/nerds360_ae.py) read them unmodified.
 
 `MemoryScenes` serves the same scenes that `make_multi_scene_root` writes to
 disk — a shaded sphere under a direction-gradient sky, cameras on a
@@ -11,6 +18,8 @@ bits as the PNGs are, and cached.
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Tuple
 
 import numpy as np
@@ -18,6 +27,11 @@ import numpy as np
 from neo360_tpu_torch.data.nerds360_ae import NeRDS360AE, SceneMeta
 
 SPHERE_RADIUS_FRAC = 0.35  # of camera ring radius
+CAR_ID = 5
+_PD_FLIP = np.array(
+    [[1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]],
+    dtype=np.float64)
+_PD_FLIP_INV = np.linalg.inv(_PD_FLIP)
 
 
 def _look_at_nerf(position: np.ndarray, target: np.ndarray,
@@ -46,10 +60,10 @@ def camera_ring(n: int, radius: float, seed: int) -> np.ndarray:
     return np.stack(c2ws)
 
 
-def render(c2w: np.ndarray, w: int, h: int, focal: float,
-           sphere_radius: float) -> Tuple[np.ndarray, np.ndarray]:
-    """Analytic render -> (rgb (h, w, 3) float in [0, 1] quantized to 8
-    bits, sphere-hit mask (h, w) float)."""
+def render_uint8(c2w: np.ndarray, w: int, h: int, focal: float,
+                 sphere_radius: float):
+    """Analytic render -> (rgb (h, w, 3), car segmentation (h, w), NOCS
+    (h, w, 3)), uint8, as the fixture's PNGs hold them."""
     i, j = np.meshgrid(np.arange(w, dtype=np.float64),
                        np.arange(h, dtype=np.float64))
     dirs = np.stack(
@@ -71,7 +85,81 @@ def render(c2w: np.ndarray, w: int, h: int, focal: float,
          0.5 + 0.5 * d_unit[..., 2]], -1) * np.array([0.4, 0.55, 0.9])
     rgb = np.where(hit[..., None], 0.5 + 0.5 * normal, sky)
     rgb8 = (np.clip(rgb, 0, 1) * 255).astype(np.uint8)
-    return rgb8.astype(np.float32) / 255.0, hit.astype(np.float32)
+    seg = np.where(hit, CAR_ID, 0).astype(np.uint8)
+    nocs = np.where(hit[..., None], 0.5 + 0.5 * normal, 0.0)
+    nocs8 = (np.clip(nocs, 0, 1) * 255).astype(np.uint8)
+    return rgb8, seg, nocs8
+
+
+def render(c2w: np.ndarray, w: int, h: int, focal: float,
+           sphere_radius: float) -> Tuple[np.ndarray, np.ndarray]:
+    """Analytic render -> (rgb (h, w, 3) float in [0, 1] quantized to 8
+    bits, sphere-hit mask (h, w) float)."""
+    rgb8, seg, _ = render_uint8(c2w, w, h, focal, sphere_radius)
+    return rgb8.astype(np.float32) / 255.0, (seg == CAR_ID).astype(
+        np.float32)
+
+
+def _write_split(split_dir: str, c2ws_nerf: np.ndarray, w: int, h: int,
+                 focal: float, radius: float, obj_location: np.ndarray):
+    from PIL import Image
+    for sub in ("rgb", "pose", "semantic_segmentation_2d", "nocs_2d"):
+        os.makedirs(os.path.join(split_dir, sub), exist_ok=True)
+    transform = {}
+    for idx, c2w in enumerate(c2ws_nerf):
+        name = f"{idx:05d}"
+        rgb8, seg, nocs8 = render_uint8(c2w, w, h, focal,
+                                        radius * SPHERE_RADIUS_FRAC)
+        for sub, arr in (("rgb", rgb8), ("semantic_segmentation_2d", seg),
+                         ("nocs_2d", nocs8)):
+            Image.fromarray(arr).save(os.path.join(split_dir, sub,
+                                                   name + ".png"))
+        # Parallel-Domain axes with obj_location added back: the loader
+        # subtracts obj_location and flips to NeRF axes
+        c2w_pd = c2w @ _PD_FLIP_INV
+        c2w_pd[:3, 3] += obj_location
+        transform[name] = c2w_pd.tolist()
+    box = radius * SPHERE_RADIUS_FRAC
+    pose = {
+        "focal": focal,
+        "img_size": [w, h],
+        "obj_location": obj_location.tolist(),
+        "transform": transform,
+        "bbox_dimensions": {"obj_0": [[-box] * 3, [box] * 3]},
+        "obj_rotations": {"obj_0": np.eye(3).tolist()},
+        "obj_translations": {"obj_0": obj_location.tolist()},
+    }
+    with open(os.path.join(split_dir, "pose", "pose.json"), "w") as f:
+        json.dump(pose, f)
+
+
+def make_micro_scene(root: str, n_train: int = 103, n_val: int = 5,
+                     wh: Tuple[int, int] = (40, 30), focal: float = None,
+                     radius: float = 8.0, seed: int = 0) -> str:
+    """Write one micro scene under `root` (train/: n_train cameras, the
+    loaders' 100 train and the rest val; val/: n_val test cameras); returns
+    `root`. focal defaults to 1.1 x width, so every ray meets the unit
+    sphere after pose normalization, as the NeRF++ background needs."""
+    w, h = wh
+    if focal is None:
+        focal = 1.1 * w
+    obj_location = np.array([0.5, 0.3, 0.2])
+    _write_split(os.path.join(root, "train"),
+                 camera_ring(n_train, radius, seed), w, h, focal, radius,
+                 obj_location)
+    _write_split(os.path.join(root, "val"),
+                 camera_ring(n_val, radius, seed + 1), w, h, focal, radius,
+                 obj_location)
+    return root
+
+
+def make_multi_scene_root(root: str, n_scenes: int = 3, **kwargs) -> str:
+    """`n_scenes` micro scenes scene_000, ... (camera seeds 100 + s) for
+    the few-shot loader."""
+    for s in range(n_scenes):
+        make_micro_scene(os.path.join(root, f"scene_{s:03d}"),
+                         seed=100 + s, **kwargs)
+    return root
 
 
 class MemoryScenes(NeRDS360AE):

@@ -337,6 +337,25 @@ class NeRDS360AE:
         sample["img_wh"] = np.asarray([w, h])
         return sample
 
+    def sample_pose(self, scene_idx: int, c2w: np.ndarray,
+                    src_views: Optional[List[int]] = None):
+        """Full-image sample of any destination pose, without a target:
+        the test split's source stack (so a scene's cached encode serves
+        every pose) and one ray per pixel (the vis_only flythrough,
+        neo360_tpu/data/nerds360_ae.py:454-473; radii are the JAX
+        loader's constant pixel radii)."""
+        meta = self.scene_meta(self.scene_ids[scene_idx])
+        src = src_views or default_src_views(self.num_src_views)
+        sample = self._source_stack(meta, src)
+        w, h = self.img_wh
+        sample.update(full_image_rays(np.asarray(c2w, np.float64), w, h,
+                                      meta.focal))
+        sample["radii"] = np.full((w * h, 1), 2.0 / (meta.focal *
+                                                     np.sqrt(12.0)),
+                                  np.float32)
+        sample["img_wh"] = np.asarray([w, h])
+        return sample
+
     def sample_test(self, scene_idx: int, dest_idx: int,
                     src_views: Optional[List[int]] = None):
         """Full-image sample of the scene's val/ view `dest_idx`: source

@@ -73,6 +73,13 @@ SIGNATURES = {
     # latent, 3 logits, 3 floor cotangents, d latent, 3 d logits, scratch,
     # dtype, nv, X, Y, Z, C, stream
     "pillar_collapse_bwd": (_P,) * 12 + (_I,) * 6 + (_P,),
+    # rgb, sigma, t, s, dirs, n_rays, white_bkgd, comp, acc, weights,
+    # depth, stream
+    "composite_vanilla_fwd": (_P, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P,
+                              _P),
+    # the forward's inputs, then the cotangents of comp, acc, weights,
+    # depth (null = zero), then d rgb, d sigma, stream
+    "composite_vanilla_bwd": (_P, _P, _P, _I, _P, _I, _I) + (_P,) * 7,
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

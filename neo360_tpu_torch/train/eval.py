@@ -1,11 +1,14 @@
-"""Few-shot evaluation: render every test view, PSNR / SSIM (and, with
-pretrained LPIPS weights, LPIPS) on the device, stream artifacts to disk
-(port of neo360_tpu/train/eval.py:42-52, 55-90, 100-236).
+"""Evaluation: render every test view, PSNR / SSIM (and, with pretrained
+LPIPS weights, LPIPS) on the device, stream artifacts to disk; and the
+360-degree spiral of the vis_only flythrough (port of
+neo360_tpu/train/eval.py:42-52, 55-90, 100-269).
 
 `evaluate` yields one `ViewResult` per view and holds nothing else, so
 memory stays constant in the number of views. `evaluate_and_save` writes
 each view's JPEG and raw depth on a writer thread while the next view
-renders, then results.json. PIL is imported only by the writer.
+renders, then results.json; with `video=True` (vis_only) also the depth
+colormaps (normalized by the largest depth of the set) and the views'
+video. PIL and cv2 are imported only by the writers.
 """
 
 from __future__ import annotations
@@ -83,14 +86,20 @@ def _write(kind: str, path: str, arr: np.ndarray) -> None:
 def evaluate_and_save(render_fn, samples, img_wh, out_dir: str,
                       results_json: Optional[str] = None,
                       extra: Optional[Dict[str, str]] = None,
-                      lpips_model=None) -> Dict[str, float]:
-    """`evaluate` + image{i}.jpg / depth_raw{i}.npz under `out_dir`, and
-    each metric's mean and per-view values in `results_json` (without a
-    pretrained `lpips_model`, "lpips_status" says LPIPS was skipped).
-    Returns the means {psnr, ssim[, psnr_obj][, lpips]}."""
+                      lpips_model=None, video: bool = False
+                      ) -> Dict[str, float]:
+    """`evaluate` + image{i}.jpg / depth_raw{i}.npz under `out_dir`; with
+    `video` also depth_img{i}.jpg (JET colormaps that share the largest
+    depth of the set) and the views as video.mp4 (or .gif); each metric's
+    mean and per-view values in `results_json` (without a pretrained
+    `lpips_model`, "lpips_status" says LPIPS was skipped). Returns the
+    means {psnr, ssim[, psnr_obj][, lpips]}."""
     os.makedirs(out_dir, exist_ok=True)
     vals: Dict[str, List[float]] = {"psnr": [], "ssim": [], "psnr_obj": [],
                                     "lpips": []}
+    frames: List[np.ndarray] = []
+    depth_files: List[str] = []
+    depth_max = 0.0
     with ThreadPoolExecutor(max_workers=1) as writer:
         jobs = []
         for i, view in enumerate(evaluate(render_fn, samples, img_wh,
@@ -99,10 +108,13 @@ def evaluate_and_save(render_fn, samples, img_wh, out_dir: str,
                 _write, "jpg", os.path.join(out_dir, f"image{i:03d}.jpg"),
                 io.to8b(view.rgb)))
             if view.depth is not None:
-                jobs.append(writer.submit(
-                    _write, "npz",
-                    os.path.join(out_dir, f"depth_raw{i:03d}.npz"),
-                    view.depth))
+                path = os.path.join(out_dir, f"depth_raw{i:03d}.npz")
+                jobs.append(writer.submit(_write, "npz", path, view.depth))
+                if video:
+                    depth_files.append(path)
+                    depth_max = max(depth_max, float(np.nanmax(view.depth)))
+            if video:
+                frames.append(view.rgb)
             vals["psnr"].append(view.psnr)
             vals["ssim"].append(view.ssim)
             if view.psnr_obj is not None:
@@ -111,6 +123,14 @@ def evaluate_and_save(render_fn, samples, img_wh, out_dir: str,
                 vals["lpips"].append(view.lpips)
         for job in jobs:
             job.result()  # raise the first write error, if any
+    if depth_files:
+        import cv2
+        for i, path in enumerate(depth_files):
+            with np.load(path) as data:
+                img = io.depth_jet(data["depth"], depth_max or 1.0)
+            cv2.imwrite(os.path.join(out_dir, f"depth_img{i:03d}.jpg"), img)
+    if frames:
+        io.store_video(out_dir, frames)
     summary = {k: float(np.mean(v)) for k, v in vals.items() if v}
     if results_json is not None:
         payload = {k: {"mean": v, "views": vals[k]}
@@ -120,3 +140,22 @@ def evaluate_and_save(render_fn, samples, img_wh, out_dir: str,
         payload.update(extra or {})
         io.write_stats(results_json, **payload)
     return summary
+
+
+def spiral_pose(pose: np.ndarray, progress: float,
+                radii: float = 0.03) -> np.ndarray:
+    """`pose` moved along a small camera spiral (the reference's
+    move_camera_pose, datasets/nerds360.py:156-163): `progress` in [0, 1)
+    is two turns."""
+    t = progress * np.pi * 4
+    center = np.array([np.cos(t), -np.sin(t), -np.sin(0.5 * t)]) * radii
+    out = pose.copy()
+    out[:3, 3] = out[:3, 3] + out[:3, :3] @ center
+    return out
+
+
+def trajectory_360(ref_pose: np.ndarray, n_frames: int = 40) -> np.ndarray:
+    """(n_frames, ...) spiral poses around `ref_pose` for the 360
+    flythrough."""
+    return np.stack([spiral_pose(ref_pose, i / n_frames)
+                     for i in range(n_frames)])

@@ -1,5 +1,6 @@
 """Training loop building blocks: the per-step trainer (port of
-neo360_tpu/train/loop.py:29-80, 127-166), the scene-mixed, encode-once
+neo360_tpu/train/loop.py:29-80, 127-166), the ray-buffer trainer of the
+vanilla NeRF (83-124), the scene-mixed, encode-once
 stage trainer (169-308) and tiled full-image rendering (make_image_renderer,
 311-366).
 
@@ -94,6 +95,34 @@ def make_staged_trainer(train_step: Callable):
             batch = {k: v[i] for k, v in batches.items()}
             metrics = train_step(state, dict(batch, **(const or {})),
                                  generator)
+        return metrics
+
+    return run
+
+
+def make_buffer_trainer(train_step: Callable, batch_size: int,
+                        steps_per_call: int):
+    """run(state, buffers, generator, indices=None) -> the last step's
+    metrics: `steps_per_call` steps of `train_step` over a device-resident
+    ray buffer (neo360_tpu/train/loop.py:83-124). `buffers`: a dict of
+    (N, ...) tensors on one device (rays_o, rays_d, viewdirs, target);
+    each step's batch is `batch_size` rows drawn uniformly with
+    replacement on that device from `generator`, which also feeds the
+    step's randomized sampling. `indices` (steps_per_call, batch_size)
+    gives the rows instead (the tests pass the JAX draws)."""
+
+    def run(state, buffers, generator, indices=None):
+        first = next(iter(buffers.values()))
+        metrics = {}
+        for i in range(steps_per_call):
+            if indices is None:
+                idx = torch.randint(0, first.shape[0], (batch_size,),
+                                    generator=generator,
+                                    device=first.device)
+            else:
+                idx = torch.as_tensor(indices[i], device=first.device)
+            batch = {k: v.index_select(0, idx) for k, v in buffers.items()}
+            metrics = train_step(state, batch, generator)
         return metrics
 
     return run

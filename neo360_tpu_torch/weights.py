@@ -13,6 +13,10 @@ after these conversions:
   `running_mean`/`running_var`;
 - any other leaf (`bias`, TriPillarAggregator's `coord_w`/`hidden_b`)
   keeps its name and layout.
+
+The same conversion carries the NeRFTP, VanillaNeRF (`coarse_mlp.*`,
+`fine_mlp.*`) and PixelNeRF (`encoder.backbone.*` with its BatchNorm
+statistics, `coarse_mlp.*`, `fine_mlp.*`) trees.
 """
 
 from __future__ import annotations

@@ -19,8 +19,9 @@ import pytest
 import torch
 
 from neo360_tpu_torch.core.render import BACKWARD_TOL as RENDER_BWD_TOL
-from neo360_tpu_torch.core.render import OUT_KEYS, composite_nerfpp, \
-    composite_nerfpp_backward, composite_nerfpp_reference
+from neo360_tpu_torch.core.render import OUT_KEYS, VANILLA_OUT_KEYS, \
+    composite_nerfpp, composite_nerfpp_backward, composite_nerfpp_reference, \
+    composite_vanilla, composite_vanilla_backward, composite_vanilla_reference
 from neo360_tpu_torch.ops import kernels
 from neo360_tpu_torch.ops.interpolate import BACKWARD_TOL as INTERP_BWD_TOL
 from neo360_tpu_torch.ops.interpolate import FUSED_TOL, build_corner_table, \
@@ -1192,3 +1193,243 @@ def test_fused_gather_gradients_on_the_card(cuda, accumulate):
     for ours, ref in zip(*grads):
         res = kernels.compare(ours, ref, **INTERP_BWD_TOL)
         assert res["ok"], res
+
+
+# --- kernels D / D': the plain NeRF composite ----------------------------
+
+def _vanilla_args(g, b, s, tiny_last=False):
+    """rgb, density in [0, 10), ascending t in [0.2, 3], dirs
+    (unnormalized). `tiny_last`: the last sample's density in [1e-12,
+    1e-9], so its 1e10-wide interval leaves alpha below 1 and the
+    transmittance past it matters."""
+    t = 0.2 + 2.8 * torch.sort(torch.rand(b, s, generator=g), -1).values
+    density = torch.rand(b, s, 1, generator=g) * 10
+    if tiny_last:
+        density[:, -1, 0] = 10.0 ** (-12 + 3 * torch.rand(b, generator=g))
+    return (torch.rand(b, s, 3, generator=g), density, t,
+            torch.randn(b, 3, generator=g))
+
+
+def _assert_vanilla_grads(out, ref):
+    """d rgb, and d density apart at the last sample (whose 1e10-wide
+    interval makes its entries ~1e10 times the others), each within
+    BACKWARD_TOL."""
+    pairs = [(out[0], ref[0]), (out[1][:, :-1], ref[1][:, :-1]),
+             (out[1][:, -1:], ref[1][:, -1:])]
+    for o, r in pairs:
+        res = kernels.compare(o.contiguous(), r.contiguous(),
+                              **RENDER_BWD_TOL)
+        assert res["ok"], res
+
+
+def _plain_vanilla_grads(args, grads, white_bkgd):
+    """Autograd of the plain composite on `args`' device (d rgb, d
+    density)."""
+    leaves = [a.detach().requires_grad_(i < 2) for i, a in enumerate(args)]
+    out = composite_vanilla_reference(*leaves, white_bkgd)
+    pairs = [(o, g) for o, g in zip(out, grads) if g is not None]
+    return torch.autograd.grad([o for o, _ in pairs], leaves[:2],
+                               [g for _, g in pairs])
+
+
+def _assert_ok_where_finite(out, ref):
+    """NaN and inf (with their signs) where the plain version has them,
+    and the finite entries within compare()'s tolerance."""
+    finite = torch.isfinite(ref)
+    assert torch.equal(torch.isfinite(out), finite)
+    assert torch.equal(torch.isnan(out), torch.isnan(ref))
+    assert torch.equal(out[torch.isinf(ref)], ref[torch.isinf(ref)])
+    _assert_ok(out[finite], ref[finite])
+
+
+def _vanilla_nonfinite(args):
+    """Rays 0-3 with a NaN, +inf, zero and huge density at sample 2."""
+    rgb, density, t, dirs = (a.clone() for a in args)
+    for r, v in enumerate((float("nan"), float("inf"), 0.0, 1e30)):
+        density[r, 2, 0] = v
+    return rgb, density, t, dirs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s", [
+    (7, 1), (33, 32), (33, 33), (5, 64), (1, 97), (2048, 65), (2048, 193),
+    (512, 65), (512, 129), (256, 129), (256, 193)])
+def test_composite_vanilla_kernel(cuda, b, s):
+    """Kernel D against its plain version on the card: S on and around
+    the 32-sample chunk edges and at the path's shapes (vanilla 2048 x 65
+    / 193, PixelNeRF 512 x 65 / 129, 256-ray tiles), white background on
+    and off, and rays with NaN / inf / zero / huge densities (non-finite
+    where the plain version is)."""
+    g = _gen(30)
+    args = tuple(a.to(cuda) for a in _vanilla_args(g, b, s))
+    if s > 2 and b >= 4:
+        args = _vanilla_nonfinite(args)
+    before = composite_vanilla.launches
+    for white_bkgd in (False, True):
+        ref = composite_vanilla_reference(*args, white_bkgd)
+        out = composite_vanilla(*args, white_bkgd)
+        for o, r in zip(out, ref):
+            _assert_ok_where_finite(o, r)
+    assert composite_vanilla.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiny_last", [False, True])
+@pytest.mark.parametrize("b,s", [
+    (7, 1), (33, 32), (33, 33), (5, 64), (1, 97), (2048, 65), (2048, 193),
+    (512, 65), (512, 129)])
+def test_composite_vanilla_backward_kernel(cuda, b, s, tiny_last):
+    """Kernel D' against autograd of the plain version on the card within
+    BACKWARD_TOL, white background on and off, with every cotangent and
+    with the loss's (rgb alone), also where the last sample's alpha stays
+    below 1."""
+    g = _gen(31)
+    args = tuple(a.to(cuda) for a in _vanilla_args(g, b, s, tiny_last))
+    shapes = [o.shape for o in composite_vanilla_reference(*args, False)]
+    before = composite_vanilla_backward.launches
+    for white_bkgd in (False, True):
+        for subset in (False, True):
+            grads = [torch.randn(sh, generator=g).to(cuda)
+                     if not subset or k == "rgb" else None
+                     for k, sh in zip(VANILLA_OUT_KEYS, shapes)]
+            ref = _plain_vanilla_grads(args, grads, white_bkgd)
+            out = composite_vanilla_backward(args, grads, white_bkgd)
+            _assert_vanilla_grads(out, ref)
+    assert composite_vanilla_backward.launches == before + 4
+
+
+@pytest.mark.cuda
+def test_composite_vanilla_gradients_reach_inputs_through_kernels(cuda):
+    """On the card the Function launches D forward and D' backward once
+    each, and its gradients are the plain version's."""
+    g = _gen(32)
+    args = tuple(a.to(cuda) for a in _vanilla_args(g, 64, 65))
+    fwd, bwd = composite_vanilla.launches, composite_vanilla_backward.launches
+    rgb, density = (a.clone().requires_grad_() for a in args[:2])
+    comp, acc, weights, depth = composite_vanilla(rgb, density, *args[2:])
+    cot = torch.randn(comp.shape, generator=g).to(cuda)
+    ours = torch.autograd.grad((comp * cot).sum(), [rgb, density])
+    ref = _plain_vanilla_grads(args, [cot, None, None, None], False)
+    assert (composite_vanilla.launches - fwd,
+            composite_vanilla_backward.launches - bwd) == (1, 1)
+    for o, r in zip(ours, ref):
+        assert kernels.compare(o, r, **RENDER_BWD_TOL)["ok"]
+
+
+@pytest.mark.cuda
+def test_composite_vanilla_kernel_rejects_bad_inputs(cuda):
+    g = _gen(33)
+    rgb, density, t, dirs = (a.to(cuda) for a in _vanilla_args(g, 4, 9))
+    with pytest.raises(ValueError, match="float32"):
+        composite_vanilla(rgb.double(), density, t, dirs)
+    with pytest.raises(ValueError, match="float32"):
+        composite_vanilla(rgb[:, :5], density, t, dirs)
+    with pytest.raises(ValueError, match="CUDA"):
+        composite_vanilla(rgb, density, t.cpu(), dirs)
+
+
+def test_composite_vanilla_function_grads_match_plain_autograd():
+    """CPU: the Function's gradients equal autograd of the plain version
+    (the same float32 operations), every output's cotangent given."""
+    g = _gen(34)
+    args = _vanilla_args(g, 12, 9)
+    rgb, density = (a.clone().requires_grad_() for a in args[:2])
+    out = composite_vanilla(rgb, density, *args[2:], True)
+    cots = [torch.randn_like(o) for o in out]
+    loss = sum((o * c).sum() for o, c in zip(out, cots))
+    ours = torch.autograd.grad(loss, [rgb, density])
+    ref = _plain_vanilla_grads(args, cots, True)
+    for a, b in zip(ours, ref):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+def test_composite_vanilla_refuses_gradients_it_does_not_give():
+    g = _gen(35)
+    args = list(_vanilla_args(g, 4, 5))
+    for i, name in ((2, "t_vals"), (3, "dirs")):
+        bad = list(args)
+        bad[i] = bad[i].clone().requires_grad_()
+        with pytest.raises(ValueError, match=name):
+            composite_vanilla(*bad)
+    with torch.no_grad():
+        composite_vanilla(*bad)
+
+
+def _vanilla_deltas(t, dirs):
+    b = t.shape[0]
+    dnorm = torch.sqrt(dirs[:, 0] * dirs[:, 0] + dirs[:, 1] * dirs[:, 1]
+                       + dirs[:, 2] * dirs[:, 2])
+    return torch.cat([(t[:, 1:] - t[:, :-1]) * dnorm[:, None],
+                      (torch.full((b, 1), 1e10) * dnorm[:, None])], 1)
+
+
+def _lane_sum(x):
+    """Kernel D's sums: lane partials carried across 32-sample chunks,
+    then the __shfl_xor_sync tree."""
+    b, s = x.shape
+    part = torch.zeros(b, 32)
+    for base in range(0, s, 32):
+        n = min(32, s - base)
+        part = part + _lanes(x[:, base:base + n], n, 0.0)
+    return _xor_sum(part)[:, 0]
+
+
+def _emulate_composite_vanilla(args, white_bkgd):
+    """Kernel D in float32, in its order of operations."""
+    rgb, density, t, dirs = args
+    delta = _vanilla_deltas(t, dirs)
+    alpha = 1.0 - torch.exp(-density[..., 0] * delta)
+    a, _ = _forward_scan(alpha)
+    w = alpha * a
+    acc = _lane_sum(w)
+    comp = torch.stack([_lane_sum(w * rgb[..., k]) for k in range(3)], -1)
+    if white_bkgd:
+        comp = comp + (1.0 - acc[:, None])
+    return comp, acc, w, _lane_sum(w * t)
+
+
+def _emulate_composite_vanilla_backward(args, grads, white_bkgd):
+    """Kernel D' in float32, in its order of operations."""
+    rgb, density, t, dirs = args
+    b, s = t.shape
+    get = lambda g, shape: g if g is not None else torch.zeros(shape)
+    gc = get(grads[0], (b, 3))
+    ga, gw, gd = get(grads[1], (b,)), get(grads[2], (b, s)), get(grads[3],
+                                                                 (b,))
+    if white_bkgd:
+        ga = ga - (gc[:, 0] + gc[:, 1] + gc[:, 2])
+    delta = _vanilla_deltas(t, dirs)
+    e = torch.exp(-density[..., 0] * delta)
+    alpha = 1.0 - e
+    a, _ = _forward_scan(alpha)
+    gi = gw + ga[:, None]
+    for k in range(3):
+        gi = gi + gc[:, k:k + 1] * rgb[..., k]
+    gi = gi + gd[:, None] * t
+    G = _reverse_scan((1.0 - alpha) + 1e-10, gi * alpha, torch.zeros(b))
+    w = (1.0 - e) * a
+    return w[..., None] * gc[:, None, :], (a * (gi - G) * e * delta)[..., None]
+
+
+@pytest.mark.parametrize("tiny_last", [False, True])
+@pytest.mark.parametrize("white_bkgd", [False, True])
+@pytest.mark.parametrize("s", [1, 5, 31, 32, 33, 65, 97, 129, 193])
+def test_composite_vanilla_scan_order_fits_tolerance(s, white_bkgd,
+                                                     tiny_last):
+    """CPU: kernels D and D' in their order of operations (chunked
+    exclusive product scan, lane-partial sums in xor-tree order, the
+    reverse affine suffix scan from G = 0) against the plain version and
+    its autograd, within the tolerances the card tests hold them to
+    (forward: compare()'s 1e-5 relative; backward: BACKWARD_TOL)."""
+    g = _gen(36)
+    args = _vanilla_args(g, 40, s, tiny_last)
+    ref = composite_vanilla_reference(*args, white_bkgd)
+    for o, r in zip(_emulate_composite_vanilla(args, white_bkgd), ref):
+        _assert_ok(o, r)
+    shapes = [o.shape for o in ref]
+    for subset in (False, True):
+        grads = [torch.randn(sh, generator=g) if not subset or k == "rgb"
+                 else None for k, sh in zip(VANILLA_OUT_KEYS, shapes)]
+        ref_g = _plain_vanilla_grads(args, grads, white_bkgd)
+        out = _emulate_composite_vanilla_backward(args, grads, white_bkgd)
+        _assert_vanilla_grads(out, ref_g)
