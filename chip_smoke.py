@@ -73,13 +73,23 @@ line):
    samples, 512 rays, float32) for PIX_STEPS steps on 3 in-memory
    scenes, then 2 rendered views of one scene with one encode; every step
    launches A, A' (dense), D and D' twice each, every view A and D twice
-   per tile.
+   per tile;
+12. MipNeRF-360 (`phase_mipnerf360_main_path`): a 320x240 micro scene
+   written by `make_micro_scene`, `cli.run_train` at full width (8 x 1024
+   NeRF MLP, two 4 x 256 proposal MLPs, 64 + 64 + 32 samples, lifted IPE,
+   float32, 2048 rays a step, the ray-buffer trainer) for MIP_STEPS
+   steps, then `cli.run_eval` full_eval of its 2 test views and vis_only
+   with VIS_FRAMES spiral frames at --chunk 4096, and one profiled tile;
+   every step launches kernels E and E' 3 times and nothing else, every
+   view E 3 times per tile.
 Kernel D / D' are also checked against their plain versions at the
-baselines' shapes in phase 3, and A / A' at the PixelNeRF levels.
+baselines' shapes in phase 3, A / A' at the PixelNeRF levels, and E / E'
+at MipNeRF-360's levels and render tiles, with rays at the tie acc == 1
+and the infinite last interval.
 
 Each kernel's launches per training stage or step and per rendered view
 follow the last phase. The line before the last is {"kernels": [...]}
-(the ten kernels; launches: the sum over the seven main paths, each
+(the twelve kernels; launches: the sum over the eight main paths, each
 counted from 0), the
 last is {"ok": true, "device": {...}}. Requires a CUDA device: it exits 2
 without one, or without the neo360_tpu_torch package beside it.
@@ -127,6 +137,10 @@ KERNELS = {
     "composite_vanilla_bwd": (
         "neo360_tpu_torch/csrc/composite_vanilla_bwd.cu",
         "neo360_tpu/core/render.py:26"),
+    "composite_mip_fwd": ("neo360_tpu_torch/csrc/composite_mip.cu",
+                          "neo360_tpu/core/render.py:124"),
+    "composite_mip_bwd": ("neo360_tpu_torch/csrc/composite_mip_bwd.cu",
+                          "neo360_tpu/core/render.py:124"),
 }
 # leaves whose gradient is zero by construction: conv biases ahead of
 # train-mode BatchNorm, and the pillar heads' biases (a softmax ignores a
@@ -139,9 +153,9 @@ def counters():
     """Counter name -> the wrapper that counts its launches: one per
     kernel, and kernel A' under each of its two contracts (dense and
     accumulate)."""
-    from neo360_tpu_torch.core.render import composite_nerfpp, \
-        composite_nerfpp_backward, composite_vanilla, \
-        composite_vanilla_backward
+    from neo360_tpu_torch.core.render import composite_mip, \
+        composite_mip_backward, composite_nerfpp, composite_nerfpp_backward, \
+        composite_vanilla, composite_vanilla_backward
     from neo360_tpu_torch.ops.interpolate import local_sample, \
         table_sample, table_sample_accumulate, table_sample_backward, \
         triplane_sample
@@ -157,7 +171,9 @@ def counters():
             "composite_nerfpp_bwd": composite_nerfpp_backward,
             "pillar_collapse_bwd": pillar_collapse_backward,
             "composite_vanilla_fwd": composite_vanilla,
-            "composite_vanilla_bwd": composite_vanilla_backward}
+            "composite_vanilla_bwd": composite_vanilla_backward,
+            "composite_mip_fwd": composite_mip,
+            "composite_mip_bwd": composite_mip_backward}
 
 
 def _read(fns) -> dict:
@@ -198,9 +214,23 @@ def _rows_read(table_shape, uv, hw, mode, view_offset) -> int:
 # the port's kernels (csrc/*.cu) as the profiler names them
 PORT_KERNEL = re.compile(r"::(table_sample|triplane_sample|local_sample"
                          r"|table_scatter|round_to_bf16"
-                         r"|composite_(nerfpp|vanilla)(_bwd)?"
+                         r"|composite_(nerfpp|vanilla|mip)(_bwd)?"
                          r"|pillar_(collapse|weights"
                          r"|softmax|dlogit|dlatent))_kernel\b")
+
+
+# device kernels by class, first match wins: the port's kernels, matrix
+# products (cuBLAS / CUTLASS), convolutions, reductions and scans, copies
+# and casts, and the rest (elementwise)
+OP_CLASSES = (
+    ("port kernels", PORT_KERNEL),
+    ("matmul", re.compile(r"gemm|cutlass|xmma|cublas|gemv", re.I)),
+    ("conv", re.compile(r"conv|cudnn|implicit_", re.I)),
+    ("reduce/scan", re.compile(r"reduce|scan|sort|softmax|cumsum|norm",
+                               re.I)),
+    ("copy/cast", re.compile(r"copy|cat|index|gather|scatter|memcpy|memset",
+                             re.I)),
+)
 
 
 def _profile(torch, fn, label: str, top: int = 15):
@@ -229,6 +259,14 @@ def _profile(torch, fn, label: str, top: int = 15):
     print(f"[profile] {label}: wall {wall:.3f} s under the profiler, device "
           f"time {busy / 1e3:.3f} s in {launches} kernels, busy "
           f"{busy / 1e3 / wall:.1%}")
+    classes = {}
+    for ms, n, key in kernels_:
+        cls = next((c for c, pat in OP_CLASSES if pat.search(key)), "other")
+        t, k = classes.get(cls, (0.0, 0))
+        classes[cls] = (t + ms, k + n)
+    print(f"[profile] {label} by class: " + "; ".join(
+        f"{c} {t:.3f} ms {t / max(busy, 1e-9):.1%} x{k}"
+        for c, (t, k) in sorted(classes.items(), key=lambda x: -x[1][0])))
     if not kernels_:
         print(f"[profile] {label}: the profiler recorded no device time "
               f"(not measured)")
@@ -355,7 +393,8 @@ def _grid_sample_fns(torch, c, dtype, uv, hw, mode, cot=None):
 
 
 def phase_kernels(torch):
-    from neo360_tpu_torch.core.render import composite_nerfpp, \
+    from neo360_tpu_torch.core.render import composite_mip, \
+        composite_mip_reference, composite_nerfpp, \
         composite_nerfpp_reference, composite_vanilla, \
         composite_vanilla_reference
     from neo360_tpu_torch.ops.interpolate import table_sample, \
@@ -502,6 +541,24 @@ def phase_kernels(torch):
                nbytes=4.0 * b * (6 * s + 8), ops=20.0 * b * s,
                main=(b, s) == (2048, 193))
 
+    # Kernel E: a MipNeRF-360 training step's NeRF level (2048 rays x 32
+    # intervals) and proposal level (x 64), and a 4096-ray render tile's
+    # levels; opaque background (the model's), background 1.0; ray 0 of
+    # each case has acc exactly 1 (the tie of max(0, 1 - acc)) and every
+    # ray's last interval is infinite; no PyTorch call computes the
+    # composite
+    for b, s in MIP_SHAPES:
+        args = _mip_args(torch, g, b, s)
+        kernel = lambda: composite_mip(*args, 1.0, True)
+        plain = lambda: composite_mip_reference(*args, 1.0, True)
+        out, ref = list(kernel()), list(plain())
+        _mip_ties(f"B={b} S={s}", out[2], ref[2])
+        # per interval: density, rgb, tdist read, one weight written; per
+        # ray: dirs and the last edge read, rgb, acc, depth written
+        _check("composite_mip_fwd", f"B={b} S={s}", out, ref, kernel, plain,
+               torch, results, nbytes=4.0 * b * (6 * s + 9),
+               ops=15.0 * b * s, main=(b, s) == (2048, 32))
+
     # Kernel A at the PixelNeRF levels: the 512-channel pixel latent of 3
     # views as one zeros-padded table (f32, and bf16 as the JAX
     # acceptance ran), sampled at a training step's coarse (512 x 65) and
@@ -525,6 +582,38 @@ def phase_kernels(torch):
                                                "zeros"))
         del table
     return results
+
+
+# (rays, intervals a ray) of kernels E and E': a MipNeRF-360 training
+# step's NeRF and proposal levels, and a 4096-ray render tile's
+MIP_SHAPES = ((2048, 32), (2048, 64), (4096, 32), (4096, 64))
+
+
+def _mip_args(torch, g, b, s):
+    """Seeded inputs of kernel E / E' for `b` rays of `s` intervals:
+    density in [0, 10) (ray 0's first 1e30, so its acc is exactly 1),
+    ascending tdist (B, S+1) in [0.2, 3], unnormalized dirs, rgb."""
+    dev = g.device
+    t = 0.2 + 2.8 * torch.sort(torch.rand(b, s + 1, device=dev,
+                                          generator=g), -1).values
+    density = torch.rand(b, s, device=dev, generator=g) * 10
+    density[0, 0] = 1e30
+    return (density, t, torch.randn(b, 3, device=dev, generator=g),
+            torch.rand(b, s, 3, device=dev, generator=g))
+
+
+def _mip_ties(case, acc, ref_acc):
+    """Print the rays at or near the tie of max(0, 1 - acc): acc exactly
+    1, within 4 ulp of 1, and where the kernel's and the plain version's
+    acc take different branches (E' takes its branch from E's acc; the
+    branch shifts d density only by rounding, as sum_i w_i is 1)."""
+    near = (1.0 - acc).abs() <= 4 * 1.1920929e-07
+    branch = lambda a: (1.0 - a).sign()
+    differ = int((branch(acc) != branch(ref_acc)).sum())
+    print(f"[kernel] composite_mip {case}: acc == 1 on "
+          f"{int((acc == 1.0).sum())} rays (plain {int((ref_acc == 1.0).sum())}"
+          f"), within 4 ulp on {int(near.sum())}, other branch than the "
+          f"plain version on {differ}")
 
 
 # (rays, points a ray) of kernels D and D' on the baselines' paths
@@ -730,7 +819,9 @@ def phase_backward_kernels(torch):
     autograd of the plain forward on the same inputs (A' under the
     accumulate contract: against its index_add_ plain version)."""
     from neo360_tpu_torch.core.render import BACKWARD_TOL as B_TOL
-    from neo360_tpu_torch.core.render import OUT_KEYS, \
+    from neo360_tpu_torch.core.render import MIP_BACKWARD_TOL as E_TOL
+    from neo360_tpu_torch.core.render import OUT_KEYS, composite_mip, \
+        composite_mip_backward, composite_mip_reference, \
         composite_nerfpp_backward, composite_nerfpp_reference, \
         composite_vanilla_backward, composite_vanilla_reference
     from neo360_tpu_torch.ops.interpolate import BACKWARD_TOL as A_TOL
@@ -911,6 +1002,42 @@ def phase_backward_kernels(torch):
                list(plain()), kernel, plain, torch, results, B_TOL,
                nbytes=4.0 * b * (9 * s + 6), ops=40.0 * b * s,
                main=(b, s) == (2048, 193))
+
+    # E': a training step's NeRF level (2048 x 32: the loss's rgb and the
+    # distortion's and interlevel bound's weights cotangents), a proposal
+    # level (2048 x 64: weights alone) and a 4096-ray tile with every
+    # cotangent; E' takes the background's branch from E's acc
+    for (b, s), keys in (((2048, 32), ("weights", "rgb")),
+                         ((2048, 64), ("weights",)),
+                         ((4096, 64), ("weights", "rgb", "acc", "depth"))):
+        args = _mip_args(torch, g, b, s)
+        shapes = ((b, s), (b, 3), (b,), (b,))
+        grads = [torch.randn(sh, device=dev, generator=g) if k in keys
+                 else None for k, sh in zip(("weights", "rgb", "acc",
+                                             "depth"), shapes)]
+        with torch.no_grad():
+            acc = composite_mip(*args, 1.0, True)[2]
+        leaves = [a.detach().requires_grad_(i in (0, 3))
+                  for i, a in enumerate(args)]
+        outs = composite_mip_reference(*leaves, 1.0, True)
+        pairs = [(o, c) for o, c in zip(outs, grads) if c is not None]
+        plain = lambda: [x if x is not None else torch.zeros_like(l)
+                         for x, l in zip(torch.autograd.grad(
+                             [o for o, _ in pairs], [leaves[0], leaves[3]],
+                             [c for _, c in pairs], retain_graph=True,
+                             allow_unused=True), (leaves[0], leaves[3]))]
+        kernel = lambda: composite_mip_backward(args, acc, grads, 1.0, True)
+        out = list(kernel())
+        if not bool((out[0][:, -1] == 0).all()):
+            raise AssertionError("composite_mip_bwd: the infinite last "
+                                 "interval's density took a gradient")
+        n_cot = sum(c.numel() for c in grads if c is not None)
+        # per interval: density, tdist, rgb read, d density and d rgb
+        # written; per ray: dirs and acc read; the cotangents read
+        _check("composite_mip_bwd", f"B={b} S={s} cotangents {keys}", out,
+               plain(), kernel, plain, torch, results, E_TOL,
+               nbytes=4.0 * (b * (9 * s + 5) + n_cot), ops=30.0 * b * s,
+               main=(b, s) == (2048, 32))
 
     # A', dense contract, at a PixelNeRF step's fine level (f32 table)
     shape = (3, 121, 161, 2048)
@@ -1148,7 +1275,8 @@ def phase_train_main_path(torch, keep: str):
         raise AssertionError(f"tensors the training path did not move: "
                              f"{still}")
     missing = [k for k, n in launches.items()
-               if n == 0 and not k.startswith("composite_vanilla")]
+               if n == 0 and not k.startswith(("composite_vanilla",
+                                                "composite_mip"))]
     if missing:
         raise AssertionError(f"kernels not launched by the training path: "
                              f"{missing}")
@@ -1241,7 +1369,8 @@ def _neo360_step_launches(remat: bool) -> dict:
             "table_sample_bwd": 1 + 2 * 4, "table_sample_bwd_acc": 0,
             "composite_nerfpp_fwd": 2, "composite_nerfpp_bwd": 2,
             "pillar_collapse_fwd": 1, "pillar_collapse_bwd": 1,
-            "composite_vanilla_fwd": 0, "composite_vanilla_bwd": 0}
+            "composite_vanilla_fwd": 0, "composite_vanilla_bwd": 0,
+            "composite_mip_fwd": 0, "composite_mip_bwd": 0}
 
 
 def phase_neo360_main_path(torch):
@@ -1523,7 +1652,8 @@ def _optimize_step_launches() -> dict:
             "table_sample_bwd": 1 + 4, "table_sample_bwd_acc": 0,
             "composite_nerfpp_fwd": 2, "composite_nerfpp_bwd": 2,
             "pillar_collapse_fwd": 1, "pillar_collapse_bwd": 1,
-            "composite_vanilla_fwd": 0, "composite_vanilla_bwd": 0}
+            "composite_vanilla_fwd": 0, "composite_vanilla_bwd": 0,
+            "composite_mip_fwd": 0, "composite_mip_bwd": 0}
 
 
 def phase_optimize_finetune(torch, warm_path: str):
@@ -1778,9 +1908,13 @@ def _baseline_step_launches(exp_type: str) -> dict:
     both levels composite with kernel D and back with D'; PixelNeRF also
     samples its latent table once per level (A, all views in one launch)
     and scatters each level's cotangent into a table-shaped gradient (A',
-    dense contract). No other kernel of the port."""
+    dense contract); MipNeRF-360's three levels composite with kernel E
+    and back with E' instead. No other kernel of the port."""
     out = {k: 0 for k in KERNELS}
     out["table_sample_bwd_acc"] = 0
+    if exp_type == "mipnerf360":
+        out.update(composite_mip_fwd=3, composite_mip_bwd=3)
+        return out
     out.update(composite_vanilla_fwd=2, composite_vanilla_bwd=2)
     if exp_type == "pixelnerf":
         out.update(table_sample_fwd=2, table_sample_bwd=2)
@@ -1790,9 +1924,12 @@ def _baseline_step_launches(exp_type: str) -> dict:
 def _baseline_view_launches(exp_type: str, tiles: int) -> dict:
     """Kernel launches of one rendered view of a baseline: both levels of
     every tile composite (D); PixelNeRF samples its table per level too
-    (A)."""
+    (A); MipNeRF-360's three levels of every tile composite with E."""
     out = {k: 0 for k in KERNELS}
     out["table_sample_bwd_acc"] = 0
+    if exp_type == "mipnerf360":
+        out["composite_mip_fwd"] = 3 * tiles
+        return out
     out["composite_vanilla_fwd"] = 2 * tiles
     if exp_type == "pixelnerf":
         out["table_sample_fwd"] = 2 * tiles
@@ -2082,6 +2219,149 @@ def phase_pixelnerf_main_path(torch):
                                           "s_view": view_s}
 
 
+# the MipNeRF-360 phase: MIP_STEPS steps in calls of MIP_CALL through
+# cli.run_train, then run_eval renders the scene's 2 test views (full_eval)
+# and, with vis_only, the views and VIS_FRAMES spiral frames, in 4096-ray
+# tiles
+MIP_STEPS, MIP_CALL, MIP_CHUNK = 20, 10, 4096
+
+
+def phase_mipnerf360_main_path(torch):
+    """MipNeRF-360 at full width (8 x 1024 NeRF MLP, two 4 x 256 proposal
+    MLPs, 64 + 64 + 32 samples, lifted IPE, float32, TF32 off) on a
+    320x240 micro scene that the port's `make_micro_scene` writes under a
+    temp dir: `cli.run_train` with the ray-buffer trainer, MIP_STEPS
+    steps of 2048 rays in calls of MIP_CALL (the last step under
+    torch.profiler), its validation render and checkpoint; then
+    `cli.run_eval` full_eval of the scene's 2 test views and vis_only with
+    VIS_FRAMES spiral frames at --chunk MIP_CHUNK; one tile of the trained
+    model under torch.profiler. Every step launches exactly
+    `_baseline_step_launches("mipnerf360")` (E and E' 3 times), every
+    view and frame `_baseline_view_launches` (E 3 times a tile), the tile
+    E 3 times; every loss and metric is finite and the flythrough is
+    written. Returns the path's launches, per step and per view."""
+    import numpy as np
+
+    from neo360_tpu_torch import cli
+    from neo360_tpu_torch.config import preset
+    from neo360_tpu_torch.data.fixtures import make_micro_scene
+    from neo360_tpu_torch.data.nerds360 import NeRDS360
+    from neo360_tpu_torch.train import loop
+
+    fns = counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root = make_micro_scene(os.path.join(tmp, "scene"), n_val=2,
+                                wh=(320, 240))
+        print(f"[mip] make_micro_scene wrote a 320x240 scene (103 train + 2 "
+              f"test views) in {time.perf_counter() - t0:.1f} s")
+        cfg = preset("mipnerf360", root_dir=root, seed=SEED,
+                     run_max_steps=MIP_STEPS, steps_per_call=MIP_CALL,
+                     save_every_steps=MIP_STEPS, chunk=MIP_CHUNK,
+                     ckpt_dir=tmp, device="cuda")
+        print(f"[mip] img_wh {cfg.img_wh}, batch {cfg.batch_size} rays, 64 + "
+              f"64 + 32 samples, 8 x 1024 NeRF MLP, 2 x (4 x 256) proposal "
+              f"MLPs, float32, {MIP_STEPS} steps in calls of {MIP_CALL}, "
+              f"chunk {cfg.chunk}")
+        per_step, step_s, losses = [], [], []
+        plain_step = loop.make_train_step
+
+        def counted_step(loss_fn, **kw):
+            step = _counting(fns, per_step, step_s, MIP_STEPS - 1,
+                             "mipnerf360 training step (2048 rays)")(
+                plain_step(loss_fn, **kw))
+
+            def run(*args):
+                metrics = step(*args)
+                losses.append(float(metrics["loss"]))
+                return metrics
+            return run
+
+        for fn in fns.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        loop.make_train_step = counted_step
+        try:
+            t0 = time.perf_counter()
+            state = cli.run_train(cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            loop.make_train_step = plain_step
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        exp = os.path.join(tmp, "exp")
+        with open(os.path.join(exp, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        ckpts = sorted(os.listdir(os.path.join(exp, "checkpoints")))
+
+        per_view, view_s = [], []
+        plain_render = cli.make_render_fn
+        cli.make_render_fn = _counted_renders(cli, fns, per_view, view_s,
+                                              cfg.img_wh)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            summary = cli.run_eval(cfg.replace(eval_mode="full_eval"))
+            cli.run_eval(cfg.replace(eval_mode="vis_only"),
+                         n_frames=VIS_FRAMES)
+        finally:
+            cli.make_render_fn = plain_render
+        eval_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        outputs = sorted(os.listdir(os.path.join(exp, cfg.render_name)))
+        launches = _read(fns)
+
+        # one tile of the trained model, profiled and counted on its own
+        view = NeRDS360(root, "test", cfg.img_wh).image_rays(0)
+        tile = {k: v[:MIP_CHUNK] for k, v in view.items()}
+        render_fn = cli.make_render_fn(cfg, state.model.eval(), "cuda")
+        render_fn(tile)
+        start = _read(fns)
+        _profile(torch, lambda: render_fn(tile),
+                 f"mipnerf360 render tile ({MIP_CHUNK} rays)")
+        per_tile = {k: n - start[k] for k, n in _read(fns).items()}
+
+    steady = statistics.median(step_s[1:])
+    print(f"[mip] s/step: first {step_s[0]:.4f} (warm-up), steady median "
+          f"{steady:.4f} (min {min(step_s[1:]):.4f}, max "
+          f"{max(step_s[1:]):.4f}), {cfg.batch_size / steady:.0f} train "
+          f"rays/s; peak device memory {peak:.2f} GiB in training, "
+          f"{eval_peak:.2f} GiB in eval; run_train wall {wall:.2f} s (ray "
+          f"buffers, {MIP_STEPS} steps, validation render, checkpoint)")
+    print(f"[mip] losses first {losses[0]:.4f} last {losses[-1]:.4f}; "
+          f"metrics.jsonl {records}; checkpoints {ckpts}")
+    print(f"[mip] run_eval: {len(per_view)} renders (2 full_eval, 2 + "
+          f"{VIS_FRAMES} vis_only), s/view {[round(x, 3) for x in view_s]}; "
+          f"summary {summary}; outputs {outputs}")
+    want = _baseline_step_launches("mipnerf360")
+    tiles = -(-cfg.img_wh[0] * cfg.img_wh[1] // cfg.chunk)
+    want_view = _baseline_view_launches("mipnerf360", tiles)
+    want_tile = _baseline_view_launches("mipnerf360", 1)
+    print(f"[mip] launches per step {per_step[1]} (expected {want}); per "
+          f"view {per_view[0]}; per tile {per_tile}")
+    if len(losses) != MIP_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"mipnerf360: losses {losses}")
+    if state.step != MIP_STEPS or f"ckpt_{MIP_STEPS:08d}.pt" not in ckpts \
+            or not any(np.isfinite(r.get("val_psnr", np.nan))
+                       for r in records):
+        raise AssertionError("mipnerf360: run_train did not validate and "
+                             "checkpoint")
+    if any(n != want for n in per_step):
+        raise AssertionError(f"mipnerf360: launches per step {per_step}")
+    if len(per_view) != 4 + VIS_FRAMES or any(n != want_view
+                                             for n in per_view):
+        raise AssertionError(f"mipnerf360: launches per view {per_view}, "
+                             f"expected {want_view}")
+    if per_tile != want_tile:
+        raise AssertionError(f"mipnerf360: launches per tile {per_tile}, "
+                             f"expected {want_tile}")
+    if not (np.isfinite(summary["psnr"]) and np.isfinite(summary["ssim"])
+            and any(o.startswith("video360.") for o in outputs)):
+        raise AssertionError(f"mipnerf360: eval {summary}, outputs "
+                             f"{outputs}")
+    return launches, per_step, per_view, {"s_step": steady,
+                                          "peak_gib": peak,
+                                          "s_view": view_s}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2128,6 +2408,9 @@ def main() -> int:
     pix_launches, pix_per_step, pix_per_view, _ = \
         phase_pixelnerf_main_path(torch)
     done("pixelnerf training and serving")
+    mip_launches, mip_per_step, mip_per_view, _ = \
+        phase_mipnerf360_main_path(torch)
+    done("mipnerf360 training and evaluation")
 
     # launches per steady training stage (the second), per rendered view
     # with the encode cached (the second view) and per optimize step; the
@@ -2142,7 +2425,8 @@ def main() -> int:
         total[k] += n
     for k, n in _by_kernel(neo_launches).items():
         total[k] += n
-    for launches_ in (opt_launches, van_launches, pix_launches):
+    for launches_ in (opt_launches, van_launches, pix_launches,
+                      mip_launches):
         for k, n in _by_kernel(launches_).items():
             total[k] += n
     print(f"[kernel] launches: A' per stage dense "
@@ -2160,7 +2444,9 @@ def main() -> int:
               f"{van_per_step[1][name]} per training step, "
               f"{van_per_view[0][name]} per view; pixelnerf "
               f"{pix_per_step[1][name]} per training step, "
-              f"{pix_per_view[0][name]} per view; "
+              f"{pix_per_view[0][name]} per view; mipnerf360 "
+              f"{mip_per_step[1][name]} per training step, "
+              f"{mip_per_view[0][name]} per view; "
               f"{main['case']}: {main['ms']:.4f} ms (device "
               f"{main['device_ms']:.4f} ms), bound {main['bound_ms']:.4f} ms "
               f"({main['bound_by']}), share "

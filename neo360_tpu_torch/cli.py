@@ -1,10 +1,11 @@
 """Command-line runner for the port (neo360_tpu/cli.py; the `vanilla`,
-`pixelnerf`, `neo360` and `neo360_fast` presets).
+`mipnerf360`, `pixelnerf`, `neo360` and `neo360_fast` presets).
 
 Usage:
     python -m neo360_tpu_torch.cli --exp_type neo360 --root_dir <scenes>
     python -m neo360_tpu_torch.cli --exp_type neo360_fast --root_dir <scenes>
     python -m neo360_tpu_torch.cli --exp_type vanilla --root_dir <scene>
+    python -m neo360_tpu_torch.cli --exp_type mipnerf360 --root_dir <scene>
     python -m neo360_tpu_torch.cli --exp_type pixelnerf --root_dir <scenes>
     python -m neo360_tpu_torch.cli --exp_type neo360 --root_dir <scenes> \
         --eval_mode full_eval|vis_only \
@@ -13,9 +14,13 @@ Usage:
 `vanilla` is the vanilla NeRF of one scene (64 + 128 samples, 8 x 256
 MLP, float32): it trains with the ray-buffer trainer, --batch_size rays a
 step drawn on the device from every train ray of the scene, and evaluates
-the scene's val/ views. `pixelnerf` is PixelNeRF (ResNet34 pixel latents,
-64 + 64 samples, 4 x 128 MLP): it trains with the per-step trainer like
-`neo360`, the encoder every step. `mipnerf360` is not ported yet (raises).
+the scene's val/ views. `mipnerf360` is MipNeRF-360 of one scene (two
+64-sample proposal levels of 4 x 256, 32 NeRF samples through 8 x 1024,
+lifted IPE, float32): the same ray-buffer trainer and eval, with the pixel
+radii, the anneal of the step count and the loss sqrt(mse + 1e-6) +
+interlevel + 0.01 distortion. `pixelnerf` is PixelNeRF (ResNet34 pixel
+latents, 64 + 64 samples, 4 x 128 MLP): it trains with the per-step
+trainer like `neo360`, the encoder every step.
 
 `neo360` (alias `triplanar_nocs_fusion_conv_scene`) is the reference
 model: a conditioned coarse level, 128 + 256 merged samples, the 64^3 grid
@@ -41,11 +46,11 @@ the SpatialEncoder frozen, every BatchNorm on its running statistics, lr
 pinned to 5e-6; optimize draws the fixed source views [0, 38, 44] and
 caches each scene's frozen pixel latents once, and keeps every
 checkpoint; the finetune adds 0.3 x LPIPS on one 30x30 patch per step.
-With --eval_mode full_eval it renders every test view of every scene under
-root_dir (vanilla: of the one scene): each scene's source stack is encoded
-once, then views are rendered in `--chunk`-ray tiles; PSNR / SSIM (+
-object PSNR) go to <ckpt_dir>/<exp_name>/results.json and images to
-.../<render_name>/.
+With --eval_mode full_eval it renders every test view of every scene
+under root_dir (vanilla, mipnerf360: of the one scene): each scene's
+source stack is encoded once, then views are rendered in `--chunk`-ray
+tiles; PSNR / SSIM (+ object PSNR) go to
+<ckpt_dir>/<exp_name>/results.json and images to .../<render_name>/.
 Eval weights come from --ckpt_path (a port state_dict, a training
 checkpoint of either layout or a JAX-exported npz, neo360_tpu/utils/io.py:
 save_variables_npz, converted by weights.py), else <exp_dir>/model.pt,
@@ -70,13 +75,19 @@ import torch
 
 from neo360_tpu_torch import weights
 from neo360_tpu_torch.config import Config, preset
-# the vanilla model's sampling bounds (neo360_tpu/cli.py:215, 371)
-from neo360_tpu_torch.data.nerds360 import FAR as VANILLA_FAR
-from neo360_tpu_torch.data.nerds360 import NEAR as VANILLA_NEAR
+# the single-scene models' sampling bounds (neo360_tpu/cli.py:215, 230,
+# 371)
+from neo360_tpu_torch.data.nerds360 import FAR as SCENE_FAR
+from neo360_tpu_torch.data.nerds360 import NEAR as SCENE_NEAR
 from neo360_tpu_torch.train.loop import TrainState
 
 SRC_KEYS = ("src_imgs", "src_poses", "src_focal", "src_c")
 RAY_KEYS = ("rays_o", "rays_d", "viewdirs")
+MIP_RAY_KEYS = RAY_KEYS + ("radii",)
+# MipNeRF-360's anneal runs over this many steps (neo360_tpu/cli.py:224)
+MIP_ANNEAL_STEPS = 1.0e6
+# the presets of one scene, trained by the ray-buffer trainer
+SINGLE_SCENE = ("vanilla", "mipnerf360")
 STAGE_RAY_KEYS = ("rays_o", "rays_d", "viewdirs", "target")
 # one per-step training batch: a sample_train draw (neo360_tpu/cli.py:
 # RAY_KEYS_FEWSHOT + target)
@@ -187,7 +198,10 @@ def build_model(cfg: Config, device=None):
     `resolve_device`), initialised from cfg.seed.
 
     vanilla: VanillaNeRF, cfg.num_coarse_samples or 64 coarse and
-    cfg.num_fine_samples or 128 fine samples, float32. pixelnerf:
+    cfg.num_fine_samples or 128 fine samples, float32. mipnerf360:
+    MipNeRF360 at the JAX model's widths (8 x 1024 NeRF MLP, two 4 x 256
+    proposal MLPs), cfg.num_prop_samples or 64 proposal and
+    cfg.num_fine_samples or 32 NeRF samples. pixelnerf:
     PixelNeRF over cfg.num_src_views views, 64 + 64 samples unless
     overridden, bf16 compute with cfg.bf16.
 
@@ -198,8 +212,6 @@ def build_model(cfg: Config, device=None):
     neo360_fast: the proposal level, 64 proposal and cfg.num_fine_samples
     or 64 fine samples, grid (64, 64, 32), no recompute. Compute is bf16
     with cfg.bf16, else float32 (see `float32_matmuls` for TF32)."""
-    if cfg.exp_type == "mipnerf360":
-        raise NotImplementedError("exp_type 'mipnerf360' is not ported yet")
     device = resolve_device(cfg, device)
     generator = torch.Generator().manual_seed(cfg.seed)
     dtype = torch.bfloat16 if cfg.bf16 else torch.float32
@@ -209,6 +221,12 @@ def build_model(cfg: Config, device=None):
             num_coarse_samples=cfg.num_coarse_samples or 64,
             num_fine_samples=cfg.num_fine_samples or 128,
             generator=generator)
+        return model.to(device).eval()
+    if cfg.exp_type == "mipnerf360":
+        from neo360_tpu_torch.models.mipnerf360 import MipNeRF360
+        model = MipNeRF360(num_prop_samples=cfg.num_prop_samples or 64,
+                           num_nerf_samples=cfg.num_fine_samples or 32,
+                           dtype=dtype, generator=generator)
         return model.to(device).eval()
     if cfg.exp_type == "pixelnerf":
         from neo360_tpu_torch.models.pixelnerf import PixelNeRF
@@ -241,7 +259,8 @@ def build_model(cfg: Config, device=None):
 def make_render_fn(cfg: Config, model, device=None):
     """render_fn(sample) -> the fine level's outputs over a full image of
     rays, with the sample's arrays placed on `device` (default cfg.device,
-    see `resolve_device`): {"rgb", "depth", "acc"} for vanilla, {"rgb",
+    see `resolve_device`): {"rgb", "depth", "acc"} for vanilla and
+    mipnerf360 (its NeRF level, train_frac 1, no jitter), {"rgb",
     "depth"} for pixelnerf, {"rgb", "depth", "fg_rgb", "bg_rgb", "fg_acc",
     "bg_acc"} for the NeO-360 models.
 
@@ -257,11 +276,19 @@ def make_render_fn(cfg: Config, model, device=None):
 
     if cfg.exp_type == "vanilla":
         def render_chunk(_, rays):
-            out = model(rays, cfg.white_back, VANILLA_NEAR, VANILLA_FAR)[1]
+            out = model(rays, cfg.white_back, SCENE_NEAR, SCENE_FAR)[1]
             return {k: out[k] for k in ("rgb", "depth", "acc")}
 
         renderer = make_image_renderer(render_chunk, cfg.chunk)
         return lambda sample: renderer(None, place(sample, RAY_KEYS))
+
+    if cfg.exp_type == "mipnerf360":
+        def render_chunk(_, rays):
+            out = model(rays, 1.0, False, SCENE_NEAR, SCENE_FAR)[0][-1]
+            return {k: out[k] for k in ("rgb", "depth", "acc")}
+
+        renderer = make_image_renderer(render_chunk, cfg.chunk)
+        return lambda sample: renderer(None, place(sample, MIP_RAY_KEYS))
 
     if cfg.exp_type == "pixelnerf":
         def render_chunk(pack, rays):
@@ -334,9 +361,9 @@ def restore(cfg: Config, model, exp_dir: str) -> Optional[str]:
 def run_eval(cfg: Config, device=None, n_frames: int = 40
              ) -> Dict[str, float]:
     """Evaluate (neo360_tpu/cli.py:run_eval, 860-950): every test view of
-    the root (vanilla: the scene's val/ views; the few-shot models: every
-    scene's, each scene's source stack encoded once), metrics to
-    results.json and images under <exp_dir>/<render_name>. With
+    the root (vanilla, mipnerf360: the scene's val/ views; the few-shot
+    models: every scene's, each scene's source stack encoded once),
+    metrics to results.json and images under <exp_dir>/<render_name>. With
     --eval_mode vis_only the views also become a video and an
     `n_frames`-frame spiral becomes video360 (`_render_trajectory`).
     Returns the summary."""
@@ -360,7 +387,7 @@ def run_eval(cfg: Config, device=None, n_frames: int = 40
         print(f"loaded weights from {loaded}")
 
     render_fn = make_render_fn(cfg, model, device)
-    if cfg.exp_type == "vanilla":
+    if cfg.exp_type in SINGLE_SCENE:
         from neo360_tpu_torch.data.nerds360 import NeRDS360
         test_ds = NeRDS360(cfg.root_dir, "test", cfg.img_wh)
         samples = (test_ds.image_rays(i) for i in range(test_ds.num_images))
@@ -393,15 +420,15 @@ def run_eval(cfg: Config, device=None, n_frames: int = 40
 def _render_trajectory(cfg: Config, render_fn, test_ds, out_dir: str,
                        n_frames: int = 40) -> str:
     """vis_only: render `n_frames` poses of a 360-degree spiral
-    (train.eval.trajectory_360) around the first test pose (vanilla:
-    `test_ds.c2w[0]`; the few-shot models: scene 0's first test pose, else
-    its first train pose, with its test source stack, so its cached encode
-    serves every frame) and store them as video360.mp4 (or .gif);
-    returns the path (neo360_tpu/cli.py:952-974)."""
+    (train.eval.trajectory_360) around the first test pose (vanilla and
+    mipnerf360: `test_ds.c2w[0]`; the few-shot models: scene 0's first
+    test pose, else its first train pose, with its test source stack, so
+    its cached encode serves every frame) and store them as video360.mp4
+    (or .gif); returns the path (neo360_tpu/cli.py:952-974)."""
     from neo360_tpu_torch.train.eval import trajectory_360
     from neo360_tpu_torch.utils import io
     w, h = cfg.img_wh
-    if cfg.exp_type == "vanilla":
+    if cfg.exp_type in SINGLE_SCENE:
         samples = (test_ds.pose_rays(p)
                    for p in trajectory_360(np.asarray(test_ds.c2w[0]),
                                            n_frames))
@@ -437,12 +464,14 @@ def _cpu(tensors: Dict) -> Dict:
 
 def checkpoint_payload(state) -> Dict:
     """The checkpoint of either trainer's state, on the CPU: the step, the
-    BatchNorm buffers and, for a TrainState (the per-step trainer), all
+    BatchNorm buffers (every buffer a state_dict holds) and, for a TrainState (the per-step trainer), all
     parameters (the frozen ones too) and the one Adam state of the trained
     ones; for a SceneStageState both parameter partitions and both Adam
     states."""
+    held = state.model.state_dict()   # no non-persistent buffer
     out = {"step": state.step,
-           "batch_stats": _cpu(dict(state.model.named_buffers()))}
+           "batch_stats": _cpu({k: v for k, v in
+                                state.model.named_buffers() if k in held})}
     if isinstance(state, TrainState):
         out.update(params=_cpu(dict(state.model.named_parameters())),
                    opt=state.opt.state_dict())
@@ -498,19 +527,41 @@ def make_loss_fn(cfg: Config, model, randomized: bool = True,
     `lpips_model`, LPIPS_WEIGHT x LPIPS of the fine rgb against the target
     is added; the batch must then be a square patch (raises otherwise).
 
+    mipnerf360 (neo360_tpu/cli.py:221-238): loss_fn(batch, generator,
+    step), sqrt(mse + 1e-6) + interlevel + 0.01 distortion on the NeRF
+    level's MSE, the proposal logits annealed by train_frac = clip(step /
+    1e6, 0, 1) of the step count before the step.
+
     vanilla and pixelnerf (neo360_tpu/cli.py:210-255): the two levels'
     MSE, l0 + l1; pixelnerf encodes the batch's source views with
     BatchNorm in training mode (on its running statistics in the optimize
     and finetune modes, which for pixelnerf only pin the lr and freeze
     nothing, as the JAX CLI's partition matches no PixelNeRF parameter)."""
     from neo360_tpu_torch.ops.losses import img2mse, mse2psnr
+    if cfg.exp_type == "mipnerf360":
+        from neo360_tpu_torch.models.mipnerf360 import distortion_loss, \
+            interlevel_loss
+
+        def mip_loss(batch, generator, step):
+            train_frac = min(max(step / MIP_ANNEAL_STEPS, 0.0), 1.0)
+            rays = {k: batch[k] for k in MIP_RAY_KEYS}
+            rend, hist = model(rays, train_frac, randomized, SCENE_NEAR,
+                               SCENE_FAR, generator=generator)
+            mse = img2mse(rend[-1]["rgb"], batch["target"])
+            loss = (torch.sqrt(mse + 1e-6) + interlevel_loss(hist)
+                    + 0.01 * distortion_loss(hist))
+            mse = mse.detach()
+            return loss, {"mse": mse, "psnr": mse2psnr(mse),
+                          "loss": loss.detach()}
+
+        return mip_loss
     if cfg.exp_type in ("vanilla", "pixelnerf"):
         train_bn = not frozen_encoder(cfg)
 
         def two_level_loss(batch, generator):
             rays = {k: batch[k] for k in RAY_KEYS}
             if cfg.exp_type == "vanilla":
-                out = model(rays, cfg.white_back, VANILLA_NEAR, VANILLA_FAR,
+                out = model(rays, cfg.white_back, SCENE_NEAR, SCENE_FAR,
                             randomized=randomized, generator=generator)
             else:
                 rays.update({k: batch[k] for k in SRC_KEYS})
@@ -669,8 +720,9 @@ def _validate_and_save(cfg: Config, state, step: int, render_fn, sample,
 
 
 def _run_train_buffers(cfg: Config, model, device, datasets, logger, ckpt):
-    """The vanilla branch of neo360_tpu/cli.py:run_train (601-652): every
-    train ray of the scene in device buffers, `steps_per_call` steps of
+    """The vanilla and mipnerf360 branch of neo360_tpu/cli.py:run_train
+    (601-652): every train ray of the scene in device buffers (with the
+    pixel radii), `steps_per_call` steps of
     cfg.batch_size rays per call (`make_buffer_trainer`), one Adam over
     every parameter, metrics logged every call; when the step count
     crosses a multiple of save_every_steps, validation of the val split's
@@ -686,8 +738,9 @@ def _run_train_buffers(cfg: Config, model, device, datasets, logger, ckpt):
     state = tl.create_train_state(model,
                                   lambda params: build_optimizer(cfg, params))
     runner = tl.make_buffer_trainer(
-        tl.make_train_step(make_loss_fn(cfg, model)), cfg.batch_size,
-        cfg.steps_per_call)
+        tl.make_train_step(make_loss_fn(cfg, model),
+                           with_step=cfg.exp_type == "mipnerf360"),
+        cfg.batch_size, cfg.steps_per_call)
     resume(ckpt, state)
     render_fn = make_render_fn(cfg, model, device)
     generator = torch.Generator(device).manual_seed(cfg.seed + 2)
@@ -702,9 +755,9 @@ def _run_train_buffers(cfg: Config, model, device, datasets, logger, ckpt):
 
 
 def run_train(cfg: Config, device=None, datasets=None):
-    """Train (neo360_tpu/cli.py:run_train, 575-819). vanilla runs the
-    ray-buffer trainer (`_run_train_buffers`); the few-shot models run the
-    branch below.
+    """Train (neo360_tpu/cli.py:run_train, 575-819). vanilla and
+    mipnerf360 run the ray-buffer trainer (`_run_train_buffers`); the
+    few-shot models run the branch below.
 
     With stage_k <= 1 the per-step trainer runs `stage_size` steps per
     call (stage_size: min(steps_per_call, save_every_steps,
@@ -721,8 +774,8 @@ def run_train(cfg: Config, device=None, datasets=None):
     logs the val grid and checkpoints when it crosses a multiple of
     save_every_steps. The stage trainer and the optimize mode's cached
     latents are NeO-360's; pixelnerf always runs the per-step trainer.
-    `datasets`: (train, val) samplers to use instead of NeRDS360AE (vanilla:
-    NeRDS360) over cfg.root_dir. Returns the TrainState or
+    `datasets`: (train, val) samplers to use instead of NeRDS360AE (vanilla,
+    mipnerf360: NeRDS360) over cfg.root_dir. Returns the TrainState or
     SceneStageState."""
     from neo360_tpu_torch.data.nerds360_ae import NeRDS360AE
     from neo360_tpu_torch.models.neo360 import SRC_KEYS as MODEL_SRC_KEYS
@@ -754,7 +807,7 @@ def run_train(cfg: Config, device=None, datasets=None):
     _maybe_load_resnet(cfg, model)
     _maybe_warm_start(cfg, model)
     neo360 = cfg.exp_type in ("neo360", "neo360_fast")
-    if cfg.exp_type == "vanilla":
+    if cfg.exp_type in SINGLE_SCENE:
         state = _run_train_buffers(cfg, model, device, datasets, logger,
                                    ckpt)
         logger.close()

@@ -1,5 +1,5 @@
-"""Camera rays of a pinhole camera (port of neo360_tpu/core/rays.py:25-97,
-without the MipNeRF pixel radii).
+"""Camera rays of a pinhole camera and the MipNeRF pixel radii (port of
+neo360_tpu/core/rays.py:25-97).
 
 OpenGL convention: x right, y up, the camera looks down -z; no +0.5 pixel
 centring (the reference's datasets/ray_utils.py). Computed with torch on
@@ -8,9 +8,12 @@ the device of the pose.
 
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
+
+_INV_SQRT12_X2 = 2.0 / math.sqrt(12.0)
 
 
 def get_ray_directions(h: int, w: int, focal: float, device=None
@@ -35,10 +38,23 @@ def get_rays(directions: torch.Tensor, c2w: torch.Tensor
     return {"rays_o": rays_o, "rays_d": rays_d, "viewdirs": viewdirs}
 
 
+def pixel_radii(rays_d_image: torch.Tensor) -> torch.Tensor:
+    """MipNeRF base radii of the pixel cones of an (H, W, 3) direction
+    image: |d[y+1, x] - d[y, x]| * 2 / sqrt(12), the last row a copy of the
+    one before it. Returns (H, W, 1)."""
+    dx = torch.sqrt(torch.sum((rays_d_image[:-1] - rays_d_image[1:]) ** 2,
+                              dim=-1))
+    dx = torch.cat([dx, dx[-2:-1]], dim=0)
+    return (dx * _INV_SQRT12_X2)[..., None]
+
+
 def rays_for_camera(h: int, w: int, focal: float, c2w: torch.Tensor
                     ) -> Dict[str, torch.Tensor]:
-    """Every pixel's ray of one camera as flat (H*W, 3) tensors on c2w's
-    device: rays_o, rays_d, viewdirs."""
+    """Every pixel's ray of one camera as flat tensors on c2w's device:
+    rays_o, rays_d, viewdirs (H*W, 3) and radii (H*W, 1)."""
     r = get_rays(get_ray_directions(h, w, focal, c2w.device),
                  c2w.to(torch.float32))
-    return {k: v.reshape(-1, 3) for k, v in r.items()}
+    radii = pixel_radii(r["rays_d"])
+    out = {k: v.reshape(-1, 3) for k, v in r.items()}
+    out["radii"] = radii.reshape(-1, 1)
+    return out

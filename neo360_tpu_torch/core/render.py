@@ -1,5 +1,6 @@
-"""Volumetric compositing (port of neo360_tpu/core/render.py:26-96): the
-plain NeRF rule and the NeRF++ fg/bg rule.
+"""Volumetric compositing (port of neo360_tpu/core/render.py:26-96,
+124-163): the plain NeRF rule, the NeRF++ fg/bg rule and the MipNeRF-360
+rule.
 
 `composite_vanilla` is one level's plain NeRF composite
 (neo360_tpu/core/render.py:volumetric_rendering), which the vanilla NeRF
@@ -17,6 +18,14 @@ built on the plain `volumetric_rendering_nerfpp`. With autograd on it runs
 as a `torch.autograd.Function` whose backward is kernel B'
 (csrc/composite_nerfpp_bwd.cu) on CUDA and autograd of the plain version on
 the CPU; t, dirs and far take no gradient.
+
+`composite_mip` is one MipNeRF-360 level's composite
+(neo360_tpu/core/render.py:compute_alpha_weights + render_mip), which
+neo360_tpu_torch/models/mipnerf360.py calls once per level. On CUDA
+tensors it is kernel E (csrc/composite_mip.cu), on CPU tensors
+`composite_mip_reference`; its backward is kernel E'
+(csrc/composite_mip_bwd.cu) on CUDA and autograd of the plain version on
+the CPU; tdist and dirs take no gradient.
 """
 
 from __future__ import annotations
@@ -371,3 +380,174 @@ def composite_vanilla(rgb, density, t_vals, dirs, white_bkgd: bool = False):
 
 composite_vanilla.launches = 0
 composite_vanilla_backward.launches = 0
+
+
+# --- the MipNeRF-360 composite (kernels E and E') ------------------------
+
+MIP_OUT_KEYS = ("weights", "rgb", "acc", "depth")
+
+
+def composite_mip_reference(density: torch.Tensor, tdist: torch.Tensor,
+                            dirs: torch.Tensor, rgb: torch.Tensor, bg: float,
+                            opaque_background: bool = True):
+    """Plain PyTorch version of kernel E: neo360_tpu/core/render.py:
+    compute_alpha_weights then render_mip, in their order of operations.
+
+    density (B,S), tdist (B,S+1), dirs (B,3), rgb (B,S,3), bg a scalar
+    background colour. Each interval is scaled by |dirs|; with
+    `opaque_background` the last one is infinitely wide (alpha 1, and its
+    density takes no gradient). The background's weight is
+    torch.maximum(0, 1 - acc), whose gradient at the tie acc == 1 is 0.5,
+    as jnp.maximum's (torch.clamp would give 1). Returns weights (B,S),
+    rgb (B,3), acc (B,), depth (B,) over the interval midpoints."""
+    t_delta = tdist[..., 1:] - tdist[..., :-1]
+    delta = t_delta * torch.linalg.norm(dirs[..., None, :], dim=-1)
+    density_delta = density * delta
+    if opaque_background:
+        density_delta = torch.cat(
+            [density_delta[..., :-1],
+             torch.full_like(density_delta[..., -1:], float("inf"))], dim=-1)
+    alpha = 1.0 - torch.exp(-density_delta)
+    trans = torch.exp(-torch.cat(
+        [torch.zeros_like(density_delta[..., :1]),
+         torch.cumsum(density_delta[..., :-1], dim=-1)], dim=-1))
+    weights = alpha * trans
+
+    acc = torch.sum(weights, dim=-1)
+    bg_w = torch.maximum(torch.zeros_like(acc[..., None]),
+                         1.0 - acc[..., None])
+    comp = torch.sum(weights[..., None] * rgb, dim=-2) + bg_w * bg
+    t_mids = 0.5 * (tdist[..., 1:] + tdist[..., :-1])
+    depth = torch.sum(weights * t_mids, dim=-1)
+    return weights, comp, acc, depth
+
+
+def _mip_checked(name, args):
+    """density, tdist, dirs, rgb contiguous on one CUDA device with the
+    shapes and type the kernels take; returns them and (B, S)."""
+    args = tuple(a.contiguous() for a in args)
+    kernels.require_cuda(name, *args)
+    density, tdist, dirs, rgb = args
+    if density.dim() != 2 or density.shape[1] < 1:
+        raise ValueError(f"{name}: density must be (B, S) with S >= 1, got "
+                         f"{tuple(density.shape)}")
+    b, s = density.shape
+    for x, shape in ((density, (b, s)), (tdist, (b, s + 1)), (dirs, (b, 3)),
+                     (rgb, (b, s, 3))):
+        if tuple(x.shape) != shape or x.dtype != torch.float32:
+            raise ValueError(f"{name}: expected float32 {shape}, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+    return args, (b, s)
+
+
+def _mip_forward(args, bg: float, opaque: bool):
+    if all(a.device.type == "cpu" for a in args):
+        return composite_mip_reference(*args, bg, opaque)
+    args, (b, s) = _mip_checked("composite_mip", args)
+    density, tdist, dirs, rgb = args
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32,
+                                     device=dirs.device)
+    out = (new(b, s), new(b, 3), new(b), new(b))
+    kernels.launch("composite_mip_fwd", dirs.device, density.data_ptr(),
+                   tdist.data_ptr(), dirs.data_ptr(), rgb.data_ptr(), s, b,
+                   float(bg), int(opaque), *(o.data_ptr() for o in out))
+    composite_mip.launches += 1
+    return out
+
+
+def composite_mip_backward(args, acc, grads, bg: float = 1.0,
+                           opaque: bool = True):
+    """Gradients (d density, d rgb) of `composite_mip` at inputs `args`
+    (density, tdist, dirs, rgb) for the output cotangents `grads` (one per
+    MIP_OUT_KEYS entry, None = zero). `acc` is the forward's acc: kernel
+    E' takes the background weight's branch from it (0.5 at the tie).
+
+    CPU tensors: autograd of `composite_mip_reference` (which takes the
+    branch from its own acc; `acc` is not read). CUDA tensors launch
+    kernel E' (csrc/composite_mip_bwd.cu) and add one to
+    `composite_mip_backward.launches`."""
+    if all(a.device.type == "cpu" for a in args):
+        with torch.enable_grad():
+            leaves = [a.detach().requires_grad_(i in (0, 3))
+                      for i, a in enumerate(args)]
+            out = composite_mip_reference(*leaves, bg, opaque)
+            pairs = [(o, g) for o, g in zip(out, grads) if g is not None]
+            wrt = [leaves[0], leaves[3]]
+            d = torch.autograd.grad([o for o, _ in pairs], wrt,
+                                    [g for _, g in pairs],
+                                    allow_unused=True) if pairs else [None] * 2
+            return tuple(torch.zeros_like(a) if g is None else g
+                         for a, g in zip(wrt, d))
+    name = "composite_mip_backward"
+    args, (b, s) = _mip_checked(name, args)
+    density, tdist, dirs, rgb = args
+    acc = acc.contiguous()
+    if tuple(acc.shape) != (b,) or acc.dtype != torch.float32 or \
+            acc.device != dirs.device:
+        raise ValueError(f"{name}: acc must be float32 ({b},) on "
+                         f"{dirs.device}")
+    cots = []
+    for key, g in zip(MIP_OUT_KEYS, grads):
+        if g is not None:
+            g = g.contiguous()
+            if g.dtype != torch.float32 or g.device != dirs.device:
+                raise ValueError(f"{name}: cotangent of {key} must be "
+                                 f"float32 on {dirs.device}")
+        cots.append(g)
+    d = (torch.empty_like(density), torch.empty_like(rgb))
+    kernels.launch("composite_mip_bwd", dirs.device, density.data_ptr(),
+                   tdist.data_ptr(), dirs.data_ptr(), rgb.data_ptr(), s, b,
+                   float(bg), int(opaque), acc.data_ptr(),
+                   *(None if g is None else g.data_ptr() for g in cots),
+                   *(x.data_ptr() for x in d))
+    composite_mip_backward.launches += 1
+    return d
+
+
+class _CompositeMip(torch.autograd.Function):
+    """composite_mip with the gradient of `composite_mip_backward`."""
+
+    @staticmethod
+    def forward(ctx, bg, opaque, *args):
+        ctx.set_materialize_grads(False)
+        ctx.bg, ctx.opaque = bg, opaque
+        out = _mip_forward(args, bg, opaque)
+        ctx.save_for_backward(*args, out[2])
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        *args, acc = ctx.saved_tensors
+        d = composite_mip_backward(args, acc, grads, ctx.bg, ctx.opaque)
+        return None, None, d[0], None, None, d[1]
+
+
+def composite_mip(density, tdist, dirs, rgb, bg: float = 1.0,
+                  opaque_background: bool = True):
+    """One MipNeRF-360 level's composite: (weights (B,S), rgb (B,3), acc
+    (B,), depth (B,)), float32 (`composite_mip_reference`).
+
+    CPU tensors run `composite_mip_reference`; CUDA tensors launch kernel
+    E (csrc/composite_mip.cu) and add one to `composite_mip.launches`.
+    With grad enabled the call is a `_CompositeMip` autograd Function
+    whose backward is kernel E' on CUDA; tdist and dirs must not require
+    grad (raises)."""
+    args = (density, tdist, dirs, rgb)
+    if not torch.is_grad_enabled():
+        return _mip_forward(args, bg, opaque_background)
+    for name, a in (("tdist", tdist), ("dirs", dirs)):
+        if a.requires_grad:
+            raise ValueError(f"composite_mip: {name} takes no gradient "
+                             f"(detach it)")
+    return _CompositeMip.apply(float(bg), bool(opaque_background), *args)
+
+
+composite_mip.launches = 0
+composite_mip_backward.launches = 0
+
+# kernel E' against autograd of the plain version (ops.kernels.compare):
+# 1e-4 relative and 1e-5 * max|ref|. The kernel sums the transmittance's
+# exponent and the reverse sum R_i in warp-scan order (torch.cumsum runs
+# in sequence), and d density = delta (g e T - R) cancels where the two
+# terms meet.
+MIP_BACKWARD_TOL = dict(rtol=1e-4, atol_frac=1e-5)

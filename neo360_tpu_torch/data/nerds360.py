@@ -91,8 +91,9 @@ class NeRDS360:
         return {k: torch.cat([r[k] for r in per_cam]) for k in per_cam[0]}
 
     def ray_buffers(self, device="cpu") -> Dict[str, torch.Tensor]:
-        """Every ray and target colour of the split as flat (N_imgs*H*W, 3)
-        tensors on `device`: rays_o, rays_d, viewdirs, target."""
+        """Every ray and target colour of the split as flat tensors on
+        `device`: rays_o, rays_d, viewdirs, target (N_imgs*H*W, 3) and the
+        pixel radii (N_imgs*H*W, 1)."""
         out = self._rays(self.c2w, device)
         rgbs = np.stack([load_rgb(os.path.join(self.base_dir, "rgb", f),
                                   self.img_wh) for f in self.img_files])
@@ -100,13 +101,14 @@ class NeRDS360:
         return out
 
     def pose_rays(self, c2w: np.ndarray) -> Dict[str, np.ndarray]:
-        """The (H*W, 3) rays of any pose (4x4 or 3x4), no target."""
+        """The rays (H*W, 3) and radii (H*W, 1) of any pose (4x4 or 3x4),
+        no target."""
         return {k: v.numpy() for k, v in
                 self._rays(np.asarray(c2w, np.float32)[None], "cpu").items()}
 
     def image_rays(self, idx: int) -> Dict[str, np.ndarray]:
-        """Rays and target (H*W, 3) of image `idx`, and its instance_mask
-        (H*W,) where the scene has segmentation."""
+        """Rays and target (H*W, 3) and radii (H*W, 1) of image `idx`, and
+        its instance_mask (H*W,) where the scene has segmentation."""
         out = {k: v.numpy() for k, v in
                self._rays(self.c2w[idx:idx + 1], "cpu").items()}
         name = self.img_files[idx]

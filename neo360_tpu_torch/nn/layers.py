@@ -24,11 +24,13 @@ _TRUNC_STD = 0.87962566103423978
 
 def init_weight(w: torch.Tensor, kind: str, fan_in: int, fan_out: int,
                 generator: Optional[torch.Generator]) -> None:
-    """In place: "xavier" (uniform), "kaiming" (he_normal) or "lecun"
-    (lecun_normal), as flax.linen.initializers."""
+    """In place: "xavier" (uniform), "kaiming" (he_normal),
+    "kaiming_uniform" (he_uniform) or "lecun" (lecun_normal), as
+    flax.linen.initializers."""
     with torch.no_grad():
-        if kind == "xavier":
-            a = math.sqrt(6.0 / (fan_in + fan_out))
+        if kind in ("xavier", "kaiming_uniform"):
+            a = math.sqrt(6.0 / (fan_in + fan_out) if kind == "xavier"
+                          else 6.0 / fan_in)
             w.uniform_(-a, a, generator=generator)
             return
         scale = {"kaiming": 2.0, "lecun": 1.0}[kind]

@@ -80,6 +80,13 @@ SIGNATURES = {
     # the forward's inputs, then the cotangents of comp, acc, weights,
     # depth (null = zero), then d rgb, d sigma, stream
     "composite_vanilla_bwd": (_P, _P, _P, _I, _P, _I, _I) + (_P,) * 7,
+    # density, tdist, dirs, rgb, s, n_rays, bg, opaque, weights, comp, acc,
+    # depth, stream
+    "composite_mip_fwd": (_P, _P, _P, _P, _I, _I, _F, _I, _P, _P, _P, _P,
+                          _P),
+    # the forward's inputs, its acc, then the cotangents of weights, comp,
+    # acc, depth (null = zero), then d density, d rgb, stream
+    "composite_mip_bwd": (_P, _P, _P, _P, _I, _I, _F, _I) + (_P,) * 8,
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -1,9 +1,10 @@
-"""Loss primitives (port of neo360_tpu/ops/losses.py:25-101): MSE / PSNR,
+"""Loss primitives (port of neo360_tpu/ops/losses.py:25-115): MSE / PSNR,
 the MipNeRF-360 interlevel bound and the distortion loss.
 
 `lossfun_distortion` is the O(S^2) formula, kept as the test oracle of the
-O(S) prefix-sum `eff_distloss`. These stay plain PyTorch on the card, as
-the JAX package leaves them to XLA.
+O(S) prefix-sum forms `eff_distloss` (on midpoints) and
+`distortion_loss` (on interval edges, per ray). These stay plain PyTorch
+on the card, as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -73,3 +74,14 @@ def eff_distloss(w: torch.Tensor, m: torch.Tensor, interval) -> torch.Tensor:
     loss_inter = 2.0 * torch.sum(w * (m * cum_w - cum_wm), dim=-1)
     loss_intra = torch.sum(w ** 2 * interval, dim=-1) / 3.0
     return torch.mean(loss_inter + loss_intra)
+
+
+def distortion_loss(t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """O(S) distortion per ray (B,), equal to `lossfun_distortion`: t
+    (B,S+1) sorted edges, w (B,S)."""
+    ut = 0.5 * (t[..., 1:] + t[..., :-1])
+    cum_w = torch.cumsum(w, dim=-1) - w
+    cum_wm = torch.cumsum(w * ut, dim=-1) - w * ut
+    loss_inter = 2.0 * torch.sum(w * (ut * cum_w - cum_wm), dim=-1)
+    loss_intra = torch.sum(w ** 2 * (t[..., 1:] - t[..., :-1]), dim=-1) / 3
+    return loss_inter + loss_intra

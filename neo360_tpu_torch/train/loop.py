@@ -60,17 +60,21 @@ def create_train_state(model: nn.Module,
                       opt=make_optimizer(list(params.values())))
 
 
-def make_train_step(loss_fn: Callable, with_model_state: bool = False):
+def make_train_step(loss_fn: Callable, with_model_state: bool = False,
+                    with_step: bool = False):
     """train_step(state, batch, generator) -> metrics: loss_fn(batch,
     generator) -> (loss, metrics), the gradient of the loss with respect to
     every parameter (zero where it does not reach one), one optimizer step.
     `with_model_state`: the model has BatchNorm layers in training mode;
     the running statistics the step's forward recorded are committed after
-    the step (`nn.layers.commit_running_stats`)."""
+    the step (`nn.layers.commit_running_stats`). `with_step`: loss_fn also
+    takes the state's step count before the step, as a third argument
+    (MipNeRF-360's anneal; neo360_tpu/train/loop.py's `with_step`)."""
     from neo360_tpu_torch.nn.layers import commit_running_stats
 
     def train_step(state: TrainState, batch, generator):
-        loss, metrics = loss_fn(batch, generator)
+        extra = (state.step,) if with_step else ()
+        loss, metrics = loss_fn(batch, generator, *extra)
         params = list(state.params.values())
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         state.opt.step(_grads(grads, params))

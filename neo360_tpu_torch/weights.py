@@ -15,8 +15,10 @@ after these conversions:
   keeps its name and layout.
 
 The same conversion carries the NeRFTP, VanillaNeRF (`coarse_mlp.*`,
-`fine_mlp.*`) and PixelNeRF (`encoder.backbone.*` with its BatchNorm
-statistics, `coarse_mlp.*`, `fine_mlp.*`) trees.
+`fine_mlp.*`), PixelNeRF (`encoder.backbone.*` with its BatchNorm
+statistics, `coarse_mlp.*`, `fine_mlp.*`) and MipNeRF360 (`prop_mlp_0.*`,
+`prop_mlp_1.*`, `nerf_mlp.*`; its icosahedron basis is a buffer that no
+checkpoint holds) trees.
 """
 
 from __future__ import annotations

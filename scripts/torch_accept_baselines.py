@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Acceptance of the port's vanilla NeRF and PixelNeRF: train each through
-the port's CLI by the JAX package's acceptance protocol
-(scripts/accept_vanilla.py, scripts/accept_mip_pixelnerf.py `pn_*`, cut
-nowhere) and hold its test quality to the JAX package's numbers, less
-2.0 dB PSNR and 0.02 SSIM.
+"""Acceptance of the port's vanilla NeRF, MipNeRF-360 and PixelNeRF: train
+each through the port's CLI by the JAX package's acceptance protocol
+(scripts/accept_vanilla.py, scripts/accept_mip_pixelnerf.py, cut nowhere)
+and hold its test quality to the JAX package's numbers, less 2.0 dB PSNR
+and 0.02 SSIM.
 
     python3 scripts/torch_accept_baselines.py PHASE [--state DIR]
         [--steps N] [--device cuda|cpu]
@@ -18,6 +18,13 @@ each printing one JSON line (also appended to <state>/accept.jsonl):
 - vanilla_eval: `full_eval` of the newest checkpoint on the scene's 5
   test views; the bar: PSNR >= 35.09 and SSIM >= 0.967 (JAX: 37.09 /
   0.987, BASELINE.md:181-190).
+- mip_train: `--exp_type mipnerf360` (ray-buffer trainer, 2048 rays a
+  step, 500 steps a call, float32) on a 320x240 micro scene to --steps
+  (default 20,000), a validation render and checkpoint every steps / 3;
+  resumes likewise.
+- mip_eval: `full_eval` (4096-ray tiles) of the newest checkpoint on the
+  scene's 5 test views; the bar: PSNR >= 35.05 and SSIM >= 0.968 (JAX:
+  37.05 / 0.988, BASELINE.md:496-511).
 - pixelnerf_train: `--exp_type pixelnerf` (per-step trainer, 512 rays a
   step, bf16, 100 steps a call) on a 3-scene 320x240 root with 3 test
   views a scene to --steps (default 20,000), a validation render and
@@ -60,16 +67,19 @@ from neo360_tpu_torch.data.fixtures import make_micro_scene, \
 from neo360_tpu_torch.train.checkpoints import CheckpointManager  # noqa
 
 # JAX's numbers (TPU v5e, the same protocol) and the bar below them
-JAX = {"vanilla": (37.09, 0.987), "pixelnerf": (31.31, 0.970)}
+JAX = {"vanilla": (37.09, 0.987), "mipnerf360": (37.05, 0.988),
+       "pixelnerf": (31.31, 0.970)}
 BAR_DB, BAR_SSIM = 2.0, 0.02
-STEPS = {"vanilla": 30000, "pixelnerf": 20000}
+STEPS = {"vanilla": 30000, "mipnerf360": 20000, "pixelnerf": 20000}
+# the phases' prefix -> the model
+MODELS = {"vanilla": "vanilla", "mip": "mipnerf360", "pixelnerf": "pixelnerf"}
 EXP = "accept"
 
 
 def parse(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("phase", choices=["vanilla_train", "vanilla_eval",
-                                     "pixelnerf_train", "pixelnerf_eval"])
+    p.add_argument("phase", choices=[f"{m}_{w}" for m in MODELS
+                                     for w in ("train", "eval")])
     p.add_argument("--state", default="build/torch_accept_baselines")
     p.add_argument("--steps", type=int, default=None,
                    help="training steps (default: the protocol's)")
@@ -99,7 +109,7 @@ class Run:
         self.steps = args.steps or STEPS[model]
         if not os.path.isdir(self.root):
             t0 = time.perf_counter()
-            if model == "vanilla":
+            if model in ("vanilla", "mipnerf360"):
                 make_micro_scene(self.root, wh=wh)
             else:
                 make_multi_scene_root(self.root, 3, wh=wh, n_val=3)
@@ -107,16 +117,21 @@ class Run:
                   flush=True)
 
     def cfg(self, **kw):
+        per_call = 100
         if self.model == "vanilla":
             cfg = preset("vanilla", save_every_steps=max(1000,
                                                          self.steps // 4))
+        elif self.model == "mipnerf360":
+            cfg = preset("mipnerf360", chunk=4096,
+                         save_every_steps=max(1, self.steps // 3))
+            per_call = 500
         else:
             cfg = preset("pixelnerf", ray_batch_size=512, chunk=1024,
                          bf16=True, save_every_steps=max(1,
                                                          self.steps // 3))
         cfg = cfg.replace(root_dir=self.root, exp_name=EXP,
                           ckpt_dir=self.ckpt_dir, img_wh=(320, 240),
-                          run_max_steps=self.steps, steps_per_call=100,
+                          run_max_steps=self.steps, steps_per_call=per_call,
                           device=self.args.device)
         return cfg.replace(**self.overrides).replace(**kw)
 
@@ -146,7 +161,8 @@ def steady_ms_per_step(records):
 
 def phase_train(run):
     cfg = run.cfg()
-    rays = cfg.batch_size if run.model == "vanilla" else cfg.ray_batch_size
+    rays = (cfg.ray_batch_size if run.model == "pixelnerf"
+            else cfg.batch_size)
     print(f"train {cfg.exp_type} to {cfg.run_max_steps} steps, {rays} "
           f"rays/step, save every {cfg.save_every_steps} -> "
           f"{cfg.ckpt_dir}", flush=True)
@@ -169,7 +185,7 @@ def phase_train(run):
 
 
 def phase_eval(run):
-    modes = ("batch",) if run.model == "vanilla" else ("batch", "running")
+    modes = ("batch", "running") if run.model == "pixelnerf" else ("batch",)
     jax_psnr, jax_ssim = JAX[run.model]
     out = {}
     for mode in modes:
@@ -197,8 +213,8 @@ def phase_eval(run):
 
 def main(argv=None, wh=(320, 240), **overrides):
     args = parse(argv)
-    model, what = args.phase.split("_")
-    run = Run(args, model, overrides, wh)
+    prefix, what = args.phase.split("_")
+    run = Run(args, MODELS[prefix], overrides, wh)
     return phase_train(run) if what == "train" else phase_eval(run)
 
 

@@ -197,17 +197,23 @@ def test_render_trajectory_fewshot(scenes, tmp_path):
     assert not np.allclose(seen[0], seen[1])
 
 
-def test_baselines_default_to_the_card_and_mipnerf360_waits(scene):
-    """build_model and make_render_fn of both baselines run on the card
-    unless told otherwise (no CUDA here: they raise); mipnerf360 is not
-    ported (raises)."""
-    for exp_type in ("vanilla", "pixelnerf"):
+def test_baselines_default_to_the_card(scene):
+    """build_model and make_render_fn of the three baselines (vanilla,
+    mipnerf360, pixelnerf) run on the card unless told otherwise (no CUDA
+    here: they raise); with "cpu", build_model gives mipnerf360 at full
+    width (8 x 1024 NeRF MLP, two 4 x 256 proposal MLPs)."""
+    for exp_type in ("vanilla", "mipnerf360", "pixelnerf"):
         cfg = preset(exp_type, root_dir=scene)
         assert cfg.device == "cuda"
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="CUDA"):
                 cli.build_model(cfg)
-    with pytest.raises(NotImplementedError, match="mipnerf360"):
-        cli.build_model(preset("mipnerf360"), "cpu")
+            with pytest.raises(RuntimeError, match="CUDA"):
+                cli.make_render_fn(cfg, None)
+    mip = cli.build_model(preset("mipnerf360"), "cpu")
+    assert tuple(mip.nerf_mlp.pts_7.weight.shape) == (1024, 1024)
+    assert tuple(mip.nerf_mlp.pts_5.weight.shape) == (1024, 1024 + 504)
+    assert tuple(mip.prop_mlp_1.pts_3.weight.shape) == (256, 256)
+    assert (mip.num_prop_samples, mip.num_nerf_samples) == (64, 32)
     assert cli.parse_args(["--exp_type", "vanilla", "--root_dir", scene,
                            "--eval_mode", "vis_only"]).eval_mode == "vis_only"

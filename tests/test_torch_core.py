@@ -235,6 +235,7 @@ def test_port_imports_no_jax():
     (a subprocess: this test process has imported jax already)."""
     code = ("import sys, neo360_tpu_torch, neo360_tpu_torch.cli\n"
             "import neo360_tpu_torch.models.neo360, "
+            "neo360_tpu_torch.models.mipnerf360, "
             "neo360_tpu_torch.data.fixtures, neo360_tpu_torch.train.eval\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'neo360_tpu')]\n"

@@ -19,9 +19,11 @@ import pytest
 import torch
 
 from neo360_tpu_torch.core.render import BACKWARD_TOL as RENDER_BWD_TOL
-from neo360_tpu_torch.core.render import OUT_KEYS, VANILLA_OUT_KEYS, \
-    composite_nerfpp, composite_nerfpp_backward, composite_nerfpp_reference, \
-    composite_vanilla, composite_vanilla_backward, composite_vanilla_reference
+from neo360_tpu_torch.core.render import MIP_BACKWARD_TOL, MIP_OUT_KEYS, \
+    OUT_KEYS, VANILLA_OUT_KEYS, composite_mip, composite_mip_backward, \
+    composite_mip_reference, composite_nerfpp, composite_nerfpp_backward, \
+    composite_nerfpp_reference, composite_vanilla, \
+    composite_vanilla_backward, composite_vanilla_reference
 from neo360_tpu_torch.ops import kernels
 from neo360_tpu_torch.ops.interpolate import BACKWARD_TOL as INTERP_BWD_TOL
 from neo360_tpu_torch.ops.interpolate import FUSED_TOL, build_corner_table, \
@@ -1433,3 +1435,276 @@ def test_composite_vanilla_scan_order_fits_tolerance(s, white_bkgd,
         ref_g = _plain_vanilla_grads(args, grads, white_bkgd)
         out = _emulate_composite_vanilla_backward(args, grads, white_bkgd)
         _assert_vanilla_grads(out, ref_g)
+
+
+# --- kernels E / E': the MipNeRF-360 composite ----------------------------
+
+def _mip_args(g, b, s, tie=False):
+    """density in [0, 10), ascending tdist (B, S+1) in [0.2, 3], dirs
+    (unnormalized), rgb. Every ray's last interval is the infinite one
+    under opaque_background, and most rays' acc is 1 within an ulp. `tie`:
+    ray 0's first density is 1e30, so its weights are (1, 0, ..., 0) and
+    acc is exactly 1.0, the tie of max(0, 1 - acc)."""
+    t = 0.2 + 2.8 * torch.sort(torch.rand(b, s + 1, generator=g), -1).values
+    density = torch.rand(b, s, generator=g) * 10
+    if tie:
+        density[0, 0] = 1e30
+    return (density, t, torch.randn(b, 3, generator=g),
+            torch.rand(b, s, 3, generator=g))
+
+
+def _plain_mip_grads(args, grads, opaque, bg=1.0):
+    """Autograd of the plain composite on `args`' device (d density,
+    d rgb)."""
+    leaves = [a.detach().requires_grad_(i in (0, 3))
+              for i, a in enumerate(args)]
+    out = composite_mip_reference(*leaves, bg, opaque)
+    pairs = [(o, g) for o, g in zip(out, grads) if g is not None]
+    wrt = [leaves[0], leaves[3]]
+    d = torch.autograd.grad([o for o, _ in pairs], wrt,
+                            [g for _, g in pairs], allow_unused=True)
+    return [torch.zeros_like(a) if x is None else x for a, x in zip(wrt, d)]
+
+
+def _assert_mip_grads(out, ref):
+    for o, r in zip(out, ref):
+        res = kernels.compare(o.contiguous(), r.contiguous(),
+                              **MIP_BACKWARD_TOL)
+        assert res["ok"], res
+
+
+def _mip_cots(g, b, s, subset):
+    """Cotangents of (weights, rgb, acc, depth): all four, or the
+    training path's (`subset`: "weights" for a proposal level, "nerf" for
+    the NeRF level's weights and rgb)."""
+    shapes = ((b, s), (b, 3), (b,), (b,))
+    keep = {"all": MIP_OUT_KEYS, "weights": ("weights",),
+            "nerf": ("weights", "rgb")}[subset]
+    return [torch.randn(sh, generator=g) if k in keep else None
+            for k, sh in zip(MIP_OUT_KEYS, shapes)]
+
+
+def _sum_scan(x):
+    """Kernel E's chunked exclusive sum: a Hillis-Steele __shfl_up_sync
+    additive scan per 32-interval chunk, carried across chunks; returns
+    exp(-sum) (B,S)."""
+    b, s = x.shape
+    carry = torch.zeros(b)
+    out = torch.empty(b, s)
+    for base in range(0, s, 32):
+        n = min(32, s - base)
+        incl = _lanes(x[:, base:base + n], n, 0.0)
+        for d in (1, 2, 4, 8, 16):
+            up = torch.cat([incl[:, :d], incl[:, :-d]], 1)
+            incl = torch.where(_LANE >= d, incl + up, incl)
+        excl = torch.cat([torch.zeros(b, 1), incl[:, :-1]], 1)
+        out[:, base:base + n] = torch.exp(-(carry[:, None] + excl))[:, :n]
+        carry = carry + incl[:, 31]
+    return out
+
+
+def _suffix_sum(v):
+    """Kernel E''s reverse pass: R_i = sum_{k>i} v_k per 32-interval
+    chunk from the last down (an inclusive __shfl_down_sync suffix scan,
+    the lane above's value plus the carry)."""
+    b, s = v.shape
+    out = torch.empty(b, s)
+    carry = torch.zeros(b)
+    for base in range((s - 1) // 32 * 32, -1, -32):
+        n = min(32, s - base)
+        S = _lanes(v[:, base:base + n], n, 0.0)
+        for d in (1, 2, 4, 8, 16):
+            dn = torch.cat([S[:, d:], S[:, -d:]], 1)
+            S = torch.where(_LANE + d < 32, S + dn, S)
+        above = torch.cat([S[:, 1:], torch.zeros(b, 1)], 1)
+        out[:, base:base + n] = (carry[:, None] + above)[:, :n]
+        carry = carry + S[:, 0]
+    return out
+
+
+def _mip_terms(args, opaque):
+    density, t, dirs, rgb = args
+    dnorm = torch.sqrt(dirs[:, 0] * dirs[:, 0] + dirs[:, 1] * dirs[:, 1]
+                       + dirs[:, 2] * dirs[:, 2])
+    t0, t1 = t[:, :-1], t[:, 1:]
+    delta = (t1 - t0) * dnorm[:, None]
+    dd = density * delta
+    e = torch.exp(-dd)
+    x = dd.clone()
+    x[:, -1] = 0.0
+    if opaque:
+        e[:, -1] = 0.0
+    return delta, e, _sum_scan(x), 0.5 * (t1 + t0)
+
+
+def _emulate_composite_mip(args, bg, opaque):
+    """Kernel E in float32, in its order of operations."""
+    rgb = args[3]
+    _, e, trans, mid = _mip_terms(args, opaque)
+    w = (1.0 - e) * trans
+    acc = _lane_sum(w)
+    om = 1.0 - acc
+    bg_w = torch.where(torch.isnan(om), om, torch.clamp(om, min=0.0))
+    comp = torch.stack([_lane_sum(w * rgb[..., k]) + bg_w * bg
+                        for k in range(3)], -1)
+    return w, comp, acc, _lane_sum(w * mid)
+
+
+def _emulate_composite_mip_backward(args, acc, grads, bg, opaque):
+    """Kernel E' in float32, in its order of operations, taking the
+    background's branch from `acc`."""
+    density, _, _, rgb = args
+    b, s = density.shape
+    get = lambda g, shape: g if g is not None else torch.zeros(shape)
+    gw, gc = get(grads[0], (b, s)), get(grads[1], (b, 3))
+    ga, gd = get(grads[2], (b,)), get(grads[3], (b,))
+    if grads[1] is not None:
+        om = 1.0 - acc
+        h = torch.where(om > 0, 1.0, torch.where(om == 0, 0.5, 0.0))
+        ga = ga - h * (bg * (gc[:, 0] + gc[:, 1] + gc[:, 2]))
+    delta, e, trans, mid = _mip_terms(args, opaque)
+    w = (1.0 - e) * trans
+    g = gw + ga[:, None]
+    for k in range(3):
+        g = g + gc[:, k:k + 1] * rgb[..., k]
+    g = g + gd[:, None] * mid
+    d_density = delta * (g * e * trans - _suffix_sum(g * w))
+    if opaque:
+        d_density[:, -1] = 0.0
+    return d_density, w[..., None] * gc[:, None, :]
+
+
+@pytest.mark.parametrize("subset", ["all", "weights", "nerf"])
+@pytest.mark.parametrize("opaque", [True, False])
+@pytest.mark.parametrize("s", [1, 5, 31, 32, 33, 64, 97])
+def test_composite_mip_scan_order_fits_tolerance(s, opaque, subset):
+    """CPU: kernels E and E' in their order of operations (chunked
+    exclusive additive scan, lane-partial sums in xor-tree order, the
+    reverse suffix sum) against the plain version and its autograd,
+    within the tolerances the card tests hold them to (forward:
+    compare()'s 1e-5 relative; backward: MIP_BACKWARD_TOL). Ray 0 sits
+    on the tie acc == 1.0 exactly; with opaque_background most others
+    are within an ulp of it, on either side. The emulated E' takes the
+    branch from the emulated E's acc and the plain backward from its own:
+    the branch shifts every g_i of a ray by one constant, which moves d
+    density only by rounding since sum_i w_i is 1."""
+    g = _gen(40)
+    args = _mip_args(g, 40, s, tie=s > 1)
+    ref = composite_mip_reference(*args, 1.0, opaque)
+    out = _emulate_composite_mip(args, 1.0, opaque)
+    for o, r in zip(out, ref):
+        _assert_ok(o, r)
+    if opaque and s > 1:
+        assert float(ref[2][0]) == 1.0 and float(out[2][0]) == 1.0
+    grads = _mip_cots(g, 40, s, subset)
+    ref_g = _plain_mip_grads(args, grads, opaque)
+    out_g = _emulate_composite_mip_backward(args, out[2], grads, 1.0, opaque)
+    _assert_mip_grads(out_g, ref_g)
+    if opaque:
+        assert torch.all(ref_g[0][:, -1] == 0) and \
+            torch.all(out_g[0][:, -1] == 0)
+
+
+def test_composite_mip_function_grads_match_plain_autograd():
+    """CPU: the Function's gradients equal autograd of the plain version
+    (the same float32 operations), every output's cotangent given."""
+    g = _gen(41)
+    args = _mip_args(g, 12, 9, tie=True)
+    density, rgb = (args[i].clone().requires_grad_() for i in (0, 3))
+    out = composite_mip(density, args[1], args[2], rgb, 1.0, True)
+    cots = [torch.randn_like(o) for o in out]
+    loss = sum((o * c).sum() for o, c in zip(out, cots))
+    ours = torch.autograd.grad(loss, [density, rgb])
+    ref = _plain_mip_grads(args, cots, True)
+    for a, b in zip(ours, ref):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+def test_composite_mip_refuses_gradients_it_does_not_give():
+    g = _gen(42)
+    args = list(_mip_args(g, 4, 5))
+    for i, name in ((1, "tdist"), (2, "dirs")):
+        bad = list(args)
+        bad[i] = bad[i].clone().requires_grad_()
+        with pytest.raises(ValueError, match=name):
+            composite_mip(*bad)
+    with torch.no_grad():
+        composite_mip(*bad)
+
+
+MIP_SHAPES = [(7, 1), (33, 32), (33, 33), (5, 64), (1, 97), (2048, 32),
+              (2048, 64), (4096, 32), (4096, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s", MIP_SHAPES)
+def test_composite_mip_kernel(cuda, b, s):
+    """Kernel E against its plain version on the card, opaque background
+    on and off: S on and around the 32-interval chunk edges and at the
+    path's shapes (2048 x 64 / 32 in training, 4096-ray tiles), with the
+    tie ray (acc exactly 1) and every ray's infinite last interval."""
+    g = _gen(43)
+    args = tuple(a.to(cuda) for a in _mip_args(g, b, s, tie=s > 1))
+    before = composite_mip.launches
+    for opaque in (True, False):
+        ref = composite_mip_reference(*args, 1.0, opaque)
+        out = composite_mip(*args, 1.0, opaque)
+        for o, r in zip(out, ref):
+            _assert_ok(o, r)
+        if opaque and s > 1:
+            assert float(out[2][0]) == 1.0
+    assert composite_mip.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subset", ["all", "weights", "nerf"])
+@pytest.mark.parametrize("b,s", MIP_SHAPES)
+def test_composite_mip_backward_kernel(cuda, b, s, subset):
+    """Kernel E' against autograd of the plain version on the card within
+    MIP_BACKWARD_TOL, opaque background on and off, with every cotangent
+    and with the training path's (weights alone; weights and rgb); the
+    last interval's density gets exactly zero under opaque_background."""
+    g = _gen(44)
+    args = tuple(a.to(cuda) for a in _mip_args(g, b, s, tie=s > 1))
+    grads = [None if c is None else c.to(cuda)
+             for c in _mip_cots(g, b, s, subset)]
+    before = composite_mip_backward.launches
+    for opaque in (True, False):
+        acc = composite_mip(*args, 1.0, opaque)[2]
+        ref = _plain_mip_grads(args, grads, opaque)
+        out = composite_mip_backward(args, acc, grads, 1.0, opaque)
+        _assert_mip_grads(out, ref)
+        if opaque:
+            assert torch.all(out[0][:, -1] == 0)
+    assert composite_mip_backward.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_composite_mip_gradients_reach_inputs_through_kernels(cuda):
+    """On the card the Function launches E forward and E' backward once
+    each, and its gradients are the plain version's."""
+    g = _gen(45)
+    args = tuple(a.to(cuda) for a in _mip_args(g, 64, 64, tie=True))
+    fwd, bwd = composite_mip.launches, composite_mip_backward.launches
+    density, rgb = (args[i].clone().requires_grad_() for i in (0, 3))
+    weights, comp, acc, depth = composite_mip(density, args[1], args[2], rgb)
+    cots = [torch.randn(x.shape, generator=g).to(cuda)
+            for x in (weights, comp)]
+    ours = torch.autograd.grad((weights * cots[0]).sum()
+                               + (comp * cots[1]).sum(), [density, rgb])
+    ref = _plain_mip_grads(args, cots + [None, None], True)
+    assert (composite_mip.launches - fwd,
+            composite_mip_backward.launches - bwd) == (1, 1)
+    _assert_mip_grads(ours, ref)
+
+
+@pytest.mark.cuda
+def test_composite_mip_kernel_rejects_bad_inputs(cuda):
+    g = _gen(46)
+    density, t, dirs, rgb = (a.to(cuda) for a in _mip_args(g, 4, 9))
+    with pytest.raises(ValueError, match="float32"):
+        composite_mip(density.double(), t, dirs, rgb)
+    with pytest.raises(ValueError, match="float32"):
+        composite_mip(density, t[:, :5], dirs, rgb)
+    with pytest.raises(ValueError, match="CUDA"):
+        composite_mip(density, t.cpu(), dirs, rgb)

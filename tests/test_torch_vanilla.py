@@ -172,14 +172,15 @@ def test_rays_match_jax():
 
 def test_nerds360_matches_jax(micro_scene):
     """The loader's splits, focal, ray buffers, full-image rays with the
-    instance mask and the rays of an arbitrary pose against JAX's."""
+    instance mask and the rays of an arbitrary pose, pixel radii included,
+    against JAX's."""
     for split in ("train", "val", "test"):
         j, t = JNeRDS360(micro_scene, split, WH), NeRDS360(micro_scene,
                                                            split, WH)
         assert t.num_images == j.num_images and t.focal == j.focal
         _close(t.c2w, j.c2w, rtol=0, atol=0)
         sample, jsample = t.image_rays(0), j.image_rays(0)
-        assert sorted(sample) == sorted(k for k in jsample if k != "radii")
+        assert sorted(sample) == sorted(jsample)
         for k in sample:
             _close(sample[k], jsample[k], msg=f"{split} {k}")
     buffers, jbuffers = (NeRDS360(micro_scene, "train", WH).ray_buffers(),
