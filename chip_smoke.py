@@ -81,7 +81,16 @@ line):
    steps, then `cli.run_eval` full_eval of its 2 test views and vis_only
    with VIS_FRAMES spiral frames at --chunk 4096, and one profiled tile;
    every step launches kernels E and E' 3 times and nothing else, every
-   view E 3 times per tile.
+   view E 3 times per tile;
+13. data parallelism (`phase_data_parallel`): two ranks share the card
+   over gloo (`parallel.sharding.launch`) and train 2 full-width
+   neo360_fast stages through `cli.run_train`, then full_eval 3 views,
+   against one rank in this process run twice (the spread of two
+   one-rank runs bounds the ranks' parameters and renders); the ranks
+   hold the same bits, every BatchNorm buffer too, launch per stage what
+   one rank launches, and rank 1 writes no file; one NCCL rank runs the
+   same stages; two gloo ranks run 3 MipNeRF-360 steps and one LPIPS
+   finetune step, their first gradients held to one rank's.
 Kernel D / D' are also checked against their plain versions at the
 baselines' shapes in phase 3, A / A' at the PixelNeRF levels, and E / E'
 at MipNeRF-360's levels and render tiles, with rays at the tie acc == 1
@@ -89,8 +98,9 @@ and the infinite last interval.
 
 Each kernel's launches per training stage or step and per rendered view
 follow the last phase. The line before the last is {"kernels": [...]}
-(the twelve kernels; launches: the sum over the eight main paths, each
-counted from 0), the
+(the twelve kernels; launches: the sum over the eight main paths of
+phases 6-12, each counted from 0; phase 13's ranks count in their own
+processes and are not in it), the
 last is {"ok": true, "device": {...}}. Requires a CUDA device: it exits 2
 without one, or without the neo360_tpu_torch package beside it.
 """
@@ -2362,6 +2372,438 @@ def phase_mipnerf360_main_path(torch):
                                           "s_view": view_s}
 
 
+# the data-parallel phase: DP_RANKS ranks share the card over gloo (NCCL
+# refuses two ranks on one device) and run what one rank runs in this
+# process from the same seed: DP_STAGES neo360_fast stages through
+# cli.run_train and full_eval of DP_VIEWS views, DP_MIP_STEPS MipNeRF-360
+# steps and one LPIPS-finetune step; one NCCL rank runs one stage.
+DP_RANKS, DP_STAGES, DP_VIEWS, DP_MIP_STEPS = 2, 2, 3, 3
+# Bounds. A' adds with float atomics, so two one-rank runs of the same
+# seed differ; the ranks' runs are held to that spread: their parameters
+# and buffers, and their renders, within DP_SPREAD_MULTIPLE times the
+# largest difference between two one-rank runs. The first step's reduced
+# gradient against the one-rank gradient, relative to its largest entry:
+# DP_GRAD_RTOL_F32 in float32 (MipNeRF-360: the halves' GEMMs round in
+# their own order) and DP_GRAD_RTOL_BF16 with bf16 compute (the
+# finetune).
+DP_SPREAD_MULTIPLE = 10.0
+DP_GRAD_RTOL_F32, DP_GRAD_RTOL_BF16 = 1e-4, 3e-2
+
+
+def _files(path: str) -> list:
+    return sorted(os.path.relpath(os.path.join(d, f), path)
+                  for d, _, fs in os.walk(path) for f in fs)
+
+
+def _rank_dir(cfg):
+    """`cfg` with its ckpt_dir under rank<r>/ in a data-parallel group, so
+    a file there is a file that rank wrote."""
+    from neo360_tpu_torch.parallel import sharding
+    group = sharding.current()
+    if group is None:
+        return cfg
+    return cfg.replace(ckpt_dir=os.path.join(cfg.ckpt_dir,
+                                             f"rank{group.rank}"))
+
+
+def _dp_fast(cfg, eval_ckpt=None):
+    """neo360_fast through `cli.run_train(cfg)` on 3 in-memory scenes, one
+    stage a call; with `eval_ckpt`, `cli.run_eval` full_eval of DP_VIEWS
+    views of one in-memory scene from that checkpoint. Runs in a
+    data-parallel rank or, as the one-rank reference, in this process.
+    Returns host data: the state dict, each stage's launches, seconds and
+    gradient reductions, the peak memory, the backend, each view's
+    launches and rgb, the eval summary and the files under the
+    ckpt_dir."""
+    import torch
+
+    from neo360_tpu_torch import cli
+    from neo360_tpu_torch.data.fixtures import MemoryScenes
+    from neo360_tpu_torch.parallel import sharding
+    from neo360_tpu_torch.train import loop
+
+    cfg = _rank_dir(cfg)
+    fns = counters()
+    for fn in fns.values():
+        fn.launches = 0
+    group = sharding.current()
+    out = {"per_stage": [], "seconds": [], "reductions": [],
+           "backend": None if group is None else
+           torch.distributed.get_backend()}
+    reductions = []
+    plain_factory, plain_reduce = (loop.make_scene_stage_trainer,
+                                   sharding.all_reduce_mean_)
+
+    def counted_reduce(tensors, group):
+        reductions.append(len(tensors))
+        plain_reduce(tensors, group)
+
+    def timed_factory(*a, **kw):
+        run = plain_factory(*a, **kw)
+
+        def timed(*args):
+            start, n_red = _read(fns), len(reductions)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            metrics = run(*args)
+            torch.cuda.synchronize()
+            out["seconds"].append(time.perf_counter() - t)
+            end = _read(fns)
+            out["per_stage"].append({k: end[k] - start[k] for k in end})
+            out["reductions"].append(len(reductions) - n_red)
+            return metrics
+        return timed
+
+    datasets = tuple(MemoryScenes(3, cfg.img_wh, cfg.num_src_views,
+                                  split=split,
+                                  ray_batch_size=cfg.ray_batch_size)
+                     for split in ("train", "val"))
+    torch.cuda.reset_peak_memory_stats()
+    loop.make_scene_stage_trainer = timed_factory
+    sharding.all_reduce_mean_ = counted_reduce
+    try:
+        state = cli.run_train(cfg, datasets=datasets)
+        torch.cuda.synchronize()
+    finally:
+        loop.make_scene_stage_trainer = plain_factory
+        sharding.all_reduce_mean_ = plain_reduce
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["state"] = {k: v.detach().cpu()
+                    for k, v in state.model.state_dict().items()}
+    if eval_ckpt is not None:
+        per_view, view_s, rgbs = [], [], []
+        plain_render = cli.make_render_fn
+        counted = _counted_renders(cli, fns, per_view, view_s, cfg.img_wh)
+
+        def keeping(*a, **kw):
+            render = counted(*a, **kw)
+
+            def run(sample):
+                rendered = render(sample)
+                rgbs.append(rendered["rgb"].float().cpu())
+                return rendered
+            return run
+
+        cli.make_render_fn = keeping
+        try:
+            out["summary"] = cli.run_eval(
+                cfg.replace(eval_mode="full_eval", ckpt_path=eval_ckpt),
+                dataset=MemoryScenes(1, cfg.img_wh, cfg.num_src_views,
+                                     n_val=DP_VIEWS))
+        finally:
+            cli.make_render_fn = plain_render
+        out.update(per_view=per_view, view_s=view_s, rgb=rgbs)
+    out["files"] = _files(cfg.ckpt_dir)
+    return out
+
+
+def _first_step_grads(box: list):
+    """Adam.step recording the gradients of its first call in `box` (on
+    the host) before it clips and steps."""
+    from neo360_tpu_torch.train.optim import Adam
+    plain = Adam.step
+
+    def step(self, grads):
+        if not box:
+            box.append([g.detach().float().cpu().clone() for g in grads])
+        return plain(self, grads)
+    return step
+
+
+def _dp_small(mip_cfg, ft_cfg):
+    """MipNeRF-360's ray-buffer trainer for mip_cfg.run_max_steps steps,
+    then one neo360_fast LPIPS-finetune step (its square patch gathered
+    from the ranks before the LPIPS term) on 3 in-memory scenes, through
+    `cli.run_train`. Runs in a data-parallel rank or, as the one-rank
+    reference, in this process. Returns each run's per-step losses (the
+    global batch's), its first step's gradients as the optimizer received
+    them, its state dict and the files under its ckpt_dir."""
+    import torch
+
+    from neo360_tpu_torch import cli
+    from neo360_tpu_torch.data.fixtures import MemoryScenes
+    from neo360_tpu_torch.train import loop
+    from neo360_tpu_torch.train.optim import Adam
+
+    out = {}
+    for name, cfg in (("mip", mip_cfg), ("finetune", ft_cfg)):
+        cfg = _rank_dir(cfg)
+        losses, grads = [], []
+        plain_step, plain_adam = loop.make_train_step, Adam.step
+        recording = _first_step_grads(grads)
+
+        def counted_step(loss_fn, **kw):
+            step = plain_step(loss_fn, **kw)
+
+            def run(*args):
+                metrics = step(*args)
+                losses.append(float(metrics["loss"]))
+                return metrics
+            return run
+
+        datasets = None
+        if name == "finetune":
+            datasets = (MemoryScenes(3, cfg.img_wh, cfg.num_src_views,
+                                     split="train",
+                                     ray_batch_size=cfg.ray_batch_size,
+                                     finetune_lpips=True),
+                        MemoryScenes(3, cfg.img_wh, cfg.num_src_views,
+                                     split="val"))
+        loop.make_train_step, Adam.step = counted_step, recording
+        try:
+            state = cli.run_train(cfg, datasets=datasets)
+            torch.cuda.synchronize()
+        finally:
+            loop.make_train_step, Adam.step = plain_step, plain_adam
+        out[name] = {"losses": losses, "grads": grads[0],
+                     "state": {k: v.detach().cpu() for k, v in
+                               state.model.state_dict().items()},
+                     "files": _files(cfg.ckpt_dir)}
+    return out
+
+
+def _max_diff(a: dict, b: dict) -> tuple:
+    """(largest |a - b| over the floating-point tensors of two state
+    dicts, the key where it is)."""
+    best = (0.0, None)
+    for k, v in a.items():
+        if v.is_floating_point():
+            d = float((v.float() - b[k].float()).abs().max())
+            best = max(best, (d, k), key=lambda x: x[0])
+    return best
+
+
+def _grad_rel(grads, ref) -> float:
+    """Largest |grads - ref| over the largest |ref|, over all tensors."""
+    scale = max(float(g.abs().max()) for g in ref)
+    return max(float((g - r).abs().max()) for g, r in zip(grads, ref)) / \
+        scale
+
+
+def phase_data_parallel(torch, dev: str = "cuda", **small):
+    """The data-parallel path on the card (parallel/sharding.py and the
+    trainers' reductions), against one rank of the same seed:
+
+    (a) neo360_fast at full width (`small` cuts it for a rehearsal
+        elsewhere): DP_RANKS gloo ranks on the card run DP_STAGES stages
+        of K=32, S=2, 500 rays (125 a scene and rank) through
+        cli.run_train, then full_eval of DP_VIEWS views from rank 0's
+        checkpoint; one rank in this process runs the same twice (the
+        spread of two one-rank runs). Parameters and buffers, and the
+        renders, lie within DP_SPREAD_MULTIPLE times that spread of the
+        one-rank run; the ranks hold the same bits (every BatchNorm
+        buffer too) and the same eval summary; each rank's launches per
+        stage equal the one-rank counts, and its reductions per stage are
+        K + 1 (every step's ray gradients, the stage's encoder gradient);
+        per view each rank encodes once and renders half the tiles; rank
+        1 writes no file, rank 0 writes the one-rank run's files.
+    (b) one NCCL rank through the same code and the same stages, without
+        the eval: the backend is NCCL (its gradient reductions, the
+        checkpoint's barrier and the validation render's gather run
+        through it), its launches and reductions are (a)'s, its
+        parameters and buffers lie within (a)'s bound.
+    (c) DP_RANKS gloo ranks: DP_MIP_STEPS MipNeRF-360 steps of 2048 rays
+        (1024 a rank) on a 320x240 micro scene, and one finetune step
+        (900-ray patch, 450 a rank, gathered for the LPIPS term) from
+        (a)'s one-rank checkpoint: the losses and the first step's
+        gradients against one rank (DP_GRAD_RTOL_*), the ranks equal.
+
+    Every comparison is printed; the phase raises at its end if any
+    failed. Returns the seconds, peak memory and differences it printed.
+    The launches of this phase are not in the {"kernels": ...} line's
+    totals (its ranks count in their own processes)."""
+    import numpy as np
+
+    from neo360_tpu_torch.config import preset
+    from neo360_tpu_torch.data.fixtures import make_micro_scene
+    from neo360_tpu_torch.nn.lpips import random_torch_state
+    from neo360_tpu_torch.parallel import sharding
+
+    failures = []
+
+    def check(ok: bool, what: str):
+        print(f"[dp] {'ok' if ok else 'FAILED'}: {what}")
+        if not ok:
+            failures.append(what)
+
+    def launch(fn, *args, nccl: bool = False):
+        """fn(*args) on DP_RANKS gloo ranks on the card (cuda:0), or on
+        one rank of the default backend (NCCL on the card)."""
+        if nccl:
+            return sharding.launch(fn, 1, *args, device=dev)
+        return sharding.launch(fn, DP_RANKS, *args, backend="gloo",
+                               device=f"{dev}:0" if dev == "cuda" else dev)
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = preset("neo360_fast", seed=SEED, device=dev, **small)
+        k = cfg.stage_k
+        cfg = cfg.replace(run_max_steps=DP_STAGES * k, steps_per_call=k,
+                          log_every_steps=k,
+                          save_every_steps=DP_STAGES * k)
+        ckpt = os.path.join("exp", "checkpoints",
+                            f"ckpt_{DP_STAGES * k:08d}.pt")
+        print(f"[dp] neo360_fast: img_wh {cfg.img_wh}, bf16 {cfg.bf16}, "
+              f"K={k}, S={cfg.stage_scenes}, {cfg.ray_batch_size} rays a "
+              f"step, {DP_STAGES} stages; {DP_RANKS} gloo ranks on {dev} "
+              f"against one rank in this process, twice")
+        runs = {}
+        for name in ("one_a", "one_b"):
+            d = os.path.join(tmp, name)
+            t = time.perf_counter()
+            runs[name] = _dp_fast(cfg.replace(ckpt_dir=d),
+                                  os.path.join(d, ckpt))
+            print(f"[dp] one rank ({name}): {time.perf_counter() - t:.1f} "
+                  f"s for build, {DP_STAGES} stages, validation, "
+                  f"checkpoint and {DP_VIEWS} views")
+        d = os.path.join(tmp, "dp")
+        t = time.perf_counter()
+        ranks = launch(_dp_fast, cfg.replace(ckpt_dir=d),
+                       os.path.join(d, "rank0", ckpt))
+        print(f"[dp] {DP_RANKS} ranks: {time.perf_counter() - t:.1f} s for "
+              f"start-up, build, {DP_STAGES} stages, validation, checkpoint "
+              f"and {DP_VIEWS} views")
+        one, other = runs["one_a"], runs["one_b"]
+
+        spread, spread_key = _max_diff(other["state"], one["state"])
+        diff, diff_key = _max_diff(ranks[0]["state"], one["state"])
+        check(diff <= DP_SPREAD_MULTIPLE * spread,
+              f"parameters and buffers: {DP_RANKS} ranks vs one rank max "
+              f"|diff| {diff:.3e} ({diff_key}); one rank vs one rank "
+              f"{spread:.3e} ({spread_key}); bound {DP_SPREAD_MULTIPLE} x "
+              f"the spread")
+        bn = [n for n in one["state"]
+              if n.endswith(("running_mean", "running_var"))]
+        same = [n for n in one["state"] if all(
+            torch.equal(r["state"][n], ranks[0]["state"][n])
+            for r in ranks[1:])]
+        check(len(same) == len(one["state"]) and len(bn) > 0,
+              f"ranks bit-equal: {len(same)} of {len(one['state'])} "
+              f"tensors, {sum(n in same for n in bn)} of {len(bn)} "
+              f"BatchNorm buffers")
+        want = one["per_stage"]
+        s, sk = cfg.stage_scenes, cfg.stage_scenes * k
+        formula = {"table_sample_fwd": s, "pillar_collapse_fwd": s,
+                   "pillar_collapse_bwd": s, "triplane_sample_fwd": sk,
+                   "local_sample_fwd": sk, "table_sample_bwd": s,
+                   "table_sample_bwd_acc": 4 * sk,
+                   "composite_nerfpp_bwd": 2 * sk}
+        check(all(st[n] == v for st in want for n, v in formula.items()),
+              f"one rank's launches per stage {want[0]} give {formula}")
+        for r, rank in enumerate(ranks):
+            check(rank["per_stage"] == want,
+                  f"rank {r} launches per stage equal one rank's: "
+                  f"{rank['per_stage'] == want} ({rank['per_stage'][0]})")
+            check(rank["reductions"] == [k + 1] * DP_STAGES
+                  and one["reductions"] == [0] * DP_STAGES,
+                  f"rank {r} gradient reductions per stage "
+                  f"{rank['reductions']} (K + 1 = {k + 1}; one rank "
+                  f"{one['reductions']})")
+        per_view_one = one["per_view"]
+        summed = [{n: sum(r["per_view"][v][n] for r in ranks)
+                   for n in per_view_one[v]} for v in range(DP_VIEWS)]
+        encode = ("table_sample_fwd", "pillar_collapse_fwd")
+        check(all(summed[v][n] == per_view_one[v][n] * (
+            DP_RANKS if n in encode else 1)
+            for v in range(DP_VIEWS) for n in per_view_one[v])
+            and all(r["per_view"][v][n] == per_view_one[v][n]
+                    for r in ranks for v in range(DP_VIEWS)
+                    for n in encode),
+            f"launches per view: one rank {per_view_one}; each rank "
+            f"{[r['per_view'] for r in ranks]} (each encodes, the tiles "
+            f"split)")
+        rgb_spread = max(float((a - b).abs().max())
+                         for a, b in zip(other["rgb"], one["rgb"]))
+        rgb_diff = max(float((a - b).abs().max())
+                       for a, b in zip(ranks[0]["rgb"], one["rgb"]))
+        agree = [float(-10 * np.log10(float(((a - b) ** 2).mean()) + 1e-20))
+                 for a, b in zip(ranks[0]["rgb"], one["rgb"])]
+        check(rgb_diff <= DP_SPREAD_MULTIPLE * rgb_spread,
+              f"renders: {DP_RANKS} ranks vs one rank max |rgb diff| "
+              f"{rgb_diff:.3e}, PSNR of one against the other {agree} dB; "
+              f"one rank vs one rank {rgb_spread:.3e}; summaries: one rank "
+              f"{one['summary']}, again {other['summary']}, ranks "
+              f"{[r['summary'] for r in ranks]}")
+        check(all(r["summary"] == ranks[0]["summary"] for r in ranks),
+              "every rank returns the same eval summary")
+        check(all(r["files"] == [] for r in ranks[1:])
+              and ranks[0]["files"] == one["files"],
+              f"files: rank 0 {len(ranks[0]['files'])} (one rank "
+              f"{len(one['files'])}: {one['files']}), other ranks "
+              f"{[r['files'] for r in ranks[1:]]}")
+        print(f"[dp] s/stage (the first with warm-up): one rank "
+              f"{one['seconds']}, again "
+              f"{other['seconds']}; each of {DP_RANKS} ranks sharing one "
+              f"card (correctness, not scaling) "
+              f"{[r['seconds'] for r in ranks]}; peak GiB one rank "
+              f"{one['peak_gib']:.2f}, ranks "
+              f"{[round(r['peak_gib'], 2) for r in ranks]}; s/view one "
+              f"rank {[round(x, 3) for x in one['view_s']]}, ranks "
+              f"{[[round(x, 3) for x in r['view_s']] for r in ranks]}")
+
+        # (b) one NCCL rank: the same run without the eval
+        t = time.perf_counter()
+        (nccl,) = launch(_dp_fast, cfg.replace(
+            ckpt_dir=os.path.join(tmp, "nccl")), nccl=True)
+        want_backend = "nccl" if torch.device(dev).type == "cuda" else "gloo"
+        nccl_diff, nccl_key = _max_diff(nccl["state"], one["state"])
+        check(nccl["backend"] == want_backend and nccl["per_stage"] == want
+              and nccl["reductions"] == [k + 1] * DP_STAGES
+              and nccl_diff <= DP_SPREAD_MULTIPLE * spread,
+              f"one {nccl['backend']} rank: launches per stage equal one "
+              f"rank's: {nccl['per_stage'] == want}, reductions "
+              f"{nccl['reductions']}, parameters and buffers vs one rank max "
+              f"|diff| {nccl_diff:.3e} ({nccl_key}), s/stage "
+              f"{nccl['seconds']}, peak {nccl['peak_gib']:.2f} GiB, "
+              f"{time.perf_counter() - t:.1f} s with start-up, "
+              f"build, validation and checkpoint")
+
+        # (c) MipNeRF-360 and the finetune, DP_RANKS gloo ranks
+        t = time.perf_counter()
+        root = make_micro_scene(os.path.join(tmp, "scene"), n_val=1,
+                                wh=cfg.img_wh)
+        mip = preset("mipnerf360", root_dir=root, seed=SEED, device=dev,
+                     run_max_steps=DP_MIP_STEPS, steps_per_call=DP_MIP_STEPS,
+                     save_every_steps=10 ** 9, img_wh=cfg.img_wh)
+        lpips = os.path.join(tmp, "lpips.pt")
+        torch.save(random_torch_state(SEED), lpips)
+        ft = cfg.replace(finetune_lpips=True, lpips_weights=lpips,
+                         ckpt_path=os.path.join(tmp, "one_a", ckpt),
+                         run_max_steps=1, steps_per_call=1,
+                         save_every_steps=10 ** 9)
+        small_one = _dp_small(mip.replace(ckpt_dir=os.path.join(tmp, "m1")),
+                              ft.replace(ckpt_dir=os.path.join(tmp, "f1")))
+        small_ranks = launch(_dp_small,
+                             mip.replace(ckpt_dir=os.path.join(tmp, "m2")),
+                             ft.replace(ckpt_dir=os.path.join(tmp, "f2")))
+        for name, rtol in (("mip", DP_GRAD_RTOL_F32),
+                           ("finetune", DP_GRAD_RTOL_BF16)):
+            ref, got = small_one[name], [r[name] for r in small_ranks]
+            rel = _grad_rel(got[0]["grads"], ref["grads"])
+            loss_rel = max(abs(a - b) / abs(b) for a, b in
+                           zip(got[0]["losses"], ref["losses"]))
+            check(rel <= rtol and len(got[0]["losses"]) ==
+                  len(ref["losses"]) and np.isfinite(ref["losses"]).all(),
+                  f"{name}: first step's gradient, {DP_RANKS} ranks vs one "
+                  f"rank, max |diff| / max |g| {rel:.3e} (bound {rtol}); "
+                  f"losses {got[0]['losses']} vs {ref['losses']} (largest "
+                  f"relative diff {loss_rel:.3e}); parameters max |diff| "
+                  f"{_max_diff(got[0]['state'], ref['state'])[0]:.3e}")
+            check(all(_max_diff(g["state"], got[0]["state"])[0] == 0
+                      and g["losses"] == got[0]["losses"] for g in got)
+                  and all(g["files"] == [] for g in got[1:]),
+                  f"{name}: ranks bit-equal, rank 1 wrote no file")
+        print(f"[dp] MipNeRF-360 and finetune, one rank and {DP_RANKS} "
+              f"ranks: {time.perf_counter() - t:.1f} s")
+
+    seconds = time.perf_counter() - t_phase
+    print(f"[dp] phase: {seconds:.1f} s")
+    if failures:
+        raise AssertionError(f"data-parallel phase: {failures}")
+    return {"seconds": seconds, "param_diff": diff, "param_spread": spread,
+            "rgb_diff": rgb_diff, "rgb_spread": rgb_spread}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2411,6 +2853,8 @@ def main() -> int:
     mip_launches, mip_per_step, mip_per_view, _ = \
         phase_mipnerf360_main_path(torch)
     done("mipnerf360 training and evaluation")
+    phase_data_parallel(torch)
+    done("data-parallel ranks")
 
     # launches per steady training stage (the second), per rendered view
     # with the encode cached (the second view) and per optimize step; the

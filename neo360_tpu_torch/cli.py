@@ -61,6 +61,16 @@ renders a 40-frame 360-degree spiral around the first test pose (the
 few-shot models: scene 0's) as video360.mp4 (or .gif). Both
 run on --device (default cuda) and raise when it is absent; a float32
 model on the card runs with TF32 off.
+
+On a host with more than one visible card, `main` starts one
+data-parallel rank per card (`parallel.sharding.launch`; `world_size=`
+sets the count, as the tests and chip_smoke.py do); under torchrun each
+process joins the group torchrun describes, on cuda:LOCAL_RANK. The ranks
+split each step's rays (batch_size and ray_batch_size rounded up to a
+multiple of the rank count), average their gradients before the
+optimizer, split each view's render tiles, and only rank 0 writes logs,
+checkpoints and eval artifacts (neo360_tpu/cli.py:487-510, the `mesh=`
+paths of run_train, _run_warmup and run_eval).
 """
 
 from __future__ import annotations
@@ -79,6 +89,7 @@ from neo360_tpu_torch.config import Config, preset
 # 371)
 from neo360_tpu_torch.data.nerds360 import FAR as SCENE_FAR
 from neo360_tpu_torch.data.nerds360 import NEAR as SCENE_NEAR
+from neo360_tpu_torch.parallel import sharding
 from neo360_tpu_torch.train.loop import TrainState
 
 SRC_KEYS = ("src_imgs", "src_poses", "src_focal", "src_c")
@@ -123,6 +134,9 @@ def parse_args(argv=None) -> Config:
     p.add_argument("--val_every_steps", type=int, default=5000)
     p.add_argument("--save_every_steps", type=int, default=5000)
     p.add_argument("--seed", type=int, default=0)
+    # absent: the preset's bf16 (the JAX CLI's False default overrides it)
+    p.add_argument("--bf16", action="store_true", default=None,
+                   help="bf16 compute in encoders/MLPs (params stay f32)")
     p.add_argument("--stage_k", type=int, default=None)
     p.add_argument("--stage_scenes", type=int, default=None)
     p.add_argument("--stage_warmup_steps", type=int, default=None)
@@ -174,11 +188,15 @@ def freeze_spatial_encoder(model) -> None:
 
 def resolve_device(cfg: Config, device=None) -> torch.device:
     """`device` or cfg.device; raise if it is a CUDA device and there is
-    none (no silent fall back to the CPU)."""
+    none (no silent fall back to the CPU). In a data-parallel group a
+    device of the group's type is the rank's own (cuda:LOCAL_RANK)."""
     dev = torch.device(device or cfg.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not "
                            f"available; pass --device cpu to run on the CPU")
+    group = sharding.current()
+    if group is not None and group.device.type == dev.type:
+        return group.device
     return dev
 
 
@@ -269,6 +287,7 @@ def make_render_fn(cfg: Config, model, device=None):
     resident at a time); a sample without one is encoded anew."""
     from neo360_tpu_torch.train.loop import make_image_renderer
     device = resolve_device(cfg, device)
+    group = sharding.current()
     batch_stats = cfg.eval_bn_mode == "batch"
     place = lambda sample, keys: {
         k: torch.as_tensor(np.asarray(sample[k]), device=device)
@@ -279,7 +298,7 @@ def make_render_fn(cfg: Config, model, device=None):
             out = model(rays, cfg.white_back, SCENE_NEAR, SCENE_FAR)[1]
             return {k: out[k] for k in ("rgb", "depth", "acc")}
 
-        renderer = make_image_renderer(render_chunk, cfg.chunk)
+        renderer = make_image_renderer(render_chunk, cfg.chunk, group)
         return lambda sample: renderer(None, place(sample, RAY_KEYS))
 
     if cfg.exp_type == "mipnerf360":
@@ -287,7 +306,7 @@ def make_render_fn(cfg: Config, model, device=None):
             out = model(rays, 1.0, False, SCENE_NEAR, SCENE_FAR)[0][-1]
             return {k: out[k] for k in ("rgb", "depth", "acc")}
 
-        renderer = make_image_renderer(render_chunk, cfg.chunk)
+        renderer = make_image_renderer(render_chunk, cfg.chunk, group)
         return lambda sample: renderer(None, place(sample, MIP_RAY_KEYS))
 
     if cfg.exp_type == "pixelnerf":
@@ -309,7 +328,7 @@ def make_render_fn(cfg: Config, model, device=None):
             return model.encode(src["src_imgs"], src["src_poses"],
                                 src["src_focal"], src["src_c"], batch_stats)
 
-    renderer = make_image_renderer(render_chunk, cfg.chunk)
+    renderer = make_image_renderer(render_chunk, cfg.chunk, group)
     cache: Dict = {}
 
     @torch.inference_mode()
@@ -358,7 +377,7 @@ def restore(cfg: Config, model, exp_dir: str) -> Optional[str]:
     return path
 
 
-def run_eval(cfg: Config, device=None, n_frames: int = 40
+def run_eval(cfg: Config, device=None, n_frames: int = 40, dataset=None
              ) -> Dict[str, float]:
     """Evaluate (neo360_tpu/cli.py:run_eval, 860-950): every test view of
     the root (vanilla, mipnerf360: the scene's val/ views; the few-shot
@@ -366,7 +385,9 @@ def run_eval(cfg: Config, device=None, n_frames: int = 40
     metrics to results.json and images under <exp_dir>/<render_name>. With
     --eval_mode vis_only the views also become a video and an
     `n_frames`-frame spiral becomes video360 (`_render_trajectory`).
-    Returns the summary."""
+    `dataset`: the test split to use instead of cfg.root_dir's. In a
+    data-parallel group every rank renders its tiles of every view and
+    only rank 0 writes. Returns the summary."""
     from neo360_tpu_torch.nn.lpips import LPIPSModel
     from neo360_tpu_torch.train.eval import evaluate_and_save
     from neo360_tpu_torch.train.pipeline import prefetch_to_device
@@ -387,16 +408,17 @@ def run_eval(cfg: Config, device=None, n_frames: int = 40
         print(f"loaded weights from {loaded}")
 
     render_fn = make_render_fn(cfg, model, device)
+    test_ds = dataset
     if cfg.exp_type in SINGLE_SCENE:
         from neo360_tpu_torch.data.nerds360 import NeRDS360
-        test_ds = NeRDS360(cfg.root_dir, "test", cfg.img_wh)
+        test_ds = test_ds or NeRDS360(cfg.root_dir, "test", cfg.img_wh)
         samples = (test_ds.image_rays(i) for i in range(test_ds.num_images))
         extra = {}
     else:
         from neo360_tpu_torch.data.nerds360_ae import NeRDS360AE
         print(f"eval encode BN mode: {cfg.eval_bn_mode}")
-        test_ds = NeRDS360AE(cfg.root_dir, "test", cfg.img_wh,
-                             cfg.num_src_views)
+        test_ds = test_ds or NeRDS360AE(cfg.root_dir, "test", cfg.img_wh,
+                                        cfg.num_src_views)
         samples = (dict(test_ds.sample_test(s, d), scene_key=s)
                    for s in range(len(test_ds.scene_ids))
                    for d in range(test_ds.num_test_views(s)))
@@ -409,10 +431,12 @@ def run_eval(cfg: Config, device=None, n_frames: int = 40
         summary = evaluate_and_save(
             render_fn, samples, cfg.img_wh, out_dir,
             results_json=os.path.join(exp_dir, "results.json"),
-            extra=extra, lpips_model=lpips_model, video=vis)
+            extra=extra, lpips_model=lpips_model, video=vis,
+            primary=sharding.is_primary_process())
     if vis:
         path = _render_trajectory(cfg, render_fn, test_ds, out_dir, n_frames)
-        print("wrote 360 flythrough:", path)
+        if path is not None:
+            print("wrote 360 flythrough:", path)
     print("eval summary:", summary)
     return summary
 
@@ -424,7 +448,9 @@ def _render_trajectory(cfg: Config, render_fn, test_ds, out_dir: str,
     mipnerf360: `test_ds.c2w[0]`; the few-shot models: scene 0's first
     test pose, else its first train pose, with its test source stack, so
     its cached encode serves every frame) and store them as video360.mp4
-    (or .gif); returns the path (neo360_tpu/cli.py:952-974)."""
+    (or .gif); returns the path (neo360_tpu/cli.py:952-974), or None on a
+    data-parallel rank other than 0, which renders its tiles and writes
+    nothing."""
     from neo360_tpu_torch.train.eval import trajectory_360
     from neo360_tpu_torch.utils import io
     w, h = cfg.img_wh
@@ -439,6 +465,8 @@ def _render_trajectory(cfg: Config, render_fn, test_ds, out_dir: str,
         samples = (dict(test_ds.sample_pose(0, p), scene_key=0)
                    for p in trajectory_360(base, n_frames))
     frames = [_host(render_fn(s)["rgb"]).reshape(h, w, 3) for s in samples]
+    if not sharding.is_primary_process():
+        return None
     return io.store_video(out_dir, frames, name="video360.mp4")
 
 
@@ -513,7 +541,7 @@ def resume(ckpt, state) -> int:
 
 
 def make_loss_fn(cfg: Config, model, randomized: bool = True,
-                 lpips_model=None):
+                 lpips_model=None, group=None):
     """loss_fn(batch, generator) -> (loss, {"mse", "psnr", "loss"}) of the
     per-step trainer (neo360_tpu/cli.py:257-301): the batch's source views
     are encoded with BatchNorm in training mode (in the optimize and
@@ -532,6 +560,12 @@ def make_loss_fn(cfg: Config, model, randomized: bool = True,
     level's MSE, the proposal logits annealed by train_frac = clip(step /
     1e6, 0, 1) of the step count before the step.
 
+    `group`: the data-parallel ranks that split the batch's rows. The
+    terms that are not means over rays see the whole batch: MipNeRF-360's
+    MSE under the sqrt is averaged over the ranks, and the finetune's
+    LPIPS patch is gathered from them (`sharding.all_reduce_mean`,
+    `sharding.all_gather_rows`, both differentiable).
+
     vanilla and pixelnerf (neo360_tpu/cli.py:210-255): the two levels'
     MSE, l0 + l1; pixelnerf encodes the batch's source views with
     BatchNorm in training mode (on its running statistics in the optimize
@@ -548,6 +582,8 @@ def make_loss_fn(cfg: Config, model, randomized: bool = True,
             rend, hist = model(rays, train_frac, randomized, SCENE_NEAR,
                                SCENE_FAR, generator=generator)
             mse = img2mse(rend[-1]["rgb"], batch["target"])
+            if group is not None:
+                mse = sharding.all_reduce_mean(mse, group)
             loss = (torch.sqrt(mse + 1e-6) + interlevel_loss(hist)
                     + 0.01 * distortion_loss(hist))
             mse = mse.detach()
@@ -583,6 +619,9 @@ def make_loss_fn(cfg: Config, model, randomized: bool = True,
     train_bn = not frozen_encoder(cfg)
     use_lpips = (cfg.finetune_lpips and lpips_model is not None
                  and lpips_model.pretrained)
+    if use_lpips and group is not None and group.nodes > 1:
+        raise ValueError("the LPIPS finetune gathers its patch over the "
+                         "ranks of one node; run it on one node")
 
     def loss_fn(batch, generator):
         latent = None
@@ -596,13 +635,17 @@ def make_loss_fn(cfg: Config, model, randomized: bool = True,
                     generator=generator)
         loss, l1 = training_loss(model, out, batch["target"])
         if use_lpips:
-            n = batch["target"].shape[0]
+            pred, gt = out[1]["rgb"], batch["target"]
+            if group is not None:
+                pred = sharding.all_gather_rows(pred, group, True)
+                gt = sharding.all_gather_rows(gt, group)
+            n = gt.shape[0]
             side = math.isqrt(n)
             if side * side != n:
                 raise ValueError(f"the LPIPS patch loss needs a square ray "
                                  f"batch (patch_size**2), got {n} rays")
             pred, gt = (torch.clamp(t, 0, 1).reshape(1, side, side, 3)
-                        for t in (out[1]["rgb"], batch["target"]))
+                        for t in (pred, gt))
             loss = loss + LPIPS_WEIGHT * lpips_model(pred, gt).mean()
         l1 = l1.detach()
         return loss, {"mse": l1, "psnr": mse2psnr(l1),
@@ -643,17 +686,39 @@ def _maybe_warm_start(cfg: Config, model) -> None:
           f"{cfg.ckpt_path}")
 
 
-def _per_step_runner(cfg: Config, model, lpips_model=None):
+def _split(group, n_rays: int) -> bool:
+    """Whether a host batch of `n_rays` rays splits over the ranks of this
+    rank's node (False outside a group)."""
+    return group is not None and group.host_rows(n_rays)
+
+
+def _rank_rays(batch: Dict, group, axis: int) -> Dict:
+    """`batch` with its ray arrays (rays, viewdirs, target) cut to this
+    rank's rows along `axis` (`sharding.shard_staged_batch` /
+    `shard_stage_batch`: whole when the axis does not divide); the source
+    stacks and scene ids stay whole, as the JAX mesh replicates them."""
+    if group is None:
+        return batch
+    rays = {k: batch[k] for k in STAGE_RAY_KEYS if k in batch}
+    return dict(batch, **sharding.shard_stage_batch(rays, group, axis))
+
+
+def _per_step_runner(cfg: Config, model, lpips_model=None, group=None,
+                     n_rays: int = 0):
     """(TrainState, staged runner) of the per-step trainer: one Adam with
     one global clip over every trained parameter (all of them, or all but
     the SpatialEncoder's in the optimize and finetune modes), BatchNorm
-    statistics committed once per step."""
+    statistics committed once per step. `group`: the data-parallel ranks,
+    whose gradients the step averages; the loss sees them when a step's
+    `n_rays` rays split over them."""
     from neo360_tpu_torch.train import loop as tl
     if frozen_encoder(cfg):
         freeze_spatial_encoder(model)
+    loss_group = group if _split(group, n_rays) else None
     step_fn = tl.make_train_step(make_loss_fn(cfg, model,
-                                              lpips_model=lpips_model),
-                                 with_model_state=True)
+                                              lpips_model=lpips_model,
+                                              group=loss_group),
+                                 with_model_state=True, group=group)
     state = tl.create_train_state(model,
                                   lambda params: build_optimizer(cfg, params))
     return state, tl.make_staged_trainer(step_fn)
@@ -665,18 +730,24 @@ def _run_warmup(cfg: Config, model, train_ds, device, logger) -> int:
     min(steps_per_call, stage_warmup_steps) steps before the first stage,
     its own Adam state, samples from seed + 7 and draws from seed + 9; the
     stage trainer then starts from the warmed weights with fresh optimizer
-    states. Returns the steps done."""
+    states. Returns the steps done. In a data-parallel group each rank
+    steps its rows of every batch."""
     from neo360_tpu_torch.train import loop as tl
     from neo360_tpu_torch.train.pipeline import to_device
     per = max(1, min(cfg.steps_per_call, cfg.stage_warmup_steps))
     n_calls = -(-cfg.stage_warmup_steps // per)
-    state, staged = _per_step_runner(cfg, model)
+    group = sharding.current()
+    state, staged = _per_step_runner(cfg, model, group=group,
+                                     n_rays=cfg.ray_batch_size)
     rng = np.random.default_rng(cfg.seed + 7)
     generator = torch.Generator(device).manual_seed(cfg.seed + 9)
+    if group is not None:
+        generator = group.draws(generator,
+                                _split(group, cfg.ray_batch_size))
     for _ in range(n_calls):
         samples = [train_ds.sample_train(rng) for _ in range(per)]
-        metrics = staged(state, to_device(
-            tl.stack_batches(samples, STEP_KEYS), device), generator)
+        batches = _rank_rays(tl.stack_batches(samples, STEP_KEYS), group, 1)
+        metrics = staged(state, to_device(batches, device), generator)
         logger.log(state.step, {k: float(v) for k, v in metrics.items()})
     print(f"stage warmup: {state.step} per-step-encode steps done")
     return state.step
@@ -713,10 +784,12 @@ def _validate_and_save(cfg: Config, state, step: int, render_fn, sample,
     val_psnr = float(psnr(out["rgb"].reshape(h, w, 3),
                           target.reshape(h, w, 3)))
     logger.log(step, {"val_psnr": val_psnr})
-    logger.log_image(step, "val_grid", build_val_grid(
-        cfg.img_wh, np.asarray(sample["target"]).reshape(h, w, 3),
-        {k: _host(v) for k, v in out.items()}))
-    ckpt.save(step, checkpoint_payload(state), {"val_psnr": val_psnr})
+    if logger.primary:
+        logger.log_image(step, "val_grid", build_val_grid(
+            cfg.img_wh, np.asarray(sample["target"]).reshape(h, w, 3),
+            {k: _host(v) for k, v in out.items()}))
+    ckpt.save(step, checkpoint_payload(state) if ckpt.primary else None,
+              {"val_psnr": val_psnr})
 
 
 def _run_train_buffers(cfg: Config, model, device, datasets, logger, ckpt):
@@ -727,9 +800,14 @@ def _run_train_buffers(cfg: Config, model, device, datasets, logger, ckpt):
     every parameter, metrics logged every call; when the step count
     crosses a multiple of save_every_steps, validation of the val split's
     image 0, its grid and a checkpoint. Resumes from the newest
-    checkpoint. Returns the TrainState."""
+    checkpoint. In a data-parallel group batch_size is rounded up to a
+    multiple of the rank count and each rank steps its rows of every
+    batch. Returns the TrainState."""
     from neo360_tpu_torch.data.nerds360 import NeRDS360
     from neo360_tpu_torch.train import loop as tl
+    group = sharding.current()
+    if group is not None:
+        cfg = sharding.round_to_devices(cfg, "batch_size", group.world_size)
     if datasets is None:
         datasets = (NeRDS360(cfg.root_dir, "train", cfg.img_wh),
                     NeRDS360(cfg.root_dir, "val", cfg.img_wh))
@@ -738,9 +816,10 @@ def _run_train_buffers(cfg: Config, model, device, datasets, logger, ckpt):
     state = tl.create_train_state(model,
                                   lambda params: build_optimizer(cfg, params))
     runner = tl.make_buffer_trainer(
-        tl.make_train_step(make_loss_fn(cfg, model),
-                           with_step=cfg.exp_type == "mipnerf360"),
-        cfg.batch_size, cfg.steps_per_call)
+        tl.make_train_step(make_loss_fn(cfg, model, group=group),
+                           with_step=cfg.exp_type == "mipnerf360",
+                           group=group),
+        cfg.batch_size, cfg.steps_per_call, group)
     resume(ckpt, state)
     render_fn = make_render_fn(cfg, model, device)
     generator = torch.Generator(device).manual_seed(cfg.seed + 2)
@@ -775,7 +854,12 @@ def run_train(cfg: Config, device=None, datasets=None):
     save_every_steps. The stage trainer and the optimize mode's cached
     latents are NeO-360's; pixelnerf always runs the per-step trainer.
     `datasets`: (train, val) samplers to use instead of NeRDS360AE (vanilla,
-    mipnerf360: NeRDS360) over cfg.root_dir. Returns the TrainState or
+    mipnerf360: NeRDS360) over cfg.root_dir. In a data-parallel group
+    ray_batch_size is rounded up to a multiple of the node's rank count,
+    every rank of a node draws the node's batches from the same seed and
+    steps its rows of each (`_rank_rays`; its sampling draws are its rows
+    of the batch's, `Group.draws`), and the trainers average the
+    gradients (train/loop.py). Returns the TrainState or
     SceneStageState."""
     from neo360_tpu_torch.data.nerds360_ae import NeRDS360AE
     from neo360_tpu_torch.models.neo360 import SRC_KEYS as MODEL_SRC_KEYS
@@ -786,6 +870,10 @@ def run_train(cfg: Config, device=None, datasets=None):
     from neo360_tpu_torch.train.logging import MetricsLogger
     from neo360_tpu_torch.train.pipeline import prefetch_to_device
 
+    group = sharding.current()
+    if group is not None and cfg.exp_type not in SINGLE_SCENE:
+        cfg = sharding.round_to_devices(cfg, "ray_batch_size",
+                                        group.local_world_size)
     _check_train_mode(cfg)
     device = resolve_device(cfg, device)
     float32_matmuls(cfg, device)
@@ -840,9 +928,15 @@ def run_train(cfg: Config, device=None, datasets=None):
         state.step = warm_steps
         runner = tl.make_scene_stage_trainer(
             encode_fn, loss_fn, multi_stage=True,
-            cot_dtype=getattr(torch, cfg.stage_cot_dtype))
+            cot_dtype=getattr(torch, cfg.stage_cot_dtype), group=group)
+        # the rays of one scene of a step; axis 3 of (n_stages, K, S, B/S)
+        n_rays = cfg.ray_batch_size // cfg.stage_scenes
+        ray_axis = 3 if cfg.stage_scenes > 1 else 2
     else:
-        state, runner = _per_step_runner(cfg, model, lpips_model)
+        n_rays = (train_ds.patch_size ** 2 if cfg.finetune_lpips
+                  else cfg.ray_batch_size)
+        state, runner = _per_step_runner(cfg, model, lpips_model, group,
+                                         n_rays)
     start_step = max(resume(ckpt, state), warm_steps)
     const = (_optimize_latents(model, train_ds, device)
              if cfg.is_optimize and neo360 else None)
@@ -856,14 +950,18 @@ def run_train(cfg: Config, device=None, datasets=None):
                               rng, cfg.stage_k, n_scenes=cfg.stage_scenes)
                           for _ in range(n_stages)]
                 yield (tl.stack_batches(stages, MODEL_SRC_KEYS),
-                       tl.stack_batches(stages, STAGE_RAY_KEYS))
+                       _rank_rays(tl.stack_batches(stages, STAGE_RAY_KEYS),
+                                  group, ray_axis))
             else:
                 samples = [train_ds.sample_train(rng)
                            for _ in range(stage_size)]
-                yield (tl.stack_batches(samples, step_keys),)
+                yield (_rank_rays(tl.stack_batches(samples, step_keys),
+                                  group, 1),)
 
     render_fn = make_render_fn(cfg, model, device)
     generator = torch.Generator(device).manual_seed(cfg.seed + 2)
+    if group is not None:
+        generator = group.draws(generator, _split(group, n_rays))
     step = start_step
     with prefetch_to_device(staged_iterator(), size=2,
                             device=device) as it:
@@ -885,11 +983,45 @@ def run_train(cfg: Config, device=None, datasets=None):
     return state
 
 
-def main(argv=None):
-    cfg = parse_args(argv)
+def _run(cfg: Config):
     if cfg.eval_mode is not None:
         return run_eval(cfg)
     return run_train(cfg)
+
+
+def _run_rank(cfg: Config):
+    """One data-parallel rank of `main`: its eval summary, or its training
+    step count."""
+    out = _run(cfg)
+    return out if cfg.eval_mode is not None else out.step
+
+
+def main(argv=None, world_size: Optional[int] = None):
+    """Parse `argv` and train or evaluate. Under torchrun (RANK and
+    WORLD_SIZE set) this process joins torchrun's group. Otherwise
+    `world_size` ranks (default: one per visible card for a CUDA --device,
+    else one) run it: more than one are started here, one process each
+    (`sharding.launch`), and rank 0's eval summary or training step count
+    is returned; one runs in this process and returns the eval summary or
+    the train state, as the JAX CLI does."""
+    cfg = parse_args(argv)
+    device_type = torch.device(cfg.device).type
+    if sharding.torchrun_env() and sharding.current() is None:
+        group = sharding.init_from_env(device_type)
+        if group.primary:
+            print(f"data-parallel over {group.world_size} devices")
+        try:
+            return _run_rank(cfg)
+        finally:
+            sharding.destroy()
+    if world_size is None:
+        world_size = (torch.cuda.device_count() if device_type == "cuda"
+                      else 1)
+    if world_size > 1:
+        print(f"data-parallel over {world_size} devices")
+        return sharding.launch(_run_rank, world_size, cfg,
+                               device=cfg.device)[0]
+    return _run(cfg)
 
 
 if __name__ == "__main__":

@@ -12,8 +12,10 @@ running max / min are kept rather than plain indexing.
 
 Randomized (training) sampling draws its uniforms from an explicit
 `torch.Generator`, or takes them as `u` (the tests pass the numbers that
-`jax.random.uniform` draws, so both packages see the same ones). The
-resampled t is detached, as `jax.lax.stop_gradient` does in the JAX code.
+`jax.random.uniform` draws, so both packages see the same ones); a
+data-parallel rank passes a `parallel.sharding.RowDraws`, which draws the
+global batch's uniforms and keeps the rank's rows. The resampled t is
+detached, as `jax.lax.stop_gradient` does in the JAX code.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 
 from neo360_tpu_torch.core.geometry import linspace
 from neo360_tpu_torch.core.spherical import depth2pts_outside
+from neo360_tpu_torch.parallel.sharding import RowDraws
 
 _FLOAT_MIN_EPS = 2.0 ** -32
 
@@ -31,12 +34,14 @@ _FLOAT_MIN_EPS = 2.0 ** -32
 def _uniform(shape, like: torch.Tensor, u: Optional[torch.Tensor],
              generator: Optional[torch.Generator]) -> torch.Tensor:
     """`u` if given (checked against `shape`), else U[0, 1) drawn from
-    `generator` on `like`'s device."""
+    `generator` (a torch.Generator or a RowDraws) on `like`'s device."""
     if u is not None:
         if tuple(u.shape) != tuple(shape):
             raise ValueError(f"uniforms of shape {tuple(u.shape)}, expected "
                              f"{tuple(shape)}")
         return u.to(like.device, like.dtype)
+    if isinstance(generator, RowDraws):
+        return generator.rand(tuple(shape), like.dtype, like.device)
     return torch.rand(shape, generator=generator, dtype=like.dtype,
                       device=like.device)
 

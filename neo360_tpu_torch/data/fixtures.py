@@ -192,7 +192,7 @@ class MemoryScenes(NeRDS360AE):
     def scene_meta(self, name: str) -> SceneMeta:
         if name in self._meta_cache:
             return self._meta_cache[name]
-        train, test, scale = self._cams[self.scene_ids.index(name)]
+        train, test, scale = self._cams[int(name.rsplit("_", 1)[1])]
 
         def normalized(c2ws):
             out = c2ws.copy()
@@ -212,7 +212,7 @@ class MemoryScenes(NeRDS360AE):
     def _render(self, name: str, split_dir: str, img_file: str):
         key = (name, split_dir, img_file)
         if key not in self._img_cache:
-            train, test, _ = self._cams[self.scene_ids.index(name)]
+            train, test, _ = self._cams[int(name.rsplit("_", 1)[1])]
             c2w = (train if split_dir == "train" else test)[
                 int(img_file.split(".")[0])]
             w, h = self.img_wh

@@ -18,6 +18,11 @@ neo360_tpu/data/nerds360_ae.py:57-489): the train, val and test splits.
   split's scale) with the fixed source stack [0, 15, 38, 52, 70] (3 views:
   [0, 38, 44]).
 
+With several nodes (`process_index` / `process_count`, default: this
+rank's node and the node count, `parallel.sharding`) the train split keeps
+the node's round-robin share of the scenes (neo360_tpu/data/
+nerds360_ae.py:126-141); val and test keep every scene.
+
 Source images are normalized to [-1, 1]; decoded images are cached per
 loader. Outputs are numpy. PIL (and cv2, for the instance masks) are
 imported only inside the image readers.
@@ -107,7 +112,9 @@ class NeRDS360AE:
                  num_src_views: int = 3, ray_batch_size: int = 500,
                  dest_views_per_sample: int = 20, optimize: bool = False,
                  finetune_lpips: bool = False,
-                 patch_size: int = PATCH_SIZE):
+                 patch_size: int = PATCH_SIZE,
+                 process_index: Optional[int] = None,
+                 process_count: Optional[int] = None):
         if split not in ("train", "val", "test"):
             raise ValueError(f"split {split!r}: expected train, val or test")
         self.root_dir = root_dir
@@ -122,6 +129,19 @@ class NeRDS360AE:
         self.scene_ids = self._scene_ids()
         if not self.scene_ids:
             raise ValueError(f"no scene directories under {root_dir!r}")
+        if process_index is None or process_count is None:
+            from neo360_tpu_torch.parallel.sharding import current
+            group = current()
+            process_index, process_count = ((0, 1) if group is None
+                                            else (group.node, group.nodes))
+        self.process_index, self.process_count = process_index, process_count
+        if split == "train" and process_count > 1:
+            shard = self.scene_ids[process_index::process_count]
+            if not shard:
+                raise ValueError(
+                    f"host {process_index}/{process_count} has no scenes "
+                    f"({len(self.scene_ids)} total) — need >= 1 per host")
+            self.scene_ids = shard
         self._meta_cache: Dict[str, SceneMeta] = {}
         self._img_cache: Dict[tuple, np.ndarray] = {}
 

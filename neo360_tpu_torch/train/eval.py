@@ -6,9 +6,10 @@ neo360_tpu/train/eval.py:42-52, 55-90, 100-269).
 `evaluate` yields one `ViewResult` per view and holds nothing else, so
 memory stays constant in the number of views. `evaluate_and_save` writes
 each view's JPEG and raw depth on a writer thread while the next view
-renders, then results.json; with `video=True` (vis_only) also the depth
-colormaps (normalized by the largest depth of the set) and the views'
-video. PIL and cv2 are imported only by the writers.
+renders, then the depth colormaps of every view with depth (normalized
+by the largest depth of the set) and results.json; with `video=True`
+(vis_only) also the views' video. PIL and cv2 are imported only by the
+writers.
 """
 
 from __future__ import annotations
@@ -86,15 +87,18 @@ def _write(kind: str, path: str, arr: np.ndarray) -> None:
 def evaluate_and_save(render_fn, samples, img_wh, out_dir: str,
                       results_json: Optional[str] = None,
                       extra: Optional[Dict[str, str]] = None,
-                      lpips_model=None, video: bool = False
-                      ) -> Dict[str, float]:
-    """`evaluate` + image{i}.jpg / depth_raw{i}.npz under `out_dir`; with
-    `video` also depth_img{i}.jpg (JET colormaps that share the largest
-    depth of the set) and the views as video.mp4 (or .gif); each metric's
-    mean and per-view values in `results_json` (without a pretrained
-    `lpips_model`, "lpips_status" says LPIPS was skipped). Returns the
-    means {psnr, ssim[, psnr_obj][, lpips]}."""
-    os.makedirs(out_dir, exist_ok=True)
+                      lpips_model=None, video: bool = False,
+                      primary: bool = True) -> Dict[str, float]:
+    """`evaluate` + image{i}.jpg / depth_raw{i}.npz / depth_img{i}.jpg
+    (JET colormaps that share the largest depth of the set) under
+    `out_dir`; with `video` also the views as video.mp4 (or .gif); each
+    metric's mean and per-view values in `results_json` (without a
+    pretrained `lpips_model`, "lpips_status" says LPIPS was skipped).
+    Returns the means {psnr, ssim[, psnr_obj][, lpips]}. With `primary`
+    False (a data-parallel rank other than 0) it renders and measures
+    every view, as the collective renderer needs, and writes nothing."""
+    if primary:
+        os.makedirs(out_dir, exist_ok=True)
     vals: Dict[str, List[float]] = {"psnr": [], "ssim": [], "psnr_obj": [],
                                     "lpips": []}
     frames: List[np.ndarray] = []
@@ -102,17 +106,17 @@ def evaluate_and_save(render_fn, samples, img_wh, out_dir: str,
     depth_max = 0.0
     with ThreadPoolExecutor(max_workers=1) as writer:
         jobs = []
+        submit = writer.submit if primary else (lambda *a: None)
         for i, view in enumerate(evaluate(render_fn, samples, img_wh,
                                           lpips_model)):
-            jobs.append(writer.submit(
+            jobs.append(submit(
                 _write, "jpg", os.path.join(out_dir, f"image{i:03d}.jpg"),
                 io.to8b(view.rgb)))
             if view.depth is not None:
                 path = os.path.join(out_dir, f"depth_raw{i:03d}.npz")
-                jobs.append(writer.submit(_write, "npz", path, view.depth))
-                if video:
-                    depth_files.append(path)
-                    depth_max = max(depth_max, float(np.nanmax(view.depth)))
+                jobs.append(submit(_write, "npz", path, view.depth))
+                depth_files.append(path)
+                depth_max = max(depth_max, float(np.nanmax(view.depth)))
             if video:
                 frames.append(view.rgb)
             vals["psnr"].append(view.psnr)
@@ -122,7 +126,11 @@ def evaluate_and_save(render_fn, samples, img_wh, out_dir: str,
             if view.lpips is not None:
                 vals["lpips"].append(view.lpips)
         for job in jobs:
-            job.result()  # raise the first write error, if any
+            if job is not None:
+                job.result()  # raise the first write error, if any
+    summary = {k: float(np.mean(v)) for k, v in vals.items() if v}
+    if not primary:
+        return summary
     if depth_files:
         import cv2
         for i, path in enumerate(depth_files):
@@ -131,7 +139,6 @@ def evaluate_and_save(render_fn, samples, img_wh, out_dir: str,
             cv2.imwrite(os.path.join(out_dir, f"depth_img{i:03d}.jpg"), img)
     if frames:
         io.store_video(out_dir, frames)
-    summary = {k: float(np.mean(v)) for k, v in vals.items() if v}
     if results_json is not None:
         payload = {k: {"mean": v, "views": vals[k]}
                    for k, v in summary.items()}

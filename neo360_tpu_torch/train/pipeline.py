@@ -6,7 +6,9 @@ leaves it on the host) and keeps `size` items buffered, so the device never
 waits on ray generation.
 Placement copies numpy arrays into pinned host memory and from
 there to the device with `non_blocking=True`: the copy is queued on the
-device's stream, ordered before the kernels that read it.
+device's stream, ordered before the kernels that read it. The thread
+makes that device its current one, so a data-parallel rank's batches go
+to its own card.
 
 Consumers that stop early must call `.close()` (or use the prefetcher as a
 context manager); a producer failure is re-raised in the consumer.
@@ -39,11 +41,12 @@ class _Prefetcher:
     _SENTINEL = object()
 
     def __init__(self, iterator: Iterator, size: int,
-                 place_fn: Callable):
+                 place_fn: Callable, device=None):
         self._q: "queue.Queue" = queue.Queue(maxsize=size)
         self._stop = threading.Event()
         self._exc: Optional[BaseException] = None
         self._place = place_fn
+        self._device = device
         self._thread = threading.Thread(target=self._produce,
                                         args=(iterator,), daemon=True)
         self._thread.start()
@@ -59,6 +62,11 @@ class _Prefetcher:
 
     def _produce(self, iterator):
         try:
+            dev = None if self._device is None else torch.device(
+                self._device)
+            if dev is not None and dev.type == "cuda" and \
+                    dev.index is not None:
+                torch.cuda.set_device(dev)
             for item in iterator:
                 if not self._put(self._place(item)):
                     return
@@ -107,4 +115,4 @@ def prefetch_to_device(iterator: Iterator, size: int = 2, *,
     buffered."""
     place = (lambda item: item) if device is None else (
         lambda item: to_device(item, device))
-    return _Prefetcher(iterator, size, place)
+    return _Prefetcher(iterator, size, place, device)

@@ -4,7 +4,10 @@ cut-down neo360_fast model, on weights exported from JAX `model.init` as
 npz, against the JAX `make_render_fn` on the same weights.
 
 Tolerances: rgb 1e-4 absolute per pixel (float32, different summation
-orders in the convolutions and matmuls); PSNR 0.01 dB per view.
+orders in the convolutions and matmuls); PSNR 0.01 dB per view; the depth
+colormap JPEGs (depth_img*.jpg) 8 of 255 per pixel and channel, 0.25 on
+average (a 1e-4 depth difference can move a pixel across one of the 256
+levels before the JET map, and JPEG spreads that over its 8x8 block).
 """
 
 import json
@@ -81,7 +84,8 @@ def test_run_eval_matches_jax(multi_scene_root, tmp_path, jax_side, capsys):
     n = len(views)
     assert sorted(os.listdir(exp_dir / "3views")) == sorted(
         [f"image{i:03d}.jpg" for i in range(n)]
-        + [f"depth_raw{i:03d}.npz" for i in range(n)])
+        + [f"depth_raw{i:03d}.npz" for i in range(n)]
+        + [f"depth_img{i:03d}.jpg" for i in range(n)])
     # every view run_eval rendered: PSNR and the raw depth it wrote
     assert len(results["psnr"]["views"]) == n
     for i, (_, _, jdepth, jpsnr) in enumerate(views):
@@ -100,6 +104,38 @@ def test_run_eval_matches_jax(multi_scene_root, tmp_path, jax_side, capsys):
     for sample, jrgb, _, _ in firsts:
         rgb = render_fn(sample)["rgb"]
         np.testing.assert_allclose(rgb.numpy(), jrgb, atol=1e-4)
+
+
+def test_full_eval_depth_colormaps_match_jax(multi_scene_root, tmp_path,
+                                             jax_side):
+    """full_eval writes depth_img{i}.jpg for every view with depth, as the
+    JAX `evaluate_and_save` does whatever the eval mode, each scaled by
+    the largest depth of the set: the port's files against the JAX
+    writer's on the JAX renders of the same weights."""
+    import cv2
+
+    from neo360_tpu.train.eval import evaluate_and_save as jevaluate_and_save
+    variables, views = jax_side
+    npz = save_variables_npz(str(tmp_path / "jax_vars.npz"), variables)
+    cli.run_eval(_cfg(multi_scene_root, tmp_path, ckpt_path=npz),
+                 device="cpu")
+    rendered = iter(views)
+
+    def replay(sample):
+        _, rgb, depth, _ = next(rendered)
+        return {"rgb": jnp.asarray(rgb), "depth": jnp.asarray(depth)}
+
+    jdir = tmp_path / "jax_eval"
+    jevaluate_and_save(replay, [v[0] for v in views], WH, str(jdir))
+    for i in range(len(views)):
+        ours = cv2.imread(str(tmp_path / "exp" / "3views"
+                              / f"depth_img{i:03d}.jpg")).astype(np.int16)
+        ref = cv2.imread(str(jdir / f"depth_img{i:03d}.jpg")).astype(
+            np.int16)
+        assert ours.shape == ref.shape == (WH[1], WH[0], 3)
+        diff = np.abs(ours - ref)
+        assert diff.max() <= 8 and diff.mean() <= 0.25, (i, diff.max(),
+                                                         diff.mean())
 
 
 def test_restore_port_checkpoint(tmp_path):
@@ -160,3 +196,20 @@ def test_parse_args_matches_jax_cli():
             assert getattr(cfg, f.name) == getattr(ref, f.name), f.name
         assert (cfg.exp_type, cfg.bf16, cfg.stage_k, cfg.lift_dim,
                 cfg.grad_max_norm) == ("neo360", False, 0, None, 0.05)
+
+
+@pytest.mark.parametrize("exp_type", ["neo360_fast", "pixelnerf",
+                                      "vanilla", "mipnerf360"])
+def test_parse_args_bf16_flag(exp_type):
+    """`--bf16` parses as in the JAX CLI and turns bf16 on; without it the
+    preset's value stands (the JAX CLI's False default would override a
+    bf16 preset, the divergence test_parse_args_matches_jax_cli records).
+    With the flag both CLIs build the same config."""
+    import dataclasses
+    argv = ["--exp_type", exp_type, "--root_dir", "/data"]
+    assert cli.parse_args(argv).bf16 == preset(exp_type).bf16
+    cfg, ref = cli.parse_args(argv + ["--bf16"]), jcli.parse_args(
+        argv + ["--bf16"])
+    assert cfg.bf16 is True
+    for f in dataclasses.fields(ref):
+        assert getattr(cfg, f.name) == getattr(ref, f.name), f.name
