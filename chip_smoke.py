@@ -90,7 +90,19 @@ line):
    hold the same bits, every BatchNorm buffer too, launch per stage what
    one rank launches, and rank 1 writes no file; one NCCL rank runs the
    same stages; two gloo ranks run 3 MipNeRF-360 steps and one LPIPS
-   finetune step, their first gradients held to one rank's.
+   finetune step, their first gradients held to one rank's;
+14. the JAX package's helpers (`phase_helpers`): grid_sample_2d (kernel A,
+   and A' in its image gradient) against its plain version at the
+   plane-sweep warp's shape and at an RGB image's, with time, bound and
+   F.grid_sample's time, one launch of each a call; homography_warp,
+   volume_rendering_volsdf, the ray helpers and charbonnier_loss on the
+   card against the CPU; profiling.trace around one full-width
+   neo360_fast render tile (its span and the tri-plane gather's kernel
+   in the Chrome trace) and ThroughputMeter over a view's tiles; the
+   MipNeRF-360 NeRF MLP sharded by tp_param_shardings over two gloo ranks
+   on the CPU (DTensor's all-gather of CUDA tensors through gloo, the
+   only backend for two ranks on one card, segfaults) against the
+   unsharded forward.
 Kernel D / D' are also checked against their plain versions at the
 baselines' shapes in phase 3, A / A' at the PixelNeRF levels, and E / E'
 at MipNeRF-360's levels and render tiles, with rays at the tie acc == 1
@@ -100,7 +112,7 @@ Each kernel's launches per training stage or step and per rendered view
 follow the last phase. The line before the last is {"kernels": [...]}
 (the twelve kernels; launches: the sum over the eight main paths of
 phases 6-12, each counted from 0; phase 13's ranks count in their own
-processes and are not in it), the
+processes and are not in it, and phase 14 prints its own), the
 last is {"ok": true, "device": {...}}. Requires a CUDA device: it exits 2
 without one, or without the neo360_tpu_torch package beside it.
 """
@@ -2804,6 +2816,348 @@ def phase_data_parallel(torch, dev: str = "cuda", **small):
             "rgb_diff": rgb_diff, "rgb_spread": rgb_spread}
 
 
+# the helpers' phase: grid_sample_2d at the plane-sweep warp's shape (32
+# channels at a quarter of 320x240, WARP_DEPTHS hypothesis depths) and at
+# an RGB image's (3 channels, padded to 4); TP_RANKS gloo ranks run the
+# tensor-parallel NeRF MLP on the CPU: DTensor's all-gather of CUDA
+# tensors through gloo (the only backend for two ranks on one card)
+# segfaults in wait_tensor (torch 2.11.0+cu128, PERF.md section 6), where
+# gloo's own all_gather of CUDA tensors works
+WARP_SHAPE, WARP_DEPTHS = (3, 60, 80, 32), 128
+RGB_SHAPE = (3, 240, 320, 3)
+TP_RANKS = 2
+
+
+def _warp_case(torch, dev):
+    """Source features (WARP_SHAPE) and the projections of a plane sweep:
+    a reference camera and, per batch entry, a source camera turned
+    2-6 degrees about y and moved 0.1-0.3 along x, pinhole focal 70 px at
+    the map's centre, WARP_DEPTHS depths from 0.5 to 3.0."""
+    import math
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    b, h, w, c = WARP_SHAPE
+    feat = torch.randn(b, h, w, c, device=dev, generator=g)
+    k = torch.tensor([[70.0, 0.0, w / 2], [0.0, 70.0, h / 2],
+                      [0.0, 0.0, 1.0]], device=dev)
+    proj = torch.zeros(b, 3, 4, device=dev)
+    for i in range(b):
+        a = math.radians(2.0 + 2.0 * i)
+        rot = torch.tensor([[math.cos(a), 0.0, math.sin(a)], [0.0, 1.0, 0.0],
+                            [-math.sin(a), 0.0, math.cos(a)]], device=dev)
+        proj[i, :, :3] = k @ rot @ torch.linalg.inv(k)
+        proj[i, :, 3] = k @ torch.tensor([0.1 + 0.1 * i, 0.0, 0.0],
+                                         device=dev)
+    depths = torch.linspace(0.5, 3.0, WARP_DEPTHS, device=dev).expand(b, -1)
+    return feat, proj, depths.contiguous()
+
+
+def _pixels_read(hw, uv, mode: str) -> int:
+    """Distinct image pixels (view, y, x) the finite points read with a
+    weight (zeros mode: corners inside the image)."""
+    import torch
+    h, w = hw
+    ix = (uv[..., 0] + 1.0) * 0.5 * (w - 1)
+    iy = (uv[..., 1] + 1.0) * 0.5 * (h - 1)
+    if mode == "border":
+        ix, iy = ix.clamp(0, w - 1), iy.clamp(0, h - 1)
+    finite = torch.isfinite(uv).all(-1)
+    x0, y0 = torch.floor(ix), torch.floor(iy)
+    view = torch.arange(uv.shape[0], device=uv.device)[:, None].expand(
+        uv.shape[:2])
+    ids = []
+    for x in (x0, x0 + 1):
+        for y in (y0, y0 + 1):
+            ok = finite & (x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1)
+            ids.append((view * h + y.long()) * w + x.long())
+            ids[-1] = ids[-1][ok]
+    return int(torch.unique(torch.cat(ids)).numel())
+
+
+def _tp_rank(points):
+    """One rank of phase 14 (e), on the CPU: the NeRF MLP of MipNeRF-360
+    (8 x 1024, float32) from SEED, its wide layers sharded over a
+    TP_RANKS-wide "model" DeviceMesh by `tp_param_shardings` /
+    `distribute_params`, one forward on `points`; returns the outputs and
+    the local shape of the first layer's shard."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from neo360_tpu_torch.models.mipnerf360 import MipNeRF360MLP
+    from neo360_tpu_torch.parallel import sharding
+
+    mesh = init_device_mesh("cpu", (TP_RANKS,), mesh_dim_names=("model",))
+    mlp = MipNeRF360MLP(8, 1024, generator=torch.Generator().manual_seed(
+        SEED))
+    sharding.distribute_params(mlp, mesh,
+                               sharding.tp_param_shardings(mlp, mesh))
+    with torch.no_grad():
+        out = mlp(*points)
+    return out, tuple(mlp.pts_0.weight.to_local().shape)
+
+
+def _tp_points(torch):
+    """4096 conical-frustum Gaussians (512 rays x 8 samples), viewdirs."""
+    g = torch.Generator().manual_seed(SEED + 15)
+    means = torch.randn(512, 8, 3, generator=g) * 0.5
+    a = torch.randn(512, 8, 3, 3, generator=g) * 0.05
+    covs = a @ a.transpose(-1, -2) + 1e-4 * torch.eye(3)
+    dirs = torch.nn.functional.normalize(torch.randn(512, 3, generator=g),
+                                         dim=-1)
+    return means, covs, dirs
+
+
+def phase_helpers(torch, card: str, dev: str = "cuda", **small):
+    """The JAX package's helper functions on the card:
+
+    (a) grid_sample_2d (kernel A, and A' in its image gradient) against
+        its plain version at the warp's shape (WARP_SHAPE features, the
+        points of WARP_DEPTHS planes) and at RGB_SHAPE (3 channels padded
+        to 4; uv in [-1.2, 1.2] and non-finite points), forward and
+        gradient, with time, bound, share and F.grid_sample's time; one
+        call launches A once, its backward A' once;
+    (b) homography_warp on the card against the CPU at the warp's shape,
+        and the identity projection;
+    (c) volume_rendering_volsdf, the core/rays.py helpers and
+        charbonnier_loss on card tensors against the CPU;
+    (d) profiling.trace around one full-width neo360_fast render tile:
+        the Chrome trace holds its annotate span and the tri-plane
+        gather's kernel; ThroughputMeter's rays/s over a view's tiles;
+    (e) tp_param_shardings: TP_RANKS gloo ranks (sharding.launch) run the
+        sharded MipNeRF-360 NeRF MLP on the CPU (see TP_RANKS), which must
+        give the unsharded forward to 1e-5 relative.
+
+    Raises at its end if any check failed. The launches of this phase are
+    printed apart and are not in the {"kernels": ...} line. `dev` and
+    `small` (preset overrides for (d)) are for a rehearsal elsewhere."""
+    import glob
+
+    import numpy as np
+
+    from neo360_tpu_torch import cli
+    from neo360_tpu_torch.config import preset
+    from neo360_tpu_torch.core import geometry, rays, render
+    from neo360_tpu_torch.data.fixtures import MemoryScenes
+    from neo360_tpu_torch.ops import kernels, losses
+    from neo360_tpu_torch.ops.interpolate import GRID_SAMPLE_TOL, \
+        grid_sample_2d, grid_sample_2d_reference, table_sample, \
+        table_sample_backward, triplane_sample
+    from neo360_tpu_torch.parallel import sharding
+    from neo360_tpu_torch.train import profiling
+
+    dev = torch.device(dev)
+    failures, results, seen = [], [], {}
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def check(ok: bool, what: str):
+        print(f"[helpers] {'ok' if ok else 'FAILED'}: {what}")
+        if not ok:
+            failures.append(what)
+
+    counted = {"table_sample_fwd": table_sample,
+               "table_sample_bwd": table_sample_backward}
+
+    def launches(fn) -> dict:
+        for f in counted.values():
+            f.launches = 0
+        fn()
+        torch.cuda.synchronize()
+        return _read(counted)
+
+    # (a) grid_sample_2d, forward and image gradient
+    feat, proj, depths = _warp_case(torch, dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    rgb = torch.rand(RGB_SHAPE, device=dev, generator=g)
+    rgb_uv = (torch.rand(RGB_SHAPE[0], RGB_SHAPE[1] * RGB_SHAPE[2], 2,
+                         device=dev, generator=g) * 2 - 1) * 1.2
+    rgb_uv[0, :5] = torch.tensor([[float("inf"), 0.0], [0.0, -float("inf")],
+                                  [float("nan"), 0.3], [1e30, 0.0],
+                                  [-1.0, 1.0]], device=dev)
+    cases = (("warp (3,60,80,32) f32, 128 depths",
+              feat, geometry.homography_uv(WARP_SHAPE[1:3], proj, depths)),
+             ("rgb (3,240,320,3) f32 (C padded to 4), non-finite points",
+              rgb, rgb_uv))
+    for case, image, u in cases:
+        b, h, w, c = image.shape
+        n = u.shape[1]
+        pixels = _pixels_read((h, w), u, "zeros")
+        cot = torch.randn(b, n, c, device=dev, generator=g)
+        fwd = lambda: grid_sample_2d(image, u)
+        plain = lambda: grid_sample_2d_reference(image, u)
+        counts = seen[f"grid_sample_2d {case}"] = launches(fwd)
+        check(counts == {"table_sample_fwd": 1, "table_sample_bwd": 0},
+              f"grid_sample_2d {case}: one call launches {counts}")
+        # the bound: the pixels the points read, uv, the output
+        _check("grid_sample_2d (A)", case, fwd(), plain(), fwd, plain,
+               torch, results, GRID_SAMPLE_TOL,
+               nbytes=4.0 * (pixels * c + u.numel() + b * n * c),
+               ops=2.0 * b * n * 4 * c,
+               library_fn=_grid_sample_fns(torch, c, torch.float32, u,
+                                           (h, w), "zeros"))
+        leaf = image.clone().requires_grad_()
+        out = grid_sample_2d(leaf, u)
+        ref_leaf = image.clone().requires_grad_()
+        ref_out = grid_sample_2d_reference(ref_leaf, u)
+        bwd = lambda: torch.autograd.grad(out, leaf, cot,
+                                          retain_graph=True)[0]
+        plain_bwd = lambda: torch.autograd.grad(ref_out, ref_leaf, cot,
+                                                retain_graph=True)[0]
+        counts = seen[f"its gradient, {case}"] = launches(bwd)
+        check(counts == {"table_sample_fwd": 0, "table_sample_bwd": 1},
+              f"grid_sample_2d {case}: its image gradient launches "
+              f"{counts}")
+        # the cotangent and uv read once, the image's gradient written once
+        _check("grid_sample_2d gradient (A')", case, bwd(), plain_bwd(), bwd,
+               plain_bwd, torch, results, GRID_SAMPLE_TOL,
+               nbytes=4.0 * (cot.numel() + u.numel() + image.numel()),
+               ops=2.0 * b * n * 4 * c,
+               library_fn=_grid_sample_fns(torch, c, torch.float32, u,
+                                           (h, w), "zeros", cot))
+        del out, ref_out, leaf, ref_leaf, cot
+
+    # (b) homography_warp, card against the CPU
+    warp = lambda: geometry.homography_warp(feat, proj, depths)
+    counts = seen["homography_warp"] = launches(warp)
+    on_card = warp()
+    on_cpu = geometry.homography_warp(feat.cpu(), proj.cpu(), depths.cpu())
+    res = kernels.compare(on_card.cpu(), on_cpu, **GRID_SAMPLE_TOL)
+    ms = _median_ms(warp, torch)
+    check(res["ok"] and counts["table_sample_fwd"] == 1
+          and tuple(on_card.shape) == (3, WARP_DEPTHS) + WARP_SHAPE[1:],
+          f"homography_warp {tuple(on_card.shape)} card vs CPU: max_abs "
+          f"{res['max_abs']:.3e} max_rel {res['max_rel']:.3e}; {ms:.4f} ms "
+          f"a call; launches {counts}")
+    eye = geometry.homography_warp(feat, torch.eye(3, 4, device=dev).expand(
+        3, 3, 4), torch.tensor([[1.0, 2.0]], device=dev).expand(3, 2))
+    # uv -> pixel rounds x by up to (w - 1) * 2^-24, a weight that much off
+    # 0 or 1 on a neighbour up to ~10 away: 1e-4
+    err = max(float((eye[:, d] - feat).abs().max()) for d in range(2))
+    check(err <= 1e-4, f"homography_warp identity: max |diff| {err:.3e} "
+          f"(bound 1e-4)")
+    del on_card, on_cpu, eye
+
+    # (c) the small helpers, card against the CPU, on the same inputs
+    hg = torch.Generator().manual_seed(SEED + 17)
+    r = lambda *shape: torch.rand(*shape, generator=hg)
+    t_vals = torch.sort(r(1024, 64) * 4 + 0.1, dim=-1).values
+    o, d = (r(1024, 3) - 0.5) * 5, r(1024, 3) * 2 - 1
+    q = torch.linalg.qr(torch.randn(3, 3, 3, generator=hg))[0]
+    c2w = torch.eye(4)
+    c2w[:3, :3] = q[0]
+    box = ([-0.5, -0.4, -0.3], [0.6, 0.5, 0.4])
+    helpers = {
+        "volume_rendering_volsdf": (
+            lambda *a: render.volume_rendering_volsdf(*a, True),
+            (r(1024, 64, 3), r(1024, 64) * 5, t_vals, d)),
+        "ndc_rays": (lambda *a: rays.ndc_rays(240, 320, 280.0, 1.0, *a),
+                     (o, d)),
+        "ray_aabb_intersection": (
+            lambda *a: rays.ray_aabb_intersection(*a, *box), (o, d)),
+        "sample_rays_in_bbox": (rays.sample_rays_in_bbox,
+                                (o, d, q, r(3, 3) * 0.3, r(3, 3) * 0.4 + 0.2)),
+        "get_rays_mvs": (lambda a: rays.get_rays_mvs(240, 320, 280.0, a),
+                         (c2w,)),
+        "charbonnier_loss": (lambda *a: (losses.charbonnier_loss(*a),),
+                             (r(4096, 3), r(4096, 3))),
+    }
+    for name, (fn, args) in helpers.items():
+        ours = fn(*(a.to(dev) for a in args))
+        ref = fn(*args)
+        errs = [kernels.compare(a.cpu().float(), b.float())
+                if a.dtype != torch.bool else
+                {"ok": torch.equal(a.cpu(), b), "max_abs": 0.0}
+                for a, b in zip(ours, ref)]
+        check(all(e["ok"] for e in errs),
+              f"{name}: card vs CPU max_abs "
+              f"{max(e['max_abs'] for e in errs):.3e} (1e-5 relative)")
+
+    # (d) profiling.trace around one full-width neo360_fast render tile
+    cfg = preset("neo360_fast", seed=SEED, **small)
+    model = cli.build_model(cfg, dev)
+    sample = MemoryScenes(1, cfg.img_wh, cfg.num_src_views).sample_test(0, 0)
+    src = {k: torch.as_tensor(sample[k], device=dev) for k in cli.SRC_KEYS}
+    ray_in = {k: torch.as_tensor(sample[k], device=dev)
+              for k in cli.RAY_KEYS}
+    n_rays = ray_in["rays_o"].shape[0]
+    with torch.inference_mode():
+        enc = model.encode(*(src[k] for k in cli.SRC_KEYS), True)
+
+        def tile(i):
+            with profiling.annotate("neo360_fast_render_tile"):
+                chunk = {k: v[i:i + cfg.chunk] for k, v in ray_in.items()}
+                return model(dict(chunk, **src), enc, cfg.white_back,
+                             out_depth=True)[1]["rgb"]
+
+        tile(0)
+        with tempfile.TemporaryDirectory() as log_dir:
+            triplane_sample.launches = 0
+            with profiling.trace(log_dir):
+                tile(0)
+            traces = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+            with open(traces[0]) as f:
+                events = json.load(f)["traceEvents"]
+            size = os.path.getsize(traces[0])
+        spans = [e for e in events
+                 if e.get("name") == "neo360_fast_render_tile"]
+        gathers = [e for e in events if e.get("cat") == "kernel"
+                   and "triplane_sample" in e.get("name", "")]
+        seen["render tile"] = {"triplane_sample_fwd":
+                               triplane_sample.launches}
+        check(len(traces) == 1 and spans and gathers
+              and triplane_sample.launches == 1,
+              f"profiling.trace: {len(traces)} trace file ({size} bytes, "
+              f"{len(events)} events): {len(spans)} annotate span, "
+              f"{len(gathers)} triplane_sample kernel event "
+              f"({gathers[0]['name'][:60] if gathers else '-'}, "
+              f"{gathers[0].get('dur') if gathers else '-'} us), launches "
+              f"{triplane_sample.launches}")
+        meter = profiling.ThroughputMeter(window=n_rays // cfg.chunk + 2)
+        torch.cuda.synchronize()
+        meter.update(0)
+        for i in range(0, n_rays, cfg.chunk):
+            tile(i)
+            torch.cuda.synchronize()
+            meter.update(min(cfg.chunk, n_rays - i))
+    print(f"[helpers] ThroughputMeter: {meter.rays_per_sec:.0f} rays/s over "
+          f"a view's {-(-n_rays // cfg.chunk)} tiles of {cfg.chunk} rays "
+          f"(neo360_fast, full width, random weights, synchronized per "
+          f"tile), {meter.steps_per_sec:.1f} tiles/s; {card}")
+    del model, enc, src, ray_in
+
+    # (e) tensor parallelism: TP_RANKS gloo ranks on the CPU
+    from neo360_tpu_torch.models.mipnerf360 import MipNeRF360MLP
+    print(f"[helpers] (e) runs its {TP_RANKS} gloo ranks on the CPU: "
+          f"DTensor's all-gather of CUDA tensors through gloo segfaults")
+    points = _tp_points(torch)
+    t = time.perf_counter()
+    ranks = sharding.launch(_tp_rank, TP_RANKS, points, backend="gloo",
+                            device="cpu")
+    seconds = time.perf_counter() - t
+    mlp = MipNeRF360MLP(8, 1024, generator=torch.Generator().manual_seed(
+        SEED))
+    with torch.no_grad():
+        ref = mlp(*points)
+    for rank, (out, shard) in enumerate(ranks):
+        errs = {k: kernels.compare(out[k], ref[k], rtol=1e-5)
+                for k in ref}
+        check(all(e["ok"] for e in errs.values()) and shard == (512, 504),
+              f"tp rank {rank}: sharded NeRF MLP (8 x 1024, f32; pts_0 "
+              f"shard {shard}) vs the unsharded forward, CPU: "
+              + ", ".join(f"{k} max_rel {e['max_rel']:.3e}"
+                          for k, e in errs.items())
+              + f" ({seconds:.1f} s with start-up)")
+
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    print(f"[helpers] launches of one call (apart from the kernels line): "
+          f"{json.dumps(seen)}")
+    print(f"[helpers] phase: {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError(f"helpers phase: {failures}")
+    return results
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2822,7 +3176,7 @@ def main() -> int:
     def done(phase):
         print(f"[time] {phase} done at {time.perf_counter() - t0:.1f} s")
 
-    phase_card(torch)
+    card = phase_card(torch)
     phase_build()
     done("build")
     checks = phase_kernels(torch) + phase_backward_kernels(torch)
@@ -2855,6 +3209,8 @@ def main() -> int:
     done("mipnerf360 training and evaluation")
     phase_data_parallel(torch)
     done("data-parallel ranks")
+    phase_helpers(torch, card)
+    done("helpers")
 
     # launches per steady training stage (the second), per rendered view
     # with the encode cached (the second view) and per optimize step; the

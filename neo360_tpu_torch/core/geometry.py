@@ -1,4 +1,5 @@
-"""World <-> camera <-> image geometry (port of neo360_tpu/core/geometry.py:23-81).
+"""World <-> camera <-> image geometry (port of
+neo360_tpu/core/geometry.py:23-122), and the MVS plane-sweep warp.
 
 Points are batched as (B, N, 3) with (B, 4, 4) cam2world poses; views are
 interleaved on the leading axis exactly as in the JAX package.
@@ -81,3 +82,50 @@ def projection(c_xyz: torch.Tensor, focal: torch.Tensor, c: torch.Tensor,
     f = repeat_interleave(focal[:, None, :], nv if focal.shape[0] > 1 else 1)
     cc = repeat_interleave(c[:, None, :], nv if c.shape[0] > 1 else 1)
     return uv * f + cc
+
+
+def homography_uv(hw: tuple, proj_mat: torch.Tensor,
+                  depth_values: torch.Tensor) -> torch.Tensor:
+    """The normalized source-view uv (B, D*H*W, 2) of every reference
+    pixel of an (H, W) map at every hypothesis depth: the pixel
+    projected with `proj_mat` (B, 3, 4), src_proj @ ref_proj_inv, at each
+    of `depth_values` (B, D), depths in order, then pixels row by row
+    (align_corners=True: pixel 0 at -1, pixel W-1 at 1). A point projected
+    onto z = 0 gets a non-finite uv."""
+    h, w = hw
+    b, d = depth_values.shape
+    dev = proj_mat.device
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    ref = torch.stack([xs.reshape(-1), ys.reshape(-1),
+                       torch.ones(h * w, device=dev)])          # (3, HW)
+    rot = proj_mat[:, :, :3]                                     # (B, 3, 3)
+    t = proj_mat[:, :, 3:]                                       # (B, 3, 1)
+    # (R @ x) + T/depth ~ homogeneous (R @ x * depth + T)
+    src = (torch.einsum("bij,jn->bin", rot, ref)[:, None]
+           + t[:, None] / depth_values[:, :, None, None])        # (B,D,3,HW)
+    uv = src[:, :, :2] / src[:, :, 2:]
+    scale = torch.tensor([(w - 1) / 2.0, (h - 1) / 2.0], device=dev)
+    uv = uv / scale[None, None, :, None] - 1.0                   # [-1, 1]
+    return uv.permute(0, 1, 3, 2).reshape(b, d * h * w, 2)
+
+
+def homography_warp(src_feat: torch.Tensor, proj_mat: torch.Tensor,
+                    depth_values: torch.Tensor) -> torch.Tensor:
+    """MVS plane-sweep warp (neo360_tpu/core/geometry.py:84-122): every
+    reference pixel at every hypothesis depth projected into the source
+    view (`homography_uv`) and bilinear-sampled there
+    (`ops.interpolate.grid_sample_2d`, zeros padding, align_corners=True).
+    A point projected onto z = 0 samples 0.
+
+    src_feat (B, H, W, C) NHWC; proj_mat (B, 3, 4), src_proj @
+    ref_proj_inv; depth_values (B, D). Returns (B, D, H, W, C) float32.
+    The uv is computed on src_feat's device, and on the card the sample
+    is kernel A; uv takes no gradient, so neither do proj_mat and
+    depth_values."""
+    from neo360_tpu_torch.ops.interpolate import grid_sample_2d
+    b, h, w, _ = src_feat.shape
+    uv = homography_uv((h, w), proj_mat, depth_values)
+    warped = grid_sample_2d(src_feat, uv, padding_mode="zeros")
+    return warped.reshape(b, depth_values.shape[1], h, w, -1)

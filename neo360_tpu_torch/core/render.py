@@ -1,6 +1,6 @@
-"""Volumetric compositing (port of neo360_tpu/core/render.py:26-96,
-124-163): the plain NeRF rule, the NeRF++ fg/bg rule and the MipNeRF-360
-rule.
+"""Volumetric compositing (port of neo360_tpu/core/render.py): the plain
+NeRF rule, the NeRF++ fg/bg rule, the MipNeRF-360 rule, and the VolSDF
+rule (`volume_rendering_volsdf`, plain PyTorch).
 
 `composite_vanilla` is one level's plain NeRF composite
 (neo360_tpu/core/render.py:volumetric_rendering), which the vanilla NeRF
@@ -235,6 +235,34 @@ composite_nerfpp_backward.launches = 0
 # kernel's reverse scan does neither. A float32 emulation of the scan
 # differs from float64 autograd by ~2e-6 relative at S=9.
 BACKWARD_TOL = dict(rtol=1e-4, atol_frac=1e-5)
+
+
+def volume_rendering_volsdf(rgb: torch.Tensor, density: torch.Tensor,
+                            t_vals: torch.Tensor, dirs: torch.Tensor,
+                            white_bkgd: bool):
+    """VolSDF-style compositing in log space (neo360_tpu/core/render.py:99,
+    the reference's vanilla_nerf/helper.py:488-518), plain PyTorch: free
+    energy = density * dists, transmittance = exp(-cumsum), the last
+    interval 1 wide (not 1e10). No model calls it; no kernel computes it.
+
+    rgb (B,S,3), density (B,S) or (B,S,1), t_vals (B,S), dirs (B,3).
+    Returns comp_rgb (B,3), acc (B,), weights (B,S), depth (B,)."""
+    density = density[..., 0] if density.dim() == rgb.dim() else density
+    dists = torch.cat([t_vals[..., 1:] - t_vals[..., :-1],
+                       torch.ones_like(t_vals[..., :1])], dim=-1)
+    dists = dists * torch.linalg.norm(dirs[..., None, :], dim=-1)
+    free_energy = dists * density
+    shifted = torch.cat([torch.zeros_like(free_energy[..., :1]),
+                         free_energy[..., :-1]], dim=-1)
+    alpha = 1.0 - torch.exp(-free_energy)
+    trans = torch.exp(-torch.cumsum(shifted, dim=-1))
+    weights = alpha * trans
+    comp_rgb = torch.sum(weights[..., None] * rgb, dim=-2)
+    depth = torch.sum(weights * t_vals, dim=-1)
+    acc = torch.sum(weights, dim=-1)
+    if white_bkgd:
+        comp_rgb = comp_rgb + (1.0 - acc[..., None])
+    return comp_rgb, acc, weights, depth
 
 
 # --- the plain NeRF composite (kernels D and D') -------------------------

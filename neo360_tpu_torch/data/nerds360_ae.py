@@ -1,5 +1,6 @@
 """NERDS360_AE few-shot scenes (port of
-neo360_tpu/data/nerds360_ae.py:57-489): the train, val and test splits.
+neo360_tpu/data/nerds360_ae.py): the train, val and test splits, and the
+nearest-view selection `get_nearest_pose_ids`.
 
 - train: a random scene, `num_src_views` random source views of its 100
   train cameras and `ray_batch_size` rays drawn across up to 20 of the
@@ -398,3 +399,37 @@ class NeRDS360AE:
 
     def num_test_views(self, scene_idx: int) -> int:
         return len(self.scene_meta(self.scene_ids[scene_idx]).c2w_test)
+
+
+def get_nearest_pose_ids(tar_pose: np.ndarray, ref_poses: np.ndarray,
+                         num_select: int = 4, tar_id: int = -1,
+                         angular_dist_method: str = "vector",
+                         scene_center=(0, 0, 0)) -> np.ndarray:
+    """The `num_select` reference views nearest `tar_pose` (at most all but
+    one), nearest first, by rotation angle ("matrix"), angle between the
+    look-from vectors about `scene_center` ("vector") or camera distance
+    ("dist"); `tar_id` >= 0 excludes that view (the reference's
+    nerds360_ae.py:80-124)."""
+    tiny = 1e-6
+    num_cams = len(ref_poses)
+    num_select = min(num_select, num_cams - 1)
+    if angular_dist_method == "matrix":
+        r1 = np.broadcast_to(tar_pose[:3, :3], (num_cams, 3, 3))
+        r2 = ref_poses[:, :3, :3]
+        tr = np.trace(np.matmul(r2.transpose(0, 2, 1), r1),
+                      axis1=1, axis2=2)
+        dists = np.arccos(np.clip((tr - 1) / 2.0, -1 + tiny, 1 - tiny))
+    elif angular_dist_method == "vector":
+        tv = tar_pose[:3, 3][None] - np.asarray(scene_center)[None]
+        rv = ref_poses[:, :3, 3] - np.asarray(scene_center)[None]
+        tu = tv / (np.linalg.norm(tv, axis=1, keepdims=True) + tiny)
+        ru = rv / (np.linalg.norm(rv, axis=1, keepdims=True) + tiny)
+        dists = np.arccos(np.clip(np.sum(tu * ru, axis=-1), -1.0, 1.0))
+    elif angular_dist_method == "dist":
+        dists = np.linalg.norm(tar_pose[:3, 3][None] - ref_poses[:, :3, 3],
+                               axis=1)
+    else:
+        raise ValueError(angular_dist_method)
+    if tar_id >= 0:
+        dists[tar_id] = 1e3
+    return np.argsort(dists)[:num_select]

@@ -1,5 +1,5 @@
-"""NERDS360 `pose.json` parsing and normalization (port of
-neo360_tpu/data/poses.py:29-105, host-side numpy).
+"""NERDS360 `pose.json` parsing and normalization, and the random "near
+pose" jitter (port of neo360_tpu/data/poses.py, host-side numpy).
 
 Normalization: subtract obj_location, flip Parallel-Domain axes to NeRF
 axes, and scale every translation by 1 / max |t| over the train cameras
@@ -11,18 +11,12 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
-_PD_TO_NERF = np.array(
-    [[1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]])
+from neo360_tpu_torch.core.rays import convert_pose_pd_to_nerf
 
-
-def convert_pose_pd_to_nerf(c2w: np.ndarray) -> np.ndarray:
-    """Parallel-Domain -> NeRF camera axis flip (copy of
-    neo360_tpu/core/rays.py:convert_pose_pd_to_nerf)."""
-    return c2w @ _PD_TO_NERF.astype(c2w.dtype)
 
 
 @dataclass
@@ -79,3 +73,36 @@ def sorted_image_files(scene_dir: str, split: str) -> List[str]:
     files = os.listdir(os.path.join(scene_dir, split, "rgb"))
     files.sort()
     return files
+
+
+def get_rotation_matrix(rotation_deg: float,
+                        rng: Optional[np.random.Generator] = None
+                        ) -> np.ndarray:
+    """Random small rotation R = Rx @ Ry @ Rz, each Euler angle drawn
+    uniformly from +-rotation_deg by `rng` (three draws, as the JAX
+    function makes them)."""
+    rng = rng or np.random.default_rng()
+    phi = rotation_deg * (np.pi / 180.0)
+    x, y, z = rng.uniform(-phi, phi, size=3)
+    rot_x = np.array([[1, 0, 0],
+                      [0, np.cos(x), -np.sin(x)],
+                      [0, np.sin(x), np.cos(x)]])
+    rot_y = np.array([[np.cos(y), 0, -np.sin(y)],
+                      [0, 1, 0],
+                      [np.sin(y), 0, np.cos(y)]])
+    rot_z = np.array([[np.cos(z), -np.sin(z), 0],
+                      [np.sin(z), np.cos(z), 0],
+                      [0, 0, 1]])
+    return (rot_x @ rot_y @ rot_z).astype(np.float64)
+
+
+def rot_from_origin(c2w: np.ndarray, rotation_deg: float = 10.0,
+                    rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """A (3|4, 4) pose rotated about the world origin by
+    `get_rotation_matrix(rotation_deg, rng)` (the reference's near pose
+    for its smoothing loss), in c2w's dtype."""
+    rot_mat = get_rotation_matrix(rotation_deg, rng)
+    out = np.array(c2w, dtype=np.float64, copy=True)
+    out[:3, :3] = rot_mat @ c2w[:3, :3]
+    out[:3, 3:4] = rot_mat @ c2w[:3, 3:4]
+    return out.astype(c2w.dtype if hasattr(c2w, "dtype") else np.float32)

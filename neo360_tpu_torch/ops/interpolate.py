@@ -22,13 +22,21 @@ calls in their backward. Their plain versions
 (`triplane_sample_reference`, `local_sample_reference`) are the unfused
 chains over `table_sample_reference`.
 
-Maps are NHWC at these functions, as in the JAX package. The JAX package's
-`resize_bilinear_align_corners` becomes F.interpolate(mode="bilinear",
-align_corners=True) at its call sites.
+`grid_sample_2d` (neo360_tpu/ops/interpolate.py:60) samples an image
+rather than a table: on CUDA tensors it builds the image's corner table
+(plain PyTorch) and samples it with kernel A, so its gradient with respect
+to the image is kernel A' (dense) and the table's plain transpose; on CPU
+tensors it is `grid_sample_2d_reference`, the JAX code's four-corner
+formula. `resize_bilinear_align_corners` is two interpolation-matrix
+products, as in the JAX package; the model's call sites use
+F.interpolate(mode="bilinear", align_corners=True), the same function.
+
+Maps are NHWC at these functions, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -598,3 +606,137 @@ def local_sample(table: torch.Tensor, cam: torch.Tensor, focal: torch.Tensor,
 
 triplane_sample.launches = 0
 local_sample.launches = 0
+
+
+# the widest channel slice of one `grid_sample_2d` launch: kernel A' takes
+# at most 1024 channels (256 vectors of 4), kernel A at most 256 vectors of
+# 16 bytes; a wider image is sampled slice by slice, a launch each
+GRID_SAMPLE_MAX_C = 1024
+
+
+# grid_sample_2d on the card against its plain version
+# (ops.kernels.compare): 1e-5 relative plus 1e-5 * max|ref|, forward and
+# image gradient. The plain version weighs the four corners as
+# (x1 - ix)(y1 - iy), the table fold as (1 - fx)(1 - fy), rounded apart;
+# the gradient sums each pixel's contributions in another order.
+GRID_SAMPLE_TOL = dict(rtol=1e-5, atol_frac=1e-5)
+
+
+def grid_sample_2d_reference(image: torch.Tensor, uv: torch.Tensor,
+                             padding_mode: str = "zeros") -> torch.Tensor:
+    """Plain PyTorch version of `grid_sample_2d`: the four-corner formula
+    of neo360_tpu/ops/interpolate.py:60-114 (in zeros mode each corner
+    outside the image weighs 0). image (B, H, W, C), uv (B, N, 2) ->
+    (B, N, C) in the promoted type of the image and the weights."""
+    _check_mode(padding_mode)
+    b, h, w, c = image.shape
+    ix = (uv[..., 0] + 1.0) * 0.5 * (w - 1)
+    iy = (uv[..., 1] + 1.0) * 0.5 * (h - 1)
+    if padding_mode == "border":   # torch.clamp keeps NaN, as jnp.clip
+        ix = torch.clamp(ix, 0.0, w - 1)
+        iy = torch.clamp(iy, 0.0, h - 1)
+    x0, y0 = torch.floor(ix), torch.floor(iy)
+    x1, y1 = x0 + 1.0, y0 + 1.0
+    flat = image.reshape(b * h * w, c)
+    base = (torch.arange(b, device=image.device) * (h * w))[:, None]
+    n = uv.shape[1]
+
+    def fetch(xi, yi, wgt):
+        if padding_mode == "zeros":
+            valid = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+            wgt = torch.where(valid, wgt, torch.zeros_like(wgt))
+        # clamp in float before the cast: huge or non-finite uv stays defined
+        xc = torch.nan_to_num(torch.clamp(xi, 0, w - 1)).long()
+        yc = torch.nan_to_num(torch.clamp(yi, 0, h - 1)).long()
+        idx = base + yc * w + xc
+        return flat[idx.reshape(-1)].reshape(b, n, c) * wgt[..., None]
+
+    return (fetch(x0, y0, (x1 - ix) * (y1 - iy))
+            + fetch(x1, y0, (ix - x0) * (y1 - iy))
+            + fetch(x0, y1, (x1 - ix) * (iy - y0))
+            + fetch(x1, y1, (ix - x0) * (iy - y0)))
+
+
+def _grid_sample_tables(image: torch.Tensor, uv: torch.Tensor,
+                        padding_mode: str) -> torch.Tensor:
+    """`grid_sample_2d` through corner tables and `table_sample`: C padded
+    with zeros to the kernel's multiple (16 bytes of the image's type),
+    split into slices of at most GRID_SAMPLE_MAX_C channels, one table and
+    one `table_sample` each, the padding sliced off. Float32 out."""
+    _check_mode(padding_mode)
+    if image.dtype not in kernels.DTYPE_CODES:
+        raise ValueError(f"grid_sample_2d: image must be float32 or "
+                         f"bfloat16, got {image.dtype}")
+    b, h, w, c = image.shape
+    multiple = 16 // image.element_size()
+    padded = -(-c // multiple) * multiple
+    if padded != c:
+        image = F.pad(image, (0, padded - c))
+    uv = uv.to(torch.float32)
+    slices = [image[..., lo:lo + GRID_SAMPLE_MAX_C]
+              for lo in range(0, padded, GRID_SAMPLE_MAX_C)]
+    outs = [table_sample(build_corner_table(s, padding_mode), uv, (h, w),
+                         padding_mode, torch.float32) for s in slices]
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
+    return out[..., :c]
+
+
+def grid_sample_2d(image: torch.Tensor, uv: torch.Tensor,
+                   padding_mode: str = "zeros") -> torch.Tensor:
+    """Bilinear sample NHWC images at normalized coords, align_corners=True
+    (semantics of neo360_tpu/ops/interpolate.py:grid_sample_2d, and of
+    F.grid_sample(mode="bilinear", align_corners=True) in zeros and border
+    padding).
+
+    image (B, H, W, C) float32 or bfloat16; uv (B, N, 2), x = u, y = v in
+    [-1, 1], (-1, -1) the centre of pixel (0, 0). Returns (B, N, C)
+    float32. Non-finite uv samples 0 in zeros mode.
+
+    CPU tensors run `grid_sample_2d_reference`. CUDA tensors sample the
+    image's corner table with kernel A (`table_sample`, one launch per
+    GRID_SAMPLE_MAX_C channels), whose backward is kernel A' (dense); a
+    call the kernel cannot serve raises. uv takes no gradient (raises if
+    it requires one); the JAX function differentiates through uv, which
+    no caller uses."""
+    if torch.is_grad_enabled() and uv.requires_grad:
+        raise ValueError("grid_sample_2d: uv takes no gradient (detach it)")
+    if image.device.type == "cpu" and uv.device.type == "cpu":
+        return grid_sample_2d_reference(image, uv, padding_mode)
+    return _grid_sample_tables(image, uv, padding_mode)
+
+
+def in_bounds_mask(uv: torch.Tensor) -> torch.Tensor:
+    """|uv| <= 1 per coordinate, (B, N, 2) bool."""
+    return torch.abs(uv) <= 1.0
+
+
+def _interp_matrix(n_out: int, n_in: int) -> np.ndarray:
+    """(n_out, n_in) align_corners=True bilinear interpolation matrix."""
+    if n_in == 1:
+        return np.ones((n_out, 1), dtype=np.float32)
+    pos = np.zeros((1,)) if n_out == 1 else np.linspace(0.0, n_in - 1, n_out)
+    lo = np.clip(np.floor(pos).astype(np.int64), 0, n_in - 1)
+    hi = np.clip(lo + 1, 0, n_in - 1)
+    frac = (pos - lo).astype(np.float32)
+    m = np.zeros((n_out, n_in), dtype=np.float32)
+    rows = np.arange(n_out)
+    m[rows, lo] += 1.0 - frac
+    m[rows, hi] += frac
+    return m
+
+
+def resize_bilinear_align_corners(image: torch.Tensor,
+                                  out_hw: tuple) -> torch.Tensor:
+    """Resize (..., H, W, C) -> (..., H', W', C), align_corners=True, as
+    two products with interpolation matrices in the image's dtype (so a
+    bf16 map stays bf16), rows first."""
+    h_out, w_out = out_hw
+    h_in, w_in = image.shape[-3], image.shape[-2]
+    if (h_in, w_in) == (h_out, w_out):
+        return image
+    mh = torch.as_tensor(_interp_matrix(h_out, h_in), device=image.device,
+                         dtype=image.dtype)
+    mw = torch.as_tensor(_interp_matrix(w_out, w_in), device=image.device,
+                         dtype=image.dtype)
+    out = torch.einsum("oh,...hwc->...owc", mh, image)
+    return torch.einsum("ow,...hwc->...hoc", mw, out)

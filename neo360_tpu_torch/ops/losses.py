@@ -1,5 +1,5 @@
 """Loss primitives (port of neo360_tpu/ops/losses.py:25-115): MSE / PSNR,
-the MipNeRF-360 interlevel bound and the distortion loss.
+Charbonnier, the MipNeRF-360 interlevel bound and the distortion loss.
 
 `lossfun_distortion` is the O(S^2) formula, kept as the test oracle of the
 O(S) prefix-sum forms `eff_distloss` (on midpoints) and
@@ -22,6 +22,12 @@ def img2mse(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def mse2psnr(mse: torch.Tensor) -> torch.Tensor:
     return -10.0 * torch.log(mse) / math.log(10.0)
+
+
+def charbonnier_loss(x: torch.Tensor, y: torch.Tensor,
+                     eps: float = 1e-3) -> torch.Tensor:
+    """mean(sqrt((x - y)^2 + eps^2)), the MipNeRF-360 data loss."""
+    return torch.mean(torch.sqrt((x - y) ** 2 + eps ** 2))
 
 
 def _searchsorted(a: torch.Tensor, v: torch.Tensor):

@@ -29,6 +29,13 @@ GROUP_RANK). The ranks of one node share the node's host batch, as the
 devices of one JAX host do, and the global batch is the nodes' batches
 one after the other.
 
+Tensor parallelism (`tp_param_shardings`, `distribute_params`) shards
+the wide Linear weights over a DeviceMesh axis "model" with DTensor, whose
+sharding propagation plays the part of XLA's. No CLI path uses it, in
+either package. On CUDA it needs NCCL, one rank per card: DTensor's
+all-gather of CUDA tensors through gloo segfaults (torch 2.11), so
+several ranks sharing one card run it on the CPU.
+
 Under the gloo backend a collective on CUDA tensors is staged through
 host copies; that is only for checking several ranks on one card. A CUDA
 group that asks for nothing else runs NCCL, and a failing NCCL init
@@ -43,10 +50,12 @@ import tempfile
 import time
 import traceback
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, \
+    Union
 
 import torch
 import torch.distributed as dist
+from torch import nn
 
 # long enough for a rank to wait out rank 0's checkpoint write or a
 # validation render; a hung collective fails after it
@@ -384,3 +393,74 @@ def sync_buffers_across_nodes(module: torch.nn.Module, group: Group) -> None:
     if group.nodes > 1:
         all_reduce_mean_([b for b in module.buffers()
                           if b.is_floating_point()], group)
+
+
+def tp_param_shardings(params: Union[nn.Module, Mapping[str, torch.Tensor]],
+                       mesh, axis: str = "model", min_tp_width: int = 512
+                       ) -> Dict[str, tuple]:
+    """Parameter name -> DTensor placements (one per dimension of the
+    DeviceMesh `mesh`) for `params` (a module's named parameters, or a
+    name -> tensor mapping), the rule of
+    neo360_tpu/parallel/sharding.py:tp_param_shardings: a weight whose
+    output width is at least `min_tp_width` and divides by the size of
+    mesh axis `axis` is sharded on its output dimension, and so is a 1-D
+    bias of such a width; everything else is replicated. A Flax kernel
+    is (in, out) and shards on its last axis; a torch Linear weight is
+    (out, in), so here a 2-D or 1-D tensor shards on dimension 0."""
+    from torch.distributed.tensor import Replicate, Shard
+    if isinstance(params, nn.Module):
+        params = dict(params.named_parameters())
+    dim = mesh.mesh_dim_names.index(axis)
+    size = mesh.size(dim)
+
+    def spec(x: torch.Tensor):
+        wide = (x.dim() in (1, 2) and x.shape[0] >= min_tp_width
+                and x.shape[0] % size == 0)
+        return tuple(Shard(0) if i == dim and wide else Replicate()
+                     for i in range(mesh.ndim))
+
+    return {name: spec(x) for name, x in params.items()}
+
+
+def distribute_params(module: nn.Module, mesh,
+                      shardings: Mapping[str, tuple]) -> nn.Module:
+    """Make every parameter of `module` a DTensor on `mesh` with its
+    placements from `shardings` (`tp_param_shardings`), in place, from the
+    values this rank holds (each rank must hold the same values). Each
+    submodule that owns parameters then takes plain tensors and returns
+    plain tensors: its inputs enter as replicated DTensors, DTensor
+    propagates the placements through its forward (a sharded weight gives
+    an output sharded on its last dimension), and its output leaves whole
+    (`full_tensor`, an all-gather of the shards). A submodule that owns
+    parameters may not hold another that does (raises). Returns
+    `module`."""
+    from torch.distributed.tensor import DTensor, Replicate, \
+        distribute_tensor
+
+    replicate = [Replicate()] * mesh.ndim
+
+    def enter(_, inputs):
+        return tuple(DTensor.from_local(x, mesh, replicate)
+                     if isinstance(x, torch.Tensor) else x for x in inputs)
+
+    def leave(_, inputs, output):
+        return output.full_tensor() if isinstance(output, DTensor) \
+            else output
+
+    for prefix, sub in module.named_modules():
+        own = list(sub.named_parameters(recurse=False))
+        if not own:
+            continue
+        if any(True for child in sub.children()
+               for _ in child.parameters()):
+            raise ValueError(f"distribute_params: {prefix or 'the module'} "
+                             f"and one of its submodules both own "
+                             f"parameters")
+        for name, p in own:
+            full = f"{prefix}.{name}" if prefix else name
+            sub.register_parameter(name, nn.Parameter(
+                distribute_tensor(p.detach(), mesh, shardings[full]),
+                requires_grad=p.requires_grad))
+        sub.register_forward_pre_hook(enter)
+        sub.register_forward_hook(leave)
+    return module

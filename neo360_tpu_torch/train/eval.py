@@ -1,10 +1,12 @@
 """Evaluation: render every test view, PSNR / SSIM (and, with pretrained
 LPIPS weights, LPIPS) on the device, stream artifacts to disk; and the
 360-degree spiral of the vis_only flythrough (port of
-neo360_tpu/train/eval.py:42-52, 55-90, 100-269).
+neo360_tpu/train/eval.py).
 
 `evaluate` yields one `ViewResult` per view and holds nothing else, so
-memory stays constant in the number of views. `evaluate_and_save` writes
+memory stays constant in the number of views. `evaluate_images` keeps
+every view in an `EvalResult` and `save_eval_artifacts` writes one, the
+JAX package's in-memory pair. `evaluate_and_save` writes
 each view's JPEG and raw depth on a writer thread while the next view
 renders, then the depth colormaps of every view with depth (normalized
 by the largest depth of the set) and results.json; with `video=True`
@@ -16,7 +18,7 @@ from __future__ import annotations
 
 import os
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
@@ -74,6 +76,69 @@ def evaluate(render_fn: Callable[[Dict], Dict[str, torch.Tensor]],
             mask = np.asarray(sample["instance_mask"]).reshape(h, w) > 0
             op = object_psnr(rgb, target, mask)
         yield ViewResult(rgb, depth, float(p), float(s), op, lp)
+
+
+@dataclass
+class EvalResult:
+    """Every view's metrics and images, in view order."""
+    psnr: List[float] = field(default_factory=list)
+    ssim: List[float] = field(default_factory=list)
+    lpips: List[float] = field(default_factory=list)
+    psnr_obj: List[float] = field(default_factory=list)
+    rgbs: List[np.ndarray] = field(default_factory=list)
+    depths: List[np.ndarray] = field(default_factory=list)
+    targets: List[np.ndarray] = field(default_factory=list)
+
+    def summary(self) -> Dict[str, float]:
+        """The mean of each metric that has values."""
+        return {name: float(np.mean(getattr(self, name)))
+                for name in ("psnr", "ssim", "lpips", "psnr_obj")
+                if getattr(self, name)}
+
+
+def evaluate_images(render_fn: Callable[[Dict], Dict[str, torch.Tensor]],
+                    samples: Iterable[Dict], img_wh,
+                    lpips_model=None) -> EvalResult:
+    """`evaluate` over every sample, collected into one `EvalResult` (the
+    rendered rgb and depth, each sample's target, the metrics; views
+    without an instance mask add no object PSNR)."""
+    w, h = img_wh
+    result = EvalResult()
+    samples = list(samples)
+    for sample, view in zip(samples, evaluate(render_fn, samples, img_wh,
+                                              lpips_model)):
+        result.rgbs.append(view.rgb)
+        result.targets.append(
+            np.asarray(sample["target"], np.float32).reshape(h, w, 3))
+        if view.depth is not None:
+            result.depths.append(view.depth)
+        result.psnr.append(view.psnr)
+        result.ssim.append(view.ssim)
+        if view.lpips is not None:
+            result.lpips.append(view.lpips)
+        if view.psnr_obj is not None:
+            result.psnr_obj.append(view.psnr_obj)
+    return result
+
+
+def save_eval_artifacts(result: EvalResult, out_dir: str,
+                        results_json: Optional[str] = None,
+                        video: bool = False) -> Dict[str, float]:
+    """Write `result` under `out_dir`: image{i}.jpg, and with depths
+    depth_img{i}.jpg (normalized by the largest depth of the set) and
+    depth_raw{i}.npz; with `video` and more than one view the views as a
+    video; each metric's mean in `results_json`. Returns the means."""
+    io.store_image(out_dir, result.rgbs, "image")
+    if result.depths:
+        io.store_depth_img(out_dir, result.depths, "depth_img")
+        io.store_depth_raw(out_dir, result.depths, "depth_raw")
+    if video and len(result.rgbs) > 1:
+        io.store_video(out_dir, result.rgbs)
+    summary = result.summary()
+    if results_json is not None:
+        io.write_stats(results_json, **{k: {"mean": v}
+                                        for k, v in summary.items()})
+    return summary
 
 
 def _write(kind: str, path: str, arr: np.ndarray) -> None:

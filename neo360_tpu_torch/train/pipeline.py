@@ -1,5 +1,5 @@
-"""Host -> device input pipeline (port of
-neo360_tpu/train/pipeline.py:prefetch_to_device).
+"""Host -> device input pipeline (port of neo360_tpu/train/pipeline.py:
+train_iterator and prefetch_to_device).
 
 A daemon thread runs the host sampler, places each item on the device (or
 leaves it on the host) and keeps `size` items buffered, so the device never
@@ -35,6 +35,15 @@ def to_device(item, device):
     if torch.device(device).type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def train_iterator(dataset, seed: int = 0) -> Iterator:
+    """Infinite iterator of training samples from a NeRDS360AE-style
+    dataset (anything with .sample_train(rng)), drawn from one numpy
+    Generator seeded with `seed`."""
+    rng = np.random.default_rng(seed)
+    while True:
+        yield dataset.sample_train(rng)
 
 
 class _Prefetcher:

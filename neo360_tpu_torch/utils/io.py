@@ -1,6 +1,6 @@
 """Host-side output helpers (port of neo360_tpu/utils/io.py:to8b,
-store_depth_img, store_video, write_stats, visualize_depth): numpy, with
-PIL and cv2 imported inside the writers."""
+store_image, store_depth_img, store_depth_raw, store_video, write_stats,
+visualize_depth): numpy, with PIL and cv2 imported inside the writers."""
 
 from __future__ import annotations
 
@@ -36,6 +36,31 @@ def write_stats(path: str, **metric_groups) -> str:
     with open(path, "w") as f:
         json.dump(payload, f, indent=2)
     return path
+
+
+def store_image(dirpath: str, rgbs: Sequence[np.ndarray],
+                name: str = "image") -> List[str]:
+    """(H, W, 3) float images as JPEGs {name}000.jpg... under `dirpath`."""
+    from PIL import Image
+    os.makedirs(dirpath, exist_ok=True)
+    paths = []
+    for i, rgb in enumerate(rgbs):
+        path = os.path.join(dirpath, f"{name}{i:03d}.jpg")
+        Image.fromarray(to8b(rgb)).save(path)
+        paths.append(path)
+    return paths
+
+
+def store_depth_raw(dirpath: str, depths: Sequence[np.ndarray],
+                    name: str = "depth_raw") -> List[str]:
+    """Depth maps as compressed npz files {name}000.npz... (key "depth")."""
+    os.makedirs(dirpath, exist_ok=True)
+    paths = []
+    for i, depth in enumerate(depths):
+        path = os.path.join(dirpath, f"{name}{i:03d}.npz")
+        np.savez_compressed(path, depth=np.asarray(depth))
+        paths.append(path)
+    return paths
 
 
 def depth_jet(depth: np.ndarray, scale: float) -> np.ndarray:

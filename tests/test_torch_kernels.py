@@ -26,7 +26,8 @@ from neo360_tpu_torch.core.render import MIP_BACKWARD_TOL, MIP_OUT_KEYS, \
     composite_vanilla_backward, composite_vanilla_reference
 from neo360_tpu_torch.ops import kernels
 from neo360_tpu_torch.ops.interpolate import BACKWARD_TOL as INTERP_BWD_TOL
-from neo360_tpu_torch.ops.interpolate import FUSED_TOL, build_corner_table, \
+from neo360_tpu_torch.ops.interpolate import FUSED_TOL, GRID_SAMPLE_TOL, \
+    build_corner_table, grid_sample_2d, grid_sample_2d_reference, \
     local_sample, local_sample_reference, local_uv, table_sample, \
     table_sample_accumulate, table_sample_accumulate_reference, \
     table_sample_backward, table_sample_backward_reference, \
@@ -107,6 +108,57 @@ def test_table_sample_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):   # uv must be float32
         table_sample(torch.zeros(1, 5, 5, 32, device=cuda), uv.double(),
                      (4, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["zeros", "border"])
+@pytest.mark.parametrize("c,launches", [(3, 1), (32, 1), (1100, 2)])
+def test_grid_sample_2d_kernel(cuda, dtype, mode, c, launches):
+    """grid_sample_2d on the card (the image's corner table through kernel
+    A, its image gradient through A' dense) against its plain four-corner
+    version: one launch of each per 1024 channels."""
+    g = _gen(20)
+    image = torch.randn(2, 9, 11, c, generator=g).to(dtype).to(cuda)
+    uv = _uv(2, 400, g)
+    if mode == "border":
+        uv = uv.nan_to_num(0.0, 0.0, 0.0)
+    uv = uv.to(cuda)
+    cot = torch.randn(2, 400, c, generator=g).to(cuda)
+    before = (table_sample.launches, table_sample_backward.launches)
+    leaf = image.clone().requires_grad_()
+    out = grid_sample_2d(leaf, uv, mode)
+    (grad,) = torch.autograd.grad(out, leaf, cot)
+    assert (table_sample.launches - before[0],
+            table_sample_backward.launches - before[1]) == (launches,
+                                                            launches)
+    ref_leaf = image.float().clone().requires_grad_()
+    ref = grid_sample_2d_reference(ref_leaf, uv, mode)
+    (ref_grad,) = torch.autograd.grad(ref, ref_leaf, cot)
+    assert out.dtype == torch.float32
+    res = kernels.compare(out, ref, **GRID_SAMPLE_TOL)
+    assert res["ok"], res
+    # a bf16 image's gradient: A' rounds each table block to bf16 once and
+    # the table's transpose adds four of them in bf16, a few bf16 ulps
+    # (2^-8 each) from the f32 sum: 2e-2 relative, 1e-2 of the largest
+    tol = INTERP_BWD_TOL if dtype == torch.float32 else dict(rtol=2e-2,
+                                                             atol_frac=1e-2)
+    res = kernels.compare(grad.float(), ref_grad, **tol)
+    assert res["ok"], res
+
+
+@pytest.mark.cuda
+def test_grid_sample_2d_kernel_raises_rather_than_falling_back(cuda):
+    uv = torch.zeros(1, 4, 2, device=cuda)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            grid_sample_2d(torch.zeros(1, 4, 4, 3, dtype=dtype, device=cuda),
+                           uv)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        grid_sample_2d(torch.zeros(1, 4, 4, 3), uv)
+    with pytest.raises(ValueError, match="uv takes no gradient"):
+        grid_sample_2d(torch.zeros(1, 4, 4, 3, device=cuda),
+                       uv.clone().requires_grad_())
 
 
 @pytest.mark.cuda
