@@ -91,18 +91,22 @@ line):
    one rank launches, and rank 1 writes no file; one NCCL rank runs the
    same stages; two gloo ranks run 3 MipNeRF-360 steps and one LPIPS
    finetune step, their first gradients held to one rank's;
-14. the JAX package's helpers (`phase_helpers`): grid_sample_2d (kernel A,
-   and A' in its image gradient) against its plain version at the
-   plane-sweep warp's shape and at an RGB image's, with time, bound and
-   F.grid_sample's time, one launch of each a call; homography_warp,
-   volume_rendering_volsdf, the ray helpers and charbonnier_loss on the
-   card against the CPU; profiling.trace around one full-width
-   neo360_fast render tile (its span and the tri-plane gather's kernel
-   in the Chrome trace) and ThroughputMeter over a view's tiles; the
-   MipNeRF-360 NeRF MLP sharded by tp_param_shardings over two gloo ranks
-   on the CPU (DTensor's all-gather of CUDA tensors through gloo, the
-   only backend for two ranks on one card, segfaults) against the
-   unsharded forward.
+14. the JAX package's helpers (`phase_helpers`): grid_sample_2d (kernel
+   G, and G' in its image gradient) against its plain versions at the
+   plane-sweep warp's shape, an RGB image's and PixelNeRF's latent (f32
+   and bf16), with time, bound, F.grid_sample's time and the time of the
+   table route it replaced (build_corner_table + A, A' + the table's
+   transpose), one launch of G a call and of G' a backward, none of A or
+   A'; PixelNeRF's two levels per training step and per render tile on
+   G / G' against its table route; homography_warp (one G, and one G'
+   in its gradient), volume_rendering_volsdf, the ray helpers and
+   charbonnier_loss on the card against the CPU; profiling.trace around
+   one full-width neo360_fast render tile (its span and the tri-plane
+   gather's kernel in the Chrome trace) and ThroughputMeter over a view's
+   tiles; the MipNeRF-360 NeRF MLP sharded by tp_param_shardings over two
+   gloo ranks on the CPU (DTensor's all-gather of CUDA tensors through
+   gloo, the only backend for two ranks on one card, segfaults) against
+   the unsharded forward.
 Kernel D / D' are also checked against their plain versions at the
 baselines' shapes in phase 3, A / A' at the PixelNeRF levels, and E / E'
 at MipNeRF-360's levels and render tiles, with rays at the tie acc == 1
@@ -110,9 +114,10 @@ and the infinite last interval.
 
 Each kernel's launches per training stage or step and per rendered view
 follow the last phase. The line before the last is {"kernels": [...]}
-(the twelve kernels; launches: the sum over the eight main paths of
-phases 6-12, each counted from 0; phase 13's ranks count in their own
-processes and are not in it, and phase 14 prints its own), the
+(the fourteen kernels; launches: the sum over the eight main paths of
+phases 6-12, each counted from 0, and for G / G' the sum over phase 14's
+runs of grid_sample_2d and homography_warp, each counted from 0; phase
+13's ranks count in their own processes and are not in it), the
 last is {"ok": true, "device": {...}}. Requires a CUDA device: it exits 2
 without one, or without the neo360_tpu_torch package beside it.
 """
@@ -163,6 +168,15 @@ KERNELS = {
                           "neo360_tpu/core/render.py:124"),
     "composite_mip_bwd": ("neo360_tpu_torch/csrc/composite_mip_bwd.cu",
                           "neo360_tpu/core/render.py:124"),
+}
+# the kernels of phase 14's path (grid_sample_2d, homography_warp), which
+# no training or serving path launches: (source, the JAX function they
+# replace); their launches in the {"kernels": ...} line are phase 14's
+HELPER_KERNELS = {
+    "grid_sample_fwd": ("neo360_tpu_torch/csrc/grid_sample.cu",
+                        "neo360_tpu/ops/interpolate.py:62"),
+    "grid_sample_bwd": ("neo360_tpu_torch/csrc/grid_sample_bwd.cu",
+                        "neo360_tpu/ops/interpolate.py:62"),
 }
 # leaves whose gradient is zero by construction: conv biases ahead of
 # train-mode BatchNorm, and the pillar heads' biases (a softmax ignores a
@@ -218,8 +232,8 @@ def _bound(nbytes: float, ops: float):
                                                            "operations")
 
 
-def _share(bound_ms: float, ms: float) -> str:
-    return f"{bound_ms / ms:.1%}" if ms > 0 else "not measured"
+def _share(bound_ms: float, ms) -> str:
+    return f"{bound_ms / ms:.1%}" if ms else "not measured"
 
 
 def _rows_read(table_shape, uv, hw, mode, view_offset) -> int:
@@ -235,7 +249,8 @@ def _rows_read(table_shape, uv, hw, mode, view_offset) -> int:
 
 # the port's kernels (csrc/*.cu) as the profiler names them
 PORT_KERNEL = re.compile(r"::(table_sample|triplane_sample|local_sample"
-                         r"|table_scatter|round_to_bf16"
+                         r"|table_scatter|round_to_bf16|grid_round_bf16"
+                         r"|grid_sample|grid_scatter"
                          r"|composite_(nerfpp|vanilla|mip)(_bwd)?"
                          r"|pillar_(collapse|weights"
                          r"|softmax|dlogit|dlatent))_kernel\b")
@@ -317,11 +332,17 @@ def _median_ms(fn, torch) -> float:
     return statistics.median(times)
 
 
-def _device_ms(torch, fn) -> dict:
+# profiles `_trusted_device_ms` takes before it gives up: late in this
+# script the profiler often misses launches of a short call
+PROFILE_TRIES = 5
+
+
+def _device_ms(torch, fn, calls: dict = None) -> dict:
     """{kernel name: device ms per call} of `fn` over TIMED_RUNS calls
-    under torch.profiler, after a warm-up (memsets included). For a
-    kernel of a few microseconds a CUDA-event time around one call
-    measures the caller's host work; this does not."""
+    under torch.profiler, after a warm-up (memsets included); `calls`, if
+    given, gets each kernel's recorded launches. For a kernel of a few
+    microseconds a CUDA-event time around one call measures the caller's
+    host work; this does not."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -329,10 +350,39 @@ def _device_ms(torch, fn) -> dict:
         for _ in range(TIMED_RUNS):
             fn()
         torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")
+              and e.self_device_time_total > 0]
+    if calls is not None:
+        calls.update({e.key: e.count for e in events})
     return {e.key: e.self_device_time_total / 1e3 / TIMED_RUNS
-            for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")
-            and e.self_device_time_total > 0}
+            for e in events}
+
+
+def _trusted_device_ms(torch, fn, bound_ms: float = 0.0, port: bool = True):
+    """Device ms per call of `fn` (all its kernels), or None where the
+    profiler missed events: a run counts only if it recorded a port
+    kernel (unless `port` is False: `fn` launches none), every port
+    kernel it recorded ran at least once a call, and the total is not
+    below `bound_ms`, the least time the work can take. Up to
+    PROFILE_TRIES runs; each rejected one is printed."""
+    for _ in range(PROFILE_TRIES):
+        calls = {}
+        per = _device_ms(torch, fn, calls)
+        seen = [n for k, n in calls.items() if PORT_KERNEL.search(k)]
+        total = sum(per.values())
+        if (seen or not port) and min(seen, default=TIMED_RUNS) \
+                >= TIMED_RUNS and total >= bound_ms:
+            return total
+        print(f"[profile] device time not trusted: {total * 1e3:.1f} us a "
+              f"call, bound {bound_ms * 1e3:.1f} us, port kernels recorded "
+              f"{seen} times in {TIMED_RUNS} calls")
+    return None
+
+
+def _fmt_ms(ms, scale: float = 1.0, digits: int = 4) -> str:
+    """A device time for printing: `ms` * `scale`, or "not measured"."""
+    return "not measured" if ms is None else f"{ms * scale:.{digits}f}"
 
 
 def phase_card(torch) -> str:
@@ -374,14 +424,14 @@ def _check(name, case, out, ref, kernel_fn, plain_fn, torch, results,
     max_abs = max(r["max_abs"] for r in res)
     max_rel = max(r["max_rel"] for r in res)
     ms = _median_ms(kernel_fn, torch)
-    device_ms = sum(_device_ms(torch, kernel_fn).values())
+    bound_ms, bound_by = _bound(nbytes, ops)
+    device_ms = _trusted_device_ms(torch, kernel_fn, bound_ms)
     plain_ms = _median_ms(plain_fn, torch)
     library_ms = _median_ms(library_fn, torch) if library_fn else None
-    bound_ms, bound_by = _bound(nbytes, ops)
     ok = all(r["ok"] for r in res)
     lib = f"{library_ms:.4f} ms" if library_ms is not None else "none"
     print(f"[kernel] {name} {case}: max_abs {max_abs:.3e} max_rel "
-          f"{max_rel:.3e} kernel {ms:.4f} ms (device {device_ms:.4f} ms) "
+          f"{max_rel:.3e} kernel {ms:.4f} ms (device {_fmt_ms(device_ms)} ms) "
           f"plain {plain_ms:.4f} ms library {lib} bound {bound_ms:.4f} ms "
           f"({bound_by}, {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} Gop) share "
           f"{bound_ms / ms:.1%} (device {_share(bound_ms, device_ms)}) "
@@ -412,6 +462,27 @@ def _grid_sample_fns(torch, c, dtype, uv, hw, mode, cot=None):
     out = F.grid_sample(fmap, grid, "bilinear", mode, align_corners=True)
     g = cot.permute(0, 2, 1)[..., None].to(out.dtype).contiguous()
     return lambda: torch.autograd.grad(out, fmap, g, retain_graph=True)
+
+
+def _grid_sample_tables(image, uv, mode):
+    """grid_sample_2d through the image's corner table and kernel A, the
+    route `ops/interpolate.py:grid_sample_2d` took on the card before
+    kernels G / G' (a yardstick only): C padded with zeros to 16 bytes of
+    the image's type, one `build_corner_table`, one `table_sample`, the
+    padding sliced off; float32 out. Its gradient is kernel A' (dense) and
+    the table's plain transpose. C up to kernel A's 1024 channels."""
+    import torch.nn.functional as F
+
+    from neo360_tpu_torch.ops.interpolate import build_corner_table, \
+        table_sample
+    c = image.shape[-1]
+    multiple = 16 // image.element_size()
+    padded = -(-c // multiple) * multiple
+    if padded != c:
+        image = F.pad(image, (0, padded - c))
+    out = table_sample(build_corner_table(image, mode), uv,
+                       tuple(image.shape[1:3]), mode)
+    return out[..., :c]
 
 
 def phase_kernels(torch):
@@ -780,12 +851,12 @@ def _ray_uv(torch, g, b, n_rays, s, lim=1.2, reach=0.5):
     return (start + t * step).reshape(b, n_rays * s, 2)
 
 
-def _fixture_view(torch):
+def _fixture_view(torch, dev="cuda"):
     """One 320x240 fixture view of a seeded in-memory scene, as tensors on
-    the card: its rays and its 3 source views' poses, focal and centre."""
+    `dev`: its rays and its 3 source views' poses, focal and centre."""
     from neo360_tpu_torch.data.fixtures import MemoryScenes
     sample = MemoryScenes(1, (320, 240), 3).sample_test(0, 0)
-    return {k: torch.as_tensor(v, device="cuda") for k, v in sample.items()
+    return {k: torch.as_tensor(v, device=dev) for k, v in sample.items()
             if k in ("rays_o", "rays_d", "src_poses", "src_focal", "src_c")}
 
 
@@ -2818,7 +2889,7 @@ def phase_data_parallel(torch, dev: str = "cuda", **small):
 
 # the helpers' phase: grid_sample_2d at the plane-sweep warp's shape (32
 # channels at a quarter of 320x240, WARP_DEPTHS hypothesis depths) and at
-# an RGB image's (3 channels, padded to 4); TP_RANKS gloo ranks run the
+# an RGB image's (3 channels); TP_RANKS gloo ranks run the
 # tensor-parallel NeRF MLP on the CPU: DTensor's all-gather of CUDA
 # tensors through gloo (the only backend for two ranks on one card)
 # segfaults in wait_tensor (torch 2.11.0+cu128, PERF.md section 6), where
@@ -2826,6 +2897,12 @@ def phase_data_parallel(torch, dev: str = "cuda", **small):
 WARP_SHAPE, WARP_DEPTHS = (3, 60, 80, 32), 128
 RGB_SHAPE = (3, 240, 320, 3)
 TP_RANKS = 2
+# PixelNeRF's pixel latent (3 source views, 512 channels at half the
+# 320x240 image) and the rays of a training step and of a render tile
+PIX_LATENT_SHAPE, PIX_STEP_RAYS, PIX_TILE_RAYS = (3, 120, 160, 512), 512, 256
+# kernel G against its plain version: equal values (it repeats the plain
+# version's operations, one rounding each)
+GRID_SAMPLE_SAME = dict(rtol=0.0, atol_frac=0.0)
 
 
 def _warp_case(torch, dev):
@@ -2910,14 +2987,22 @@ def _tp_points(torch):
 def phase_helpers(torch, card: str, dev: str = "cuda", **small):
     """The JAX package's helper functions on the card:
 
-    (a) grid_sample_2d (kernel A, and A' in its image gradient) against
-        its plain version at the warp's shape (WARP_SHAPE features, the
-        points of WARP_DEPTHS planes) and at RGB_SHAPE (3 channels padded
-        to 4; uv in [-1.2, 1.2] and non-finite points), forward and
-        gradient, with time, bound, share and F.grid_sample's time; one
-        call launches A once, its backward A' once;
+    (a) grid_sample_2d (kernel G, and G' in its image gradient) against
+        its plain versions at the warp's shape (WARP_SHAPE features, the
+        points of WARP_DEPTHS planes) and at RGB_SHAPE (uv in [-1.2, 1.2]
+        and non-finite points), forward (equal values) and gradient, with
+        time, bound, share, F.grid_sample's time and the table route's
+        (`_grid_sample_tables`, the design G replaced); one call launches
+        G once, its backward G' once, and neither launches A or A';
+    (a2) PixelNeRF's latent (3,120,160,512), f32 and bf16, at its level
+        points (3 x 512 x 65 and x 129): G and G' against their plain
+        versions and the table route, then the two levels per training
+        step (forward and latent gradient) and per 256-ray render tile
+        (one table built for a view's 300 tiles) on G / G' against the
+        table route;
     (b) homography_warp on the card against the CPU at the warp's shape,
-        and the identity projection;
+        forward (one G) and the gradient with respect to the features
+        (one G more, one G'), and the identity projection;
     (c) volume_rendering_volsdf, the core/rays.py helpers and
         charbonnier_loss on card tensors against the CPU;
     (d) profiling.trace around one full-width neo360_fast render tile:
@@ -2927,9 +3012,11 @@ def phase_helpers(torch, card: str, dev: str = "cuda", **small):
         sharded MipNeRF-360 NeRF MLP on the CPU (see TP_RANKS), which must
         give the unsharded forward to 1e-5 relative.
 
-    Raises at its end if any check failed. The launches of this phase are
-    printed apart and are not in the {"kernels": ...} line. `dev` and
-    `small` (preset overrides for (d)) are for a rehearsal elsewhere."""
+    Raises at its end if any check failed. Returns the G / G' rows and
+    their launches on the path runs (each counted from 0, the calls held
+    against the plain versions apart) for the {"kernels": ...} line. `dev`
+    and `small` (preset overrides for (d)) are for a rehearsal
+    elsewhere."""
     import glob
 
     import numpy as np
@@ -2940,8 +3027,10 @@ def phase_helpers(torch, card: str, dev: str = "cuda", **small):
     from neo360_tpu_torch.data.fixtures import MemoryScenes
     from neo360_tpu_torch.ops import kernels, losses
     from neo360_tpu_torch.ops.interpolate import GRID_SAMPLE_TOL, \
-        grid_sample_2d, grid_sample_2d_reference, table_sample, \
-        table_sample_backward, triplane_sample
+        build_corner_table, grid_sample_2d, \
+        grid_sample_2d_backward, grid_sample_2d_backward_reference, \
+        grid_sample_2d_reference, table_sample, table_sample_backward, \
+        triplane_sample
     from neo360_tpu_torch.parallel import sharding
     from neo360_tpu_torch.train import profiling
 
@@ -2956,17 +3045,51 @@ def phase_helpers(torch, card: str, dev: str = "cuda", **small):
         if not ok:
             failures.append(what)
 
-    counted = {"table_sample_fwd": table_sample,
+    counted = {"grid_sample_fwd": grid_sample_2d,
+               "grid_sample_bwd": grid_sample_2d_backward,
+               "table_sample_fwd": table_sample,
                "table_sample_bwd": table_sample_backward}
+    path = {k: 0 for k in HELPER_KERNELS}
 
     def launches(fn) -> dict:
+        """Run `fn` with every count from 0, and add its G / G' launches
+        to the path's (the {"kernels": ...} line's)."""
         for f in counted.values():
             f.launches = 0
         fn()
         torch.cuda.synchronize()
-        return _read(counted)
+        counts = _read(counted)
+        for k in path:
+            path[k] += counts[k]
+        return counts
 
-    # (a) grid_sample_2d, forward and image gradient
+    def only(fwd=0, bwd=0) -> dict:
+        return {"grid_sample_fwd": fwd, "grid_sample_bwd": bwd,
+                "table_sample_fwd": 0, "table_sample_bwd": 0}
+
+    def timed(fn, port: bool = True) -> tuple:
+        """(CUDA-event ms, device ms or None) of one call; `port`: `fn`
+        launches a kernel of the port."""
+        return _median_ms(fn, torch), _trusted_device_ms(torch, fn,
+                                                          port=port)
+
+    def vs_tables(row, tables_fn):
+        """Time the table route (the design G / G' replaced) beside a
+        G / G' row and print the row's comparison line."""
+        row["tables_ms"], row["tables_device_ms"] = timed(tables_fn)
+        print(f"[helpers] {row['name']} {row['case']}: {row['ms']:.4f} ms "
+              f"(device {_fmt_ms(row['device_ms'], 1e3, 1)} us) | table "
+              f"route "
+              f"{row['tables_ms']:.4f} ms (device "
+              f"{_fmt_ms(row['tables_device_ms'], 1e3, 1)} us) | "
+              f"F.grid_sample "
+              f"{row['library_ms']:.4f} ms | plain {row['plain_ms']:.4f} ms "
+              f"| bound {row['bound_ms']:.4f} ms, share "
+              f"{_share(row['bound_ms'], row['ms'])} (device "
+              f"{_share(row['bound_ms'], row['device_ms'])}); {card}")
+
+    # (a) grid_sample_2d, forward (G) and image gradient (G'), against the
+    # plain versions, F.grid_sample and the table route
     feat, proj, depths = _warp_case(torch, dev)
     g = torch.Generator(device=dev).manual_seed(SEED + 16)
     rgb = torch.rand(RGB_SHAPE, device=dev, generator=g)
@@ -2975,10 +3098,10 @@ def phase_helpers(torch, card: str, dev: str = "cuda", **small):
     rgb_uv[0, :5] = torch.tensor([[float("inf"), 0.0], [0.0, -float("inf")],
                                   [float("nan"), 0.3], [1e30, 0.0],
                                   [-1.0, 1.0]], device=dev)
-    cases = (("warp (3,60,80,32) f32, 128 depths",
-              feat, geometry.homography_uv(WARP_SHAPE[1:3], proj, depths)),
-             ("rgb (3,240,320,3) f32 (C padded to 4), non-finite points",
-              rgb, rgb_uv))
+    warp_case = "warp (3,60,80,32) f32, 128 depths"
+    cases = ((warp_case, feat,
+              geometry.homography_uv(WARP_SHAPE[1:3], proj, depths)),
+             ("rgb (3,240,320,3) f32, non-finite points", rgb, rgb_uv))
     for case, image, u in cases:
         b, h, w, c = image.shape
         n = u.shape[1]
@@ -2987,48 +3110,175 @@ def phase_helpers(torch, card: str, dev: str = "cuda", **small):
         fwd = lambda: grid_sample_2d(image, u)
         plain = lambda: grid_sample_2d_reference(image, u)
         counts = seen[f"grid_sample_2d {case}"] = launches(fwd)
-        check(counts == {"table_sample_fwd": 1, "table_sample_bwd": 0},
+        check(counts == only(fwd=1),
               f"grid_sample_2d {case}: one call launches {counts}")
         # the bound: the pixels the points read, uv, the output
-        _check("grid_sample_2d (A)", case, fwd(), plain(), fwd, plain,
-               torch, results, GRID_SAMPLE_TOL,
+        _check("grid_sample_fwd", case, fwd(), plain(), fwd, plain, torch,
+               results, GRID_SAMPLE_SAME,
                nbytes=4.0 * (pixels * c + u.numel() + b * n * c),
                ops=2.0 * b * n * 4 * c,
                library_fn=_grid_sample_fns(torch, c, torch.float32, u,
-                                           (h, w), "zeros"))
+                                           (h, w), "zeros"),
+               main=case == warp_case)
+        vs_tables(results[-1], lambda: _grid_sample_tables(image, u, "zeros"))
         leaf = image.clone().requires_grad_()
         out = grid_sample_2d(leaf, u)
-        ref_leaf = image.clone().requires_grad_()
-        ref_out = grid_sample_2d_reference(ref_leaf, u)
         bwd = lambda: torch.autograd.grad(out, leaf, cot,
                                           retain_graph=True)[0]
-        plain_bwd = lambda: torch.autograd.grad(ref_out, ref_leaf, cot,
-                                                retain_graph=True)[0]
+        plain_bwd = lambda: grid_sample_2d_backward_reference(
+            cot, u, image.shape, image.dtype)
         counts = seen[f"its gradient, {case}"] = launches(bwd)
-        check(counts == {"table_sample_fwd": 0, "table_sample_bwd": 1},
+        check(counts == only(bwd=1),
               f"grid_sample_2d {case}: its image gradient launches "
               f"{counts}")
         # the cotangent and uv read once, the image's gradient written once
-        _check("grid_sample_2d gradient (A')", case, bwd(), plain_bwd(), bwd,
-               plain_bwd, torch, results, GRID_SAMPLE_TOL,
+        _check("grid_sample_bwd", case, bwd(), plain_bwd(), bwd, plain_bwd,
+               torch, results, GRID_SAMPLE_TOL,
                nbytes=4.0 * (cot.numel() + u.numel() + image.numel()),
                ops=2.0 * b * n * 4 * c,
                library_fn=_grid_sample_fns(torch, c, torch.float32, u,
-                                           (h, w), "zeros", cot))
-        del out, ref_out, leaf, ref_leaf, cot
+                                           (h, w), "zeros", cot),
+               main=case == warp_case)
+        t_leaf = image.clone().requires_grad_()
+        t_out = _grid_sample_tables(t_leaf, u, "zeros")
+        vs_tables(results[-1], lambda: torch.autograd.grad(
+            t_out, t_leaf, cot, retain_graph=True)[0])
+        del out, t_out, leaf, t_leaf, cot
 
-    # (b) homography_warp, card against the CPU
+    # (a2) PixelNeRF's latent sample at its training shapes: G / G' against
+    # the table route of models/pixelnerf.py (build_corner_table + A per
+    # level, A' dense per level + the table's transpose), per training
+    # step and per render tile with one table built for a view's 300 tiles
+    view = _fixture_view(torch, dev)
+    nv, ph, pw, pc = PIX_LATENT_SHAPE
+    hw, levels = (ph, pw), (65, 129)
+    step_uv = {s: _pixelnerf_uv(torch, view, PIX_STEP_RAYS, s)
+               for s in levels}
+    tile_uv = {s: _pixelnerf_uv(torch, view, PIX_TILE_RAYS, s)
+               for s in levels}
+    step_cot = {s: torch.randn(nv, PIX_STEP_RAYS * s, pc, device=dev,
+                               generator=g) for s in levels}
+    for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        latent = torch.randn(PIX_LATENT_SHAPE, device=dev, generator=g).to(dt)
+        size = latent.element_size()
+        u, cot = step_uv[129], step_cot[129]
+        n = u.shape[0] * u.shape[1]
+        case = (f"PixelNeRF latent {PIX_LATENT_SHAPE} {name}, {nv} x "
+                f"{PIX_STEP_RAYS} x 129 pts")
+        fwd = lambda: grid_sample_2d(latent, u)
+        plain = lambda: grid_sample_2d_reference(latent, u)
+        _check("grid_sample_fwd", case, fwd(), plain(), fwd, plain, torch,
+               results, GRID_SAMPLE_SAME,
+               nbytes=_pixels_read(hw, u, "zeros") * pc * size
+               + 4.0 * (u.numel() + n * pc), ops=2.0 * n * 4 * pc,
+               library_fn=_grid_sample_fns(torch, pc, dt, u, hw, "zeros"))
+        table = build_corner_table(latent, "zeros", dtype=dt)
+        vs_tables(results[-1], lambda: table_sample(
+            build_corner_table(latent, "zeros", dtype=dt), u, hw, "zeros",
+            dt))
+        bwd = lambda: grid_sample_2d_backward(cot, u, latent.shape, dt)
+        plain_bwd = lambda: grid_sample_2d_backward_reference(
+            cot, u, latent.shape, dt)
+        _check("grid_sample_bwd", case, bwd(), plain_bwd(), bwd, plain_bwd,
+               torch, results, GRID_SAMPLE_TOL,
+               nbytes=4.0 * (cot.numel() + u.numel()) + latent.numel() * size,
+               ops=2.0 * n * 4 * pc,
+               library_fn=_grid_sample_fns(torch, pc, dt, u, hw, "zeros",
+                                           cot))
+        t_leaf = latent.detach().requires_grad_()
+        t_out = table_sample(build_corner_table(t_leaf, "zeros", dtype=dt),
+                             u, hw, "zeros", dt)
+        t_cot = cot.to(dt)
+        vs_tables(results[-1], lambda: torch.autograd.grad(
+            t_out, t_leaf, t_cot, retain_graph=True)[0])
+        del t_out, t_leaf, t_cot
+        cots = [step_cot[s].to(dt) for s in levels]
+
+        def direct_step():
+            leaf = latent.detach().requires_grad_()
+            outs = [grid_sample_2d(leaf, step_uv[s]).to(dt) for s in levels]
+            return torch.autograd.grad(outs, leaf, cots)[0]
+
+        def table_step():
+            leaf = latent.detach().requires_grad_()
+            tab = build_corner_table(leaf, "zeros", dtype=dt)
+            outs = [table_sample(tab, step_uv[s], hw, "zeros", dt)
+                    for s in levels]
+            return torch.autograd.grad(outs, leaf, cots)[0]
+
+        def direct_tile():
+            with torch.no_grad():
+                return [grid_sample_2d(latent, tile_uv[s]).to(dt)
+                        for s in levels]
+
+        def table_tile():
+            with torch.no_grad():
+                return [table_sample(table, tile_uv[s], hw, "zeros", dt)
+                        for s in levels]
+
+        counts = seen[f"PixelNeRF step {name}"] = launches(direct_step)
+        diff = kernels.compare(direct_step().float(), table_step().float(),
+                               **(GRID_SAMPLE_TOL if dt == torch.float32
+                                  else dict(rtol=2e-2, atol_frac=1e-2)))
+        check(counts == only(fwd=2, bwd=2),
+              f"PixelNeRF step {name}: the direct route launches {counts}")
+        check(diff["ok"], f"PixelNeRF step {name}: the direct route's latent "
+              f"gradient vs the table route's: max_abs {diff['max_abs']:.3e}")
+        step = {"direct": timed(direct_step), "tables": timed(table_step)}
+        tile = {"direct": timed(direct_tile), "tables": timed(table_tile)}
+        build = timed(lambda: build_corner_table(latent, "zeros", dtype=dt),
+                      port=False)
+        print(f"[helpers] PixelNeRF {name} per training step (2 levels, "
+              f"{nv} x {PIX_STEP_RAYS} x (65 + 129) pts, forward and latent "
+              f"gradient): G + G' "
+              f"{step['direct'][0]:.4f} ms (device "
+              f"{_fmt_ms(step['direct'][1], 1e3, 1)} us) | table route "
+              f"{step['tables'][0]:.4f} ms (device "
+              f"{_fmt_ms(step['tables'][1], 1e3, 1)} us); {card}")
+        print(f"[helpers] PixelNeRF {name} per render tile (2 levels, {nv} "
+              f"x {PIX_TILE_RAYS} x (65 + 129) pts): G "
+              f"{tile['direct'][0]:.4f} ms "
+              f"(device {_fmt_ms(tile['direct'][1], 1e3, 1)} us) | table "
+              f"route "
+              f"{tile['tables'][0]:.4f} ms (device "
+              f"{_fmt_ms(tile['tables'][1], 1e3, 1)} us) + the table's "
+              f"build / 300 "
+              f"{build[0] / 300:.4f} ms (device "
+              f"{_fmt_ms(build[1], 1e3 / 300, 2)} "
+              f"us; build {build[0]:.4f} ms); {card}")
+        del latent, table
+
+    # (b) homography_warp, card against the CPU, forward and the gradient
+    # with respect to the source features
     warp = lambda: geometry.homography_warp(feat, proj, depths)
     counts = seen["homography_warp"] = launches(warp)
     on_card = warp()
     on_cpu = geometry.homography_warp(feat.cpu(), proj.cpu(), depths.cpu())
     res = kernels.compare(on_card.cpu(), on_cpu, **GRID_SAMPLE_TOL)
     ms = _median_ms(warp, torch)
-    check(res["ok"] and counts["table_sample_fwd"] == 1
+    check(res["ok"] and counts == only(fwd=1)
           and tuple(on_card.shape) == (3, WARP_DEPTHS) + WARP_SHAPE[1:],
           f"homography_warp {tuple(on_card.shape)} card vs CPU: max_abs "
           f"{res['max_abs']:.3e} max_rel {res['max_rel']:.3e}; {ms:.4f} ms "
           f"a call; launches {counts}")
+    warp_cot = torch.randn(on_card.shape, device=dev, generator=g)
+
+    def warp_grad(src):
+        leaf = src.clone().requires_grad_()
+        out = geometry.homography_warp(leaf, proj.to(src.device),
+                                       depths.to(src.device))
+        return torch.autograd.grad(out, leaf, warp_cot.to(src.device))[0]
+
+    counts = seen["homography_warp and its gradient"] = launches(
+        lambda: warp_grad(feat))
+    res = kernels.compare(warp_grad(feat).cpu(), warp_grad(feat.cpu()),
+                          **GRID_SAMPLE_TOL)
+    ms = _median_ms(lambda: warp_grad(feat), torch)
+    check(res["ok"] and counts == only(fwd=1, bwd=1),
+          f"homography_warp's gradient with respect to the features, card "
+          f"vs CPU: max_abs {res['max_abs']:.3e} max_rel "
+          f"{res['max_rel']:.3e}; forward + gradient {ms:.4f} ms; launches "
+          f"{counts}")
     eye = geometry.homography_warp(feat, torch.eye(3, 4, device=dev).expand(
         3, 3, 4), torch.tensor([[1.0, 2.0]], device=dev).expand(3, 2))
     # uv -> pixel rounds x by up to (w - 1) * 2^-24, a weight that much off
@@ -3036,7 +3286,7 @@ def phase_helpers(torch, card: str, dev: str = "cuda", **small):
     err = max(float((eye[:, d] - feat).abs().max()) for d in range(2))
     check(err <= 1e-4, f"homography_warp identity: max |diff| {err:.3e} "
           f"(bound 1e-4)")
-    del on_card, on_cpu, eye
+    del on_card, on_cpu, eye, warp_cot
 
     # (c) the small helpers, card against the CPU, on the same inputs
     hg = torch.Generator().manual_seed(SEED + 17)
@@ -3152,10 +3402,25 @@ def phase_helpers(torch, card: str, dev: str = "cuda", **small):
     torch.backends.cuda.matmul.allow_tf32 = tf32
     print(f"[helpers] launches of one call (apart from the kernels line): "
           f"{json.dumps(seen)}")
+    print(f"[helpers] G / G' launches of the path runs (each counted from "
+          f"0, the calls compared with the plain versions apart): "
+          f"{json.dumps(path)}")
     print(f"[helpers] phase: {time.perf_counter() - t_phase:.1f} s")
     if failures:
         raise AssertionError(f"helpers phase: {failures}")
-    return results
+    return results, path
+
+
+def _kernel_entry(name, source, replaces, launches, rows, main) -> dict:
+    """A kernel's entry of the {"kernels": ...} line: its launches on the
+    main paths, its largest error over `rows` (its checks) and the numbers
+    of its `main` case."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs"] for r in rows),
+            "ms": main["ms"], "device_ms": main["device_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"]}
 
 
 def main() -> int:
@@ -3209,7 +3474,7 @@ def main() -> int:
     done("mipnerf360 training and evaluation")
     phase_data_parallel(torch)
     done("data-parallel ranks")
-    phase_helpers(torch, card)
+    helper_checks, helper_launches = phase_helpers(torch, card)
     done("helpers")
 
     # launches per steady training stage (the second), per rendered view
@@ -3248,19 +3513,27 @@ def main() -> int:
               f"{mip_per_step[1][name]} per training step, "
               f"{mip_per_view[0][name]} per view; "
               f"{main['case']}: {main['ms']:.4f} ms (device "
-              f"{main['device_ms']:.4f} ms), bound {main['bound_ms']:.4f} ms "
+              f"{_fmt_ms(main['device_ms'])} ms), bound "
+              f"{main['bound_ms']:.4f} ms "
               f"({main['bound_by']}), share "
               f"{_share(main['bound_ms'], main['ms'])} (device "
               f"{_share(main['bound_ms'], main['device_ms'])})")
-        entries.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces,
-                        "launches": total[name],
-                        "max_abs_err": max(r["max_abs"] for r in rows),
-                        "ms": main["ms"], "device_ms": main["device_ms"],
-                        "plain_ms": main["plain_ms"],
-                        "bound_ms": main["bound_ms"],
-                        "bound_by": main["bound_by"],
-                        "library_ms": main["library_ms"]})
+        entries.append(_kernel_entry(name, source, replaces, total[name],
+                                     rows, main))
+    for name, (source, replaces) in HELPER_KERNELS.items():
+        rows = [r for r in helper_checks if r["name"] == name]
+        main = next(r for r in rows if r["main"])
+        print(f"[kernel] {name}: {helper_launches[name]} launches on phase "
+              f"14's path; {main['case']}: {main['ms']:.4f} ms (device "
+              f"{_fmt_ms(main['device_ms'])} ms), bound "
+              f"{main['bound_ms']:.4f} ms "
+              f"({main['bound_by']}), share "
+              f"{_share(main['bound_ms'], main['ms'])} (device "
+              f"{_share(main['bound_ms'], main['device_ms'])}); the table "
+              f"route {main['tables_ms']:.4f} ms, F.grid_sample "
+              f"{main['library_ms']:.4f} ms")
+        entries.append(_kernel_entry(name, source, replaces,
+                                     helper_launches[name], rows, main))
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -122,7 +122,8 @@ def homography_warp(src_feat: torch.Tensor, proj_mat: torch.Tensor,
     src_feat (B, H, W, C) NHWC; proj_mat (B, 3, 4), src_proj @
     ref_proj_inv; depth_values (B, D). Returns (B, D, H, W, C) float32.
     The uv is computed on src_feat's device, and on the card the sample
-    is kernel A; uv takes no gradient, so neither do proj_mat and
+    is one launch of kernel G (its gradient with respect to src_feat
+    kernel G'); uv takes no gradient, so neither do proj_mat and
     depth_values."""
     from neo360_tpu_torch.ops.interpolate import grid_sample_2d
     b, h, w, _ = src_feat.shape

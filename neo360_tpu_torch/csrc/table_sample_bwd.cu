@@ -48,6 +48,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "round_bf16.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -150,12 +152,8 @@ __global__ void __launch_bounds__(kThreads) table_scatter_kernel(
 
 __global__ void round_to_bf16_kernel(const float* __restrict__ src,
                                      __nv_bfloat16* __restrict__ dst,
-                                     long long n2) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n2; i += (long long)gridDim.x * blockDim.x) {
-    const float2 f = reinterpret_cast<const float2*>(src)[i];
-    reinterpret_cast<__nv_bfloat162*>(dst)[i] = __floats2bfloat162_rn(f.x, f.y);
-  }
+                                     long long n) {
+  neo360::round_to_bf16(src, dst, n);
 }
 
 int scatter(const void* grad, int grad_dtype, const void* uv, float* dst,
@@ -205,14 +203,10 @@ extern "C" int table_sample_bwd(const void* grad, int grad_dtype,
   const int rc = scatter(grad, grad_dtype, uv, acc, n_views, n_points, h, w,
                          c, zeros_mode, view_offset, total_views, s);
   if (rc != 0) return rc;
-  if (table_dtype == 1) {
-    const long long n2 = table_elems / 2;
-    const long long want = (n2 + 255) / 256;
-    const unsigned grid = (unsigned)(want < 132 * 16 ? want : 132 * 16);
-    if (grid > 0)
-      round_to_bf16_kernel<<<grid, 256, 0, s>>>(
-          acc, static_cast<__nv_bfloat16*>(dtable), n2);
-  }
+  if (table_dtype == 1 && table_elems > 0)
+    round_to_bf16_kernel<<<neo360::round_blocks(table_elems),
+                           neo360::kRoundThreads, 0, s>>>(
+        acc, static_cast<__nv_bfloat16*>(dtable), table_elems);
   return (int)cudaGetLastError();
 }
 

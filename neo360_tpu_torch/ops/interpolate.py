@@ -22,14 +22,15 @@ calls in their backward. Their plain versions
 (`triplane_sample_reference`, `local_sample_reference`) are the unfused
 chains over `table_sample_reference`.
 
-`grid_sample_2d` (neo360_tpu/ops/interpolate.py:60) samples an image
-rather than a table: on CUDA tensors it builds the image's corner table
-(plain PyTorch) and samples it with kernel A, so its gradient with respect
-to the image is kernel A' (dense) and the table's plain transpose; on CPU
-tensors it is `grid_sample_2d_reference`, the JAX code's four-corner
-formula. `resize_bilinear_align_corners` is two interpolation-matrix
-products, as in the JAX package; the model's call sites use
-F.interpolate(mode="bilinear", align_corners=True), the same function.
+`grid_sample_2d` (neo360_tpu/ops/interpolate.py:62) samples an image
+rather than a table: on CUDA tensors it is kernel G (csrc/grid_sample.cu),
+which reads the four corner pixels straight from the image, and its
+gradient with respect to the image is kernel G' (csrc/grid_sample_bwd.cu);
+on CPU tensors it is `grid_sample_2d_reference`, the JAX code's
+four-corner formula. `resize_bilinear_align_corners` is two
+interpolation-matrix products, as in the JAX package; the model's call
+sites use F.interpolate(mode="bilinear", align_corners=True), the same
+function.
 
 Maps are NHWC at these functions, as in the JAX package.
 """
@@ -608,28 +609,49 @@ triplane_sample.launches = 0
 local_sample.launches = 0
 
 
-# the widest channel slice of one `grid_sample_2d` launch: kernel A' takes
-# at most 1024 channels (256 vectors of 4), kernel A at most 256 vectors of
-# 16 bytes; a wider image is sampled slice by slice, a launch each
-GRID_SAMPLE_MAX_C = 1024
+# consecutive points a group of threads of kernel G' walks, merging the
+# corner sums of points that share a cell before its atomics
+# (csrc/grid_sample_bwd.cu), adopted by measurement on the card (PERF.md).
+# The path always runs it; only `scripts/torch_kernel_times.py --sweep`
+# and the card tests pass another, as `grid_sample_2d_backward`'s `run`
+GRID_SAMPLE_BWD_RUN = 8
 
 
-# grid_sample_2d on the card against its plain version
-# (ops.kernels.compare): 1e-5 relative plus 1e-5 * max|ref|, forward and
-# image gradient. The plain version weighs the four corners as
-# (x1 - ix)(y1 - iy), the table fold as (1 - fx)(1 - fy), rounded apart;
-# the gradient sums each pixel's contributions in another order.
+# grid_sample_2d's image gradient on the card against its plain version
+# (ops.kernels.compare): 1e-5 relative plus 1e-5 * max|ref|. Kernel G''s
+# atomic adds sum each pixel's contributions in another order than
+# index_add_. (Kernel G's forward equals its plain version: no tolerance.)
 GRID_SAMPLE_TOL = dict(rtol=1e-5, atol_frac=1e-5)
+
+# a bf16 image's gradient from kernel G' against the plain float32
+# gradient: one bf16 rounding of the f32 sum (at most 2^-8 relative) plus
+# GRID_SAMPLE_TOL's allowance for the order of the sum
+GRID_SAMPLE_BF16_GRAD_TOL = dict(rtol=2.0 ** -8, atol_frac=1e-5)
 
 
 def grid_sample_2d_reference(image: torch.Tensor, uv: torch.Tensor,
                              padding_mode: str = "zeros") -> torch.Tensor:
     """Plain PyTorch version of `grid_sample_2d`: the four-corner formula
-    of neo360_tpu/ops/interpolate.py:60-114 (in zeros mode each corner
+    of neo360_tpu/ops/interpolate.py:62-114 (in zeros mode each corner
     outside the image weighs 0). image (B, H, W, C), uv (B, N, 2) ->
     (B, N, C) in the promoted type of the image and the weights."""
     _check_mode(padding_mode)
     b, h, w, c = image.shape
+    flat = image.reshape(b * h * w, c)
+    n = uv.shape[1]
+    p00, p01, p10, p11 = (flat[idx.reshape(-1)].reshape(b, n, c)
+                          * wgt[..., None]
+                          for idx, wgt in _grid_taps(uv, (b, h, w),
+                                                     padding_mode))
+    return ((p00 + p01) + p10) + p11
+
+
+def _grid_taps(uv: torch.Tensor, bhw: tuple, padding_mode: str):
+    """The four corners (x0, y0), (x1, y0), (x0, y1), (x1, y1) of every
+    point, as (flat pixel index (B, N), weight (B, N)) pairs, in the JAX
+    code's arithmetic; in zeros mode a corner outside the image weighs 0
+    (its index is clamped inside)."""
+    b, h, w = bhw
     ix = (uv[..., 0] + 1.0) * 0.5 * (w - 1)
     iy = (uv[..., 1] + 1.0) * 0.5 * (h - 1)
     if padding_mode == "border":   # torch.clamp keeps NaN, as jnp.clip
@@ -637,48 +659,140 @@ def grid_sample_2d_reference(image: torch.Tensor, uv: torch.Tensor,
         iy = torch.clamp(iy, 0.0, h - 1)
     x0, y0 = torch.floor(ix), torch.floor(iy)
     x1, y1 = x0 + 1.0, y0 + 1.0
-    flat = image.reshape(b * h * w, c)
-    base = (torch.arange(b, device=image.device) * (h * w))[:, None]
-    n = uv.shape[1]
-
-    def fetch(xi, yi, wgt):
+    base = (torch.arange(b, device=uv.device) * (h * w))[:, None]
+    out = []
+    for xi, yi, wgt in ((x0, y0, (x1 - ix) * (y1 - iy)),
+                        (x1, y0, (ix - x0) * (y1 - iy)),
+                        (x0, y1, (x1 - ix) * (iy - y0)),
+                        (x1, y1, (ix - x0) * (iy - y0))):
         if padding_mode == "zeros":
             valid = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
             wgt = torch.where(valid, wgt, torch.zeros_like(wgt))
         # clamp in float before the cast: huge or non-finite uv stays defined
         xc = torch.nan_to_num(torch.clamp(xi, 0, w - 1)).long()
         yc = torch.nan_to_num(torch.clamp(yi, 0, h - 1)).long()
-        idx = base + yc * w + xc
-        return flat[idx.reshape(-1)].reshape(b, n, c) * wgt[..., None]
-
-    return (fetch(x0, y0, (x1 - ix) * (y1 - iy))
-            + fetch(x1, y0, (ix - x0) * (y1 - iy))
-            + fetch(x0, y1, (x1 - ix) * (iy - y0))
-            + fetch(x1, y1, (ix - x0) * (iy - y0)))
+        out.append((base + yc * w + xc, wgt))
+    return out
 
 
-def _grid_sample_tables(image: torch.Tensor, uv: torch.Tensor,
-                        padding_mode: str) -> torch.Tensor:
-    """`grid_sample_2d` through corner tables and `table_sample`: C padded
-    with zeros to the kernel's multiple (16 bytes of the image's type),
-    split into slices of at most GRID_SAMPLE_MAX_C channels, one table and
-    one `table_sample` each, the padding sliced off. Float32 out."""
+def grid_sample_2d_backward_reference(grad: torch.Tensor, uv: torch.Tensor,
+                                      image_shape, image_dtype,
+                                      padding_mode: str = "zeros"
+                                      ) -> torch.Tensor:
+    """Plain PyTorch version of kernel G': the gradient of
+    `grid_sample_2d_reference` with respect to the image, for the output
+    cotangent `grad` (B, N, C): each point adds w_k * grad into its corner
+    pixels (index_add_ in f32), rounded once to `image_dtype`. Points with
+    non-finite uv add nothing; for finite uv this equals autograd of the
+    plain forward on an f32 copy of the image."""
     _check_mode(padding_mode)
-    if image.dtype not in kernels.DTYPE_CODES:
-        raise ValueError(f"grid_sample_2d: image must be float32 or "
-                         f"bfloat16, got {image.dtype}")
+    b, h, w, c = image_shape
+    uv = uv.float()
+    finite = torch.isfinite(uv).all(-1)
+    out = torch.zeros(b * h * w, c, dtype=torch.float32, device=grad.device)
+    g = grad.float()
+    for idx, wgt in _grid_taps(uv, (b, h, w), padding_mode):
+        contrib = torch.where(finite[..., None], wgt[..., None] * g,
+                              torch.zeros_like(g))
+        out.index_add_(0, idx.reshape(-1), contrib.reshape(-1, c))
+    return out.reshape(image_shape).to(image_dtype)
+
+
+def _grid_args(name: str, image_shape, uv: torch.Tensor) -> None:
+    """Raise unless uv is float32 (B, N, 2) for a (B, H, W, C) image of
+    fewer than 2^31 pixels (attributes only)."""
+    if uv.dtype != torch.float32 or uv.dim() != 3 or uv.shape[-1] != 2 \
+            or len(image_shape) != 4 or uv.shape[0] != image_shape[0]:
+        raise ValueError(f"{name}: uv must be float32 (B, N, 2) for an "
+                         f"image (B, H, W, C), got {tuple(uv.shape)} "
+                         f"{uv.dtype} and {tuple(image_shape)}")
+    b, h, w, _ = image_shape
+    if b * h * w >= 2 ** 31:
+        raise ValueError(f"{name}: {b * h * w} pixels, 2^31 or more")
+
+
+def _grid_sample_forward(image: torch.Tensor, uv: torch.Tensor,
+                         padding_mode: str) -> torch.Tensor:
+    """Kernel G on CUDA tensors: one launch, whatever C."""
+    name = "grid_sample_2d"
+    _check_mode(padding_mode)
+    image, uv = image.contiguous(), uv.contiguous()
+    kernels.require_cuda(name, image, uv)
+    code = kernels.DTYPE_CODES.get(image.dtype)
+    if code is None:
+        raise ValueError(f"{name}: image must be float32 or bfloat16, got "
+                         f"{image.dtype}")
+    _grid_args(name, image.shape, uv)
     b, h, w, c = image.shape
-    multiple = 16 // image.element_size()
-    padded = -(-c // multiple) * multiple
-    if padded != c:
-        image = F.pad(image, (0, padded - c))
-    uv = uv.to(torch.float32)
-    slices = [image[..., lo:lo + GRID_SAMPLE_MAX_C]
-              for lo in range(0, padded, GRID_SAMPLE_MAX_C)]
-    outs = [table_sample(build_corner_table(s, padding_mode), uv, (h, w),
-                         padding_mode, torch.float32) for s in slices]
-    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
-    return out[..., :c]
+    n = uv.shape[1]
+    out = torch.empty((b, n, c), dtype=torch.float32, device=uv.device)
+    kernels.launch("grid_sample_fwd", uv.device, image.data_ptr(), code,
+                   uv.data_ptr(), out.data_ptr(), b, n, h, w, c,
+                   int(padding_mode == "zeros"))
+    grid_sample_2d.launches += 1
+    return out
+
+
+def grid_sample_2d_backward(grad: torch.Tensor, uv: torch.Tensor,
+                            image_shape, image_dtype,
+                            padding_mode: str = "zeros",
+                            run: int = None) -> torch.Tensor:
+    """Gradient of `grid_sample_2d` with respect to the image, for the
+    output cotangent `grad` (B, N, C), in `image_dtype`.
+
+    CPU tensors run `grid_sample_2d_backward_reference`; CUDA tensors
+    launch kernel G' (csrc/grid_sample_bwd.cu: a memset, the scatter and,
+    for a bf16 image, one rounding pass) and add one to
+    `grid_sample_2d_backward.launches`. `run`: the points a group of
+    threads walks, GRID_SAMPLE_BWD_RUN unless given."""
+    if grad.device.type == "cpu" and uv.device.type == "cpu":
+        return grid_sample_2d_backward_reference(grad, uv, image_shape,
+                                                 image_dtype, padding_mode)
+    name = "grid_sample_2d_backward"
+    _check_mode(padding_mode)
+    grad, uv = grad.contiguous(), uv.contiguous()
+    kernels.require_cuda(name, grad, uv)
+    code = kernels.DTYPE_CODES.get(image_dtype)
+    if code is None or grad.dtype != torch.float32:
+        raise ValueError(f"{name}: image float32 or bfloat16 and a float32 "
+                         f"cotangent, got {image_dtype} and {grad.dtype}")
+    _grid_args(name, image_shape, uv)
+    b, h, w, c = image_shape
+    n = uv.shape[1]
+    if tuple(grad.shape) != (b, n, c):
+        raise ValueError(f"{name}: grad {tuple(grad.shape)}, expected "
+                         f"{(b, n, c)}")
+    scratch = torch.empty(image_shape, dtype=torch.float32,
+                          device=grad.device)
+    dimage = scratch if code == 0 else torch.empty(
+        image_shape, dtype=image_dtype, device=grad.device)
+    kernels.launch("grid_sample_bwd", grad.device, grad.data_ptr(),
+                   uv.data_ptr(), scratch.data_ptr(), dimage.data_ptr(), code,
+                   b, n, h, w, c, int(padding_mode == "zeros"),
+                   run or GRID_SAMPLE_BWD_RUN)
+    grid_sample_2d_backward.launches += 1
+    return dimage
+
+
+class _GridSample(torch.autograd.Function):
+    """grid_sample_2d on the card with the image's gradient from kernel G'
+    (`grid_sample_2d_backward`); uv is saved, the image is not (the
+    backward needs its shape and type only)."""
+
+    @staticmethod
+    def forward(ctx, image, uv, padding_mode):
+        ctx.save_for_backward(uv)
+        ctx.meta = (tuple(image.shape), image.dtype, padding_mode)
+        return _grid_sample_forward(image, uv, padding_mode)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (uv,) = ctx.saved_tensors
+        dimage = None
+        if ctx.needs_input_grad[0]:
+            shape, dtype, mode = ctx.meta
+            dimage = grid_sample_2d_backward(grad, uv, shape, dtype, mode)
+        return dimage, None, None
 
 
 def grid_sample_2d(image: torch.Tensor, uv: torch.Tensor,
@@ -692,17 +806,28 @@ def grid_sample_2d(image: torch.Tensor, uv: torch.Tensor,
     [-1, 1], (-1, -1) the centre of pixel (0, 0). Returns (B, N, C)
     float32. Non-finite uv samples 0 in zeros mode.
 
-    CPU tensors run `grid_sample_2d_reference`. CUDA tensors sample the
-    image's corner table with kernel A (`table_sample`, one launch per
-    GRID_SAMPLE_MAX_C channels), whose backward is kernel A' (dense); a
-    call the kernel cannot serve raises. uv takes no gradient (raises if
-    it requires one); the JAX function differentiates through uv, which
-    no caller uses."""
+    CPU tensors run `grid_sample_2d_reference`. CUDA tensors launch kernel
+    G (csrc/grid_sample.cu) once, whatever C, and add one to
+    `grid_sample_2d.launches`; with autograd on and an image that requires
+    grad the call is a `_GridSample` Function whose backward is kernel G'
+    (`grid_sample_2d_backward`). On the card uv must be float32, and a
+    call the kernels cannot serve raises. G's values equal the plain
+    version's for an image of finite values; in zeros mode a corner
+    outside the image adds +0 on the card, where the plain version
+    multiplies the clamped edge pixel by 0 (NaN if that pixel is inf or
+    NaN). uv takes no gradient (raises if it requires one); the JAX
+    function differentiates through uv, which no caller uses."""
     if torch.is_grad_enabled() and uv.requires_grad:
         raise ValueError("grid_sample_2d: uv takes no gradient (detach it)")
     if image.device.type == "cpu" and uv.device.type == "cpu":
         return grid_sample_2d_reference(image, uv, padding_mode)
-    return _grid_sample_tables(image, uv, padding_mode)
+    if torch.is_grad_enabled() and image.requires_grad:
+        return _GridSample.apply(image, uv, padding_mode)
+    return _grid_sample_forward(image, uv, padding_mode)
+
+
+grid_sample_2d.launches = 0
+grid_sample_2d_backward.launches = 0
 
 
 def in_bounds_mask(uv: torch.Tensor) -> torch.Tensor:

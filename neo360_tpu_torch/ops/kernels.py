@@ -87,6 +87,12 @@ SIGNATURES = {
     # the forward's inputs, its acc, then the cotangents of weights, comp,
     # acc, depth (null = zero), then d density, d rgb, stream
     "composite_mip_bwd": (_P, _P, _P, _P, _I, _I, _F, _I) + (_P,) * 8,
+    # image, image_dtype, uv, out, n_images, n_points, h, w, c, zeros_mode,
+    # stream
+    "grid_sample_fwd": (_P, _I, _P, _P, _I, _L, _I, _I, _I, _I, _P),
+    # grad, uv, scratch, dimage, image_dtype, n_images, n_points, h, w, c,
+    # zeros_mode, run, stream
+    "grid_sample_bwd": (_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _I, _P),
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -23,6 +23,11 @@ Kernel A at the neo360 lift is timed at uniform uv, at the grid's own uv
 gathers from its world points (a fixture view's rays): the fused kernels
 where the imported version has them, else its unfused chain.
 
+Kernels G / G' (`grid_sample_2d`, forward and image gradient through
+autograd) are timed at the plane-sweep warp, an RGB image and PixelNeRF's
+latent; a checkout before them runs the same calls through the image's
+corner table, A and A' (the route they replaced).
+
 `--tree DIR` imports neo360_tpu_torch from DIR instead of this checkout
 (a checkout of another commit, unpacked with `git archive`), so that two
 versions can be compared in one run on one card. The cases call only
@@ -31,10 +36,10 @@ contract of kernel A', which is skipped where it is missing; a case whose
 shape the imported version refuses (kernel C at Z > 32 before it took
 them) prints the refusal. `--only` keeps the cases whose kernel name
 starts with one of the comma-separated prefixes. `--sweep` times kernel
-A's and the level gathers' cases at every run length of `SWEEP_RUNS`
-(the points a group of threads walks: the wrappers' `run` argument, else
-ops.interpolate's TABLE_SAMPLE_RUN, TRIPLANE_SAMPLE_RUN and
-LOCAL_SAMPLE_RUN).
+A's, the level gathers' and kernel G''s cases at every run length of
+`SWEEP_RUNS` (the points a group of threads walks: the wrappers' `run`
+argument, else ops.interpolate's TABLE_SAMPLE_RUN, TRIPLANE_SAMPLE_RUN,
+LOCAL_SAMPLE_RUN and GRID_SAMPLE_BWD_RUN).
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 from chip_smoke import _bound, _device_ms, _fixture_view, \
     _grid_sample_fns, _level_cam, _level_points, _lift_uv, _median_ms, \
-    _rows_read  # noqa: E402
+    _pixelnerf_uv, _rows_read, _warp_case  # noqa: E402
 
 # run lengths that --sweep tries (the wrappers' `run` argument)
 SWEEP_RUNS = (1, 2, 4, 8, 16, 32)
@@ -251,6 +256,42 @@ def cases(torch, run=None):
                                 t, u, hw, mode, f32)))
                 out.append(("(F.grid_sample)", case,
                             _grid_sample_fns(torch, 128, f32, u, hw, mode)))
+    # kernels G and G' (grid_sample_2d and its image gradient) at the
+    # plane-sweep warp, an RGB image and PixelNeRF's latent at its finer
+    # level's points; in a checkout before G the same calls run the
+    # corner-table route (the image's table and A; A' dense and the
+    # table's transpose). With a run length, G' alone through its wrapper
+    from neo360_tpu_torch.core import geometry
+    feat, proj, depths = _warp_case(torch, dev)
+    pix_uv = _pixelnerf_uv(torch, view, 512, 129)
+    latent = rand(3, 120, 160, 512)
+    for case, image, u in (
+            ("warp (3,60,80,32) f32, 128 depths", feat,
+             geometry.homography_uv((60, 80), proj, depths)),
+            ("rgb (3,240,320,3) f32", rand(3, 240, 320, 3),
+             uniform_uv(3, 240 * 320)),
+            ("PixelNeRF latent (3,120,160,512) f32, 3 x 512 x 129", latent,
+             pix_uv),
+            ("PixelNeRF latent (3,120,160,512) bf16, 3 x 512 x 129",
+             latent.to(bf16), pix_uv)):
+        cot = torch.randn(u.shape[:2] + image.shape[-1:], device=dev,
+                          generator=g)
+        if run is None:
+            out.append(("G grid_sample_fwd", case,
+                        lambda image=image, u=u:
+                        interpolate.grid_sample_2d(image, u)))
+            leaf = image.clone().requires_grad_()
+            res = interpolate.grid_sample_2d(leaf, u)
+            out.append(("G' grid_sample_bwd", case,
+                        lambda leaf=leaf, res=res, cot=cot:
+                        torch.autograd.grad(res, leaf, cot,
+                                            retain_graph=True)))
+        else:
+            out.append(("G' grid_sample_bwd", case,
+                        lambda image=image, u=u, cot=cot:
+                        interpolate.grid_sample_2d_backward(
+                            cot, u, image.shape, image.dtype, "zeros",
+                            run=run)))
     return out
 
 
@@ -355,12 +396,12 @@ def main() -> int:
 
 
 def sweep(torch, only=()) -> int:
-    """Device time of kernel A's and the fused gathers' cases (those of
-    `only`, if given) at each run length, passed to the three entry
-    points."""
+    """Device time of kernel A's, the fused gathers' and kernel G''s
+    cases (those of `only`, if given) at each run length, passed to the
+    four entry points."""
     for run in SWEEP_RUNS:
         for kernel, case, fn in cases(torch, run):
-            if not kernel.startswith(only or ("A ", "level")):
+            if not kernel.startswith(only or ("A ", "level", "G' ")):
                 continue
             per = {k: v * 1e3 for k, v in _device_ms(torch, fn).items()}
             parts = ", ".join(f"{short(k)} {v:.1f}" for k, v in sorted(

@@ -1,9 +1,10 @@
 """The port's counterparts of the JAX package's helper functions that no
 CLI path calls, against the JAX functions on the same numpy inputs:
 grid_sample_2d (both routes: the plain four-corner version that serves
-CPU tensors, and the corner-table route that kernel A runs on the card,
-here through its plain version), in_bounds_mask,
-resize_bilinear_align_corners, homography_warp, volume_rendering_volsdf,
+CPU tensors and that kernel G repeats on the card, and the corner-table
+design of PixelNeRF's encode, one table and one `table_sample`, here
+through its plain version) and the plain version of its image gradient
+(kernel G'), in_bounds_mask, resize_bilinear_align_corners, homography_warp, volume_rendering_volsdf,
 the core/rays.py helpers, charbonnier_loss, the pose jitter, the nearest
 views, train_iterator, evaluate_images / save_eval_artifacts and the
 writers under them, the visualization arrays, the semantic colours, the
@@ -67,8 +68,16 @@ def _close(ours, ref, tol):
 
 # --- grid_sample_2d -------------------------------------------------------
 
-ROUTES = {"plain": interpolate.grid_sample_2d,
-          "tables": interpolate._grid_sample_tables}
+def _tables_route(image, uv, padding_mode):
+    """The corner-table design of PixelNeRF's encode (one
+    `build_corner_table`, one `table_sample`) computing grid_sample_2d,
+    here through its plain version. Float32 out."""
+    table = interpolate.build_corner_table(image, padding_mode)
+    return interpolate.table_sample(table, uv, tuple(image.shape[1:3]),
+                                    padding_mode, torch.float32)
+
+
+ROUTES = {"plain": interpolate.grid_sample_2d, "tables": _tables_route}
 
 
 def _grid_case(seed, b=2, h=7, w=9, c=3, n=300, nan=True):
@@ -88,12 +97,11 @@ def _grid_case(seed, b=2, h=7, w=9, c=3, n=300, nan=True):
 
 @pytest.mark.parametrize("route", sorted(ROUTES))
 @pytest.mark.parametrize("mode", ["zeros", "border"])
-@pytest.mark.parametrize("c", [3, 32, 1100])
+@pytest.mark.parametrize("c", [1, 3, 32, 512, 1100])
 def test_grid_sample_2d_matches_jax(route, mode, c):
-    """Both routes of the port against JAX's grid_sample_2d, C = 3 (padded
-    to 4 on the table route), 32 and 1100 (above one launch's 1024
-    channels: two slices), with corners, far and non-finite points (NaN
-    gives NaN in border mode and 0 in zeros mode on both sides)."""
+    """Both routes of the port against JAX's grid_sample_2d, C = 1, 3, 32,
+    512 and 1100, with corners, far and non-finite points (NaN gives NaN
+    in border mode and 0 in zeros mode on both sides)."""
     image, uv = _grid_case(c, c=c, n=120 if c > 100 else 300)
     ref = jinterp.grid_sample_2d(jnp.asarray(image), jnp.asarray(uv), mode)
     out = ROUTES[route](_t(image), _t(uv), mode)
@@ -111,6 +119,40 @@ def test_grid_sample_2d_bf16_image_matches_jax(route):
         torch.bfloat16), _t(uv), "zeros")
     assert ref.dtype == jnp.float32 and out.dtype == torch.float32
     _close(out, ref, 1e-5)
+
+
+def test_grid_sample_2d_bf16_image_border_non_finite_matches_jax():
+    """A bf16 image in border mode with infinite and NaN points: the plain
+    route gives JAX's float32 values, NaN where JAX has NaN."""
+    image, uv = _grid_case(6, c=5)
+    image = jnp.asarray(image, jnp.bfloat16)
+    ref = np.asarray(jinterp.grid_sample_2d(image, jnp.asarray(uv),
+                                            "border"))
+    out = interpolate.grid_sample_2d(_t(np.asarray(image.astype(
+        jnp.float32))).to(torch.bfloat16), _t(uv), "border")
+    assert out.dtype == torch.float32 and np.isnan(ref).any()
+    np.testing.assert_array_equal(np.isnan(out.numpy()), np.isnan(ref))
+    _close(out, ref, 1e-5)
+
+
+@pytest.mark.parametrize("mode", ["zeros", "border"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grid_sample_2d_backward_reference_matches_jax(mode, dtype):
+    """The plain version of kernel G' (the image gradient, index_add_ in
+    f32, rounded once to the image's type) against jax.grad of the JAX
+    function on a float32 image, with corners and far points; in zeros
+    mode non-finite points add nothing on both sides."""
+    image, uv = _grid_case(10, c=6, nan=mode == "zeros")
+    cot = np.random.default_rng(11).normal(size=(2, 300, 6)).astype(
+        np.float32)
+    ref = jax.grad(lambda im: jnp.sum(jinterp.grid_sample_2d(
+        im, jnp.asarray(uv), mode) * cot))(jnp.asarray(image))
+    out = interpolate.grid_sample_2d_backward(_t(cot), _t(uv), image.shape,
+                                              dtype, mode)
+    assert out.dtype == dtype and out.shape == image.shape
+    # bf16: one rounding of the float32 sum, at most 2^-8 relative
+    _close(out.float(), np.asarray(ref, np.float32),
+           1e-5 if dtype == torch.float32 else 2.0 ** -8)
 
 
 @pytest.mark.parametrize("route", sorted(ROUTES))
@@ -179,6 +221,24 @@ def test_homography_warp_matches_jax(route, monkeypatch):
     assert out.shape == ref.shape == (2, 4, 6, 8, 5)
     _close(out, ref, 1e-5)
     assert float(out[1, :, :, 2].abs().max()) == 0.0
+
+
+def test_homography_warp_more_depths_than_channels_matches_jax():
+    """3 channels at 9 depths: the points are depth-major (all pixels of
+    depth 0, then of depth 1, ...), the layout kernel G's groups walk and
+    G''s runs merge along a row."""
+    rng = np.random.default_rng(13)
+    feat = rng.normal(size=(2, 5, 7, 3)).astype(np.float32)
+    proj = np.zeros((2, 3, 4), np.float32)
+    proj[:, :, :3] = np.eye(3) + rng.normal(size=(2, 3, 3)) * 0.03
+    proj[:, :, 3] = rng.normal(size=(2, 3)) * 0.3
+    depths = np.sort(rng.uniform(0.5, 3.0, size=(2, 9)), -1).astype(
+        np.float32)
+    ref = jgeo.homography_warp(jnp.asarray(feat), jnp.asarray(proj),
+                               jnp.asarray(depths))
+    out = geometry.homography_warp(_t(feat), _t(proj), _t(depths))
+    assert out.shape == ref.shape == (2, 9, 5, 7, 3)
+    _close(out, ref, 1e-5)
 
 
 def test_homography_warp_identity():

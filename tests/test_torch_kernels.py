@@ -26,8 +26,10 @@ from neo360_tpu_torch.core.render import MIP_BACKWARD_TOL, MIP_OUT_KEYS, \
     composite_vanilla_backward, composite_vanilla_reference
 from neo360_tpu_torch.ops import kernels
 from neo360_tpu_torch.ops.interpolate import BACKWARD_TOL as INTERP_BWD_TOL
-from neo360_tpu_torch.ops.interpolate import FUSED_TOL, GRID_SAMPLE_TOL, \
-    build_corner_table, grid_sample_2d, grid_sample_2d_reference, \
+from neo360_tpu_torch.ops.interpolate import FUSED_TOL, \
+    GRID_SAMPLE_BF16_GRAD_TOL, GRID_SAMPLE_TOL, build_corner_table, \
+    grid_sample_2d, grid_sample_2d_backward, \
+    grid_sample_2d_backward_reference, grid_sample_2d_reference, \
     local_sample, local_sample_reference, local_uv, table_sample, \
     table_sample_accumulate, table_sample_accumulate_reference, \
     table_sample_backward, table_sample_backward_reference, \
@@ -110,41 +112,101 @@ def test_table_sample_kernel_rejects_bad_inputs(cuda):
                      (4, 4))
 
 
+def _same_values(out, ref):
+    """Equal values (+0 and -0 alike), NaN where `ref` has NaN."""
+    torch.testing.assert_close(out, ref, rtol=0, atol=0, equal_nan=True)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["zeros", "border"])
-@pytest.mark.parametrize("c,launches", [(3, 1), (32, 1), (1100, 2)])
-def test_grid_sample_2d_kernel(cuda, dtype, mode, c, launches):
-    """grid_sample_2d on the card (the image's corner table through kernel
-    A, its image gradient through A' dense) against its plain four-corner
-    version: one launch of each per 1024 channels."""
+@pytest.mark.parametrize("c", [1, 3, 32, 512, 1100])
+def test_grid_sample_2d_kernel(cuda, dtype, mode, c):
+    """grid_sample_2d on the card (kernel G, its image gradient kernel G')
+    against its plain four-corner version: exactly one launch of each a
+    call whatever C, and no corner-table launch. The forward repeats the
+    plain version's arithmetic: equal values for an image of finite
+    values (the only kind made here; see
+    test_grid_sample_2d_kernel_non_finite_edge_pixel), NaN where it has
+    NaN (border mode at a NaN point). The gradient: GRID_SAMPLE_TOL for an f32 image;
+    for a bf16 one, one bf16 rounding of the f32 plain gradient, and one
+    bf16 ulp of the plain version of G' (both round an f32 sum once)."""
     g = _gen(20)
     image = torch.randn(2, 9, 11, c, generator=g).to(dtype).to(cuda)
-    uv = _uv(2, 400, g)
-    if mode == "border":
-        uv = uv.nan_to_num(0.0, 0.0, 0.0)
-    uv = uv.to(cuda)
+    raw = _uv(2, 400, g).to(cuda)
     cot = torch.randn(2, 400, c, generator=g).to(cuda)
-    before = (table_sample.launches, table_sample_backward.launches)
+    _same_values(grid_sample_2d(image, raw, mode),
+                 grid_sample_2d_reference(image, raw, mode))
+    # the gradient at finite points in border mode: there autograd of the
+    # plain version adds NaN for a NaN point and the edge pixel's share
+    # for an infinite one, where G' (and its plain version) add nothing
+    uv = raw.nan_to_num(0.0, 0.0, 0.0) if mode == "border" else raw
+    counted = (grid_sample_2d, grid_sample_2d_backward, table_sample,
+               table_sample_backward)
+    before = [f.launches for f in counted]
     leaf = image.clone().requires_grad_()
     out = grid_sample_2d(leaf, uv, mode)
     (grad,) = torch.autograd.grad(out, leaf, cot)
-    assert (table_sample.launches - before[0],
-            table_sample_backward.launches - before[1]) == (launches,
-                                                            launches)
+    assert [f.launches - n for f, n in zip(counted, before)] == [1, 1, 0, 0]
     ref_leaf = image.float().clone().requires_grad_()
     ref = grid_sample_2d_reference(ref_leaf, uv, mode)
     (ref_grad,) = torch.autograd.grad(ref, ref_leaf, cot)
-    assert out.dtype == torch.float32
-    res = kernels.compare(out, ref, **GRID_SAMPLE_TOL)
+    assert out.dtype == torch.float32 and grad.dtype == dtype
+    _same_values(out, ref.detach())
+    if dtype == torch.float32:
+        res = kernels.compare(grad, ref_grad, **GRID_SAMPLE_TOL)
+    else:
+        res = kernels.compare(grad.float(), ref_grad,
+                              **GRID_SAMPLE_BF16_GRAD_TOL)
+        assert res["ok"], res
+        res = kernels.compare(grad, grid_sample_2d_backward_reference(
+            cot, uv, image.shape, dtype, mode))
     assert res["ok"], res
-    # a bf16 image's gradient: A' rounds each table block to bf16 once and
-    # the table's transpose adds four of them in bf16, a few bf16 ulps
-    # (2^-8 each) from the f32 sum: 2e-2 relative, 1e-2 of the largest
-    tol = INTERP_BWD_TOL if dtype == torch.float32 else dict(rtol=2e-2,
-                                                             atol_frac=1e-2)
-    res = kernels.compare(grad.float(), ref_grad, **tol)
-    assert res["ok"], res
+
+
+@pytest.mark.cuda
+def test_grid_sample_2d_kernel_non_finite_edge_pixel(cuda):
+    """The one place G's values differ from its plain version's (ROADMAP,
+    divergences): in zeros mode a corner outside the image adds +0 on the
+    card, where the plain version multiplies the clamped edge pixel by 0.
+    With inf in the image's last column, a point far to the right samples
+    0 from G and NaN from the plain version; points whose four corners
+    lie in the finite part of the image agree."""
+    image = torch.randn(1, 6, 8, 4, generator=_gen(22))
+    image[:, :, -1] = float("inf")
+    uv = torch.tensor([[[5.0, 0.0], [0.0, 0.0], [-0.5, 0.4]]])
+    image, uv = image.to(cuda), uv.to(cuda)
+    out = grid_sample_2d(image, uv, "zeros")
+    ref = grid_sample_2d_reference(image, uv, "zeros")
+    assert torch.isnan(ref[0, 0]).all() and (out[0, 0] == 0).all()
+    _same_values(out[0, 1:], ref[0, 1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", [1, 2, 5, 8, 32])
+@pytest.mark.parametrize("c", [3, 32])
+def test_grid_sample_2d_backward_kernel_runs(cuda, run, c):
+    """Kernel G' at several run lengths on rows of points like a
+    homography's (steps of 0.2 to 1.6 pixels along x, so consecutive
+    points share a cell, step into the next one or jump), zeros and
+    border mode, against its plain version (GRID_SAMPLE_TOL)."""
+    g = _gen(21)
+    b, h, w, n = 2, 12, 40, 1200
+    x = torch.cumsum(torch.rand(b, n, generator=g) * 1.4 + 0.2, -1)
+    x = torch.remainder(x, w + 6) - 3.0               # rows wrap, off edges
+    y = torch.floor(torch.arange(n) * 3.0 / n * h / 3)[None].expand(b, n)
+    y = y + torch.rand(b, n, generator=g) * 0.3 - 1.0
+    uv = torch.stack([x / (w - 1) * 2 - 1, y / (h - 1) * 2 - 1], -1)
+    uv[0, 7] = float("nan")
+    uv = uv.to(cuda)
+    cot = torch.randn(b, n, c, generator=g).to(cuda)
+    for mode in ("zeros", "border"):
+        out = grid_sample_2d_backward(cot, uv, (b, h, w, c), torch.float32,
+                                      mode, run=run)
+        ref = grid_sample_2d_backward_reference(cot, uv, (b, h, w, c),
+                                                torch.float32, mode)
+        res = kernels.compare(out, ref, **GRID_SAMPLE_TOL)
+        assert res["ok"], (mode, res)
 
 
 @pytest.mark.cuda
@@ -159,6 +221,11 @@ def test_grid_sample_2d_kernel_raises_rather_than_falling_back(cuda):
     with pytest.raises(ValueError, match="uv takes no gradient"):
         grid_sample_2d(torch.zeros(1, 4, 4, 3, device=cuda),
                        uv.clone().requires_grad_())
+    with pytest.raises(ValueError, match="padding_mode"):
+        grid_sample_2d(torch.zeros(1, 4, 4, 3, device=cuda), uv,
+                       "reflection")
+    with pytest.raises(ValueError, match="uv must be float32"):
+        grid_sample_2d(torch.zeros(1, 4, 4, 3, device=cuda), uv.double())
 
 
 @pytest.mark.cuda
