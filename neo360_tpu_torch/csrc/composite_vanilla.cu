@@ -18,26 +18,46 @@
 //
 // Bound: at the path's shapes (2048 rays x 65 or 193 samples in a vanilla
 // step, 512 x 65 or 129 in a PixelNeRF step, 256-ray render tiles) a call
-// moves 0.1-3.2 MB (< 1 us at the card's memory rate) with a dozen flops a
-// sample: launch latency and the chain of dependent products set the
-// pace. Design (kernel B's): one warp per ray, kWarps rays per block. The
-// lanes load 32 consecutive samples at a time (coalesced); the exclusive
-// transmittance is a multiplicative __shfl_up_sync scan in tree order (no
-// log / exp), carried from chunk to chunk; the weights are stored
-// coalesced; the sums are lane partials reduced once with __shfl_xor_sync.
-// NaN and inf densities propagate as in the plain version: a product that
-// meets a NaN stays NaN for every later sample.
+// moves 0.8-9.6 MB (0.2-2.9 us at the card's memory rate) with a dozen
+// flops a sample, so latency sets the pace. Device times below are
+// scripts/torch_kernel_times.py --only D on an NVIDIA H100 80GB HBM3 at
+// 700 W, whose launch floor (a 1-element zero_()) is 1.0 us.
+//
+// Before: one warp a ray, 4 rays a block, 32-sample chunks. Each chunk's
+// loads were issued only after the previous chunk's 5-step warp scan and
+// carry, so a ray waited on ceil(S / 32) memory round trips and scans in
+// a row: ~0.35-0.45 us a chunk at 256, 512 and 2048 rays alike (256 x
+// 193: 3.6-3.9 us, 2048 x 193: 4.1-4.4), and a 256-ray tile filled 64 of
+// the 132 SMs.
+//
+// Design (composite_vanilla_common.cuh): each lane owns a run of K =
+// ceil(S / 32) consecutive samples and loads its t, sigma and rgb straight
+// into registers in unrolled loops, templated on K, so every load is in
+// flight before the first scan step; it folds its run, one warp scan
+// combines the lanes, and it stores its weights itself. The sums are lane
+// partials reduced once with __shfl_xor_sync. Rays a block: as few as keep
+// one block an SM where the rays allow (256 rays: 128 blocks of 2), at
+// most 4. S > 256 runs the same code over segments of 256 with a carried
+// transmittance. What chose it, device us at 256 x 193 / 2048 x 193:
+// staging the ray into shared memory by 4-byte cp.async in a loop, one ray
+// a block: 3.4-3.5 / 5.0-5.1 (so many one-warp blocks cost more than the
+// chain saved); 4 rays a block: 3.2-3.3 / 4.1-4.3; 16-byte copies: 3.4 /
+// 4.8; the copy loops unrolled: 2.8-2.9 / 4.2; a TMA bulk copy of each
+// span's 16-byte words (cp.async.bulk and an mbarrier, the ragged ends
+// by cp.async): 2.8 / 5.6-5.7; registers, no shared memory: 2.3-2.5 /
+// 3.7-4.0. 8 rays a block: 3.3-3.5 / 6.2-6.4; 2 rays a block at 256
+// rays: 2.2-2.3 against 2.4 at 4.
+//
+// After: a ray waits on one memory round trip, one warp scan and the
+// reduction. At 256-512 rays that is 1.0-1.3 us above the launch floor
+// (256 x 193: 2.3 us, 512 x 65: 1.95); at 2048 x 193 (3.7 us) the kernel
+// runs at 77% of its byte bound.
 
-#include <cuda_runtime.h>
+#include "composite_vanilla_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;  // rays per block
-constexpr unsigned kFull = 0xffffffffu;
-
-struct Sums {
-  float r, g, b, acc, depth;
-};
+using vanilla::kFull;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -45,72 +65,65 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__global__ void __launch_bounds__(32 * kWarps) composite_vanilla_kernel(
-    const float* __restrict__ rgb, const float* __restrict__ sigma,
-    const float* __restrict__ t, int s, const float* __restrict__ dirs,
-    int n_rays, int white_bkgd, float* __restrict__ comp,
-    float* __restrict__ acc, float* __restrict__ weights,
-    float* __restrict__ depth) {
+template <int K>
+__global__ void __launch_bounds__(32 * vanilla::kBlockWarps)
+    composite_vanilla_kernel(const float* __restrict__ rgb,
+                             const float* __restrict__ sigma,
+                             const float* __restrict__ t, int s,
+                             const float* __restrict__ dirs, int n_rays,
+                             int white_bkgd, float* __restrict__ comp,
+                             float* __restrict__ acc,
+                             float* __restrict__ weights,
+                             float* __restrict__ depth) {
+  constexpr int kSeg = 32 * K;
   const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (r >= n_rays) return;  // uniform across the warp
   const float dx = dirs[3 * r], dy = dirs[3 * r + 1], dz = dirs[3 * r + 2];
   const float dnorm = sqrtf(dx * dx + dy * dy + dz * dz);
   const long long o = (long long)r * s;
-  const float* rr = rgb + 3 * o;
-  const float* sg = sigma + o;
-  const float* tt = t + o;
-  float* ww = weights + o;
+  const int first = lane * K;
 
-  Sums p{0.f, 0.f, 0.f, 0.f, 0.f};
-  float trans = 1.0f;  // warp-uniform: A at the chunk's first sample
-  for (int base = 0; base < s; base += 32) {
-    const int i = base + lane;
-    const bool live = i < s;
-    float alpha = 0.f, ti = 0.f, cr = 0.f, cg = 0.f, cb = 0.f;
-    if (live) {
-      ti = tt[i];
-      const float delta = (i + 1 < s) ? (tt[i + 1] - ti) * dnorm
-                                      : 1e10f * dnorm;
-      alpha = 1.0f - expf(-sg[i] * delta);
-      cr = rr[3 * i];
-      cg = rr[3 * i + 1];
-      cb = rr[3 * i + 2];
-    }
-    // inclusive product scan of q_i = (1 - alpha_i) + 1e-10 (1 past S)
-    float incl = live ? (1.0f - alpha) + 1e-10f : 1.0f;
+  float pr = 0.f, pg = 0.f, pb = 0.f, pacc = 0.f, pdepth = 0.f;
+  float trans = 1.0f;  // the transmittance at the segment's start
+  for (int seg = 0; seg < vanilla::segments<K>(s); ++seg) {
+    const int base = seg * kSeg;
+    const int n = min(kSeg, s - base), nt = min(kSeg + 1, s - base);
+    vanilla::Run<K> run;
+    vanilla::load_run(run, t + o + base, sigma + o + base, first, n, nt);
+    float c[3 * K];
+    vanilla::load(c, rgb + 3 * (o + base + first), 3 * (n - first));
+    const float next = vanilla::forward(run, n, nt, dnorm, trans, lane);
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const float up = __shfl_up_sync(kFull, incl, d);
-      if (lane >= d) incl *= up;
+    for (int j = 0; j < K; ++j) {
+      if (first + j < n) {
+        const float w = run.alpha[j] * run.a[j];
+        weights[o + base + first + j] = w;
+        pacc += w;
+        pr += w * c[3 * j];
+        pg += w * c[3 * j + 1];
+        pb += w * c[3 * j + 2];
+        pdepth += w * run.t[j];
+      }
     }
-    float excl = __shfl_up_sync(kFull, incl, 1);
-    if (lane == 0) excl = 1.0f;
-    const float w = alpha * (trans * excl);
-    if (live) ww[i] = w;
-    p.acc += w;
-    p.r += w * cr;
-    p.g += w * cg;
-    p.b += w * cb;
-    p.depth += w * ti;
-    trans *= __shfl_sync(kFull, incl, 31);
+    trans = next;
   }
-  p.r = warp_sum(p.r);
-  p.g = warp_sum(p.g);
-  p.b = warp_sum(p.b);
-  p.acc = warp_sum(p.acc);
-  p.depth = warp_sum(p.depth);
+  pr = warp_sum(pr);
+  pg = warp_sum(pg);
+  pb = warp_sum(pb);
+  pacc = warp_sum(pacc);
+  pdepth = warp_sum(pdepth);
   if (lane != 0) return;
   if (white_bkgd) {
-    p.r += 1.0f - p.acc;
-    p.g += 1.0f - p.acc;
-    p.b += 1.0f - p.acc;
+    pr += 1.0f - pacc;
+    pg += 1.0f - pacc;
+    pb += 1.0f - pacc;
   }
-  comp[3 * r] = p.r;
-  comp[3 * r + 1] = p.g;
-  comp[3 * r + 2] = p.b;
-  acc[r] = p.acc;
-  depth[r] = p.depth;
+  comp[3 * r] = pr;
+  comp[3 * r + 1] = pg;
+  comp[3 * r + 2] = pb;
+  acc[r] = pacc;
+  depth[r] = pdepth;
 }
 
 }  // namespace
@@ -125,12 +138,15 @@ extern "C" int composite_vanilla_fwd(const void* rgb, const void* sigma,
                                      void* stream) {
   if (n_rays == 0) return (int)cudaSuccess;
   if (s < 1) return (int)cudaErrorInvalidValue;
-  const int blocks = (n_rays + kWarps - 1) / kWarps;
-  composite_vanilla_kernel<<<blocks, 32 * kWarps, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(rgb), static_cast<const float*>(sigma),
-      static_cast<const float*>(t), s, static_cast<const float*>(dirs),
-      n_rays, white_bkgd, static_cast<float*>(comp), static_cast<float*>(acc),
-      static_cast<float*>(weights), static_cast<float*>(depth));
-  return (int)cudaGetLastError();
+  const int w = vanilla::rays_per_block(n_rays);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto out = [](void* p) { return static_cast<float*>(p); };
+  return vanilla::with_run_length(s, [&](auto k) {
+    constexpr int K = decltype(k)::value;
+    composite_vanilla_kernel<K><<<(n_rays + w - 1) / w, 32 * w, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+        f(rgb), f(sigma), f(t), s, f(dirs), n_rays, white_bkgd, out(comp),
+        out(acc), out(weights), out(depth));
+    return (int)cudaGetLastError();
+  });
 }

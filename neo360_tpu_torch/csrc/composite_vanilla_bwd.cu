@@ -20,97 +20,127 @@
 // and dirs get no gradient.
 //
 // Bound: latency, as kernel D's (a few MB a call at most, ~40 flops a
-// sample in two dependent scans). Design (kernel B''s, for one branch):
-// one warp per ray, kWarps rays per block; lane i owns sample base + i of
-// a 32-sample chunk, loads and stores coalesced.
-//   forward: alpha_i and the exclusive transmittance A_i by kernel D's
-//     __shfl_up_sync product scan (A_i and w_i are D's bit for bit); A_i
-//     goes to the d sigma output (its own slot: no scratch).
-//   reverse: from the last chunk down, an exclusive suffix scan of the
-//     affine maps f_i(G) = q_i G + g_i alpha_i with __shfl_down_sync
-//     composes f_{i+1} o ... o f_31 for each lane, applied to the G carried
-//     in from the chunk above; the carry to the chunk below is f_base
-//     applied once more. Lanes past S are the identity map (q = 1, c = 0).
+// sample in two dependent scans). Device times below are
+// scripts/torch_kernel_times.py --only D on an NVIDIA H100 80GB HBM3 at
+// 700 W (launch floor 1.0 us).
+//
+// Before: one warp a ray, 4 a block, 32-sample chunks, paying kernel D's
+// chunk chain twice: a forward pass that stored A_i to the d sigma output,
+// then a reverse pass that re-read sigma, t, rgb and A_i from device
+// memory before each chunk's pair of 5-step scans; ~0.7-0.9 us a chunk
+// (512 x 129: 4.6-4.9 us, 2048 x 193: 7.1-7.5).
+//
+// Design (composite_vanilla_common.cuh): kernel D's launch shape and
+// register loads, with the weights cotangent loaded beside t, sigma and
+// rgb, all in flight at once; alpha_i and A_i by D's forward scan, kept
+// in the lane's registers between the passes. Reverse: each lane
+// composes the affine maps f_i(G) = q_i G + g_i alpha_i of its run from
+// its last sample down; one exclusive __shfl_down_sync suffix scan of the
+// 32 lanes' maps, applied to the G from above (0 past the ray), gives G
+// at each run's last sample, and the lane walks its run down. d sigma and
+// d rgb go through shared memory and are stored coalesced: stored
+// straight from the runs (3 K words a lane, 12 K bytes apart) they took
+// 22 us at 2048 x 193 against 5.0-5.3, and 5.3 against 2.8-2.9 at 512 x
+// 129. Up to S = 256 nothing is read twice from device memory and no
+// scratch is used. Past 256 (no path of the port), a first pass over the
+// segments writes the transmittance at each later segment's start into d
+// sigma's slot of that segment's first sample, where its own d sigma
+// overwrites it; the reverse pass reloads each segment and reruns its
+// forward scan.
+//
+// After: one memory round trip and the two scans, 1.3-1.8 us above the
+// 1.0 us launch floor at 512 rays (512 x 129: 2.7-2.8 us, 4.9 before);
+// at 2048 x 193 (5.1 us) the kernel runs at 84% of its byte bound.
 
-#include <cuda_runtime.h>
+#include "composite_vanilla_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;  // rays per block
-constexpr unsigned kFull = 0xffffffffu;
+using vanilla::kFull;
 
-__device__ __forceinline__ float interval(const float* t, int i, int s,
-                                          float dnorm) {
-  return (i + 1 < s) ? (t[i + 1] - t[i]) * dnorm : 1e10f * dnorm;
+// n <= N floats from shared memory to device memory, coalesced, unrolled
+template <int N>
+__device__ __forceinline__ void store(float* dst, const float* src, int n,
+                                      int lane) {
+#pragma unroll
+  for (int k = 0; k < (N + 31) / 32; ++k) {
+    const int i = lane + 32 * k;
+    if (i < n) dst[i] = src[i];
+  }
 }
 
 __device__ __forceinline__ float at(const float* p, long long i) {
   return p ? p[i] : 0.0f;
 }
 
-__global__ void __launch_bounds__(32 * kWarps) composite_vanilla_bwd_kernel(
-    const float* __restrict__ rgb, const float* __restrict__ sigma,
-    const float* __restrict__ t, int s, const float* __restrict__ dirs,
-    int n_rays, int white_bkgd, const float* g_comp, const float* g_acc,
-    const float* g_w, const float* g_depth, float* __restrict__ d_rgb,
-    float* __restrict__ d_sigma) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
+template <int K>
+__global__ void __launch_bounds__(32 * vanilla::kBlockWarps)
+    composite_vanilla_bwd_kernel(
+        const float* __restrict__ rgb, const float* __restrict__ sigma,
+        const float* __restrict__ t, int s, const float* __restrict__ dirs,
+        int n_rays, int white_bkgd, const float* g_comp, const float* g_acc,
+        const float* g_w, const float* g_depth, float* __restrict__ d_rgb,
+        float* __restrict__ d_sigma) {
+  constexpr int kSeg = 32 * K;
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r = blockIdx.x * (blockDim.x >> 5) + warp;
   if (r >= n_rays) return;  // uniform across the warp
+  // the warp's d sigma (kSeg) and d rgb (3 kSeg), stored coalesced
+  float* ss = smem + warp * 4 * kSeg;
+  float* rs = ss + kSeg;
   const float dx = dirs[3 * r], dy = dirs[3 * r + 1], dz = dirs[3 * r + 2];
   const float dnorm = sqrtf(dx * dx + dy * dy + dz * dz);
-  const long long o = (long long)r * s;
-  const float* rr = rgb + 3 * o;
-  const float* sg = sigma + o;
-  const float* tt = t + o;
-  const float* gw = g_w ? g_w + o : nullptr;
-  float* dr = d_rgb + 3 * o;
-  float* ds = d_sigma + o;
-
-  // forward: A_i into ds[i]
-  float trans = 1.0f;
-  for (int base = 0; base < s; base += 32) {
-    const int i = base + lane;
-    const bool live = i < s;
-    float alpha = 0.f;
-    if (live) alpha = 1.0f - expf(-sg[i] * interval(tt, i, s, dnorm));
-    float incl = live ? (1.0f - alpha) + 1e-10f : 1.0f;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const float up = __shfl_up_sync(kFull, incl, d);
-      if (lane >= d) incl *= up;
-    }
-    float excl = __shfl_up_sync(kFull, incl, 1);
-    if (lane == 0) excl = 1.0f;
-    if (live) ds[i] = trans * excl;
-    trans *= __shfl_sync(kFull, incl, 31);
-  }
-
   float gc[3];
   for (int k = 0; k < 3; ++k) gc[k] = at(g_comp, 3LL * r + k);
   const float gd = at(g_depth, r);
   float ga = at(g_acc, r);
   if (white_bkgd) ga -= gc[0] + gc[1] + gc[2];
+  const long long o = (long long)r * s;
+  const int first = lane * K;
+  float* ds = d_sigma + o;
 
-  // reverse: G carried from the chunk above, 0 above the last sample
-  float G = 0.0f;
-  for (int base = (s - 1) & ~31; base >= 0; base -= 32) {
-    const int i = base + lane;
-    const bool live = i < s;
-    float q = 1.0f, c = 0.0f, a = 0.0f, e = 1.0f, delta = 0.0f, gi = 0.0f;
-    if (live) {
-      delta = interval(tt, i, s, dnorm);
-      e = expf(-sg[i] * delta);
-      const float alpha = 1.0f - e;
-      a = ds[i];
-      gi = (gw ? gw[i] : 0.0f) + ga + gc[0] * rr[3 * i] +
-           gc[1] * rr[3 * i + 1] + gc[2] * rr[3 * i + 2] + gd * tt[i];
-      q = (1.0f - alpha) + 1e-10f;
-      c = gi * alpha;
+  const int segs = vanilla::segments<K>(s);
+  if (segs > 1) {  // the transmittance at each later segment's start
+    float trans = 1.0f;
+    for (int base = 0; base + kSeg < s; base += kSeg) {
+      vanilla::Run<K> run;
+      vanilla::load_run(run, t + o + base, sigma + o + base, first, kSeg,
+                        kSeg + 1);
+      trans = vanilla::forward(run, kSeg, kSeg + 1, dnorm, trans, lane);
+      if (lane == 0) ds[base + kSeg] = trans;
+      __syncwarp();  // the write seen by every lane
     }
-    // inclusive suffix composition F_i = f_i o f_{i+1} o ... o f_31:
-    // (outer q, c) o (inner q', c') = (q q', q c' + c)
-    float Q = q, C = c;
+  }
+
+  float G = 0.0f;  // G past the segment: 0 past the ray
+  for (int seg = segs - 1; seg >= 0; --seg) {
+    const int base = seg * kSeg;
+    const int n = min(kSeg, s - base), nt = min(kSeg + 1, s - base);
+    const float trans = base ? ds[base] : 1.0f;
+    vanilla::Run<K> run;
+    vanilla::load_run(run, t + o + base, sigma + o + base, first, n, nt);
+    float c[3 * K], gw[K];
+    const float* gws = g_w ? g_w + o + base + first : nullptr;
+    vanilla::load(c, rgb + 3 * (o + base + first), 3 * (n - first));
+    vanilla::load(gw, gws, gws ? n - first : 0);
+    vanilla::forward(run, n, nt, dnorm, trans, lane);
+
+    // g_i of the run, and the composition f_first o ... o f_last of its
+    // maps (outer (q, c) o inner (q', c') = (q q', q c' + c))
+    float g[K], Q = 1.0f, C = 0.0f;
+#pragma unroll
+    for (int j = K - 1; j >= 0; --j) {
+      g[j] = 0.0f;
+      if (first + j < n) {
+        g[j] = gw[j] + ga + gc[0] * c[3 * j] + gc[1] * c[3 * j + 1] +
+               gc[2] * c[3 * j + 2] + gd * run.t[j];
+        const float q = (1.0f - run.alpha[j]) + 1e-10f;
+        C = q * C + g[j] * run.alpha[j];
+        Q = q * Q;
+      }
+    }
+    // inclusive suffix composition over the lanes: F_l o ... o F_31
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
       const float qd = __shfl_down_sync(kFull, Q, d);
@@ -126,16 +156,26 @@ __global__ void __launch_bounds__(32 * kWarps) composite_vanilla_bwd_kernel(
       qx = 1.0f;
       cx = 0.0f;
     }
-    const float g_next = qx * G + cx;  // G_i
+    float gi = qx * G + cx;  // G at the run's last sample
     const float carry =
         __shfl_sync(kFull, Q, 0) * G + __shfl_sync(kFull, C, 0);
-    if (live) {
-      const float w = (1.0f - e) * a;
-      dr[3 * i] = w * gc[0];
-      dr[3 * i + 1] = w * gc[1];
-      dr[3 * i + 2] = w * gc[2];
-      ds[i] = a * (gi - g_next) * e * delta;
+#pragma unroll
+    for (int j = K - 1; j >= 0; --j) {
+      const int i = first + j;
+      if (i < n) {
+        const float a = run.a[j], e = run.e[j];
+        const float w = (1.0f - e) * a;
+        ss[i] = a * (g[j] - gi) * e * run.delta[j];
+        rs[3 * i] = w * gc[0];
+        rs[3 * i + 1] = w * gc[1];
+        rs[3 * i + 2] = w * gc[2];
+        gi = ((1.0f - run.alpha[j]) + 1e-10f) * gi + g[j] * run.alpha[j];
+      }
     }
+    __syncwarp();
+    store<kSeg>(ds + base, ss, n, lane);
+    store<3 * kSeg>(d_rgb + 3 * (o + base), rs, 3 * n, lane);
+    __syncwarp();  // before the segment below is written over these
     G = carry;
   }
 }
@@ -154,12 +194,16 @@ extern "C" int composite_vanilla_bwd(const void* rgb, const void* sigma,
                                      void* stream) {
   if (n_rays == 0) return (int)cudaSuccess;
   if (s < 1) return (int)cudaErrorInvalidValue;
-  const int blocks = (n_rays + kWarps - 1) / kWarps;
+  const int w = vanilla::rays_per_block(n_rays);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  composite_vanilla_bwd_kernel<<<blocks, 32 * kWarps, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      f(rgb), f(sigma), f(t), s, f(dirs), n_rays, white_bkgd, f(g_comp),
-      f(g_acc), f(g_w), f(g_depth), static_cast<float*>(d_rgb),
-      static_cast<float*>(d_sigma));
-  return (int)cudaGetLastError();
+  return vanilla::with_run_length(s, [&](auto k) {
+    constexpr int K = decltype(k)::value;
+    const size_t bytes = sizeof(float) * w * 4 * 32 * K;
+    composite_vanilla_bwd_kernel<K><<<(n_rays + w - 1) / w, 32 * w, bytes,
+                                      static_cast<cudaStream_t>(stream)>>>(
+        f(rgb), f(sigma), f(t), s, f(dirs), n_rays, white_bkgd, f(g_comp),
+        f(g_acc), f(g_w), f(g_depth), static_cast<float*>(d_rgb),
+        static_cast<float*>(d_sigma));
+    return (int)cudaGetLastError();
+  });
 }

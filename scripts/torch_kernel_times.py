@@ -7,8 +7,10 @@ neo360_fast and neo360 training and render shapes, on one NVIDIA GPU.
 
 Each case runs its wrapper 20 times under torch.profiler and prints the
 device time per call of every kernel it launched (memsets included) and
-their sum, beside the wrapper's CUDA-event time (median of 20 single
-calls); both helpers are chip_smoke.py's. For a kernel of a few
+their sum, from the first of up to 5 profiles that recorded every kernel
+at least once a call (else marked "not trusted"), beside the wrapper's
+CUDA-event time (median of 20 single calls); both helpers are
+chip_smoke.py's. For a kernel of a few
 microseconds the event time measures the wrapper's host work, while the
 device time does not. Yardsticks that are no kernel of the port: a device
 copy of the grid latent (`clone`), the memory rate that kernel C′'s one
@@ -27,6 +29,13 @@ Kernels G / G' (`grid_sample_2d`, forward and image gradient through
 autograd) are timed at the plane-sweep warp, an RGB image and PixelNeRF's
 latent; a checkout before them runs the same calls through the image's
 corner table, A and A' (the route they replaced).
+
+Kernels D / D' (the plain NeRF composite and its gradient) are timed at
+chip_smoke's VANILLA_SHAPES, D' at the four training shapes with the
+loss's rgb cotangent, each with its bound in the case's name. Before the
+cases, the script prints the card's launch floor: the device time of
+`zero_()` on a 1-element tensor, a yardstick that is no kernel of the
+port.
 
 `--tree DIR` imports neo360_tpu_torch from DIR instead of this checkout
 (a checkout of another commit, unpacked with `git archive`), so that two
@@ -52,18 +61,68 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-from chip_smoke import _bound, _device_ms, _fixture_view, \
-    _grid_sample_fns, _level_cam, _level_points, _lift_uv, _median_ms, \
-    _pixelnerf_uv, _rows_read, _warp_case  # noqa: E402
+from chip_smoke import PROFILE_TRIES, TIMED_RUNS, VANILLA_SHAPES, _bound, \
+    _device_ms, _fixture_view, _grid_sample_fns, _level_cam, _level_points, \
+    _lift_uv, _median_ms, _pixelnerf_uv, _rows_read, _vanilla_args, \
+    _warp_case  # noqa: E402
 
 # run lengths that --sweep tries (the wrappers' `run` argument)
 SWEEP_RUNS = (1, 2, 4, 8, 16, 32)
+# printed beside a time whose profiles all lost events
+LOST = (f" [not trusted: every one of {PROFILE_TRIES} profiles lost "
+        f"events]")
+
+
+def device_us(torch, fn):
+    """({kernel: device us per call} of `fn`, whether the profile recorded
+    every kernel at least once a call): the first of PROFILE_TRIES
+    profiles that did, else the last. The profiler can drop the events of
+    a few-us kernel, and a profile that lost some reads too low."""
+    for _ in range(PROFILE_TRIES):
+        calls = {}
+        per = {k: v * 1e3 for k, v in _device_ms(torch, fn, calls).items()}
+        if min(calls.values(), default=0) >= TIMED_RUNS:
+            return per, True
+    return per, False
 
 
 def short(name: str) -> str:
     """A kernel's name without its namespaces, template and arguments."""
     name = name.replace("(anonymous namespace)::", "").replace("void ", "")
     return re.split(r"[<(]", name, 1)[0].split("::")[-1].strip()
+
+
+def vanilla_cases(torch):
+    """(kernel, case, fn) of kernels D and D' at the baselines' shapes,
+    seeded: D at VANILLA_SHAPES, D' at its first four (the training
+    levels) with the loss's cotangent (rgb alone). These are the only
+    cases whose kernel name starts with "D"."""
+    from neo360_tpu_torch.core import render
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = []
+    for b, s in VANILLA_SHAPES:
+        args = _vanilla_args(torch, g, b, s)
+        # chip_smoke's bound: rgb, sigma, t read and a weight written a
+        # sample; dirs read, comp, acc, depth written a ray
+        bound_ms, _ = _bound(4.0 * b * (6 * s + 8), 20.0 * b * s)
+        out.append(("D composite_vanilla_fwd",
+                    f"{b} rays x {s} (bound {bound_ms * 1e3:.2f} us)",
+                    lambda args=args: render.composite_vanilla(*args,
+                                                               False)))
+    for b, s in VANILLA_SHAPES[:4]:
+        args = _vanilla_args(torch, g, b, s)
+        grads = [torch.randn(b, 3, device="cuda", generator=g), None, None,
+                 None]
+        # rgb, sigma, t read, d rgb and d sigma written a sample; dirs
+        # and the rgb cotangent read a ray
+        bound_ms, _ = _bound(4.0 * b * (9 * s + 6), 40.0 * b * s)
+        out.append(("D' composite_vanilla_bwd",
+                    f"{b} rays x {s}, rgb cotangent (bound "
+                    f"{bound_ms * 1e3:.2f} us)",
+                    lambda args=args, grads=grads:
+                    render.composite_vanilla_backward(args, grads, False)))
+    return out
 
 
 def cases(torch, run=None):
@@ -380,18 +439,27 @@ def main() -> int:
     only = tuple(p for p in args.only.split(",") if p)
     if args.sweep:
         return sweep(torch, only)
-    for kernel, case, fn in cases(torch):
+    one = torch.zeros(1, device="cuda")
+    floor, whole = device_us(torch, one.zero_)
+    print(f"[times] launch floor (a 1-element zero_(), no kernel of the "
+          f"port): device {sum(floor.values()):.2f} us/call"
+          f"{'' if whole else LOST}")
+    todo = vanilla_cases(torch)
+    if not only or not all(p.startswith("D") for p in only):
+        todo += cases(torch)
+    for kernel, case, fn in todo:
         if only and not kernel.startswith(only):
             continue
         try:
-            per = {k: v * 1e3 for k, v in _device_ms(torch, fn).items()}
+            per, whole = device_us(torch, fn)
         except ValueError as e:
             print(f"[times] {kernel} {case}: refused: {e}")
             continue
         parts = ", ".join(f"{short(k)} {v:.1f}" for k, v in sorted(
             per.items(), key=lambda kv: -kv[1]))
-        print(f"[times] {kernel} {case}: device {sum(per.values()):.1f} "
-              f"us/call ({parts}); event {_median_ms(fn, torch):.4f} ms")
+        print(f"[times] {kernel} {case}: device {sum(per.values()):.2f} "
+              f"us/call ({parts}){'' if whole else LOST}; event "
+              f"{_median_ms(fn, torch):.4f} ms")
     return 0
 
 
@@ -403,11 +471,12 @@ def sweep(torch, only=()) -> int:
         for kernel, case, fn in cases(torch, run):
             if not kernel.startswith(only or ("A ", "level", "G' ")):
                 continue
-            per = {k: v * 1e3 for k, v in _device_ms(torch, fn).items()}
+            per, whole = device_us(torch, fn)
             parts = ", ".join(f"{short(k)} {v:.1f}" for k, v in sorted(
                 per.items(), key=lambda kv: -kv[1]) if v >= 1.0)
             print(f"[sweep] {kernel} {case} run {run}: device "
-                  f"{sum(per.values()):.1f} us/call ({parts})")
+                  f"{sum(per.values()):.1f} us/call ({parts})"
+                  f"{'' if whole else LOST}")
     return 0
 
 

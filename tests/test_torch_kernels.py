@@ -1374,11 +1374,14 @@ def _vanilla_nonfinite(args):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s", [
     (7, 1), (33, 32), (33, 33), (5, 64), (1, 97), (2048, 65), (2048, 193),
-    (512, 65), (512, 129), (256, 129), (256, 193)])
+    (512, 65), (512, 129), (256, 129), (256, 193), (6, 256), (6, 257),
+    (5, 600), (4229, 65), (4229, 257)])
 def test_composite_vanilla_kernel(cuda, b, s):
     """Kernel D against its plain version on the card: S on and around
-    the 32-sample chunk edges and at the path's shapes (vanilla 2048 x 65
-    / 193, PixelNeRF 512 x 65 / 129, 256-ray tiles), white background on
+    the 32-sample run edges, at the staged maximum (256), one past it and
+    three segments, at the path's shapes (vanilla 2048 x 65 / 193,
+    PixelNeRF 512 x 65 / 129, 256-ray tiles) and at a B past one wave of
+    one-ray blocks that 4 rays a block do not divide, white background on
     and off, and rays with NaN / inf / zero / huge densities (non-finite
     where the plain version is)."""
     g = _gen(30)
@@ -1398,12 +1401,13 @@ def test_composite_vanilla_kernel(cuda, b, s):
 @pytest.mark.parametrize("tiny_last", [False, True])
 @pytest.mark.parametrize("b,s", [
     (7, 1), (33, 32), (33, 33), (5, 64), (1, 97), (2048, 65), (2048, 193),
-    (512, 65), (512, 129)])
+    (512, 65), (512, 129), (6, 256), (6, 257), (5, 600), (4229, 65),
+    (4229, 257)])
 def test_composite_vanilla_backward_kernel(cuda, b, s, tiny_last):
     """Kernel D' against autograd of the plain version on the card within
     BACKWARD_TOL, white background on and off, with every cotangent and
     with the loss's (rgb alone), also where the last sample's alpha stays
-    below 1."""
+    below 1; S and B as kernel D's card test takes them."""
     g = _gen(31)
     args = tuple(a.to(cuda) for a in _vanilla_args(g, b, s, tiny_last))
     shapes = [o.shape for o in composite_vanilla_reference(*args, False)]
@@ -1485,7 +1489,7 @@ def _vanilla_deltas(t, dirs):
 
 
 def _lane_sum(x):
-    """Kernel D's sums: lane partials carried across 32-sample chunks,
+    """Kernel E's sums: lane partials carried across 32-sample chunks,
     then the __shfl_xor_sync tree."""
     b, s = x.shape
     part = torch.zeros(b, 32)
@@ -1495,18 +1499,110 @@ def _lane_sum(x):
     return _xor_sum(part)[:, 0]
 
 
+def _vanilla_segment(s):
+    """Kernels D / D′'s run length K (samples a lane owns) and segment
+    (32 K samples staged at once) for S samples a ray."""
+    k = min((s + 31) // 32, 8)
+    return k, 32 * k
+
+
+def _runs(x, k, fill):
+    """(B, n) values of a segment as 32 lanes' runs of k (B, 32, k), the
+    places past n set to `fill`."""
+    out = torch.full((x.shape[0], 32 * k), fill, dtype=torch.float32)
+    out[:, :x.shape[1]] = x
+    return out.view(-1, 32, k)
+
+
+def _vanilla_transmittance(alpha):
+    """Kernels D / D′'s exclusive transmittance A (B,S), segment by
+    segment with a carry: each lane's exclusive products P_j of q = (1 -
+    alpha) + 1e-10 along its run, one Hillis-Steele __shfl_up_sync scan of
+    the lanes' totals, A = (carry * E_lane) * P_j."""
+    b, s = alpha.shape
+    k, seg = _vanilla_segment(s)
+    out = torch.empty(b, s)
+    carry = torch.ones(b)
+    for base in range(0, s, seg):
+        n = min(seg, s - base)
+        q = _runs((1.0 - alpha[:, base:base + n]) + 1e-10, k, 1.0)
+        pre = torch.empty(b, 32, k)
+        p = torch.ones(b, 32)
+        for j in range(k):
+            pre[..., j] = p
+            p = p * q[..., j]
+        for d in (1, 2, 4, 8, 16):
+            up = torch.cat([p[:, :d], p[:, :-d]], 1)
+            p = torch.where(_LANE >= d, p * up, p)
+        excl = torch.cat([torch.ones(b, 1), p[:, :-1]], 1)
+        a = (carry[:, None] * excl)[..., None] * pre
+        out[:, base:base + n] = a.reshape(b, -1)[:, :n]
+        carry = carry * p[:, 31]
+    return out
+
+
+def _vanilla_lane_sum(x):
+    """Kernel D's sums: each lane's partial along its runs, segment after
+    segment, then the __shfl_xor_sync tree."""
+    b, s = x.shape
+    k, seg = _vanilla_segment(s)
+    part = torch.zeros(b, 32)
+    for base in range(0, s, seg):
+        runs = _runs(x[:, base:base + seg], k, 0.0)
+        for j in range(k):
+            part = part + runs[..., j]
+    return _xor_sum(part)[:, 0]
+
+
+def _vanilla_reverse(q, c):
+    """Kernel D′'s reverse pass: G_i (B,S) from G = 0 past the last
+    sample, segment by segment from the last: each lane composes its run's
+    maps G -> q G + c from its last sample down, one exclusive
+    __shfl_down_sync suffix scan of the lanes' maps applied to the G from
+    above gives G at each run's last sample, and the lane walks its run
+    down."""
+    b, s = q.shape
+    k, seg = _vanilla_segment(s)
+    out = torch.empty(b, s)
+    G = torch.zeros(b)
+    for base in range((s - 1) // seg * seg, -1, -seg):
+        n = min(seg, s - base)
+        qr = _runs(q[:, base:base + n], k, 1.0)
+        cr = _runs(c[:, base:base + n], k, 0.0)
+        Q, C = torch.ones(b, 32), torch.zeros(b, 32)
+        for j in reversed(range(k)):
+            C = qr[..., j] * C + cr[..., j]
+            Q = qr[..., j] * Q
+        for d in (1, 2, 4, 8, 16):
+            qd = torch.cat([Q[:, d:], Q[:, -d:]], 1)
+            cd = torch.cat([C[:, d:], C[:, -d:]], 1)
+            live = _LANE + d < 32
+            C, Q = torch.where(live, Q * cd + C, C), torch.where(live, Q * qd,
+                                                                 Q)
+        qx = torch.cat([Q[:, 1:], torch.ones(b, 1)], 1)
+        cx = torch.cat([C[:, 1:], torch.zeros(b, 1)], 1)
+        g = qx * G[:, None] + cx
+        runs = torch.empty(b, 32, k)
+        for j in reversed(range(k)):
+            runs[..., j] = g
+            g = qr[..., j] * g + cr[..., j]
+        out[:, base:base + n] = runs.reshape(b, -1)[:, :n]
+        G = Q[:, 0] * G + C[:, 0]
+    return out
+
+
 def _emulate_composite_vanilla(args, white_bkgd):
     """Kernel D in float32, in its order of operations."""
     rgb, density, t, dirs = args
     delta = _vanilla_deltas(t, dirs)
     alpha = 1.0 - torch.exp(-density[..., 0] * delta)
-    a, _ = _forward_scan(alpha)
-    w = alpha * a
-    acc = _lane_sum(w)
-    comp = torch.stack([_lane_sum(w * rgb[..., k]) for k in range(3)], -1)
+    w = alpha * _vanilla_transmittance(alpha)
+    acc = _vanilla_lane_sum(w)
+    comp = torch.stack([_vanilla_lane_sum(w * rgb[..., k]) for k in range(3)],
+                       -1)
     if white_bkgd:
         comp = comp + (1.0 - acc[:, None])
-    return comp, acc, w, _lane_sum(w * t)
+    return comp, acc, w, _vanilla_lane_sum(w * t)
 
 
 def _emulate_composite_vanilla_backward(args, grads, white_bkgd):
@@ -1522,24 +1618,26 @@ def _emulate_composite_vanilla_backward(args, grads, white_bkgd):
     delta = _vanilla_deltas(t, dirs)
     e = torch.exp(-density[..., 0] * delta)
     alpha = 1.0 - e
-    a, _ = _forward_scan(alpha)
+    a = _vanilla_transmittance(alpha)
     gi = gw + ga[:, None]
     for k in range(3):
         gi = gi + gc[:, k:k + 1] * rgb[..., k]
     gi = gi + gd[:, None] * t
-    G = _reverse_scan((1.0 - alpha) + 1e-10, gi * alpha, torch.zeros(b))
+    G = _vanilla_reverse((1.0 - alpha) + 1e-10, gi * alpha)
     w = (1.0 - e) * a
     return w[..., None] * gc[:, None, :], (a * (gi - G) * e * delta)[..., None]
 
 
 @pytest.mark.parametrize("tiny_last", [False, True])
 @pytest.mark.parametrize("white_bkgd", [False, True])
-@pytest.mark.parametrize("s", [1, 5, 31, 32, 33, 65, 97, 129, 193])
+@pytest.mark.parametrize("s", [1, 5, 31, 32, 33, 65, 97, 129, 193, 256,
+                               257, 600])
 def test_composite_vanilla_scan_order_fits_tolerance(s, white_bkgd,
                                                      tiny_last):
-    """CPU: kernels D and D' in their order of operations (chunked
-    exclusive product scan, lane-partial sums in xor-tree order, the
-    reverse affine suffix scan from G = 0) against the plain version and
+    """CPU: kernels D and D' in their order of operations (each lane's
+    run folded, one exclusive product scan of the lanes, segments of 256
+    past S = 256, lane-partial sums in xor-tree order, the lanes' composed
+    affine maps and one suffix scan from G = 0) against the plain version and
     its autograd, within the tolerances the card tests hold them to
     (forward: compare()'s 1e-5 relative; backward: BACKWARD_TOL)."""
     g = _gen(36)
