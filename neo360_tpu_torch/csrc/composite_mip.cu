@@ -18,86 +18,90 @@
 // the midpoint depth, so it is its own kernel.
 //
 // Bound: at the path's shapes (2048 rays x 64, 64 and 32 intervals a
-// training step, 4096-ray render tiles) a call moves 0.8-3.2 MB (< 1 us at
-// the card's memory rate) with about 15 flops an interval: launch latency
-// and the dependent scan set the pace. Design (kernel D's): one warp per
-// ray, kWarps rays per block; the lanes take 32 consecutive intervals at a
-// time (coalesced loads and weight stores); the exclusive running sum of
-// dd is a __shfl_up_sync additive scan carried from chunk to chunk; the
-// sums are lane partials reduced once with __shfl_xor_sync.
+// training step, 4096-ray render tiles) a call moves 0.8-3.2 MB (0.2-0.9
+// us at the card's memory rate) with about 15 flops an interval: launch
+// latency and the dependent memory round trips and scans set the pace.
+// Device times below are scripts/torch_kernel_times.py --only E on an
+// NVIDIA H100 80GB HBM3 at 700 W, whose launch floor (a 1-element zero_())
+// is 1.0 us.
+//
+// Before: kernel D's old design, one warp a ray, 4 rays a block, 32-
+// interval chunks; each chunk's loads were issued only after the previous
+// chunk's 5-step warp scan and its carry, so a ray waited on ceil(S / 32)
+// memory round trips and scans in a row (2048 x 32: 2.2 us, 2048 x 64:
+// 2.5, 4096 x 64: 3.1).
+//
+// Design (composite_mip_common.cuh, composite_runs.cuh): each lane owns a
+// run of K = ceil(S / 32) consecutive intervals and loads its K + 1
+// edges, densities and 3 K colours straight into registers in unrolled
+// loops, templated on K, so every load is in flight before the first scan
+// step; it folds its run, one warp scan combines the lanes, and it stores
+// its weights itself. The sums are lane partials reduced once with
+// __shfl_xor_sync. Rays a block: as few as keep one block an SM where the
+// rays allow, at most 4. S > 256 runs the same code over segments of 256
+// with a carried sum. What chose it, device us at 2048 x 64 / 4096 x 32:
+// the weights stored through shared memory, coalesced, 2.43-2.44 /
+// 2.44 against 2.37-2.38 / 2.35-2.40 stored from the runs (K <= 2 at every
+// path shape: at most two 128-byte lines a store instruction).
+//
+// After: a ray waits on one memory round trip, one warp scan and the
+// reduction, 1.0 us above the launch floor at 2048 x 32 (2.11-2.12 ->
+// 1.98-1.99 us); 2048 x 64 2.50 -> 2.37-2.38, 4096 x 32 2.61 -> 2.35-2.40,
+// and 4096 x 64 3.09-3.10 -> 2.95 (65% of its byte bound).
 
-#include <cuda_runtime.h>
+#include "composite_mip_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;  // rays per block
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
-  return v;
-}
-
-__global__ void __launch_bounds__(32 * kWarps) composite_mip_kernel(
-    const float* __restrict__ density, const float* __restrict__ tdist,
-    const float* __restrict__ dirs, const float* __restrict__ rgb, int s,
-    int n_rays, float bg, int opaque, float* __restrict__ weights,
-    float* __restrict__ comp, float* __restrict__ acc,
-    float* __restrict__ depth) {
+template <int K>
+__global__ void __launch_bounds__(32 * runs::kBlockWarps)
+    composite_mip_kernel(const float* __restrict__ density,
+                         const float* __restrict__ tdist,
+                         const float* __restrict__ dirs,
+                         const float* __restrict__ rgb, int s, int n_rays,
+                         float bg, int opaque, float* __restrict__ weights,
+                         float* __restrict__ comp, float* __restrict__ acc,
+                         float* __restrict__ depth) {
+  constexpr int kSeg = 32 * K;
   const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (r >= n_rays) return;  // uniform across the warp
   const float dx = dirs[3 * r], dy = dirs[3 * r + 1], dz = dirs[3 * r + 2];
   const float dnorm = sqrtf(dx * dx + dy * dy + dz * dz);
   const long long o = (long long)r * s;
-  const float* sg = density + o;
   const float* tt = tdist + (long long)r * (s + 1);
-  const float* cc = rgb + 3 * o;
-  float* ww = weights + o;
+  const int first = lane * K;
 
   float pr = 0.f, pg = 0.f, pb = 0.f, pa = 0.f, pd = 0.f;
-  float carry = 0.f;  // warp-uniform: sum of dd before the chunk
-  for (int base = 0; base < s; base += 32) {
-    const int i = base + lane;
-    const bool live = i < s;
-    float alpha = 0.f, mid = 0.f, cr = 0.f, cg = 0.f, cb = 0.f, x = 0.f;
-    if (live) {
-      const float t0 = tt[i], t1 = tt[i + 1];
-      mid = 0.5f * (t1 + t0);
-      if (opaque && i == s - 1) {
-        alpha = 1.0f;  // 1 - exp(-inf)
-      } else {
-        const float dd = sg[i] * ((t1 - t0) * dnorm);
-        alpha = 1.0f - expf(-dd);
-        if (i < s - 1) x = dd;  // the last dd enters no transmittance
-      }
-      cr = cc[3 * i];
-      cg = cc[3 * i + 1];
-      cb = cc[3 * i + 2];
-    }
-    float incl = x;
+  float carry = 0.f;  // the sum of dd before the segment
+  for (int seg = 0; seg < runs::segments<K>(s); ++seg) {
+    const int base = seg * kSeg;
+    const int n = min(kSeg, s - base);
+    mip::Run<K> run;
+    mip::load_run(run, tt + base, density + o + base, first, n);
+    float c[3 * K];
+    runs::load(c, rgb + 3 * (o + base + first), 3 * (n - first));
+    const float next =
+        mip::forward(run, n, s - 1 - base, opaque, dnorm, carry, lane);
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const float up = __shfl_up_sync(kFull, incl, d);
-      if (lane >= d) incl += up;
+    for (int j = 0; j < K; ++j) {
+      if (first + j < n) {
+        const float w = run.w(j);
+        weights[o + base + first + j] = w;
+        pa += w;
+        pr += w * c[3 * j];
+        pg += w * c[3 * j + 1];
+        pb += w * c[3 * j + 2];
+        pd += w * (0.5f * (run.t[j + 1] + run.t[j]));
+      }
     }
-    float excl = __shfl_up_sync(kFull, incl, 1);
-    if (lane == 0) excl = 0.0f;
-    const float w = alpha * expf(-(carry + excl));
-    if (live) ww[i] = w;
-    pa += w;
-    pr += w * cr;
-    pg += w * cg;
-    pb += w * cb;
-    pd += w * mid;
-    carry += __shfl_sync(kFull, incl, 31);
+    carry = next;
   }
-  pr = warp_sum(pr);
-  pg = warp_sum(pg);
-  pb = warp_sum(pb);
-  pa = warp_sum(pa);
-  pd = warp_sum(pd);
+  pr = runs::warp_sum(pr);
+  pg = runs::warp_sum(pg);
+  pb = runs::warp_sum(pb);
+  pa = runs::warp_sum(pa);
+  pd = runs::warp_sum(pd);
   if (lane != 0) return;
   const float om = 1.0f - pa;
   const float bg_w = (om != om) ? om : fmaxf(0.0f, om);
@@ -120,12 +124,15 @@ extern "C" int composite_mip_fwd(const void* density, const void* tdist,
                                  void* depth, void* stream) {
   if (n_rays == 0) return (int)cudaSuccess;
   if (s < 1) return (int)cudaErrorInvalidValue;
-  const int blocks = (n_rays + kWarps - 1) / kWarps;
+  const int w = runs::rays_per_block(n_rays);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  composite_mip_kernel<<<blocks, 32 * kWarps, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      f(density), f(tdist), f(dirs), f(rgb), s, n_rays, bg, opaque,
-      static_cast<float*>(weights), static_cast<float*>(comp),
-      static_cast<float*>(acc), static_cast<float*>(depth));
-  return (int)cudaGetLastError();
+  auto out = [](void* p) { return static_cast<float*>(p); };
+  return runs::with_run_length(s, [&](auto k) {
+    constexpr int K = decltype(k)::value;
+    composite_mip_kernel<K><<<(n_rays + w - 1) / w, 32 * w, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+        f(density), f(tdist), f(dirs), f(rgb), s, n_rays, bg, opaque,
+        out(weights), out(comp), out(acc), out(depth));
+    return (int)cudaGetLastError();
+  });
 }

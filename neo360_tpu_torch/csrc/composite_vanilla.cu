@@ -57,16 +57,10 @@
 
 namespace {
 
-using vanilla::kFull;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
-  return v;
-}
+using runs::warp_sum;
 
 template <int K>
-__global__ void __launch_bounds__(32 * vanilla::kBlockWarps)
+__global__ void __launch_bounds__(32 * runs::kBlockWarps)
     composite_vanilla_kernel(const float* __restrict__ rgb,
                              const float* __restrict__ sigma,
                              const float* __restrict__ t, int s,
@@ -86,13 +80,13 @@ __global__ void __launch_bounds__(32 * vanilla::kBlockWarps)
 
   float pr = 0.f, pg = 0.f, pb = 0.f, pacc = 0.f, pdepth = 0.f;
   float trans = 1.0f;  // the transmittance at the segment's start
-  for (int seg = 0; seg < vanilla::segments<K>(s); ++seg) {
+  for (int seg = 0; seg < runs::segments<K>(s); ++seg) {
     const int base = seg * kSeg;
     const int n = min(kSeg, s - base), nt = min(kSeg + 1, s - base);
     vanilla::Run<K> run;
     vanilla::load_run(run, t + o + base, sigma + o + base, first, n, nt);
     float c[3 * K];
-    vanilla::load(c, rgb + 3 * (o + base + first), 3 * (n - first));
+    runs::load(c, rgb + 3 * (o + base + first), 3 * (n - first));
     const float next = vanilla::forward(run, n, nt, dnorm, trans, lane);
 #pragma unroll
     for (int j = 0; j < K; ++j) {
@@ -138,10 +132,10 @@ extern "C" int composite_vanilla_fwd(const void* rgb, const void* sigma,
                                      void* stream) {
   if (n_rays == 0) return (int)cudaSuccess;
   if (s < 1) return (int)cudaErrorInvalidValue;
-  const int w = vanilla::rays_per_block(n_rays);
+  const int w = runs::rays_per_block(n_rays);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto out = [](void* p) { return static_cast<float*>(p); };
-  return vanilla::with_run_length(s, [&](auto k) {
+  return runs::with_run_length(s, [&](auto k) {
     constexpr int K = decltype(k)::value;
     composite_vanilla_kernel<K><<<(n_rays + w - 1) / w, 32 * w, 0,
                                   static_cast<cudaStream_t>(stream)>>>(

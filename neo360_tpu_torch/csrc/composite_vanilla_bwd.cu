@@ -56,25 +56,12 @@
 
 namespace {
 
-using vanilla::kFull;
-
-// n <= N floats from shared memory to device memory, coalesced, unrolled
-template <int N>
-__device__ __forceinline__ void store(float* dst, const float* src, int n,
-                                      int lane) {
-#pragma unroll
-  for (int k = 0; k < (N + 31) / 32; ++k) {
-    const int i = lane + 32 * k;
-    if (i < n) dst[i] = src[i];
-  }
-}
-
-__device__ __forceinline__ float at(const float* p, long long i) {
-  return p ? p[i] : 0.0f;
-}
+using runs::at;
+using runs::kFull;
+using runs::store;
 
 template <int K>
-__global__ void __launch_bounds__(32 * vanilla::kBlockWarps)
+__global__ void __launch_bounds__(32 * runs::kBlockWarps)
     composite_vanilla_bwd_kernel(
         const float* __restrict__ rgb, const float* __restrict__ sigma,
         const float* __restrict__ t, int s, const float* __restrict__ dirs,
@@ -100,7 +87,7 @@ __global__ void __launch_bounds__(32 * vanilla::kBlockWarps)
   const int first = lane * K;
   float* ds = d_sigma + o;
 
-  const int segs = vanilla::segments<K>(s);
+  const int segs = runs::segments<K>(s);
   if (segs > 1) {  // the transmittance at each later segment's start
     float trans = 1.0f;
     for (int base = 0; base + kSeg < s; base += kSeg) {
@@ -122,8 +109,8 @@ __global__ void __launch_bounds__(32 * vanilla::kBlockWarps)
     vanilla::load_run(run, t + o + base, sigma + o + base, first, n, nt);
     float c[3 * K], gw[K];
     const float* gws = g_w ? g_w + o + base + first : nullptr;
-    vanilla::load(c, rgb + 3 * (o + base + first), 3 * (n - first));
-    vanilla::load(gw, gws, gws ? n - first : 0);
+    runs::load(c, rgb + 3 * (o + base + first), 3 * (n - first));
+    runs::load(gw, gws, gws ? n - first : 0);
     vanilla::forward(run, n, nt, dnorm, trans, lane);
 
     // g_i of the run, and the composition f_first o ... o f_last of its
@@ -194,9 +181,9 @@ extern "C" int composite_vanilla_bwd(const void* rgb, const void* sigma,
                                      void* stream) {
   if (n_rays == 0) return (int)cudaSuccess;
   if (s < 1) return (int)cudaErrorInvalidValue;
-  const int w = vanilla::rays_per_block(n_rays);
+  const int w = runs::rays_per_block(n_rays);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  return vanilla::with_run_length(s, [&](auto k) {
+  return runs::with_run_length(s, [&](auto k) {
     constexpr int K = decltype(k)::value;
     const size_t bytes = sizeof(float) * w * 4 * 32 * K;
     composite_vanilla_bwd_kernel<K><<<(n_rays + w - 1) / w, 32 * w, bytes,

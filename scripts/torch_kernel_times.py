@@ -32,10 +32,14 @@ corner table, A and A' (the route they replaced).
 
 Kernels D / D' (the plain NeRF composite and its gradient) are timed at
 chip_smoke's VANILLA_SHAPES, D' at the four training shapes with the
-loss's rgb cotangent, each with its bound in the case's name. Before the
-cases, the script prints the card's launch floor: the device time of
-`zero_()` on a 1-element tensor, a yardstick that is no kernel of the
-port.
+loss's rgb cotangent; kernels E / E' (the MipNeRF-360 composite and its
+gradient) at chip_smoke's MIP_SHAPES (opaque background, background
+1.0), E' at its three cotangent sets (2048 x 32 weights and rgb, 2048 x
+64 weights, 4096 x 64 all four) with the acc of E; each with its bound
+in the case's name. Before the cases, the script prints the card's
+launch floor: the device time of `zero_()` on a 1-element tensor, a
+yardstick that is no kernel of the port. `--only D` or `--only E` times
+those kernels and the floor without building the other cases.
 
 `--tree DIR` imports neo360_tpu_torch from DIR instead of this checkout
 (a checkout of another commit, unpacked with `git archive`), so that two
@@ -61,10 +65,10 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-from chip_smoke import PROFILE_TRIES, TIMED_RUNS, VANILLA_SHAPES, _bound, \
-    _device_ms, _fixture_view, _grid_sample_fns, _level_cam, _level_points, \
-    _lift_uv, _median_ms, _pixelnerf_uv, _rows_read, _vanilla_args, \
-    _warp_case  # noqa: E402
+from chip_smoke import MIP_SHAPES, PROFILE_TRIES, TIMED_RUNS, \
+    VANILLA_SHAPES, _bound, _device_ms, _fixture_view, _grid_sample_fns, \
+    _level_cam, _level_points, _lift_uv, _median_ms, _mip_args, \
+    _pixelnerf_uv, _rows_read, _vanilla_args, _warp_case  # noqa: E402
 
 # run lengths that --sweep tries (the wrappers' `run` argument)
 SWEEP_RUNS = (1, 2, 4, 8, 16, 32)
@@ -122,6 +126,47 @@ def vanilla_cases(torch):
                     f"{bound_ms * 1e3:.2f} us)",
                     lambda args=args, grads=grads:
                     render.composite_vanilla_backward(args, grads, False)))
+    return out
+
+
+def mip_cases(torch):
+    """(kernel, case, fn) of kernels E and E' at the MipNeRF-360 shapes,
+    seeded: E at MIP_SHAPES, E' at chip_smoke's three cotangent sets,
+    with the acc of E. These are the only cases whose kernel name starts
+    with "E"."""
+    from neo360_tpu_torch.core import render
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = []
+    for b, s in MIP_SHAPES:
+        args = _mip_args(torch, g, b, s)
+        # chip_smoke's bound: density, rgb, tdist read and a weight
+        # written an interval; dirs and the last edge read, rgb, acc,
+        # depth written a ray
+        bound_ms, _ = _bound(4.0 * b * (6 * s + 9), 15.0 * b * s)
+        out.append(("E composite_mip_fwd",
+                    f"{b} rays x {s} (bound {bound_ms * 1e3:.2f} us)",
+                    lambda args=args: render.composite_mip(*args, 1.0,
+                                                           True)))
+    for (b, s), keys in (((2048, 32), ("weights", "rgb")),
+                         ((2048, 64), ("weights",)),
+                         ((4096, 64), render.MIP_OUT_KEYS)):
+        args = _mip_args(torch, g, b, s)
+        shapes = ((b, s), (b, 3), (b,), (b,))
+        grads = [torch.randn(sh, device="cuda", generator=g) if k in keys
+                 else None for k, sh in zip(render.MIP_OUT_KEYS, shapes)]
+        with torch.no_grad():
+            acc = render.composite_mip(*args, 1.0, True)[2]
+        n_cot = sum(c.numel() for c in grads if c is not None)
+        # density, tdist, rgb read, d density and d rgb written an
+        # interval; dirs and acc read a ray; the cotangents read
+        bound_ms, _ = _bound(4.0 * (b * (9 * s + 5) + n_cot), 30.0 * b * s)
+        out.append(("E' composite_mip_bwd",
+                    f"{b} rays x {s}, cotangents {'+'.join(keys)} (bound "
+                    f"{bound_ms * 1e3:.2f} us)",
+                    lambda args=args, acc=acc, grads=grads:
+                    render.composite_mip_backward(args, acc, grads, 1.0,
+                                                  True)))
     return out
 
 
@@ -444,8 +489,8 @@ def main() -> int:
     print(f"[times] launch floor (a 1-element zero_(), no kernel of the "
           f"port): device {sum(floor.values()):.2f} us/call"
           f"{'' if whole else LOST}")
-    todo = vanilla_cases(torch)
-    if not only or not all(p.startswith("D") for p in only):
+    todo = vanilla_cases(torch) + mip_cases(torch)
+    if not only or not all(p.startswith(("D", "E")) for p in only):
         todo += cases(torch)
     for kernel, case, fn in todo:
         if only and not kernel.startswith(only):

@@ -1353,14 +1353,15 @@ def _plain_vanilla_grads(args, grads, white_bkgd):
                                [g for _, g in pairs])
 
 
-def _assert_ok_where_finite(out, ref):
+def _assert_ok_where_finite(out, ref, **tol):
     """NaN and inf (with their signs) where the plain version has them,
-    and the finite entries within compare()'s tolerance."""
+    and the finite entries within compare()'s tolerance (or `tol`)."""
     finite = torch.isfinite(ref)
     assert torch.equal(torch.isfinite(out), finite)
     assert torch.equal(torch.isnan(out), torch.isnan(ref))
     assert torch.equal(out[torch.isinf(ref)], ref[torch.isinf(ref)])
-    _assert_ok(out[finite], ref[finite])
+    res = kernels.compare(out[finite], ref[finite], **tol)
+    assert res["ok"], res
 
 
 def _vanilla_nonfinite(args):
@@ -1488,20 +1489,9 @@ def _vanilla_deltas(t, dirs):
                       (torch.full((b, 1), 1e10) * dnorm[:, None])], 1)
 
 
-def _lane_sum(x):
-    """Kernel E's sums: lane partials carried across 32-sample chunks,
-    then the __shfl_xor_sync tree."""
-    b, s = x.shape
-    part = torch.zeros(b, 32)
-    for base in range(0, s, 32):
-        n = min(32, s - base)
-        part = part + _lanes(x[:, base:base + n], n, 0.0)
-    return _xor_sum(part)[:, 0]
-
-
-def _vanilla_segment(s):
-    """Kernels D / D′'s run length K (samples a lane owns) and segment
-    (32 K samples staged at once) for S samples a ray."""
+def _run_segment(s):
+    """Kernels D / D′ and E / E′'s run length K (samples a lane owns) and
+    segment (32 K samples loaded at once) for S samples a ray."""
     k = min((s + 31) // 32, 8)
     return k, 32 * k
 
@@ -1520,7 +1510,7 @@ def _vanilla_transmittance(alpha):
     alpha) + 1e-10 along its run, one Hillis-Steele __shfl_up_sync scan of
     the lanes' totals, A = (carry * E_lane) * P_j."""
     b, s = alpha.shape
-    k, seg = _vanilla_segment(s)
+    k, seg = _run_segment(s)
     out = torch.empty(b, s)
     carry = torch.ones(b)
     for base in range(0, s, seg):
@@ -1541,11 +1531,11 @@ def _vanilla_transmittance(alpha):
     return out
 
 
-def _vanilla_lane_sum(x):
-    """Kernel D's sums: each lane's partial along its runs, segment after
-    segment, then the __shfl_xor_sync tree."""
+def _run_lane_sum(x):
+    """Kernels D and E's sums: each lane's partial along its runs, segment
+    after segment, then the __shfl_xor_sync tree."""
     b, s = x.shape
-    k, seg = _vanilla_segment(s)
+    k, seg = _run_segment(s)
     part = torch.zeros(b, 32)
     for base in range(0, s, seg):
         runs = _runs(x[:, base:base + seg], k, 0.0)
@@ -1562,7 +1552,7 @@ def _vanilla_reverse(q, c):
     above gives G at each run's last sample, and the lane walks its run
     down."""
     b, s = q.shape
-    k, seg = _vanilla_segment(s)
+    k, seg = _run_segment(s)
     out = torch.empty(b, s)
     G = torch.zeros(b)
     for base in range((s - 1) // seg * seg, -1, -seg):
@@ -1597,12 +1587,12 @@ def _emulate_composite_vanilla(args, white_bkgd):
     delta = _vanilla_deltas(t, dirs)
     alpha = 1.0 - torch.exp(-density[..., 0] * delta)
     w = alpha * _vanilla_transmittance(alpha)
-    acc = _vanilla_lane_sum(w)
-    comp = torch.stack([_vanilla_lane_sum(w * rgb[..., k]) for k in range(3)],
+    acc = _run_lane_sum(w)
+    comp = torch.stack([_run_lane_sum(w * rgb[..., k]) for k in range(3)],
                        -1)
     if white_bkgd:
         comp = comp + (1.0 - acc[:, None])
-    return comp, acc, w, _vanilla_lane_sum(w * t)
+    return comp, acc, w, _run_lane_sum(w * t)
 
 
 def _emulate_composite_vanilla_backward(args, grads, white_bkgd):
@@ -1702,40 +1692,57 @@ def _mip_cots(g, b, s, subset):
 
 
 def _sum_scan(x):
-    """Kernel E's chunked exclusive sum: a Hillis-Steele __shfl_up_sync
-    additive scan per 32-interval chunk, carried across chunks; returns
-    exp(-sum) (B,S)."""
+    """Kernels E / E′'s transmittance exp(-sum_{j<i} x_j) (B,S), segment by
+    segment with a carried sum: each lane's exclusive sums P_j of x along
+    its run, one Hillis-Steele __shfl_up_sync additive scan of the lanes'
+    totals, T = exp(-((carry + E_lane) + P_j))."""
     b, s = x.shape
-    carry = torch.zeros(b)
+    k, seg = _run_segment(s)
     out = torch.empty(b, s)
-    for base in range(0, s, 32):
-        n = min(32, s - base)
-        incl = _lanes(x[:, base:base + n], n, 0.0)
+    carry = torch.zeros(b)
+    for base in range(0, s, seg):
+        n = min(seg, s - base)
+        xr = _runs(x[:, base:base + n], k, 0.0)
+        pre = torch.empty(b, 32, k)
+        p = torch.zeros(b, 32)
+        for j in range(k):
+            pre[..., j] = p
+            p = p + xr[..., j]
         for d in (1, 2, 4, 8, 16):
-            up = torch.cat([incl[:, :d], incl[:, :-d]], 1)
-            incl = torch.where(_LANE >= d, incl + up, incl)
-        excl = torch.cat([torch.zeros(b, 1), incl[:, :-1]], 1)
-        out[:, base:base + n] = torch.exp(-(carry[:, None] + excl))[:, :n]
-        carry = carry + incl[:, 31]
+            up = torch.cat([p[:, :d], p[:, :-d]], 1)
+            p = torch.where(_LANE >= d, p + up, p)
+        excl = torch.cat([torch.zeros(b, 1), p[:, :-1]], 1)
+        t = torch.exp(-((carry[:, None] + excl)[..., None] + pre))
+        out[:, base:base + n] = t.reshape(b, -1)[:, :n]
+        carry = carry + p[:, 31]
     return out
 
 
 def _suffix_sum(v):
-    """Kernel E''s reverse pass: R_i = sum_{k>i} v_k per 32-interval
-    chunk from the last down (an inclusive __shfl_down_sync suffix scan,
-    the lane above's value plus the carry)."""
+    """Kernel E′'s reverse pass: R_i = sum_{k>i} v_k (B,S), segment by
+    segment from the last with a carried sum R: each lane's sums of v above
+    each interval of its run, one inclusive __shfl_down_sync suffix scan
+    of the lanes' totals, R_i = (R + the lanes above) + the run's sum above
+    i."""
     b, s = v.shape
+    k, seg = _run_segment(s)
     out = torch.empty(b, s)
-    carry = torch.zeros(b)
-    for base in range((s - 1) // 32 * 32, -1, -32):
-        n = min(32, s - base)
-        S = _lanes(v[:, base:base + n], n, 0.0)
+    R = torch.zeros(b)
+    for base in range((s - 1) // seg * seg, -1, -seg):
+        n = min(seg, s - base)
+        vr = _runs(v[:, base:base + n], k, 0.0)
+        above = torch.empty(b, 32, k)
+        S = torch.zeros(b, 32)
+        for j in reversed(range(k)):
+            above[..., j] = S
+            S = S + vr[..., j]
         for d in (1, 2, 4, 8, 16):
             dn = torch.cat([S[:, d:], S[:, -d:]], 1)
             S = torch.where(_LANE + d < 32, S + dn, S)
-        above = torch.cat([S[:, 1:], torch.zeros(b, 1)], 1)
-        out[:, base:base + n] = (carry[:, None] + above)[:, :n]
-        carry = carry + S[:, 0]
+        lanes = torch.cat([S[:, 1:], torch.zeros(b, 1)], 1)
+        r = (R[:, None] + lanes)[..., None] + above
+        out[:, base:base + n] = r.reshape(b, -1)[:, :n]
+        R = R + S[:, 0]
     return out
 
 
@@ -1759,12 +1766,12 @@ def _emulate_composite_mip(args, bg, opaque):
     rgb = args[3]
     _, e, trans, mid = _mip_terms(args, opaque)
     w = (1.0 - e) * trans
-    acc = _lane_sum(w)
+    acc = _run_lane_sum(w)
     om = 1.0 - acc
     bg_w = torch.where(torch.isnan(om), om, torch.clamp(om, min=0.0))
-    comp = torch.stack([_lane_sum(w * rgb[..., k]) + bg_w * bg
+    comp = torch.stack([_run_lane_sum(w * rgb[..., k]) + bg_w * bg
                         for k in range(3)], -1)
-    return w, comp, acc, _lane_sum(w * mid)
+    return w, comp, acc, _run_lane_sum(w * mid)
 
 
 def _emulate_composite_mip_backward(args, acc, grads, bg, opaque):
@@ -1793,12 +1800,13 @@ def _emulate_composite_mip_backward(args, acc, grads, bg, opaque):
 
 @pytest.mark.parametrize("subset", ["all", "weights", "nerf"])
 @pytest.mark.parametrize("opaque", [True, False])
-@pytest.mark.parametrize("s", [1, 5, 31, 32, 33, 64, 97])
+@pytest.mark.parametrize("s", [1, 5, 31, 32, 33, 64, 97, 256, 257, 600])
 def test_composite_mip_scan_order_fits_tolerance(s, opaque, subset):
-    """CPU: kernels E and E' in their order of operations (chunked
-    exclusive additive scan, lane-partial sums in xor-tree order, the
-    reverse suffix sum) against the plain version and its autograd,
-    within the tolerances the card tests hold them to (forward:
+    """CPU: kernels E and E' in their order of operations (each lane's run
+    folded, one exclusive additive scan of the lanes, segments of 256 past
+    S = 256, lane-partial sums in xor-tree order, the lanes' sums above
+    each interval and one suffix scan) against the plain version and its
+    autograd, within the tolerances the card tests hold them to (forward:
     compare()'s 1e-5 relative; backward: MIP_BACKWARD_TOL). Ray 0 sits
     on the tie acc == 1.0 exactly; with opaque_background most others
     are within an ulp of it, on either side. The emulated E' takes the
@@ -1849,17 +1857,50 @@ def test_composite_mip_refuses_gradients_it_does_not_give():
         composite_mip(*bad)
 
 
+def _mip_nonfinite(args):
+    """Rays 1-4 with a NaN, +inf, zero and huge density at three places:
+    the third interval, the middle one and the last."""
+    density, t, dirs, rgb = (a.clone() for a in args)
+    s = density.shape[1]
+    for r, v in enumerate((float("nan"), float("inf"), 0.0, 1e30), 1):
+        density[r, [2, s // 2, s - 1]] = v
+    return density, t, dirs, rgb
+
+
+@pytest.mark.parametrize("opaque", [True, False])
+@pytest.mark.parametrize("s", [33, 64, 257])
+def test_composite_mip_scan_order_nonfinite(s, opaque):
+    """CPU: kernels E and E' in their order of operations give NaN and inf
+    where the plain version and its autograd do, and agree with them
+    elsewhere (forward: compare()'s 1e-5 relative; backward:
+    MIP_BACKWARD_TOL): a lane's sums see only intervals before its own."""
+    g = _gen(47)
+    args = _mip_nonfinite(_mip_args(g, 8, s, tie=True))
+    ref = composite_mip_reference(*args, 1.0, opaque)
+    out = _emulate_composite_mip(args, 1.0, opaque)
+    for o, r in zip(out, ref):
+        _assert_ok_where_finite(o, r)
+    grads = _mip_cots(g, 8, s, "all")
+    ref_g = _plain_mip_grads(args, grads, opaque)
+    out_g = _emulate_composite_mip_backward(args, out[2], grads, 1.0, opaque)
+    for o, r in zip(out_g, ref_g):
+        _assert_ok_where_finite(o, r, **MIP_BACKWARD_TOL)
+
+
 MIP_SHAPES = [(7, 1), (33, 32), (33, 33), (5, 64), (1, 97), (2048, 32),
-              (2048, 64), (4096, 32), (4096, 64)]
+              (2048, 64), (4096, 32), (4096, 64), (6, 256), (6, 257),
+              (5, 600), (4229, 64)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s", MIP_SHAPES)
 def test_composite_mip_kernel(cuda, b, s):
     """Kernel E against its plain version on the card, opaque background
-    on and off: S on and around the 32-interval chunk edges and at the
-    path's shapes (2048 x 64 / 32 in training, 4096-ray tiles), with the
-    tie ray (acc exactly 1) and every ray's infinite last interval."""
+    on and off: S on and around the 32-interval run edges, at the path's
+    shapes (2048 x 64 / 32 in training, 4096-ray tiles), at the largest
+    single segment (256), one past it and three segments, and at a B that
+    no rays-a-block choice divides, with the tie ray (acc exactly 1) and
+    every ray's infinite last interval."""
     g = _gen(43)
     args = tuple(a.to(cuda) for a in _mip_args(g, b, s, tie=s > 1))
     before = composite_mip.launches
@@ -1894,6 +1935,28 @@ def test_composite_mip_backward_kernel(cuda, b, s, subset):
         if opaque:
             assert torch.all(out[0][:, -1] == 0)
     assert composite_mip_backward.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s", [(33, 33), (5, 64), (6, 257), (2048, 64)])
+def test_composite_mip_kernels_nonfinite_densities(cuda, b, s):
+    """Kernels E and E' with NaN, +inf, zero and huge densities at three
+    places of a ray, opaque background on and off: NaN and inf where the
+    plain version and its autograd have them, and within their tolerances
+    (forward: compare()'s; backward: MIP_BACKWARD_TOL) elsewhere."""
+    g = _gen(48)
+    args = tuple(a.to(cuda) for a in _mip_nonfinite(_mip_args(g, b, s,
+                                                              tie=True)))
+    grads = [c.to(cuda) for c in _mip_cots(g, b, s, "all")]
+    for opaque in (True, False):
+        ref = composite_mip_reference(*args, 1.0, opaque)
+        out = composite_mip(*args, 1.0, opaque)
+        for o, r in zip(out, ref):
+            _assert_ok_where_finite(o, r)
+        ref_g = _plain_mip_grads(args, grads, opaque)
+        out_g = composite_mip_backward(args, out[2], grads, 1.0, opaque)
+        for o, r in zip(out_g, ref_g):
+            _assert_ok_where_finite(o, r, **MIP_BACKWARD_TOL)
 
 
 @pytest.mark.cuda
