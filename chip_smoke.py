@@ -106,7 +106,17 @@ line):
    tiles; the MipNeRF-360 NeRF MLP sharded by tp_param_shardings over two
    gloo ranks on the CPU (DTensor's all-gather of CUDA tensors through
    gloo, the only backend for two ranks on one card, segfaults) against
-   the unsharded forward.
+   the unsharded forward;
+15. the port's benchmark (`phase_bench`): the kernels the NeRFTP width
+   knobs reshape (the fused gathers and A' accumulate at plane_dim /
+   local_proj_dim of 32, 64 and 96, kernel C at those latent widths, bf16
+   and f32) against their plain versions, one tiny f32 stage of a
+   narrowed model (plane_dim 64, local_proj_dim 64, pillar width 16, one
+   DepthPillarEncoder hidden layer) on the card against the CPU, and
+   `neo360_tpu_torch.bench` in this process with short windows:
+   neo360_fast training (3 timed stages), its render (2 timed views) and
+   neo360 per-step training (3 timed steps), each result on a "[bench]"
+   line, the launches of each run's last window asserted.
 Kernel D / D' are also checked against their plain versions at the
 baselines' shapes in phase 3, A / A' at the PixelNeRF levels, and E / E'
 at MipNeRF-360's levels and render tiles, with rays at the tie acc == 1
@@ -115,7 +125,7 @@ and the infinite last interval.
 Each kernel's launches per training stage or step and per rendered view
 follow the last phase. The line before the last is {"kernels": [...]}
 (the fourteen kernels; launches: the sum over the eight main paths of
-phases 6-12, each counted from 0, and for G / G' the sum over phase 14's
+phases 6-12 and the bench runs of phase 15, each counted from 0, and for G / G' the sum over phase 14's
 runs of grid_sample_2d and homography_warp, each counted from 0; phase
 13's ranks count in their own processes and are not in it), the
 last is {"ok": true, "device": {...}}. Requires a CUDA device: it exits 2
@@ -125,6 +135,7 @@ without one, or without the neo360_tpu_torch package beside it.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import statistics
@@ -189,27 +200,8 @@ def counters():
     """Counter name -> the wrapper that counts its launches: one per
     kernel, and kernel A' under each of its two contracts (dense and
     accumulate)."""
-    from neo360_tpu_torch.core.render import composite_mip, \
-        composite_mip_backward, composite_nerfpp, composite_nerfpp_backward, \
-        composite_vanilla, composite_vanilla_backward
-    from neo360_tpu_torch.ops.interpolate import local_sample, \
-        table_sample, table_sample_accumulate, table_sample_backward, \
-        triplane_sample
-    from neo360_tpu_torch.ops.pillar import pillar_collapse, \
-        pillar_collapse_backward
-    return {"table_sample_fwd": table_sample,
-            "triplane_sample_fwd": triplane_sample,
-            "local_sample_fwd": local_sample,
-            "composite_nerfpp_fwd": composite_nerfpp,
-            "pillar_collapse_fwd": pillar_collapse,
-            "table_sample_bwd": table_sample_backward,
-            "table_sample_bwd_acc": table_sample_accumulate,
-            "composite_nerfpp_bwd": composite_nerfpp_backward,
-            "pillar_collapse_bwd": pillar_collapse_backward,
-            "composite_vanilla_fwd": composite_vanilla,
-            "composite_vanilla_bwd": composite_vanilla_backward,
-            "composite_mip_fwd": composite_mip,
-            "composite_mip_bwd": composite_mip_backward}
+    from neo360_tpu_torch.train.profiling import kernel_counters
+    return kernel_counters()
 
 
 def _read(fns) -> dict:
@@ -1149,9 +1141,11 @@ def phase_backward_kernels(torch):
     return results
 
 
-def phase_small_train(torch):
+def phase_small_train(torch, **knobs):
     """One tiny f32 stage (K=2, S=2, deterministic sampling) on the card
-    (kernels) against the same stage on the CPU (plain versions).
+    (kernels) against the same stage on the CPU (plain versions); `knobs`:
+    Config width fields (plane_dim, local_proj_dim, pillar_width,
+    depth_fc_layers) for a narrowed model.
 
     Tolerances: gradients, 2e-3 of the largest entry of each step's
     gradient (the float32 conditioning of this loss, measured against the
@@ -1168,7 +1162,7 @@ def phase_small_train(torch):
     from neo360_tpu_torch.ops import kernels
     from neo360_tpu_torch.train import loop
 
-    cfg = _tiny_cfg(seed=SEED, stage_k=2, ray_batch_size=32)
+    cfg = _tiny_cfg(seed=SEED, stage_k=2, ray_batch_size=32, **knobs)
     cli.float32_matmuls(cfg, torch.device("cuda"))
     scenes = MemoryScenes(3, (40, 30), 3, split="train", ray_batch_size=32)
     stage = scenes.sample_train_stage(np.random.default_rng(SEED), 2, 2)
@@ -1214,7 +1208,8 @@ def phase_small_train(torch):
     bound = 2 * (sched(0) + sched(1))
     param_err = max(float((gpu_after[k] - cpu_after[k]).abs().max())
                     for k in cpu_after if k not in bn)
-    print(f"[small-train] K=2 S=2 f32 stage, card vs CPU: gradients max "
+    print(f"[small-train] K=2 S=2 f32 stage {knobs or ''}, card vs CPU: "
+          f"gradients max "
           f"{worst:.3e} of the largest entry (tolerance 2e-3), BatchNorm "
           f"buffers max rel {max(r['max_rel'] for r in bn_res):.3e} "
           f"({len(bn)} buffers), parameters max abs {param_err:.3e} "
@@ -3411,6 +3406,176 @@ def phase_helpers(torch, card: str, dev: str = "cuda", **small):
     return results, path
 
 
+# NeRFTP's narrow widths on the card: plane_dim and local_proj_dim of the
+# gathers and of A' accumulate, the latent width of C; the narrow stage's
+# knobs (a pillar width of 16 for the encoder width of 64)
+NARROW_WIDTHS = (32, 64, 96)
+NARROW_STAGE = dict(plane_dim=64, local_proj_dim=64, pillar_width=16,
+                    depth_fc_layers=1)
+# the bench's short runs: (label, flags, the launches of one window)
+BENCH_RUNS = (
+    ("proposal train", ["--repeats", "3"],
+     dict(table_sample_fwd=2, triplane_sample_fwd=64, local_sample_fwd=64,
+          composite_nerfpp_fwd=128, pillar_collapse_fwd=2,
+          table_sample_bwd=2, table_sample_bwd_acc=256,
+          composite_nerfpp_bwd=128, pillar_collapse_bwd=2)),
+    ("proposal render", ["--phase", "render", "--repeats", "2"],
+     dict(triplane_sample_fwd=300, local_sample_fwd=300,
+          composite_nerfpp_fwd=600)),
+    ("reference train", ["--mode", "reference", "--steps", "1",
+                         "--repeats", "3"],
+     {k: n for k, n in _neo360_step_launches(True).items() if n}),
+)
+
+
+def _check_narrow(torch, view):
+    """The kernels the width knobs reshape, against their plain versions,
+    at C = NARROW_WIDTHS channels in bf16 and f32: the fused tri-plane and
+    local gathers at scene 1 of a neo360_fast stage step (250 rays x 61
+    fine points, flat two-scene tables), kernel A' under the accumulate
+    contract at that step's ray-structured points (cotangent in the
+    table's type, f32 accumulators), and kernel C on a (3, 64, 64, 32, C)
+    latent."""
+    from neo360_tpu_torch.nn.resnet import latent_scaling
+    from neo360_tpu_torch.ops.interpolate import BACKWARD_TOL as A_TOL
+    from neo360_tpu_torch.ops.interpolate import FUSED_TOL, local_sample, \
+        local_sample_reference, local_uv, table_sample_accumulate, \
+        table_sample_accumulate_reference, triplane_sample, \
+        triplane_sample_reference, triplane_uvs
+    from neo360_tpu_torch.ops.pillar import pillar_collapse, \
+        pillar_collapse_reference
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    hw = (120, 160)
+    focal, c = view["src_focal"], view["src_c"]
+    scale = (latent_scaling(hw) / torch.tensor([320.0, 240.0])).tolist()
+    cam = _level_cam(torch, view, 250, 61)
+    nv, n = cam.shape[:2]
+    results = []
+    for ch in NARROW_WIDTHS:
+        for dt in (torch.bfloat16, torch.float32):
+            name = {torch.bfloat16: "bf16", torch.float32: "f32"}[dt]
+            case = f"C={ch} {name}, stage scene 1, 250 rays x 61"
+            size = torch.finfo(dt).bits // 8
+            planes = [torch.randn(6, 121, 161, 4 * ch, device=dev,
+                                  generator=g).to(dt) for _ in range(3)]
+            kernel = lambda: triplane_sample(planes, cam, hw, 3)
+            plain = lambda: triplane_sample_reference(planes, cam, hw, 3)
+            uvs = triplane_uvs(cam)
+            rows = sum(_rows_read(t.shape, u, hw, "zeros", 3)
+                       for t, u in zip(planes, uvs))
+            _check("triplane_sample_fwd", case, kernel(), plain(), kernel,
+                   plain, torch, results, FUSED_TOL,
+                   nbytes=cam.numel() * 4 + rows * 4 * ch * size
+                   + nv * n * ch * 4,
+                   ops=3 * 2.0 * nv * n * 4 * ch + 2.0 * nv * n * ch,
+                   library_fn=_grid_sample_fns(torch, ch, dt,
+                                               torch.cat(uvs, 0), hw,
+                                               "zeros"))
+            table = torch.randn(12, 121, 161, 4 * ch, device=dev,
+                                generator=g).to(dt)
+            kernel = lambda: local_sample(table, cam, focal, c, scale, hw, 6)
+            plain = lambda: local_sample_reference(table, cam, focal, c,
+                                                   scale, hw, 6)
+            u = local_uv(cam, focal, c, scale)
+            rows = _rows_read(table.shape, u, hw, "border", 6)
+            _check("local_sample_fwd", case, kernel(), plain(), kernel,
+                   plain, torch, results, FUSED_TOL,
+                   nbytes=cam.numel() * 4 + rows * 4 * ch * size
+                   + nv * n * ch * 4,
+                   ops=2.0 * nv * n * 4 * ch + 8.0 * nv * n,
+                   library_fn=_grid_sample_fns(torch, ch, dt, u, hw,
+                                               "border"))
+            del planes, table
+            for label, shape, mode, off, (b, n_rays, s) in (
+                    ("plane zeros", (6, 121, 161, 4 * ch), "zeros", 3,
+                     (3, 500, 61)),
+                    ("local border", (12, 121, 161, 4 * ch), "border", 6,
+                     (6, 250, 61))):
+                u = _ray_uv(torch, g, b, n_rays, s)
+                cot = torch.randn(b, n_rays * s, ch, device=dev,
+                                  generator=g).to(dt)
+                acc = torch.zeros(shape, device=dev)
+                ref = torch.zeros(shape, device=dev)
+                table_sample_accumulate(cot, u, acc, hw, mode, off)
+                table_sample_accumulate_reference(cot, u, ref, hw, mode, off)
+                acc_t, ref_t = acc.clone(), ref.clone()   # timed adds
+                kernel = lambda: table_sample_accumulate(cot, u, acc_t, hw,
+                                                         mode, off)
+                plain = lambda: table_sample_accumulate_reference(
+                    cot, u, ref_t, hw, mode, off)
+                rows = _rows_read(shape, u, hw, mode, off)
+                _check("table_sample_bwd", f"accumulate {label} C={ch} "
+                       f"{name} cotangent, view_offset={off}", acc, ref,
+                       kernel,
+                       plain, torch, results, A_TOL,
+                       nbytes=cot.numel() * size + u.numel() * 4
+                       + rows * shape[-1] * 4 * 2,
+                       ops=2.0 * cot.numel() * 4,
+                       library_fn=_grid_sample_fns(torch, ch, dt, u, hw, mode,
+                                                   cot))
+                del acc, ref, acc_t, ref_t, cot
+            shape = (3, 64, 64, 32, ch)
+            latent = torch.randn(shape, device=dev, generator=g).to(dt)
+            logits = [(torch.randn(shape[:4], device=dev, generator=g)
+                       * 3).to(dt) for _ in range(3)]
+            kernel = lambda: pillar_collapse(latent, *logits)
+            plain = lambda: pillar_collapse_reference(latent, *logits)
+            cells = latent.numel() // ch
+            floor_elems = 3 * (64 * 32 + 64 * 32 + 64 * 64) * ch
+            _check("pillar_collapse_fwd", f"latent {shape} {name}",
+                   kernel(), plain(), kernel, plain, torch, results,
+                   nbytes=size * (latent.numel() + 3 * cells + floor_elems),
+                   ops=3.0 * (latent.numel() * 2 + cells * 4))
+            del latent, logits
+    return results
+
+
+def phase_bench(torch):
+    """The port's benchmark (`neo360_tpu_torch.bench`, as `python -m
+    neo360_tpu_torch.bench` runs it) in this process, with short windows:
+    neo360_fast proposal training (1 warm-up and 3 timed stages of K=32,
+    S=2, 500 rays a step), its render (1 warm-up and 2 timed 320x240
+    views) and neo360 reference training (1 warm-up and 3 timed steps of
+    the per-step trainer); each result is printed on a "[bench]" line and
+    the launches of its last window must be BENCH_RUNS'. Before them, the
+    narrow widths' kernels against their plain versions (`_check_narrow`)
+    and one narrow-knob tiny stage, card against CPU (NARROW_STAGE).
+    Returns (the kernel checks, the bench runs' launches, each counted
+    from 0 and summed)."""
+    from neo360_tpu_torch import bench
+
+    t_phase = time.perf_counter()
+    checks = _check_narrow(torch, _fixture_view(torch))
+    phase_small_train(torch, **NARROW_STAGE)
+    fns = counters()
+    total = {k: 0 for k in fns}
+    failures = []
+    for label, argv, want in BENCH_RUNS:
+        for fn in fns.values():
+            fn.launches = 0
+        out = bench.run(bench.parse_args(["--seed", str(SEED)] + argv))
+        for k, fn in fns.items():
+            total[k] += fn.launches
+        print(f"[bench] {json.dumps(out)}")
+        print(f"[bench] {label}: {out['value']:.1f} rays/s, median "
+              f"{out['median_s']:.4f} s ({out['min_s']:.4f}-"
+              f"{out['max_s']:.4f}, n={out['n']}), first {out['first_s']:.3f}"
+              f" s, peak {out['peak_gib']:.2f} GiB; launches of a window "
+              f"{out['launches']}, expected {want}")
+        finite = all(math.isfinite(out[k]) and out[k] > 0 for k in
+                     ("value", "median_s", "min_s", "max_s", "first_s"))
+        if out["launches"] != want or not finite:
+            failures.append(label)
+        torch.cuda.empty_cache()
+    print(f"[bench] phase: {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError(f"bench runs with unexpected launches or "
+                             f"figures: {failures}")
+    return checks, total
+
+
 def _kernel_entry(name, source, replaces, launches, rows, main) -> dict:
     """A kernel's entry of the {"kernels": ...} line: its launches on the
     main paths, its largest error over `rows` (its checks) and the numbers
@@ -3476,6 +3641,9 @@ def main() -> int:
     done("data-parallel ranks")
     helper_checks, helper_launches = phase_helpers(torch, card)
     done("helpers")
+    bench_checks, bench_launches = phase_bench(torch)
+    checks += bench_checks
+    done("bench")
 
     # launches per steady training stage (the second), per rendered view
     # with the encode cached (the second view) and per optimize step; the
@@ -3491,7 +3659,7 @@ def main() -> int:
     for k, n in _by_kernel(neo_launches).items():
         total[k] += n
     for launches_ in (opt_launches, van_launches, pix_launches,
-                      mip_launches):
+                      mip_launches, bench_launches):
         for k, n in _by_kernel(launches_).items():
             total[k] += n
     print(f"[kernel] launches: A' per stage dense "

@@ -228,8 +228,11 @@ def build_model(cfg: Config, device=None):
     fine samples, grid cfg.grid_size or (64, 64, 64), the encoder's grid
     part recomputed in the backward unless cfg.remat_encoder is False.
     neo360_fast: the proposal level, 64 proposal and cfg.num_fine_samples
-    or 64 fine samples, grid (64, 64, 32), no recompute. Compute is bf16
-    with cfg.bf16, else float32 (see `float32_matmuls` for TF32)."""
+    or 64 fine samples, grid (64, 64, 32), no recompute unless
+    cfg.remat_encoder is True. Both take cfg.encoder_width, plane_dim,
+    local_proj_dim, pillar_width and depth_fc_layers where set. Compute
+    is bf16 with cfg.bf16, else float32 (see `float32_matmuls` for
+    TF32)."""
     device = resolve_device(cfg, device)
     generator = torch.Generator().manual_seed(cfg.seed)
     dtype = torch.bfloat16 if cfg.bf16 else torch.float32
@@ -255,8 +258,9 @@ def build_model(cfg: Config, device=None):
             generator=generator)
         return model.to(device).eval()
     from neo360_tpu_torch.models.neo360 import NeRFTP
-    size = {k: v for k, v in (("encoder_width", cfg.encoder_width),)
-            if v is not None}
+    size = {k: getattr(cfg, k) for k in (
+        "encoder_width", "plane_dim", "local_proj_dim", "pillar_width",
+        "depth_fc_layers") if getattr(cfg, k) is not None}
     if cfg.exp_type == "neo360":
         size.update(use_proposal=False,
                     num_coarse_samples=cfg.num_coarse_samples or 128,
@@ -268,7 +272,7 @@ def build_model(cfg: Config, device=None):
                     num_prop_samples=cfg.num_prop_samples or 64,
                     num_fine_samples=cfg.num_fine_samples or 64,
                     grid_size=tuple(cfg.grid_size or (64, 64, 32)),
-                    remat_encoder=False)
+                    remat_encoder=cfg.remat_encoder is True)
     model = NeRFTP(num_src_views=cfg.num_src_views, compute_dtype=dtype,
                    lift_dim=cfg.lift_dim, generator=generator, **size)
     return model.to(device).eval()

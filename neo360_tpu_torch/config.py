@@ -1,9 +1,12 @@
 """Experiment configuration (copy of neo360_tpu/config.py: the reference's
 argparse flags as one dataclass with the four experiment presets).
 
-Two model-size overrides are added for the port, `encoder_width` and
-`num_prop_samples`, so that a cut-down neo360_fast model can be built
-through `cli.build_model`, and the torch `device` of the CLI runs.
+Model-size overrides are added for the port, `encoder_width`,
+`num_prop_samples` and the JAX NeRFTP's width fields `plane_dim`,
+`local_proj_dim`, `pillar_width` and `depth_fc_layers` (which the JAX
+package's bench.py sets), so that a cut-down or narrowed NeO-360 model can
+be built through `cli.build_model`, and the torch `device` of the CLI
+runs.
 
 Model hyperparameters that the reference hardcodes in constructors (sample
 counts, MLP shapes) live on the model classes; this config carries the
@@ -53,6 +56,11 @@ class Config:
     remat_encoder: Optional[bool] = None
     encoder_width: Optional[int] = None    # GridEncoder latent width
     num_prop_samples: Optional[int] = None # neo360_fast proposal samples
+    # NeRFTP width fields (None = the model's reference default)
+    plane_dim: Optional[int] = None        # tri-plane channels
+    local_proj_dim: Optional[int] = None   # projected pixel-latent width
+    pillar_width: Optional[int] = None     # pillar aggregator hidden width
+    depth_fc_layers: Optional[int] = None  # DepthPillarEncoder hidden layers
 
     # optimization
     bf16: bool = False                     # bf16 compute in encoders/MLPs

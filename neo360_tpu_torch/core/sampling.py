@@ -177,20 +177,24 @@ def sample_along_rays_nerfpp(
     in_sphere: bool,
     far_uncontracted: float = 4.0,
     randomized: bool = False,
+    lindisp: bool = False,
     u: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
 ):
     """NeO-360 level-0 sampling (neo360_tpu/core/sampling.py:150-193);
     `randomized` jitters the edges (`stratify`) before the bg flip.
 
-    in_sphere=True: (t_vals (B, N+1), coords (B, N+1, 3)) over [near, far].
+    in_sphere=True: (t_vals (B, N+1), coords (B, N+1, 3)) over [near, far],
+    evenly spaced in depth, or in inverse depth with `lindisp`.
     in_sphere=False: inverse-sphere depths s in [0, 1], flipped to descend;
     returns (t_vals, coords4d (B, N+1, 4), coords_linear (B, N+1, 3)) where
     the linear points at t in [far, far_uncontracted] index the features.
     """
     bsz = rays_o.shape[0]
     t_vals = linspace(0.0, 1.0, num_samples + 1, rays_o.dtype, rays_o.device)
-    if in_sphere:
+    if in_sphere and lindisp:
+        t_vals = 1.0 / (1.0 / near * (1.0 - t_vals) + 1.0 / far * t_vals)
+    elif in_sphere:
         t_vals = near * (1.0 - t_vals) + far * t_vals
     t_vals = t_vals.expand(bsz, num_samples + 1)
     if randomized:

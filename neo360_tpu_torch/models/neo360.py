@@ -139,7 +139,6 @@ class NeRFTP(nn.Module):
     far_uncontracted = 3.0
     rgb_padding = 0.001
     density_bias = -1.0
-    local_proj_dim = 128
 
     def __init__(self, num_src_views: int = 3, num_prop_samples: int = 64,
                  num_fine_samples: int = 256,
@@ -148,7 +147,20 @@ class NeRFTP(nn.Module):
                  encoder_width: int = 512,
                  generator: Optional[torch.Generator] = None,
                  use_proposal: bool = False, num_coarse_samples: int = 128,
-                 remat_encoder: bool = True):
+                 remat_encoder: bool = True, plane_dim: int = 128,
+                 local_proj_dim: int = 128,
+                 pillar_width: Optional[int] = None,
+                 depth_fc_layers: int = 2, lindisp: bool = False,
+                 density_noise: float = 0.0, num_levels: int = 2):
+        """The JAX NeRFTP's fields, with its defaults: `plane_dim`,
+        `pillar_width` and `depth_fc_layers` go to the GridEncoder;
+        `local_proj_dim` is the width of the projected pixel latent; the
+        conditioned MLPs take both latents. `lindisp` spaces the fg
+        level-0 samples in inverse depth. `density_noise` adds U[0,
+        density_noise) to every conditioned level's raw density in
+        randomized (training) forwards. `num_levels` levels run: level 0,
+        then levels that each resample the one before through the fine
+        MLPs and the fine local table."""
         super().__init__()
         self.num_src_views = num_src_views
         self.num_prop_samples = num_prop_samples
@@ -156,6 +168,9 @@ class NeRFTP(nn.Module):
         self.num_fine_samples = num_fine_samples
         self.compute_dtype = compute_dtype
         self.use_proposal = use_proposal
+        self.lindisp = lindisp
+        self.density_noise = density_noise
+        self.num_levels = num_levels
         # uniform mass added to the proposal histogram before resampling;
         # the conditioned coarse level resamples its own histogram as is
         self.resample_padding = 0.01 if use_proposal else 0.0
@@ -164,11 +179,13 @@ class NeRFTP(nn.Module):
         self.encoder = GridEncoder(grid_size=grid_size, dtype=compute_dtype,
                                    lift_dim=lift_dim,
                                    latent_size=encoder_width, generator=g,
-                                   remat=remat_encoder)
+                                   remat=remat_encoder,
+                                   pillar_width=pillar_width,
+                                   depth_fc_layers=depth_fc_layers,
+                                   plane_dim=plane_dim)
         pe = lambda d: d * (1 + 2 * (self.max_deg_point - self.min_deg_point))
         vd = 3 * (1 + 2 * self.deg_view)
-        local_proj_dim = self.local_proj_dim
-        cond = local_proj_dim + GridEncoder.plane_dim
+        cond = local_proj_dim + plane_dim
         mlp = lambda d: NeRFTPMLP(pe(d) + cond, vd, dtype=compute_dtype,
                                   generator=g)
         if use_proposal:
@@ -243,7 +260,10 @@ class NeRFTP(nn.Module):
         return latent[:nv], latent[nv:]
 
     def _predict(self, mlp, cam_pts, world_lat, local_lat, viewdirs_enc,
-                 b: int, n_samples: int):
+                 b: int, n_samples: int, noise=None):
+        """`noise`: None, or (u, generator) for the density noise: the
+        uniforms `u` (B, S, 1), or drawn from `generator` when u is None
+        (neo360_tpu/models/neo360.py:454-465)."""
         nv = self.num_src_views
         x = encoding.pos_enc(cam_pts, self.min_deg_point, self.max_deg_point)
         raw_rgb, raw_sigma = mlp(
@@ -251,6 +271,9 @@ class NeRFTP(nn.Module):
             viewdirs_enc.reshape(nv * b, -1),
             world_lat.reshape(nv * b, n_samples, -1),
             local_lat.reshape(nv * b, n_samples, -1), nv)
+        if noise is not None:
+            u = sampling._uniform(raw_sigma.shape, raw_sigma, *noise)
+            raw_sigma = raw_sigma + u * self.density_noise
         sigma = F.softplus(raw_sigma + self.density_bias)
         rgb = torch.sigmoid(raw_rgb)
         rgb = rgb * (1 + 2 * self.rgb_padding) - self.rgb_padding
@@ -259,8 +282,9 @@ class NeRFTP(nn.Module):
     def forward(self, rays: Dict[str, torch.Tensor], encoded,
                 white_bkgd: bool = False, out_depth: bool = False,
                 randomized: bool = False,
-                generator: Optional[torch.Generator] = None
-                ) -> List[Dict[str, torch.Tensor]]:
+                generator: Optional[torch.Generator] = None,
+                noise_u: Optional[List[Tuple[torch.Tensor, torch.Tensor]]]
+                = None) -> List[Dict[str, torch.Tensor]]:
         """Render a ray batch (neo360_tpu/models/neo360.py:307-502).
 
         rays: rays_o/rays_d/viewdirs (B, 3), src_imgs (NV, H, W, 3),
@@ -275,7 +299,11 @@ class NeRFTP(nn.Module):
         gradients into them instead of returning them (the stage trainer's
         accumulate path). `randomized`: stratified level-0 samples and
         random inverse-CDF resampling, drawn from `generator` in the JAX
-        order (fg then bg, per level). Returns one dict per level with rgb,
+        order (fg then bg, per level). With `density_noise` a randomized
+        forward also draws each conditioned level's fg then bg density
+        noise after that level's samples, or takes them from `noise_u`,
+        one (fg, bg) pair of (B, S, 1) uniforms per conditioned level, in
+        order. Returns one dict per level with rgb,
         fg_rgb, bg_rgb, fg_acc, bg_acc, bg_lambda, fg/bg weights, fg/bg
         sdist (distortion midpoints), fg/bg tvals and far, and with
         `out_depth` depth and fg_depth."""
@@ -310,17 +338,21 @@ class NeRFTP(nn.Module):
             rays["viewdirs"][None], poses, ns=nv)           # (NV, B, 3)
         viewdirs_enc = encoding.pos_enc(viewdirs_cam, 0, self.deg_view)
 
+        noisy = randomized and self.density_noise != 0.0
+        noise_u = iter(noise_u or ())
         results: List[Dict[str, torch.Tensor]] = []
-        for level in range(2):
+        for level in range(self.num_levels):
             if level == 0:
                 n0 = (self.num_prop_samples if self.use_proposal
                       else self.num_coarse_samples)
                 fg_t, fg_samples = sampling.sample_along_rays_nerfpp(
-                    rays_o, rays_d, n0, near, far, in_sphere=True, **rnd)
+                    rays_o, rays_d, n0, near, far, in_sphere=True,
+                    lindisp=self.lindisp, **rnd)
                 bg_t, bg_samples, bg_linear = (
                     sampling.sample_along_rays_nerfpp(
                         rays_o, rays_d, n0, near, far, in_sphere=False,
-                        far_uncontracted=self.far_uncontracted, **rnd))
+                        far_uncontracted=self.far_uncontracted,
+                        lindisp=self.lindisp, **rnd))
             else:
                 pad = self.resample_padding
                 merge = not self.use_proposal
@@ -349,7 +381,7 @@ class NeRFTP(nn.Module):
                                      device=bg_sigma.device)
             else:
                 which = "coarse" if level == 0 else "fine"
-                tab = 0 if self.use_proposal else level
+                tab = 0 if self.use_proposal else min(level, 1)
                 b, s = fg_samples.shape[:2]
                 bg_pts = bg_linear[..., :3]
                 # fg + bg: one world2camera, one tri-plane gather and one
@@ -373,12 +405,15 @@ class NeRFTP(nn.Module):
                     bg_cam.shape[:-1] + (1,))
                 bg_cam4 = torch.cat([bg_cam, bg_depth_ch], dim=-1)
 
+                fg_u, bg_u = next(noise_u, (None, None))
                 fg_rgb, fg_sigma = self._predict(
                     getattr(self, f"fg_{which}_mlp"), fg_cam, world_fg,
-                    local_fg, viewdirs_enc, b, s)
+                    local_fg, viewdirs_enc, b, s,
+                    (fg_u, generator) if noisy else None)
                 bg_rgb, bg_sigma = self._predict(
                     getattr(self, f"bg_{which}_mlp"), bg_cam4, world_bg,
-                    local_bg, viewdirs_enc, b, bg_samples.shape[1])
+                    local_bg, viewdirs_enc, b, bg_samples.shape[1],
+                    (bg_u, generator) if noisy else None)
 
             out = composite_nerfpp(fg_rgb, fg_sigma, fg_t, bg_rgb, bg_sigma,
                                    bg_t, rays_d, far, white_bkgd)

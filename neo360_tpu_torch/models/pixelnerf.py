@@ -9,9 +9,10 @@ zeros padding; its backward, kernel A' under the dense contract, feeds the
 encoder, which trains every step). A 4 x 128 MLP fuses the views by their
 mean at `combine_layer`; levels composite with the plain NeRF rule
 (`composite_vanilla`: kernel D), ReLU sigma and plain sigmoid rgb. Two
-levels of 64 + 64 samples along `rays_d`, near 0.02, far 3.0 (the CLI's;
-the JAX model's `noise_std` and `lindisp`, 0 and False in every preset,
-are not ported).
+levels of 64 + 64 samples along `rays_d`, near 0.02, far 3.0 (the CLI's).
+`lindisp` spaces the coarse samples in inverse depth and `noise_std` adds
+U[0, noise_std) to the raw density of every level in randomized forwards
+(the JAX model's fields, 0 and False in every preset).
 
 The JAX package's recorded divergences from the reference are kept: fy is
 negated in the projection, viewdirs broadcast per ray in (ray, sample)
@@ -104,11 +105,13 @@ class PixelNeRF(nn.Module):
 
     def __init__(self, num_src_views: int = 3, num_coarse_samples: int = 64,
                  num_fine_samples: int = 64, compute_dtype=torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 noise_std: float = 0.0, lindisp: bool = False):
         super().__init__()
         self.num_src_views = num_src_views
         self.num_coarse_samples = num_coarse_samples
         self.num_fine_samples = num_fine_samples
+        self.noise_std, self.lindisp = noise_std, lindisp
         self.compute_dtype = compute_dtype
         pe = 3 * (1 + 2 * (self.max_deg_point - self.min_deg_point))
         vd = 3 * (1 + 2 * self.deg_view)
@@ -147,12 +150,15 @@ class PixelNeRF(nn.Module):
 
     def forward(self, rays: Dict[str, torch.Tensor], encoded,
                 white_bkgd: bool = False, randomized: bool = False,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                noise_u: Optional[List[torch.Tensor]] = None
                 ) -> List[Dict[str, torch.Tensor]]:
         """rays: rays_o, rays_d, viewdirs (B, 3), src_imgs (NV, H, W, 3),
         src_poses (NV, 4, 4), src_focal (NV,), src_c (NV, 2); `encoded`:
         `encode(src_imgs, ...)`. Returns one dict per level: rgb, acc,
-        depth, weights, t_vals."""
+        depth, weights, t_vals. With `noise_std` a randomized forward
+        draws each level's density noise after its samples, or takes it
+        from `noise_u`, one (B, S, 1) tensor of uniforms per level."""
         nv = self.num_src_views
         h_img, w_img = rays["src_imgs"].shape[1:3]
         rays_o, rays_d = rays["rays_o"], rays["rays_d"]
@@ -160,13 +166,14 @@ class PixelNeRF(nn.Module):
         viewdirs_cam = geometry.world2camera_viewdirs(
             rays["viewdirs"][None], poses, ns=nv)             # (NV, B, 3)
         viewdirs_enc = encoding.pos_enc(viewdirs_cam, 0, self.deg_view)
+        noise_u = list(noise_u or [None, None])
         results = []
         t_vals = weights = None
         for level, mlp in enumerate((self.coarse_mlp, self.fine_mlp)):
             if level == 0:
                 t_vals, samples = sampling.sample_along_rays(
                     rays_o, rays_d, self.num_coarse_samples, NEAR, FAR,
-                    randomized, generator=generator)
+                    randomized, self.lindisp, generator=generator)
             else:
                 t_mids = 0.5 * (t_vals[..., 1:] + t_vals[..., :-1])
                 t_vals, samples = sampling.sample_pdf(
@@ -183,6 +190,10 @@ class PixelNeRF(nn.Module):
             raw_rgb, raw_sigma = mlp(samples_enc.reshape(nv * b, s, -1),
                                      viewdirs_enc.reshape(nv * b, -1),
                                      lat.reshape(nv * b, s, -1), nv)
+            if self.noise_std > 0 and randomized:
+                raw_sigma = raw_sigma + sampling._uniform(
+                    raw_sigma.shape, raw_sigma, noise_u[level],
+                    generator) * self.noise_std
             rgb = torch.sigmoid(raw_rgb)
             sigma = F.relu(raw_sigma)
             comp, acc, weights, depth = composite_vanilla(

@@ -7,9 +7,10 @@ them with level 0's t-values. Both levels composite with the plain NeRF
 rule (`composite_vanilla`: kernel D on the card) over |rays_d|, the
 unnormalized directions, as the JAX model does. rgb = sigmoid padded by
 +-rgb_padding, sigma = softplus(raw + sigma_bias). Randomized (training)
-sampling draws from a `torch.Generator`. The JAX model's `noise_std` and
-`lindisp` (0 and False in every preset, never set by the CLI) are not
-ported.
+sampling draws from a `torch.Generator`. `lindisp` spaces the coarse
+samples in inverse depth; `noise_std` adds U[0, noise_std) to the raw
+density of every level in randomized forwards (the JAX model's fields, 0
+and False in every preset, never set by the CLI).
 """
 
 from __future__ import annotations
@@ -32,10 +33,12 @@ class VanillaNeRF(nn.Module):
 
     def __init__(self, num_coarse_samples: int = 64,
                  num_fine_samples: int = 128,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 noise_std: float = 0.0, lindisp: bool = False):
         super().__init__()
         self.num_coarse_samples = num_coarse_samples
         self.num_fine_samples = num_fine_samples
+        self.noise_std, self.lindisp = noise_std, lindisp
         pe = 3 * (1 + 2 * (self.max_deg_point - self.min_deg_point))
         vd = 3 * (1 + 2 * self.deg_view)
         self.coarse_mlp = NeRFMLP(pe, vd, generator=generator)
@@ -43,20 +46,24 @@ class VanillaNeRF(nn.Module):
 
     def forward(self, rays: Dict[str, torch.Tensor], white_bkgd: bool,
                 near: float, far: float, randomized: bool = False,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                noise_u: Optional[List[torch.Tensor]] = None
                 ) -> List[Dict[str, torch.Tensor]]:
         """rays: rays_o, rays_d, viewdirs, each (B, 3). Returns one dict per
         level: rgb (B,3), acc (B,), depth (B,), weights (B,S), t_vals
-        (B,S)."""
+        (B,S). With `noise_std` a randomized forward draws each level's
+        density noise after its samples, or takes it from `noise_u`, one
+        (B, S, 1) tensor of uniforms per level."""
         rays_o, viewdirs = rays["rays_o"], rays["viewdirs"]
         viewdirs_enc = encoding.pos_enc(viewdirs, 0, self.deg_view)
+        noise_u = list(noise_u or [None, None])
         results = []
         t_vals = weights = None
         for level, mlp in enumerate((self.coarse_mlp, self.fine_mlp)):
             if level == 0:
                 t_vals, samples = sampling.sample_along_rays(
                     rays_o, viewdirs, self.num_coarse_samples, near, far,
-                    randomized, generator=generator)
+                    randomized, self.lindisp, generator=generator)
             else:
                 t_mids = 0.5 * (t_vals[..., 1:] + t_vals[..., :-1])
                 t_vals, samples = sampling.sample_pdf(
@@ -65,6 +72,10 @@ class VanillaNeRF(nn.Module):
             samples_enc = encoding.pos_enc(samples, self.min_deg_point,
                                            self.max_deg_point)
             raw_rgb, raw_sigma = mlp(samples_enc, viewdirs_enc)
+            if self.noise_std > 0 and randomized:
+                raw_sigma = raw_sigma + sampling._uniform(
+                    raw_sigma.shape, raw_sigma, noise_u[level],
+                    generator) * self.noise_std
             rgb = torch.sigmoid(raw_rgb)
             rgb = rgb * (1.0 + 2.0 * self.rgb_padding) - self.rgb_padding
             sigma = F.softplus(raw_sigma + self.sigma_bias)

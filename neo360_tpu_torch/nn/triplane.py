@@ -121,21 +121,28 @@ class FloorplanConvNet(nn.Module):
 
 
 class GridEncoder(nn.Module):
-    """Source views -> three tri-planes and the pixel latent."""
+    """Source views -> three tri-planes and the pixel latent.
 
-    # world box [-1,1] x [-1,1] x [0,1]; planes (120, 160) x 128 channels
+    The JAX GridEncoder's width fields (neo360_tpu/nn/triplane.py:
+    178-189): `pillar_width` is TriPillarAggregator's hidden width (None:
+    `latent_size`), `depth_fc_layers` DepthPillarEncoder's hidden layers,
+    `plane_dim` the tri-planes' channels. The defaults are the
+    reference's."""
+
+    # world box [-1,1] x [-1,1] x [0,1]; planes (120, 160) x plane_dim
     side_lengths = (1.0, 1.0, 1.0)
     plane_hw = (120, 160)
-    plane_dim = 128
 
     def __init__(self, grid_size: Sequence[int] = (64, 64, 64),
                  latent_size: int = 512, dtype=torch.float32,
                  lift_dim: Optional[int] = None,
                  generator: Optional[torch.Generator] = None,
-                 remat: bool = False):
+                 remat: bool = False, pillar_width: Optional[int] = None,
+                 depth_fc_layers: int = 2, plane_dim: int = 128):
         super().__init__()
         self.grid_size = tuple(grid_size)
         self.latent_size = latent_size
+        self.plane_dim = plane_dim
         self.remat = remat
         self.spatial_encoder = SpatialEncoder(dtype, generator)
         self.lift_proj = None
@@ -143,13 +150,12 @@ class GridEncoder(nn.Module):
             self.lift_proj = Dense(512, lift_dim, use_bias=False, dtype=dtype,
                                    kernel_init="kaiming", generator=generator)
         self.depth_fc = DepthPillarEncoder((lift_dim or 512) + 6, latent_size,
-                                           dtype, generator=generator)
+                                           dtype, depth_fc_layers, generator)
         self.tri_pillar = TriPillarAggregator(latent_size, dtype,
-                                              generator=generator)
+                                              pillar_width, generator)
         for name in ("yz", "xz", "xy"):
             self.add_module(f"floorplan_{name}", FloorplanConvNet(
-                latent_size, self.plane_hw, dtype, self.plane_dim,
-                generator))
+                latent_size, self.plane_hw, dtype, plane_dim, generator))
 
     def forward(self, images: torch.Tensor, poses: torch.Tensor,
                 focal: torch.Tensor, c: torch.Tensor, batch_stats: bool,

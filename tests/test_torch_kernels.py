@@ -654,6 +654,48 @@ def test_composite_backward_kernel_chunk_edges(cuda, b, s_fg, s_bg):
                 assert res["ok"], (white_bkgd, subset, res)
 
 
+def _composite_nonfinite(args):
+    """Rays 0-3 with a NaN, +inf, zero and huge density at fg sample 2,
+    rays 4-7 the same at bg sample 2, rays 8-11 at both."""
+    args = [a.clone() for a in args]
+    fg_sigma, bg_sigma = args[1], args[4]
+    for r, v in enumerate((float("nan"), float("inf"), 0.0, 1e30)):
+        fg_sigma[r, 2, 0] = fg_sigma[r + 8, 2, 0] = v
+        bg_sigma[r + 4, 2, 0] = bg_sigma[r + 8, 2, 0] = v
+    return tuple(args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s_fg,s_bg", [
+    (12, 3, 3), (33, 33, 32), (250, 61, 61), (256, 65, 65),
+    (500, 129, 129), (12, 385, 385)])
+def test_composite_nerfpp_kernels_nonfinite_densities(cuda, b, s_fg, s_bg):
+    """Kernels B and B' with NaN, +inf, zero and huge densities in fg, in
+    bg and in both, white background on and off, every cotangent and the
+    loss's (rgb and both weights): NaN and inf where the plain version and
+    its autograd have them, and within their tolerances (forward:
+    compare()'s; backward: BACKWARD_TOL) elsewhere."""
+    g = _gen(17)
+    args = tuple(a.to(cuda) for a in _composite_nonfinite(
+        _composite_args(g, b, s_fg, s_bg)))
+    shapes = {k: v.shape for k, v in
+              composite_nerfpp_reference(*args, False).items()}
+    for white_bkgd in (False, True):
+        ref = composite_nerfpp_reference(*args, white_bkgd)
+        out = composite_nerfpp(*args, white_bkgd)
+        for k in ref:
+            _assert_ok_where_finite(out[k], ref[k])
+        for subset in (False, True):
+            grads = [torch.randn(shapes[k], generator=g).to(cuda)
+                     if not subset or k in ("rgb", "fg_weights",
+                                            "bg_weights")
+                     else None for k in OUT_KEYS]
+            ref_g = _plain_composite_grads(args, grads, white_bkgd)
+            out_g = composite_nerfpp_backward(args, grads, white_bkgd)
+            for o, r in zip(out_g, ref_g):
+                _assert_ok_where_finite(o, r, **RENDER_BWD_TOL)
+
+
 # --- the new kernels' arithmetic orders, emulated in float32 on the CPU --
 #
 # Each emulation repeats its kernel's operations in its order, one float32
@@ -1314,6 +1356,56 @@ def test_fused_gather_gradients_on_the_card(cuda, accumulate):
     for ours, ref in zip(*grads):
         res = kernels.compare(ours, ref, **INTERP_BWD_TOL)
         assert res["ok"], res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c", [32, 64, 96])
+def test_kernels_at_the_narrow_widths(cuda, dtype, c):
+    """The NeRFTP width knobs on the card: the fused tri-plane and local
+    gathers at `plane_dim` / `local_proj_dim` = C (120x160 tables, flat
+    two-scene offsets, a neo360_fast step's 250 rays x 61 points), their
+    table gradients under the accumulate contract (kernel A') against the
+    index_add_ plain version, and kernel C on a (3, 16, 16, 32, C)
+    latent: within FUSED_TOL, INTERP_BWD_TOL and compare()'s."""
+    g = _gen(47)
+    hw = (120, 160)
+    planes, local, cam = _fused_case(cuda, dtype, hw, c, 3, 250, 61, 2, g)
+    focal, centre = FOCAL.to(cuda) * 16, CENTRE.to(cuda) * 16
+    scale = (0.0063, 0.0084)
+    tri = triplane_sample(planes, cam, hw, 3)
+    res = kernels.compare(tri, triplane_sample_reference(planes, cam, hw, 3),
+                          **FUSED_TOL)
+    assert res["ok"], res
+    loc = local_sample(local, cam, focal, centre, scale, hw, 6)
+    res = kernels.compare(loc, local_sample_reference(
+        local, cam, focal, centre, scale, hw, 6), **FUSED_TOL)
+    assert res["ok"], res
+    leaves = [t.clone().requires_grad_() for t in planes + [local]]
+    accs = [torch.zeros(t.shape, device=cuda) for t in leaves]
+    world = triplane_sample(leaves[:3], cam, hw, 3, grad_acc=tuple(accs[:3]))
+    loc = local_sample(leaves[3], cam, focal, centre, scale, hw, 6,
+                       grad_acc=accs[3])
+    cot_w = torch.randn(world.shape, generator=g).to(cuda)
+    cot_l = torch.randn(loc.shape, generator=g).to(cuda)
+    before = table_sample_accumulate.launches
+    torch.autograd.grad((world, loc), leaves, (cot_w, cot_l),
+                        allow_unused=True)
+    assert table_sample_accumulate.launches == before + 4
+    refs = [torch.zeros(t.shape, device=cuda) for t in leaves]
+    for t_ref, uv in zip(refs[:3], triplane_uvs(cam)):
+        table_sample_accumulate_reference(cot_w, uv, t_ref, hw, "zeros", 3)
+    table_sample_accumulate_reference(
+        cot_l, local_uv(cam, focal, centre, scale), refs[3], hw, "border", 6)
+    for ours, ref in zip(accs, refs):
+        res = kernels.compare(ours, ref, **INTERP_BWD_TOL)
+        assert res["ok"], res
+    latent = torch.randn(3, 16, 16, 32, c, generator=g).to(dtype).to(cuda)
+    logits = [(torch.randn(3, 16, 16, 32, generator=g) * 3).to(dtype).to(
+        cuda) for _ in range(3)]
+    for o, r in zip(pillar_collapse(latent, *logits),
+                    pillar_collapse_reference(latent, *logits)):
+        _assert_ok(o, r)
 
 
 # --- kernels D / D': the plain NeRF composite ----------------------------
