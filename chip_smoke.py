@@ -102,11 +102,11 @@ line):
    in its gradient), volume_rendering_volsdf, the ray helpers and
    charbonnier_loss on the card against the CPU; profiling.trace around
    one full-width neo360_fast render tile (its span and the tri-plane
-   gather's kernel in the Chrome trace) and ThroughputMeter over a view's
-   tiles; the MipNeRF-360 NeRF MLP sharded by tp_param_shardings over two
-   gloo ranks on the CPU (DTensor's all-gather of CUDA tensors through
-   gloo, the only backend for two ranks on one card, segfaults) against
-   the unsharded forward;
+   gather's kernel in the Chrome trace) and a view's spans (rays/s on the
+   device timeline, each model phase's device ms); the MipNeRF-360 NeRF
+   MLP sharded by tp_param_shardings over two gloo ranks on the CPU
+   (DTensor's all-gather of CUDA tensors through gloo, the only backend
+   for two ranks on one card, segfaults) against the unsharded forward;
 15. the port's benchmark (`phase_bench`): the kernels the NeRFTP width
    knobs reshape (the fused gathers and A' accumulate at plane_dim /
    local_proj_dim of 32, 64 and 96, kernel C at those latent widths, bf16
@@ -3001,8 +3001,9 @@ def phase_helpers(torch, card: str, dev: str = "cuda", **small):
     (c) volume_rendering_volsdf, the core/rays.py helpers and
         charbonnier_loss on card tensors against the CPU;
     (d) profiling.trace around one full-width neo360_fast render tile:
-        the Chrome trace holds its annotate span and the tri-plane
-        gather's kernel; ThroughputMeter's rays/s over a view's tiles;
+        the Chrome trace holds its span and the tri-plane gather's
+        kernel; a view's tiles in one item: its rays/s on the device
+        timeline and each model phase's device ms (profiling.items);
     (e) tp_param_shardings: TP_RANKS gloo ranks (sharding.launch) run the
         sharded MipNeRF-360 NeRF MLP on the CPU (see TP_RANKS), which must
         give the unsharded forward to 1e-5 relative.
@@ -3330,7 +3331,7 @@ def phase_helpers(torch, card: str, dev: str = "cuda", **small):
         enc = model.encode(*(src[k] for k in cli.SRC_KEYS), True)
 
         def tile(i):
-            with profiling.annotate("neo360_fast_render_tile"):
+            with profiling.span("neo360_fast_render_tile"):
                 chunk = {k: v[i:i + cfg.chunk] for k, v in ray_in.items()}
                 return model(dict(chunk, **src), enc, cfg.white_back,
                              out_depth=True)[1]["rgb"]
@@ -3353,22 +3354,30 @@ def phase_helpers(torch, card: str, dev: str = "cuda", **small):
         check(len(traces) == 1 and spans and gathers
               and triplane_sample.launches == 1,
               f"profiling.trace: {len(traces)} trace file ({size} bytes, "
-              f"{len(events)} events): {len(spans)} annotate span, "
+              f"{len(events)} events): {len(spans)} span, "
               f"{len(gathers)} triplane_sample kernel event "
               f"({gathers[0]['name'][:60] if gathers else '-'}, "
               f"{gathers[0].get('dur') if gathers else '-'} us), launches "
               f"{triplane_sample.launches}")
-        meter = profiling.ThroughputMeter(window=n_rays // cfg.chunk + 2)
-        torch.cuda.synchronize()
-        meter.update(0)
-        for i in range(0, n_rays, cfg.chunk):
-            tile(i)
-            torch.cuda.synchronize()
-            meter.update(min(cfg.chunk, n_rays - i))
-    print(f"[helpers] ThroughputMeter: {meter.rays_per_sec:.0f} rays/s over "
-          f"a view's {-(-n_rays // cfg.chunk)} tiles of {cfg.chunk} rays "
-          f"(neo360_fast, full width, random weights, synchronized per "
-          f"tile), {meter.steps_per_sec:.1f} tiles/s; {card}")
+        with profiling.item("neo360_fast_render_view"):
+            for i in range(0, n_rays, cfg.chunk):
+                tile(i)
+        view = profiling.items()[-1]["spans"]
+    tiles = view["neo360_fast_render_tile"]
+    ms = view["neo360_fast_render_view"]
+    n_tiles = -(-n_rays // cfg.chunk)
+    timed = "device_ms" if dev.type == "cuda" else "host_ms"
+    check(ms["count"] == 1 and tiles["count"] == n_tiles
+          and all(r[timed] is not None and r[timed] >= 0
+                  for r in view.values()),
+          f"profiling.span: a view's {tiles['count']} tile spans of "
+          f"{n_tiles}, {timed} of every span read")
+    print(f"[helpers] spans: {n_rays / ms[timed] * 1e3:.0f} rays/s by "
+          f"{timed} ({ms[timed]:.1f} ms; host {ms['host_ms']:.1f} ms) over "
+          f"a view's {n_tiles} tiles of {cfg.chunk} rays (neo360_fast, full "
+          f"width, random weights); " + ", ".join(
+              f"{k} {v[timed]:.1f} ms" for k, v in view.items()
+              if k.startswith("model.")) + f"; {card}")
     del model, enc, src, ray_in
 
     # (e) tensor parallelism: TP_RANKS gloo ranks on the CPU

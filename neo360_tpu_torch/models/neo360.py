@@ -21,6 +21,14 @@ renders a ray batch against them, deterministically or (training) with
 stratified and random inverse-CDF samples drawn from a `torch.Generator`.
 Viewdirs broadcast in (ray, sample) order, the JAX package's documented
 divergence from the reference.
+
+Spans (train/profiling.py): `model.encode` is `encode`; `forward` takes
+`model.rays` (the far bound and view directions), then per level
+`model.sample` (the level's samples), `model.gather` (world2camera and
+the tri-plane and local gathers), `model.mlp` (the MLPs with their inputs'
+encodings and concatenations) and `model.composite`. None lies inside the
+encoder's recompute; outside an item (the stage trainer) they record
+nothing.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from neo360_tpu_torch.nn.triplane import GridEncoder
 from neo360_tpu_torch.ops import losses
 from neo360_tpu_torch.ops.interpolate import build_corner_table, \
     local_sample, triplane_sample
+from neo360_tpu_torch.train.profiling import span
 
 
 class NeRFTPMLP(nn.Module):
@@ -231,17 +240,20 @@ class NeRFTP(nn.Module):
         "f"). `pixel_latent`: `encode_images(src_imgs)` computed
         beforehand; the SpatialEncoder is then skipped
         (neo360_tpu/models/neo360.py:241-254)."""
-        planes, pixel_latent = self.encoder(src_imgs, src_poses, src_focal,
-                                            src_c, batch_stats, pixel_latent)
-        dt = self.compute_dtype
-        plane_tables = tuple(build_corner_table(p, "zeros", dtype=dt)
-                             for p in planes)
-        local = tuple(build_corner_table(torch.cat(
-            [getattr(self, f"local_proj_fg_{name}")(pixel_latent),
-             getattr(self, f"local_proj_bg_{name}")(pixel_latent)], dim=0),
-            "border", dtype=dt) for name in self.local_names)
-        hw = (tuple(planes[0].shape[1:3]), tuple(pixel_latent.shape[1:3]))
-        return plane_tables, local[0] if self.use_proposal else local, hw
+        with span("model.encode"):
+            planes, pixel_latent = self.encoder(src_imgs, src_poses,
+                                                src_focal, src_c, batch_stats,
+                                                pixel_latent)
+            dt = self.compute_dtype
+            plane_tables = tuple(build_corner_table(p, "zeros", dtype=dt)
+                                 for p in planes)
+            local = tuple(build_corner_table(torch.cat(
+                [getattr(self, f"local_proj_fg_{name}")(pixel_latent),
+                 getattr(self, f"local_proj_bg_{name}")(pixel_latent)],
+                dim=0), "border", dtype=dt) for name in self.local_names)
+            hw = (tuple(planes[0].shape[1:3]),
+                  tuple(pixel_latent.shape[1:3]))
+            return plane_tables, local[0] if self.use_proposal else local, hw
 
     def _local_feats_pair(self, cam, focal, c, stacked_table, latent_hw,
                           image_size, view_offset: int = 0, grad_acc=None):
@@ -329,106 +341,112 @@ class NeRFTP(nn.Module):
         rays_o, rays_d = rays["rays_o"], rays["rays_d"]
         rnd = dict(randomized=randomized, generator=generator)
 
-        near = torch.full_like(rays_o[..., :1], 1e-4)
-        far = spherical.intersect_sphere(rays_o, rays_d)
-        # rays missing the unit sphere would give far < near
-        far = torch.clamp(far, min=2e-4)
+        with span("model.rays"):
+            near = torch.full_like(rays_o[..., :1], 1e-4)
+            far = spherical.intersect_sphere(rays_o, rays_d)
+            # rays missing the unit sphere would give far < near
+            far = torch.clamp(far, min=2e-4)
 
-        viewdirs_cam = geometry.world2camera_viewdirs(
-            rays["viewdirs"][None], poses, ns=nv)           # (NV, B, 3)
-        viewdirs_enc = encoding.pos_enc(viewdirs_cam, 0, self.deg_view)
+            viewdirs_cam = geometry.world2camera_viewdirs(
+                rays["viewdirs"][None], poses, ns=nv)       # (NV, B, 3)
+            viewdirs_enc = encoding.pos_enc(viewdirs_cam, 0, self.deg_view)
 
         noisy = randomized and self.density_noise != 0.0
         noise_u = iter(noise_u or ())
         results: List[Dict[str, torch.Tensor]] = []
         for level in range(self.num_levels):
-            if level == 0:
-                n0 = (self.num_prop_samples if self.use_proposal
-                      else self.num_coarse_samples)
-                fg_t, fg_samples = sampling.sample_along_rays_nerfpp(
-                    rays_o, rays_d, n0, near, far, in_sphere=True,
-                    lindisp=self.lindisp, **rnd)
-                bg_t, bg_samples, bg_linear = (
-                    sampling.sample_along_rays_nerfpp(
-                        rays_o, rays_d, n0, near, far, in_sphere=False,
-                        far_uncontracted=self.far_uncontracted,
-                        lindisp=self.lindisp, **rnd))
-            else:
-                pad = self.resample_padding
-                merge = not self.use_proposal
-                prev = results[-1]
-                fg_mids = 0.5 * (fg_t[..., 1:] + fg_t[..., :-1])
-                fg_t, fg_samples = sampling.sample_pdf_nerfpp(
-                    fg_mids, prev["fg_weights"][..., 1:-1].detach() + pad,
-                    rays_o, rays_d, fg_t, self.num_fine_samples,
-                    in_sphere=True, merge=merge, **rnd)
-                bg_mids = 0.5 * (bg_t[..., 1:] + bg_t[..., :-1])
-                bg_t, bg_samples, bg_linear = sampling.sample_pdf_nerfpp(
-                    bg_mids, prev["bg_weights"][..., 1:-1].detach() + pad,
-                    rays_o, rays_d, bg_t, self.num_fine_samples,
-                    in_sphere=False, far=far,
-                    far_uncontracted=self.far_uncontracted, merge=merge,
-                    **rnd)
+            with span("model.sample"):
+                if level == 0:
+                    n0 = (self.num_prop_samples if self.use_proposal
+                          else self.num_coarse_samples)
+                    fg_t, fg_samples = sampling.sample_along_rays_nerfpp(
+                        rays_o, rays_d, n0, near, far, in_sphere=True,
+                        lindisp=self.lindisp, **rnd)
+                    bg_t, bg_samples, bg_linear = (
+                        sampling.sample_along_rays_nerfpp(
+                            rays_o, rays_d, n0, near, far, in_sphere=False,
+                            far_uncontracted=self.far_uncontracted,
+                            lindisp=self.lindisp, **rnd))
+                else:
+                    pad = self.resample_padding
+                    merge = not self.use_proposal
+                    prev = results[-1]
+                    fg_mids = 0.5 * (fg_t[..., 1:] + fg_t[..., :-1])
+                    fg_t, fg_samples = sampling.sample_pdf_nerfpp(
+                        fg_mids, prev["fg_weights"][..., 1:-1].detach() + pad,
+                        rays_o, rays_d, fg_t, self.num_fine_samples,
+                        in_sphere=True, merge=merge, **rnd)
+                    bg_mids = 0.5 * (bg_t[..., 1:] + bg_t[..., :-1])
+                    bg_t, bg_samples, bg_linear = sampling.sample_pdf_nerfpp(
+                        bg_mids, prev["bg_weights"][..., 1:-1].detach() + pad,
+                        rays_o, rays_d, bg_t, self.num_fine_samples,
+                        in_sphere=False, far=far,
+                        far_uncontracted=self.far_uncontracted, merge=merge,
+                        **rnd)
 
             if self.use_proposal and level == 0:
-                fg_sigma = F.softplus(self.fg_prop_mlp(fg_samples)
-                                      + self.density_bias)
-                bg_sigma = F.softplus(self.bg_prop_mlp(bg_samples)
-                                      + self.density_bias)
-                fg_rgb = torch.zeros(fg_sigma.shape[:-1] + (3,),
-                                     device=fg_sigma.device)
-                bg_rgb = torch.zeros(bg_sigma.shape[:-1] + (3,),
-                                     device=bg_sigma.device)
+                with span("model.mlp"):
+                    fg_sigma = F.softplus(self.fg_prop_mlp(fg_samples)
+                                          + self.density_bias)
+                    bg_sigma = F.softplus(self.bg_prop_mlp(bg_samples)
+                                          + self.density_bias)
+                    fg_rgb = torch.zeros(fg_sigma.shape[:-1] + (3,),
+                                         device=fg_sigma.device)
+                    bg_rgb = torch.zeros(bg_sigma.shape[:-1] + (3,),
+                                         device=bg_sigma.device)
             else:
-                which = "coarse" if level == 0 else "fine"
-                tab = 0 if self.use_proposal else min(level, 1)
-                b, s = fg_samples.shape[:2]
-                bg_pts = bg_linear[..., :3]
-                # fg + bg: one world2camera, one tri-plane gather and one
-                # local gather
-                cam = geometry.world2camera(
-                    torch.cat([fg_samples, bg_pts], dim=0).reshape(1, -1, 3),
-                    poses, ns=nv)                      # (NV, 2*B*S, 3)
-                world = triplane_sample(plane_tables, cam, plane_hw,
-                                        view_offset=plane_off,
-                                        grad_acc=plane_acc)
-                world_fg, world_bg = world[:, :b * s], world[:, b * s:]
-                local_fg, local_bg = self._local_feats_pair(
-                    cam, rays["src_focal"], rays["src_c"], local_tables[tab],
-                    latent_hw, image_size, view_offset=local_off,
-                    grad_acc=local_acc[tab])
-                fg_cam = cam[:, :b * s]
+                with span("model.gather"):
+                    which = "coarse" if level == 0 else "fine"
+                    tab = 0 if self.use_proposal else min(level, 1)
+                    b, s = fg_samples.shape[:2]
+                    bg_pts = bg_linear[..., :3]
+                    # fg + bg: one world2camera, one tri-plane gather and one
+                    # local gather
+                    cam = geometry.world2camera(
+                        torch.cat([fg_samples, bg_pts], dim=0).reshape(
+                            1, -1, 3), poses, ns=nv)       # (NV, 2*B*S, 3)
+                    world = triplane_sample(plane_tables, cam, plane_hw,
+                                            view_offset=plane_off,
+                                            grad_acc=plane_acc)
+                    world_fg, world_bg = world[:, :b * s], world[:, b * s:]
+                    local_fg, local_bg = self._local_feats_pair(
+                        cam, rays["src_focal"], rays["src_c"],
+                        local_tables[tab], latent_hw, image_size,
+                        view_offset=local_off, grad_acc=local_acc[tab])
+                    fg_cam = cam[:, :b * s]
 
-                bg_cam = geometry.world2camera(
-                    bg_samples[..., :3].reshape(1, -1, 3), poses, ns=nv)
-                bg_depth_ch = bg_samples[..., 3].reshape(1, -1, 1).expand(
-                    bg_cam.shape[:-1] + (1,))
-                bg_cam4 = torch.cat([bg_cam, bg_depth_ch], dim=-1)
+                    bg_cam = geometry.world2camera(
+                        bg_samples[..., :3].reshape(1, -1, 3), poses, ns=nv)
+                    bg_depth_ch = bg_samples[..., 3].reshape(1, -1, 1).expand(
+                        bg_cam.shape[:-1] + (1,))
+                    bg_cam4 = torch.cat([bg_cam, bg_depth_ch], dim=-1)
+                with span("model.mlp"):
+                    fg_u, bg_u = next(noise_u, (None, None))
+                    fg_rgb, fg_sigma = self._predict(
+                        getattr(self, f"fg_{which}_mlp"), fg_cam, world_fg,
+                        local_fg, viewdirs_enc, b, s,
+                        (fg_u, generator) if noisy else None)
+                    bg_rgb, bg_sigma = self._predict(
+                        getattr(self, f"bg_{which}_mlp"), bg_cam4, world_bg,
+                        local_bg, viewdirs_enc, b, bg_samples.shape[1],
+                        (bg_u, generator) if noisy else None)
 
-                fg_u, bg_u = next(noise_u, (None, None))
-                fg_rgb, fg_sigma = self._predict(
-                    getattr(self, f"fg_{which}_mlp"), fg_cam, world_fg,
-                    local_fg, viewdirs_enc, b, s,
-                    (fg_u, generator) if noisy else None)
-                bg_rgb, bg_sigma = self._predict(
-                    getattr(self, f"bg_{which}_mlp"), bg_cam4, world_bg,
-                    local_bg, viewdirs_enc, b, bg_samples.shape[1],
-                    (bg_u, generator) if noisy else None)
-
-            out = composite_nerfpp(fg_rgb, fg_sigma, fg_t, bg_rgb, bg_sigma,
-                                   bg_t, rays_d, far, white_bkgd)
-            # distortion midpoints (neo360_tpu/models/neo360.py:482-489)
-            fg_sdist = 0.5 * (fg_t[..., 1:] + fg_t[..., :-1])
-            last = fg_sdist[..., -1:] + (fg_sdist[..., -1:]
-                                         - fg_sdist[..., -2:-1])
-            bg_sdist = 0.5 * (bg_t[..., 1:] + bg_t[..., :-1])
-            out.update(fg_tvals=fg_t, bg_tvals=bg_t, far=far,
-                       fg_sdist=torch.cat([fg_sdist, last], dim=-1),
-                       bg_sdist=torch.cat([bg_sdist, bg_t[..., -1:]],
-                                          dim=-1))
-            if not out_depth:
-                del out["depth"], out["fg_depth"]
-            results.append(out)
+            with span("model.composite"):
+                out = composite_nerfpp(fg_rgb, fg_sigma, fg_t, bg_rgb,
+                                       bg_sigma, bg_t, rays_d, far,
+                                       white_bkgd)
+                # distortion midpoints (neo360_tpu/models/neo360.py:482-489)
+                fg_sdist = 0.5 * (fg_t[..., 1:] + fg_t[..., :-1])
+                last = fg_sdist[..., -1:] + (fg_sdist[..., -1:]
+                                             - fg_sdist[..., -2:-1])
+                bg_sdist = 0.5 * (bg_t[..., 1:] + bg_t[..., :-1])
+                out.update(fg_tvals=fg_t, bg_tvals=bg_t, far=far,
+                           fg_sdist=torch.cat([fg_sdist, last], dim=-1),
+                           bg_sdist=torch.cat([bg_sdist, bg_t[..., -1:]],
+                                              dim=-1))
+                if not out_depth:
+                    del out["depth"], out["fg_depth"]
+                results.append(out)
         return results
 
 

@@ -37,6 +37,15 @@ the f32 table cotangents) gives every rank the same bits although each
 rank's scatter-adds (kernel A') round in their own order. Metrics are
 averaged too (psnr from the averaged mse). The image renderer gives each
 rank a contiguous block of tiles and gathers the tiles.
+
+Spans (train/profiling.py): a per-step trainer's step is the item
+`train.step`, a rendered view the item `render.view`. A step takes
+`train.loss` (forward and loss), `train.backward` (the gradients) and
+`train.update` (the gradient all-reduce, the optimizer, the running
+statistics); a view takes `render.tile` for each tile, one in
+`MARKED_TILES` with device markers, and `render.assemble` for the padding
+and for the output's concatenation. The stage trainer opens no item: no
+benchmark cell runs it yet.
 """
 
 from __future__ import annotations
@@ -49,6 +58,11 @@ import torch
 from torch import nn
 
 from neo360_tpu_torch.parallel import sharding
+from neo360_tpu_torch.train.profiling import item, span
+
+# one tile in MARKED_TILES of a rendered view takes device markers: a
+# marker costs the host about a launch (train/profiling.py)
+MARKED_TILES = 16
 
 
 @dataclass
@@ -102,20 +116,26 @@ def make_train_step(loss_fn: Callable, with_model_state: bool = False,
     from neo360_tpu_torch.nn.layers import commit_running_stats
 
     def train_step(state: TrainState, batch, generator):
-        extra = (state.step,) if with_step else ()
-        loss, metrics = loss_fn(batch, generator, *extra)
-        params = list(state.params.values())
-        grads = _grads(torch.autograd.grad(loss, params, allow_unused=True),
-                       params)
-        if group is not None:
-            metrics = _reduce(grads, metrics, group)
-        state.opt.step(grads)
-        if with_model_state:
-            commit_running_stats(state.model)
-            if group is not None:
-                sharding.sync_buffers_across_nodes(state.model, group)
-        state.step += 1
-        return metrics
+        with item("train.step"):
+            extra = (state.step,) if with_step else ()
+            with span("train.loss"):
+                loss, metrics = loss_fn(batch, generator, *extra)
+            params = list(state.params.values())
+            with span("train.backward"):
+                grads = _grads(torch.autograd.grad(loss, params,
+                                                   allow_unused=True),
+                               params)
+            with span("train.update"):
+                if group is not None:
+                    metrics = _reduce(grads, metrics, group)
+                state.opt.step(grads)
+                if with_model_state:
+                    commit_running_stats(state.model)
+                    if group is not None:
+                        sharding.sync_buffers_across_nodes(state.model,
+                                                           group)
+            state.step += 1
+            return metrics
 
     return train_step
 
@@ -317,20 +337,25 @@ def make_image_renderer(render_chunk_fn: Callable, chunk: int = 4096,
 
     @torch.inference_mode()
     def render(pack, rays: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        n = next(iter(rays.values())).shape[0]
-        n_padded = -(-n // (chunk * world)) * chunk * world
-        padded = {k: torch.cat([v, v[-1:].expand((n_padded - n,)
-                                                 + v.shape[1:])])
-                  for k, v in rays.items()}
-        per = n_padded // world
-        lo = 0 if group is None else group.rank * per
-        outs = [render_chunk_fn(pack, {k: v[i:i + chunk]
-                                       for k, v in padded.items()})
-                for i in range(lo, lo + per, chunk)]
-        out = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
-        if group is not None:
-            out = {k: sharding.all_gather_rows(v, group)
-                   for k, v in out.items()}
-        return {k: v[:n] for k, v in out.items()}
+        with item("render.view"):
+            n = next(iter(rays.values())).shape[0]
+            n_padded = -(-n // (chunk * world)) * chunk * world
+            with span("render.assemble"):
+                padded = {k: torch.cat([v, v[-1:].expand((n_padded - n,)
+                                                         + v.shape[1:])])
+                          for k, v in rays.items()}
+            per = n_padded // world
+            lo = 0 if group is None else group.rank * per
+            outs = []
+            for j, i in enumerate(range(lo, lo + per, chunk)):
+                with span("render.tile", j % MARKED_TILES == 0):
+                    outs.append(render_chunk_fn(
+                        pack, {k: v[i:i + chunk] for k, v in padded.items()}))
+            with span("render.assemble"):
+                out = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+                if group is not None:
+                    out = {k: sharding.all_gather_rows(v, group)
+                           for k, v in out.items()}
+                return {k: v[:n] for k, v in out.items()}
 
     return render

@@ -8,7 +8,7 @@ through its plain version) and the plain version of its image gradient
 the core/rays.py helpers, charbonnier_loss, the pose jitter, the nearest
 views, train_iterator, evaluate_images / save_eval_artifacts and the
 writers under them, the visualization arrays, the semantic colours, the
-blender export and the profiling helpers.
+blender export, and the profiling trace with a span in it.
 
 Tolerances:
 - grid_sample_2d and its gradient with respect to the image, and
@@ -41,7 +41,6 @@ from neo360_tpu.ops import interpolate as jinterp
 from neo360_tpu.ops import losses as jlosses
 from neo360_tpu.train import eval as jeval
 from neo360_tpu.train import pipeline as jpipeline
-from neo360_tpu.train import profiling as jprofiling
 from neo360_tpu.utils import io as jio
 from neo360_tpu.utils import semantic_labels as jlabels
 from neo360_tpu.utils import visualize as jvis
@@ -545,7 +544,7 @@ def test_blender_export_matches_jax(micro_scene, tmp_path, split):
 
 def test_trace_writes_a_chrome_trace_with_the_span(tmp_path):
     with profiling.trace(str(tmp_path)):
-        with profiling.annotate("helpers_span"):
+        with profiling.span("helpers_span"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     files = [f for f in os.listdir(tmp_path) if f.endswith(".pt.trace.json")]
     assert len(files) == 1
@@ -553,20 +552,3 @@ def test_trace_writes_a_chrome_trace_with_the_span(tmp_path):
         events = json.load(f)["traceEvents"]
     spans = [e for e in events if e.get("name") == "helpers_span"]
     assert spans and spans[0].get("cat") == "user_annotation"
-
-
-def test_throughput_meter_matches_jax(monkeypatch):
-    """The same updates at the same clock readings give the same rates."""
-    import time
-
-    def rates(meter_cls):
-        clock = iter([0.0, 0.25, 0.5, 0.75, 1.0])
-        monkeypatch.setattr(time, "time", lambda: next(clock))
-        meter = meter_cls(3)
-        assert meter.rays_per_sec is None and meter.steps_per_sec is None
-        for rays_ in (100, 250, 400, 50, 75):
-            meter.update(rays_)
-        return meter.rays_per_sec, meter.steps_per_sec
-
-    assert rates(profiling.ThroughputMeter) == \
-        rates(jprofiling.ThroughputMeter) == (125 / 0.5, 4.0)
