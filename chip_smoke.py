@@ -28,6 +28,11 @@ line):
    float32 neo360 per-step step (grid (8, 8, 40)), deterministic sampling,
    on the card against the same on the CPU, TF32 off: gradients,
    BatchNorm buffers, and the stage's parameters or the step's loss;
+   then (`phase_sync`) the syncs of one tiny neo360 render tile and one
+   per-step training step under `torch.cuda.set_sync_debug_mode("warn")`,
+   the first call and the second, with the constants each built and
+   served (`core/constants.py`), on a "[sync]" line: the second of
+   each must neither synchronise nor build a constant;
 6. the neo360_fast training main path: `cli.run_train` at full width
    (random seeded weights, bf16) on 3 in-memory 320x240 fixture scenes,
    3 stages of K=32 steps, S=2 scenes and 500 rays per step (the third
@@ -198,10 +203,12 @@ ZERO_GRAD = re.compile(r"encoder\.(floorplan_(yz|xz|xy)\.conv[0-3]"
 
 def counters():
     """Counter name -> the wrapper that counts its launches: one per
-    kernel, and kernel A' under each of its two contracts (dense and
-    accumulate)."""
+    kernel of the training and serving paths (KERNELS), and kernel A'
+    under each of its two contracts (dense and accumulate). Phase 14
+    counts HELPER_KERNELS itself: no training or serving path runs them."""
     from neo360_tpu_torch.train.profiling import kernel_counters
-    return kernel_counters()
+    return {k: fn for k, fn in kernel_counters().items()
+            if k not in HELPER_KERNELS}
 
 
 def _read(fns) -> dict:
@@ -1436,6 +1443,83 @@ def phase_small_neo360_step(torch):
             and all(r["ok"] for r in bn_res)):
         raise AssertionError("the neo360 step on the card disagrees with the "
                              "CPU")
+
+
+def _syncs(torch, fn):
+    """fn() under sync debug mode "warn": (the synchronising CUDA calls it
+    warned of, the constants it built, the constants it was served)."""
+    import warnings
+
+    from neo360_tpu_torch.train import profiling
+    before = profiling.constant_counts()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    after = profiling.constant_counts()
+    return (sum("synchroniz" in str(w.message) for w in seen),
+            after["builds"] - before["builds"],
+            after["hits"] - before["hits"])
+
+
+def phase_sync(torch):
+    """One tiny float32 neo360 render tile (256 rays, the scene encoded
+    beforehand) and one per-step training step with its optimizer, each
+    twice: the second call must neither wait for the stream nor build a
+    constant. One "[sync]" line a kind."""
+    import numpy as np
+
+    from neo360_tpu_torch import cli
+    from neo360_tpu_torch.config import preset
+    from neo360_tpu_torch.data.fixtures import MemoryScenes
+    from neo360_tpu_torch.models.neo360 import RAY_KEYS, SRC_KEYS
+    from neo360_tpu_torch.train import loop
+
+    dev = torch.device("cuda")
+    cfg = preset("neo360", seed=SEED, grid_size=(8, 8, 40), encoder_width=64,
+                 num_coarse_samples=8, num_fine_samples=6, img_wh=(40, 30),
+                 ray_batch_size=32)
+    cli.float32_matmuls(cfg, dev)
+    model = cli.build_model(cfg, dev).eval()
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in MemoryScenes(
+        2, cfg.img_wh, 3, split="train", ray_batch_size=cfg.ray_batch_size
+    ).sample_train(np.random.default_rng(SEED)).items()
+        if k in cli.STEP_KEYS}
+    src = {k: batch[k] for k in SRC_KEYS}
+    with torch.inference_mode():
+        enc = model.encode(*(src[k] for k in SRC_KEYS), False)
+
+    def chunk(pack, rays):
+        out = model(dict(rays, **src), pack, cfg.white_back,
+                    out_depth=True)[1]
+        return {"rgb": out["rgb"], "depth": out["depth"]}
+
+    render = loop.make_image_renderer(chunk, cfg.chunk)
+    rays = {k: batch[k][:1].expand(cfg.chunk, 3).contiguous()
+            for k in RAY_KEYS}
+    tile = [_syncs(torch, lambda: render(enc, rays)) for _ in range(2)]
+    model.train()
+    state = loop.create_train_state(
+        model, lambda params: cli.build_optimizer(cfg, params))
+    train_step = loop.make_train_step(cli.make_loss_fn(cfg, model),
+                                      with_model_state=True)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    step = [_syncs(torch, lambda: train_step(state, batch, gen))
+            for _ in range(2)]
+    for kind, (first, second) in (("render tile", tile),
+                                  ("training step", step)):
+        print(f"[sync] neo360 {kind}: first call {first[0]} syncs, "
+              f"{first[1]} constants built, {first[2]} served; second "
+              f"call {second[0]} syncs, {second[1]} built, {second[2]} "
+              f"served")
+        if second[0] or second[1]:
+            raise AssertionError(f"a second neo360 {kind} waited for the "
+                                 f"stream or built a constant")
 
 
 # the neo360 phase: calls of one per-step training step each through
@@ -3623,6 +3707,7 @@ def main() -> int:
     phase_small_reference(torch)
     phase_small_train(torch)
     phase_small_neo360_step(torch)
+    phase_sync(torch)
     done("small card-vs-CPU checks")
     work = tempfile.TemporaryDirectory()
     trained = os.path.join(work.name, "neo360_fast_96.pt")

@@ -23,14 +23,23 @@ import math
 import numpy as np
 import torch
 
+from neo360_tpu_torch.core.constants import cached
+
+
+def _scales(min_deg: int, max_deg: int, dtype, device) -> torch.Tensor:
+    """2^i for i in [min_deg, max_deg), built once on `device`."""
+    return cached("pos_enc.scales", (min_deg, max_deg), dtype, device,
+                  lambda: torch.tensor([2.0 ** i for i in range(min_deg,
+                                                                max_deg)],
+                                       dtype=dtype, device=device))
+
 
 def pos_enc(x: torch.Tensor, min_deg: int, max_deg: int) -> torch.Tensor:
     """[x, sin(2^i x), cos(2^i x)] for i in [min_deg, max_deg); cos is
     sin(x + pi/2). Output dim = d * (1 + 2 * (max_deg - min_deg))."""
     if min_deg == max_deg:
         return x
-    scales = torch.tensor([2.0 ** i for i in range(min_deg, max_deg)],
-                          dtype=x.dtype, device=x.device)
+    scales = _scales(min_deg, max_deg, x.dtype, x.device)
     xb = (x[..., None, :] * scales[:, None]).reshape(x.shape[:-1] + (-1,))
     four_feat = torch.sin(torch.cat([xb, xb + 0.5 * math.pi], dim=-1))
     return torch.cat([x, four_feat], dim=-1)
@@ -46,8 +55,7 @@ def integrated_pos_enc(mean: torch.Tensor, var: torch.Tensor, min_deg: int,
     """IPE of per-axis Gaussians (..., D) -> (..., 2 * D * (max_deg -
     min_deg)): the sines of every degree's scaled means, then the cosines
     (sin(x + pi/2)), degree-major within each half."""
-    scales = torch.tensor([2.0 ** i for i in range(min_deg, max_deg)],
-                          dtype=mean.dtype, device=mean.device)
+    scales = _scales(min_deg, max_deg, mean.dtype, mean.device)
     shape = mean.shape[:-1] + (-1,)
     scaled_mean = (mean[..., None, :] * scales[:, None]).reshape(shape)
     scaled_var = (var[..., None, :] * scales[:, None] ** 2).reshape(shape)

@@ -11,6 +11,8 @@ from typing import Sequence, Union
 
 import torch
 
+from neo360_tpu_torch.core.constants import cached
+
 
 def repeat_interleave(x: torch.Tensor, repeats: int) -> torch.Tensor:
     """(B, ...) -> (B*repeats, ...) with each row repeated contiguously."""
@@ -24,14 +26,18 @@ def linspace(start: float, stop: float, num: int, dtype=torch.float32,
     """`num` evenly spaced values rounded as jnp.linspace rounds them:
     start * (1 - i/d) + stop * (i/d) with d = num - 1, the end point exact.
     (torch.linspace rounds differently, which moves inverse-CDF samples
-    that fall on a bin edge.)"""
-    if num == 1:
-        return torch.full((1,), start, dtype=dtype, device=device)
-    d = num - 1
-    step = torch.arange(d, dtype=dtype, device=device) / d
-    out = start * (1 - step) + stop * step
-    return torch.cat([out, torch.full((1,), stop, dtype=dtype,
-                                      device=device)])
+    that fall on a bin edge.) Built once per (start, stop, num, dtype,
+    device) and shared: read it, never write into it."""
+    def build():
+        if num == 1:
+            return torch.full((1,), start, dtype=dtype, device=device)
+        d = num - 1
+        step = torch.arange(d, dtype=dtype, device=device) / d
+        out = start * (1 - step) + stop * step
+        return torch.cat([out, torch.full((1,), stop, dtype=dtype,
+                                          device=device)])
+
+    return cached("linspace", (start, stop, num), dtype, device, build)
 
 
 def get_world_grid(side_lengths: Sequence[Sequence[float]],
@@ -106,7 +112,9 @@ def homography_uv(hw: tuple, proj_mat: torch.Tensor,
     src = (torch.einsum("bij,jn->bin", rot, ref)[:, None]
            + t[:, None] / depth_values[:, :, None, None])        # (B,D,3,HW)
     uv = src[:, :, :2] / src[:, :, 2:]
-    scale = torch.tensor([(w - 1) / 2.0, (h - 1) / 2.0], device=dev)
+    scale = cached("homography_uv.scale", (h, w), torch.float32, dev,
+                   lambda: torch.tensor([(w - 1) / 2.0, (h - 1) / 2.0],
+                                        device=dev))
     uv = uv / scale[None, None, :, None] - 1.0                   # [-1, 1]
     return uv.permute(0, 1, 3, 2).reshape(b, d * h * w, 2)
 

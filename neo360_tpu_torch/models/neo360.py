@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from neo360_tpu_torch.core import encoding, geometry, sampling, spherical
+from neo360_tpu_torch.core.constants import cached
 from neo360_tpu_torch.core.render import composite_nerfpp
 from neo360_tpu_torch.nn.layers import Dense
 from neo360_tpu_torch.nn.mlp import combine_interleaved
@@ -265,8 +266,11 @@ class NeRFTP(nn.Module):
         flat multi-scene table; `grad_acc`: the table's f32 gradient
         accumulator (`table_sample`'s accumulate contract)."""
         nv = self.num_src_views
-        scale = (latent_scaling(latent_hw)
-                 / torch.tensor(image_size, dtype=torch.float32)).tolist()
+        image_size = tuple(image_size)
+        scale = cached("local_sample.scale", (tuple(latent_hw), image_size),
+                       torch.float32, None,
+                       lambda: latent_scaling(latent_hw) / torch.tensor(
+                           image_size, dtype=torch.float32)).tolist()
         latent = local_sample(stacked_table, cam, focal, c, scale, latent_hw,
                               view_offset=view_offset, grad_acc=grad_acc)
         return latent[:nv], latent[nv:]

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from neo360_tpu_torch.core import encoding, geometry, sampling
+from neo360_tpu_torch.core.constants import cached
 from neo360_tpu_torch.core.render import composite_vanilla
 from neo360_tpu_torch.nn.layers import Dense
 from neo360_tpu_torch.nn.mlp import combine_interleaved
@@ -143,8 +144,11 @@ class PixelNeRF(nn.Module):
         nv = self.num_src_views
         uv = geometry.projection(cam, torch.stack([focal[0], -focal[0]])[None],
                                  c[:1], nv)
-        scale = latent_scaling(hw, cam.device) / torch.tensor(
-            image_size, dtype=torch.float32, device=cam.device)
+        image_size, dev = tuple(image_size), cam.device
+        scale = cached("latent_uv.scale", (tuple(hw), image_size),
+                       torch.float32, dev,
+                       lambda: latent_scaling(hw, dev) / torch.tensor(
+                           image_size, dtype=torch.float32, device=dev))
         return table_sample(table, uv * scale - 1.0, hw, "zeros",
                             self.compute_dtype)
 

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from neo360_tpu_torch.core.constants import cached
 from neo360_tpu_torch.nn.layers import BatchNorm, Conv
 
 
@@ -104,10 +105,14 @@ class SpatialEncoder(nn.Module):
 
 def latent_scaling(latent_hw, device=None) -> torch.Tensor:
     """(w, h) scaling of pixel uv to normalized grid coordinates:
-    s = 2 L / (L - 1)."""
+    s = 2 L / (L - 1), built once per size and device."""
     h, w = latent_hw
-    s = torch.tensor([w, h], dtype=torch.float32, device=device)
-    return s / (s - 1.0) * 2.0
+
+    def build():
+        s = torch.tensor([w, h], dtype=torch.float32, device=device)
+        return s / (s - 1.0) * 2.0
+
+    return cached("latent_scaling", (h, w), torch.float32, device, build)
 
 
 def from_torchvision(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -18,6 +18,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from neo360_tpu_torch.core import geometry
+from neo360_tpu_torch.core.constants import cached
 from neo360_tpu_torch.nn.layers import BatchNorm, Conv, Dense, init_bias, \
     init_weight
 from neo360_tpu_torch.nn.resnet import SpatialEncoder, latent_scaling
@@ -217,8 +218,9 @@ class GridEncoder(nn.Module):
         focal2 = torch.stack([focal[0], -focal[0]])[None]   # -fy
         uv = geometry.projection(camera_grids, focal2, c[:1], nv)
         lat_hw = tuple(pixel_latent.shape[1:3])
-        scale = latent_scaling(lat_hw, dev) / torch.tensor(
-            [w, h], dtype=torch.float32, device=dev)
+        scale = cached("lift_uv.scale", (lat_hw, w, h), torch.float32, dev,
+                       lambda: latent_scaling(lat_hw, dev) / torch.tensor(
+                           [w, h], dtype=torch.float32, device=dev))
         uv_norm = uv * scale - 1.0
         lift_map = (self.lift_proj(pixel_latent)
                     if self.lift_proj is not None else pixel_latent)

@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from neo360_tpu_torch.core import geometry
+from neo360_tpu_torch.core.constants import cached
 from neo360_tpu_torch.ops import kernels
 
 # consecutive points a group of threads walks, reusing the corner rows of
@@ -402,8 +403,9 @@ def _cam_ok(name, cam):
 def triplane_uvs(cam: torch.Tensor):
     """The uv of the three planes at camera points (NV, N, 3): (x, z),
     (x, y), (y, z), the camera coordinates used directly
-    (neo360_tpu/nn/triplane.py:343-345)."""
-    return cam[..., [0, 2]], cam[..., [0, 1]], cam[..., [1, 2]]
+    (neo360_tpu/nn/triplane.py:343-345). Slices: an index list would be
+    copied to the device on every call, waiting for the stream."""
+    return cam[..., 0::2], cam[..., :2], cam[..., 1:]
 
 
 def triplane_sample_reference(tables, cam: torch.Tensor, hw: tuple,
@@ -511,8 +513,10 @@ def local_uv(cam: torch.Tensor, focal: torch.Tensor, c: torch.Tensor,
     focal2 = torch.stack([focal[0], -focal[0]])[None]
     uv = geometry.projection(cam, focal2, c[:1], nv)
     uv = torch.cat([uv[:, :m], uv[:, m:]], dim=0)
-    return uv * torch.tensor(scale, dtype=torch.float32,
-                             device=cam.device) - 1.0
+    scale = tuple(scale)
+    return uv * cached("local_uv.scale", scale, torch.float32, cam.device,
+                       lambda: torch.tensor(scale, dtype=torch.float32,
+                                            device=cam.device)) - 1.0
 
 
 def local_sample_reference(table: torch.Tensor, cam: torch.Tensor,
@@ -859,9 +863,10 @@ def resize_bilinear_align_corners(image: torch.Tensor,
     h_in, w_in = image.shape[-3], image.shape[-2]
     if (h_in, w_in) == (h_out, w_out):
         return image
-    mh = torch.as_tensor(_interp_matrix(h_out, h_in), device=image.device,
-                         dtype=image.dtype)
-    mw = torch.as_tensor(_interp_matrix(w_out, w_in), device=image.device,
-                         dtype=image.dtype)
+    mh, mw = (cached("resize_matrix", (n_out, n_in), image.dtype,
+                     image.device, lambda n_out=n_out, n_in=n_in:
+                     torch.as_tensor(_interp_matrix(n_out, n_in),
+                                     device=image.device, dtype=image.dtype))
+              for n_out, n_in in ((h_out, h_in), (w_out, w_in)))
     out = torch.einsum("oh,...hwc->...owc", mh, image)
     return torch.einsum("ow,...hwc->...hoc", mw, out)

@@ -32,7 +32,9 @@ is not called.
 Each closed item is folded into a per-name table (`items()`): the spans'
 count, host ms, self host ms (less their child spans'), device ms and
 self device ms, and how many of the spans were timed on the device. The
-last `MAX_ITEMS` items are kept.
+last `MAX_ITEMS` items are kept, each with the constants built and
+served while it was open (`core/constants.py`; `constant_counts` gives
+the process's totals).
 
 `trace` records a `torch.profiler` run (host activity, and the card's
 kernels when CUDA is available) and writes it into a directory as a
@@ -56,6 +58,8 @@ from typing import Callable, Dict, List, Optional
 import torch
 from torch.autograd import profiler as _autograd_profiler
 
+from neo360_tpu_torch.core.constants import cached as _constants
+
 MAX_ITEMS = 256
 
 _on = True
@@ -75,7 +79,7 @@ def enable(on: bool) -> None:
 
 class _Item:
     __slots__ = ("id", "name", "log", "depth", "events", "stream",
-                 "marking", "off", "last", "table")
+                 "marking", "off", "last", "table", "constants")
 
     def __init__(self, name: str, stream):
         self.id = next(_ids)
@@ -92,6 +96,9 @@ class _Item:
         # span name -> [count, host ns, self host ns, device ms, timed,
         # self device ms, self timed]
         self.table: Dict[str, list] = {}
+        # the constants' (builds, hits) when the item opened; when it
+        # closes, those while it was open
+        self.constants = (_constants.builds, _constants.hits)
 
     def mark(self) -> int:
         """Record a marker on the item's stream; its index. A marker that
@@ -165,6 +172,8 @@ class _Span:
                 item.marking = item.events is not None
             if depth == 0:
                 th.item = None
+                b, h = item.constants
+                item.constants = (_constants.builds - b, _constants.hits - h)
                 _close(item)
         rfs = th.rfs
         if rfs and rfs[-1][0] is self:
@@ -300,10 +309,12 @@ def _per_item(total: float, timed: int, count: int) -> Optional[float]:
 def items() -> List[Dict]:
     """The kept items, oldest first: {"id", "name" (the item's), "spans":
     {span name: {"count", "host_ms", "self_host_ms", "device_ms",
-    "self_device_ms", "timed"}}}, each figure summed over the item's spans
-    of that name. `timed` of them took device markers; the device figures
-    are their sums scaled by count / timed (the same where every span was
-    timed), None where none was."""
+    "self_device_ms", "timed"}}, "constants": {"builds", "hits"}}, each
+    figure summed over the item's spans of that name. `timed` of them took
+    device markers; the device figures are their sums scaled by count /
+    timed (the same where every span was timed), None where none was.
+    "constants": the constants built and served while the item was open
+    (every thread's)."""
     with _lock:
         while _pending:
             _read(_pending.popleft())
@@ -314,7 +325,8 @@ def items() -> List[Dict]:
                    "self_device_ms": _per_item(self_ms, self_timed, n),
                    "timed": timed}
             for name, (n, ns, self_ns, ms, timed, self_ms, self_timed)
-            in it.table.items()}} for it in _done]
+            in it.table.items()}, "constants": dict(
+                zip(("builds", "hits"), it.constants))} for it in _done]
 
 
 def clear() -> None:
@@ -342,6 +354,12 @@ def trace(log_dir: str):
         finally:
             if cuda:
                 torch.cuda.synchronize()
+
+
+def constant_counts() -> Dict[str, int]:
+    """The process's constants (`core/constants.py:cached`): {"builds":
+    entries built, "hits": lookups served by an entry already built}."""
+    return {"builds": _constants.builds, "hits": _constants.hits}
 
 
 def kernel_counters() -> Dict[str, Callable]:
