@@ -1,6 +1,8 @@
 """The comparison that decides `correct`: what the timed path produced,
-against the plain reference (reference/) run on the same seeded weights
-and inputs once the window has closed.
+against the architecture's plain reference (its adapter's
+`reference_train` and `reference_render`, architectures/) run on the same
+seeded weights and inputs once the window has closed. What follows is
+shared by every architecture.
 
 Training cells (the first three items, which set-up drives through the
 window's own call and which the window then continues from):
@@ -29,16 +31,12 @@ others are reported only.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional
+from typing import Dict
 
 import numpy as np
 import torch
 
-from benchmark.reference import model as ref
-from benchmark.reference import train as ref_train
-
 RENDER_SAMPLE = 4096
-REF_CHUNK = 1024
 
 
 def norms(tensors: Dict[str, torch.Tensor]) -> Dict[str, float]:
@@ -79,48 +77,12 @@ def train_numbers(prog: Dict, reference: Dict):
     return numbers, notes
 
 
-def reference_train(arch: ref.Arch, weights: Dict[str, torch.Tensor],
-                    trainer: str, items: List[Dict], gen_seed: int, device,
-                    prec: Optional[ref.Precision] = None) -> Dict:
-    """The reference follows the program's first len(items) items from
-    the same weights and generator seed: {"losses", "moments" (norms after
-    the first item), "change" (norms of the change after the last)}."""
-    tr = ref_train.Trainer(arch, weights, trainer, prec=prec)
-    start = {k: v.detach().clone() for k, v in tr.params().items()}
-    gen = torch.Generator(device).manual_seed(gen_seed)
-    losses, moments = [], None
-    with ref.matmul_precision(tr.prec):
-        for i, item in enumerate(items):
-            losses += tr.step({k: v.to(device) for k, v in item.items()},
-                              gen)
-            if i == 0:
-                moments = norms(tr.moments())
-    change = norms({k: v - start[k] for k, v in tr.params().items()})
-    return {"losses": losses, "moments": moments, "change": change}
-
-
 def render_sample(n_views: int, n_rays: int, seed: int):
     """(view, ray) pairs of the sample, drawn from the seed."""
     rng = np.random.default_rng([seed, 13])
     total = n_views * n_rays
     flat = rng.choice(total, min(RENDER_SAMPLE, total), replace=False)
     return flat // n_rays, flat % n_rays
-
-
-def reference_render(arch: ref.Arch, weights, src: Dict, rays: Dict,
-                     prec: Optional[ref.Precision] = None
-                     ) -> Dict[str, torch.Tensor]:
-    """The reference's rgb and depth of `rays`, the scene encoded again
-    from its source views, deterministic sampling."""
-    p = prec or ref.Precision()
-    with torch.no_grad(), ref.matmul_precision(p):
-        enc = [ref.encode(weights, p, arch, src)]
-        n = rays["rays_o"].shape[0]
-        outs = [ref.render_rays(weights, p, arch, enc, src,
-                                {k: v[i:i + REF_CHUNK]
-                                 for k, v in rays.items()})[-1]
-                for i in range(0, n, REF_CHUNK)]
-    return {k: torch.cat([o[k] for o in outs]) for k in ("rgb", "depth")}
 
 
 def render_numbers(prog: Dict[str, torch.Tensor],

@@ -3,11 +3,12 @@
 
 - `kind`: "stage", "step" or "view"; `items`, `window_s`: the unprofiled
   window's completed items and seconds; `steps_per_item`;
-- `work`, `flops_item`, `peak_flops`: the item's work (work.py), its model
-  FLOPs (flops.py) and the configuration's peak;
+- `work`, `flops_item`, `peak_flops`: the item's work and its model FLOPs
+  (the architecture's adapter: `work`, `item_flops`) and the
+  configuration's peak;
 - `trace`: one more item profiled after the window (trace.py), or None;
 - `peak_bytes`: the device's peak allocation over the window;
-- `families`: the roofline families (registry.py).
+- `families`: the adapter's roofline families (registry.py).
 A reader that finds nothing to read returns None.
 """
 

@@ -3,20 +3,22 @@
     python3 -m benchmark.run --workload <cell> --seed <n> --seconds <s> \
         --trace <0|1>
 
-from the root of a checkout, on a machine with the cell's cards. Set-up
-(counted in `setup_s`, from the process's start) loads the port's kernel
-library (built into build/neo360_kernels/ by the first run in a
-checkout), builds the configuration's model through the port's CLI,
-makes its weights and the mix's items on the card from the seed, and
-runs the first items, which warm every shape up: a training cell's first
-three items (the check follows them), a render cell's encode and first
-view. The window then runs items closed-loop, one after the other, each
+from the root of a checkout, on a machine with the cell's cards. All the
+run knows of the configuration's architecture it takes from that
+architecture's adapter (architectures/, registry.py). Set-up (counted in
+`setup_s`, from the process's start) loads the port's kernel library
+(built into build/neo360_kernels/ by the first run in a checkout), builds
+the adapter's program for the configuration, makes its weights and the
+mix's items on the card from the seed, and runs the first items, which
+warm every shape up: a training cell's first three items (the check
+follows them), a render cell's set-up (a few-shot model's encode) and
+first view. The window then runs items closed-loop, one after the other, each
 copied to the card and waited for, until `--seconds` have passed; it ends
 on a whole item, and a rate is every ray of the window over its seconds.
 With `--trace 1` the end-to-end metrics give way to the per-layer ones
 and one more item runs under the profiler. Then the program's state is
-freed and the reference (reference/) checks what the timed path produced
-(check.py). Standard error ends with the numbers compared and their
+freed and the adapter's plain reference checks what the timed path
+produced (check.py). Standard error ends with the numbers compared and their
 limits; the last line of standard output is the result, one JSON object.
 
 The run fails (exit code not 0, no result) without the cards the cell
@@ -76,10 +78,7 @@ def run_cell(reg, name: str, seed: int, seconds: float, trace_on: bool,
     has built it (the fault tests)."""
     import torch
 
-    from benchmark import check, scenes, trace, weights, work
-    from benchmark.flops import item_flops
-    from benchmark.program import Program, kernel_library
-    from benchmark.reference.model import Arch
+    from benchmark import check, scenes, trace, weights
     cuda = device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     cell = reg.workload(name)
@@ -88,6 +87,7 @@ def run_cell(reg, name: str, seed: int, seconds: float, trace_on: bool,
     if config_over and "img_wh" in config_over:
         mix["img_wh"] = config_over["img_wh"]
     limits = reg.limits(name)
+    arch = reg.architecture(config)
     parts = {"import": time.perf_counter() - T0}
     clock = [time.perf_counter()]
 
@@ -97,30 +97,25 @@ def run_cell(reg, name: str, seed: int, seconds: float, trace_on: bool,
         clock[0] = now
 
     if cuda:
-        kernel_library()
+        arch.kernel_library()
     lap("library")
-    prog = Program(config, seed, device, weights.derive(seed, 2))
+    prog = arch.Program(config, seed, device, weights.derive(seed, 2))
     cfg = prog.cfg
     lap("model")
     w_all = weights.make(prog.shapes(), seed, device)
     prog.load(w_all)
     trained = prog.trained_names()
     lap("weights")
-    kind, trainer = mix["kind"], prog.trainer_kind()
-    want = {"stage": "scene_stage", "step": "per_step"}.get(kind)
-    if want is not None and want != trainer:
-        raise ValueError(f"mix {mix['name']} feeds a {want} trainer; "
-                         f"{config['name']} trains with {trainer}")
-    pool = scenes.make_items(mix, seed, device, cfg.num_src_views,
-                             steps=cfg.stage_k if kind == "stage" else 1,
-                             scenes_per_item=cfg.stage_scenes,
-                             rays_per_step=cfg.ray_batch_size)
-    items = pool["items"]
+    trainer = prog.trainer_kind()
+    pool = arch.make_items(mix, seed, device, cfg)
+    kind, items = pool["kind"], pool["items"]
     lap("scenes")
     outs, out_items, first = [], [], 0
     if kind == "view":
-        src = scenes.to_device(pool["src"], device)
-        prog.make_renderer(src)
+        setup = pool["setup"]
+        if setup is not None:
+            setup = scenes.to_device(setup, device)
+        prog.make_renderer(setup)
         lap("encode")
         if fault:
             fault(prog)
@@ -189,7 +184,6 @@ def run_cell(reg, name: str, seed: int, seconds: float, trace_on: bool,
     if cuda:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    arch = Arch.from_config(config)
     params = {k: w_all[k] for k in trained}
     if kind == "view":
         n_rays = pool["rays_per_item"]
@@ -198,13 +192,13 @@ def run_cell(reg, name: str, seed: int, seconds: float, trace_on: bool,
         got = {k: torch.cat([o[k] for o in outs]).index_select(0, sel)
                for k in ("rgb", "depth")}
         rays = {k: torch.cat([items[i][k] for i in out_items]).to(device)
-                .index_select(0, sel) for k in scenes.RAY_KEYS}
+                .index_select(0, sel) for k in items[0]}
         del outs
-        numbers, notes = check.render_numbers(got, check.reference_render(
-            arch, params, src, rays))
+        numbers, notes = check.render_numbers(got, arch.reference_render(
+            config, params, setup, rays))
     else:
-        ref_out = check.reference_train(
-            arch, params, trainer, items[:3], weights.derive(seed, 2),
+        ref_out = arch.reference_train(
+            config, params, trainer, items[:3], weights.derive(seed, 2),
             device)
         numbers, notes = check.train_numbers(
             {"losses": losses_p, "moments": moments_p, "change": change_p},
@@ -217,13 +211,13 @@ def run_cell(reg, name: str, seed: int, seconds: float, trace_on: bool,
     # ------------------------------------------------------------ metrics
     rays_item = pool["rays_per_item"]
     rate = rays_item * done / window_s
-    wk = work.of(config, kind, mix["img_wh"], cfg.stage_k, cfg.stage_scenes,
-                 cfg.ray_batch_size, cfg.chunk)
+    wk = arch.work(config, mix, cfg)
     ctx = {"kind": kind, "items": done, "window_s": window_s,
            "steps_per_item": pool["steps_per_item"], "work": wk,
-           "flops_item": item_flops(wk), "peak_flops": config["peak_flops"],
-           "trace": tr, "peak_bytes": peak_window,
-           "families": reg.families()}
+           "flops_item": arch.item_flops(wk),
+           "peak_flops": config["peak_flops"], "trace": tr,
+           "peak_bytes": peak_window,
+           "families": reg.families(arch.FAMILIES)}
     metrics = {}
     for m in reg.metrics(name, trace_on):
         if m["name"] == "setup_s":

@@ -6,7 +6,8 @@ direction-gradient sky, cameras on a jittered ring looking at the origin,
 the yardstick does not move with the program's own loaders.
 
 A traffic mix is a JSON file under `traffic/` (registry.py reads it); its
-`kind` picks the item the window repeats:
+`kind` picks the item the window repeats. Few-shot mixes (a source stack
+and rays of other views of the same scene):
 - "stage": S distinct scenes of the pool, each with 3 random source views
   of its train cameras, and K steps of B rays (B / S from each scene),
   each step's rays across up to `dest_views_per_sample` of the other
@@ -19,6 +20,16 @@ A traffic mix is a JSON file under `traffic/` (registry.py reads it); its
   (`orbit_elevation_deg`), in an order of its own, so that the seed
   changes the scene's source cameras and the weights but not the set of
   views a window draws from.
+Per-scene mixes (a model trained on one scene's ring views; every ray
+carries `radii`, the base radius of its pixel's cone, 2 / (focal x
+sqrt(12)) for these pinhole cameras, from which MipNeRF casts its
+cones):
+- "rays": B rays of scene 0 of the pool, each at a random train view and
+  pixel, with their target colours: a per-scene trainer's step;
+- "image": scene 0's `orbit_views` held-out orbit views, whole, as
+  "view" draws them, with no source stack.
+To the harness an item is a training step ("step", "rays"), a stage
+("stage") or a view to render ("view", "image"): the pool's `kind`.
 
 Scenes are rendered in bulk on the given device; items are assembled on
 the device and handed back as host tensors (pinned on a CUDA run), which
@@ -37,6 +48,8 @@ SPHERE_RADIUS_FRAC = 0.35       # of the camera ring's radius
 SRC_VIEWS_ORBIT = (0, 38, 44)   # the NERDS360 eval protocol's 3 sources
 SRC_KEYS = ("src_imgs", "src_poses", "src_focal", "src_c")
 RAY_KEYS = ("rays_o", "rays_d", "viewdirs")
+ROLE = {"stage": "stage", "step": "step", "view": "view", "rays": "step",
+        "image": "view"}
 
 
 def _ring(az: np.ndarray, el: np.ndarray, radius: float) -> np.ndarray:
@@ -170,6 +183,13 @@ class ScenePool:
         target = self.images[scene][v, y, x].float() / 255.0
         return {"rays_o": o, "rays_d": d, "viewdirs": vd, "target": target}
 
+    def radii(self, n: int) -> torch.Tensor:
+        """The base radii (n, 1) of n pixels' cones: the distance between
+        neighbouring pixels' unnormalized directions, 1 / focal, times
+        2 / sqrt(12)."""
+        return torch.full((n, 1), 2.0 / (self.focal * np.sqrt(12.0)),
+                          dtype=torch.float32, device=self.device)
+
     def orbit_rays(self, scene: int, view: int) -> Dict[str, torch.Tensor]:
         """One ray per pixel of orbit camera `view`, row-major."""
         w, h = self.wh
@@ -217,14 +237,17 @@ def _host(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 def make_items(mix: Dict, seed: int, device, n_src: int, steps: int = 1,
                scenes_per_item: int = 1, rays_per_step: int = 500
                ) -> Dict:
-    """The mix's items, drawn from `seed`: {"kind", "items": [host
-    tensor dicts], "rays_per_item", "steps_per_item", "src" (view mixes:
-    the scene's source stack)}. `steps`, `scenes_per_item` and
-    `rays_per_step` are the trainer's K, S and B (the program's preset);
-    a "stage" item holds src (S, NV, ...) and rays (K, S, B/S, ...) when
-    S > 1, else (NV, ...) and (K, B, ...); a "step" item one batch of
-    the per-step trainer."""
+    """The mix's items, drawn from `seed`: {"kind" (the item's role:
+    "stage", "step" or "view"), "items": [host tensor dicts],
+    "rays_per_item", "steps_per_item", "setup" (the view mixes' source
+    stack, else None)}. `steps`, `scenes_per_item` and `rays_per_step` are
+    the trainer's K, S and B (the program's preset); a "stage" item holds
+    src (S, NV, ...) and rays (K, S, B/S, ...) when S > 1, else (NV, ...)
+    and (K, B, ...); a "step" item one batch of the per-step trainer; a
+    "rays" item B rays of scene 0 (`n_src` unused)."""
     kind = mix["kind"]
+    if kind not in ROLE:
+        raise ValueError(f"traffic kind {kind!r}: one of {sorted(ROLE)}")
     rng = np.random.default_rng([seed, 11])
     pool = ScenePool(seed, mix["scenes_in_pool"],
                      mix["train_views_per_scene"], mix["img_wh"],
@@ -232,14 +255,29 @@ def make_items(mix: Dict, seed: int, device, n_src: int, steps: int = 1,
                      mix.get("orbit_views", 0),
                      mix.get("orbit_elevation_deg", 35.0))
     n_scenes = mix["scenes_in_pool"]
-    if kind == "view":
-        src = pool.source_stack(0, SRC_VIEWS_ORBIT[:n_src])
-        items = [_host(pool.orbit_rays(0, int(v)))
-                 for v in rng.permutation(mix["orbit_views"])]
-        w, h = pool.wh
-        return {"kind": kind, "items": items, "src": _host(src),
-                "rays_per_item": w * h, "steps_per_item": 1}
+    w, h = pool.wh
+    out = {"kind": ROLE[kind], "setup": None, "steps_per_item": 1}
+    if kind in ("view", "image"):
+        if kind == "view":
+            out["setup"] = _host(pool.source_stack(0,
+                                                   SRC_VIEWS_ORBIT[:n_src]))
+        items = []
+        for v in rng.permutation(mix["orbit_views"]):
+            rays = pool.orbit_rays(0, int(v))
+            if kind == "image":
+                rays["radii"] = pool.radii(w * h)
+            items.append(_host(rays))
+        return dict(out, items=items, rays_per_item=w * h)
     items: List[Dict[str, torch.Tensor]] = []
+    if kind == "rays":
+        n_views = pool.poses[0].shape[0]
+        for _ in range(mix["items_in_pool"]):
+            rays = pool.dest_rays(0, rng.integers(0, n_views, rays_per_step),
+                                  rng.integers(0, w, rays_per_step),
+                                  rng.integers(0, h, rays_per_step))
+            rays["radii"] = pool.radii(rays_per_step)
+            items.append(_host(rays))
+        return dict(out, items=items, rays_per_item=rays_per_step)
     for _ in range(mix["items_in_pool"]):
         if kind == "step":
             scene = int(rng.integers(n_scenes))
@@ -249,8 +287,6 @@ def make_items(mix: Dict, seed: int, device, n_src: int, steps: int = 1,
             items.append(_host(dict(src, **{k: v[0]
                                             for k, v in rays.items()})))
             continue
-        if kind != "stage":
-            raise ValueError(f"traffic kind {kind!r}: stage, step or view")
         s = scenes_per_item
         if rays_per_step % s or s > n_scenes:
             raise ValueError(f"{rays_per_step} rays over {s} scenes of "
@@ -267,8 +303,8 @@ def make_items(mix: Dict, seed: int, device, n_src: int, steps: int = 1,
             rays = {k: torch.stack([d[1][k] for d in drawn], 1)
                     for k in drawn[0][1]}
         items.append(_host(dict(src, **rays)))
-    return {"kind": kind, "items": items, "rays_per_item":
-            steps * rays_per_step, "steps_per_item": steps}
+    return dict(out, items=items, rays_per_item=steps * rays_per_step,
+                steps_per_item=steps)
 
 
 def to_device(item: Dict[str, torch.Tensor], device) -> Dict:

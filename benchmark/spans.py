@@ -1,5 +1,7 @@
-"""The program's own spans (`neo360_tpu_torch/train/profiling.py`), read
-for the per-layer metrics of source `program_span`.
+"""The program's own spans (`neo360_tpu_torch/train/profiling.py`, the
+recorder every architecture of the port shares), read for the per-layer
+metrics of source `program_span`. The recorder is the module the program
+has loaded (`sys.modules`); nothing of the program is imported here.
 
 The window's items are the last `ctx["items"]` item spans of the cell's
 kind (a training step, a stage or a view) before the profiled one, which
@@ -10,7 +12,8 @@ window's items. Where only some spans of a name took device markers (one
 tile in sixteen of a view), the recorder scales their sum to all of them;
 `timed` counts the marked ones. The first read of a run logs the window's
 span table to standard error as `[spans]` lines. A program without the
-recorder, or without device markers (the CPU), gives None.
+recorder (or not loaded), or without device markers (the CPU), gives
+None.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import statistics
 import sys
 from typing import Dict, List, Optional
 
+RECORDER = "neo360_tpu_torch.train.profiling"
 KIND = {"step": "train.step", "stage": "train.stage", "view": "render.view"}
 FIELDS = ("count", "host_ms", "self_host_ms", "device_ms", "self_device_ms",
           "timed")
@@ -36,10 +40,7 @@ def _window(ctx: Dict) -> List[Dict]:
     """The window's items, read once a run (kept in ctx) and logged."""
     if "span_window" not in ctx:
         ctx["span_window"] = []
-        try:
-            from neo360_tpu_torch.train import profiling
-        except ImportError:
-            return []
+        profiling = sys.modules.get(RECORDER)
         if hasattr(profiling, "items"):
             ctx["span_window"] = window_items(profiling.items(), ctx)
             _log(ctx)

@@ -1,24 +1,22 @@
-"""Tiny sizes for the benchmark's CPU tests: the cells' configurations
-cut to widths and grids the CPU runs in seconds (float32: the CPU's bf16
-convolutions are not deterministic at some shapes), seeded weights by the
-port's parameter names, and scenes from the benchmark's own generator;
-and a registry that adds the port's production preset, whose stage
-trainer and proposal sampler the harness drives but no cell of
-BENCHMARK.json does yet."""
+"""For the benchmark's CPU tests: a registry that adds the port's
+production preset, whose stage trainer and proposal sampler the harness
+drives but no cell of BENCHMARK.json does yet, and the cells' tiny sizes,
+which each architecture's adapter gives (`tiny`, `tiny_sizes`)."""
 
 import json
 import shutil
 
 import torch
 
-from benchmark import scenes, weights
+from benchmark import scenes
 from benchmark.registry import ROOT, Registry
 
 STAGE_CELL = "neo360_fast.train_stage"
 # the port's production preset (config.py's neo360_fast) and the stage
 # trainer's feed: not a cell, since its widths are the port's own
 PRODUCTION = {
-    "name": "neo360_fast", "exp_type": "neo360_fast",
+    "name": "neo360_fast", "architecture": "neo360",
+    "exp_type": "neo360_fast",
     "precision": "bfloat16", "tf32": None, "peak_flops": 989e12,
     "num_src_views": 3, "encoder": "resnet34_layer3",
     "encoder_channels": 512, "encoder_width": 512, "lift_dim": 128,
@@ -59,49 +57,53 @@ def with_production(tmp_path) -> Registry:
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
     return Registry(root=tmp_path, here=here)
 
-TINY = {"grid_size": [8, 8, 4], "encoder_width": 64, "pillar_width": 64,
-        "num_prop_samples": 8, "num_coarse_samples": 8,
-        "num_fine_samples": 6, "ray_batch_size": 16, "plane_hw": [30, 40],
-        "precision": "float32", "img_wh": [40, 30]}
+def adapter(reg: Registry, cell: str):
+    """The adapter of the cell's configuration's architecture."""
+    return reg.architecture(reg.config(reg.workload(cell)["config"]))
 
 
 def tiny_over(cell: str) -> dict:
-    over = dict(TINY)
-    if cell == STAGE_CELL:
-        over["lift_dim"] = 32
-    return over
+    """The configuration keys the cell's CPU tests replace (its adapter's
+    `tiny_sizes`); the production preset's stage cell included."""
+    reg = Registry()
+    config = PRODUCTION if cell == STAGE_CELL else reg.config(
+        reg.workload(cell)["config"])
+    return reg.architecture(config).tiny_sizes(config)
 
 
-def tiny_weights(cfg: dict, seed: int = 5) -> dict:
-    """Seeded weights of a port NeRFTP built at `cfg`'s sizes."""
-    from neo360_tpu_torch.models.neo360 import NeRFTP
-    from neo360_tpu_torch.nn.triplane import GridEncoder
-    saved = GridEncoder.plane_hw
-    GridEncoder.plane_hw = tuple(cfg["plane_hw"])
-    try:
-        model = NeRFTP(num_src_views=cfg["num_src_views"],
-                       grid_size=tuple(cfg["grid_size"]),
-                       encoder_width=cfg["encoder_width"],
-                       lift_dim=cfg["lift_dim"],
-                       pillar_width=cfg["pillar_width"],
-                       plane_dim=cfg["plane_dim"],
-                       local_proj_dim=cfg["local_proj_dim"],
-                       use_proposal=cfg["use_proposal"],
-                       num_prop_samples=cfg["num_prop_samples"],
-                       num_coarse_samples=cfg["num_coarse_samples"],
-                       num_fine_samples=cfg["num_fine_samples"])
-    finally:
-        GridEncoder.plane_hw = saved
-    shapes = {k: tuple(v.shape) for k, v in model.named_parameters()}
-    return weights.make(shapes, seed, "cpu")
+# faults planted in the timed path once set-up has built it (run.run_cell's
+# `fault`), through the adapter interface alone
+def unchanged(prog):
+    """A step that returns its state unchanged: every parameter put back
+    after each item."""
+    inner = prog.runner
+
+    def run(item):
+        live = prog.params()
+        saved = {k: v.clone() for k, v in live.items()}
+        out = inner(item)
+        with torch.no_grad():
+            for k, v in live.items():
+                v.copy_(saved[k])
+        return out
+    prog.runner = run
 
 
-def tiny_scene(nv: int, w: int, h: int, n_rays: int, seed: int = 3):
-    pool = scenes.ScenePool(seed, 1, 12, (w, h), 8.0, "cpu")
-    gen = torch.Generator().manual_seed(seed)
-    view = torch.randint(nv, 12, (n_rays,), generator=gen).numpy()
-    xs = torch.randint(0, w, (n_rays,), generator=gen).numpy()
-    ys = torch.randint(0, h, (n_rays,), generator=gen).numpy()
-    rays = pool.dest_rays(0, view, xs, ys)
-    return pool.source_stack(0, range(nv)), {k: rays[k]
-                                            for k in scenes.RAY_KEYS}
+def half_batch(prog):
+    """Half of every ray batch left out; the loss is the mean over the
+    rest."""
+    inner = prog.runner
+    keys = scenes.RAY_KEYS + ("target", "radii")
+
+    def halved(item):
+        n = item["rays_o"].shape[-2]
+        return inner({k: v[..., :n // 2, :] if k in keys else v
+                      for k, v in item.items()})
+    prog.runner = halved
+
+
+def altered(prog):
+    """Every view's answer (its colours and depths) altered by 0.05 where
+    the renderer produces it."""
+    inner = prog.runner
+    prog.runner = lambda rays: {k: v + 0.05 for k, v in inner(rays).items()}

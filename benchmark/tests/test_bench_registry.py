@@ -1,5 +1,7 @@
 """BENCHMARK.json and the files it names: every cell, configuration,
-traffic mix, per-layer metric and limit resolves to its file by name; a
+architecture adapter, traffic mix, per-layer metric and limit resolves to
+its file by name; every configuration's adapter offers the interface and
+counts the work of each of its cells at the sizes it gives (`tiny`); a
 file dropped into a copy of the folder is found with no existing file
 edited; the entries keep the contract's shape."""
 
@@ -8,8 +10,10 @@ import re
 import shutil
 
 import pytest
+import torch
 
 from benchmark.registry import ROOT, Registry
+from benchmark.tests.support import adapter
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -45,6 +49,46 @@ def test_every_cell_resolves(cell):
                 assert hasattr(reg.reader(m["name"]), "read")
     names = [m["name"] for m in reg.metrics(cell, False)]
     assert "setup_s" in names and len(names) >= 2
+
+
+INTERFACE = ("Program", "kernel_library", "make_items", "reference_train",
+             "reference_render", "work", "item_flops", "FAMILIES", "FAULTS",
+             "tiny", "tiny_sizes")
+
+
+@pytest.mark.parametrize("config", [c["name"] for c in BENCH["configs"]])
+def test_every_configuration_resolves_to_an_adapter(config):
+    reg = Registry()
+    cfg = reg.config(config)
+    arch = reg.architecture(cfg)
+    name = cfg.get("architecture", cfg["exp_type"])
+    assert (ROOT / "benchmark" / "architectures" / f"{name}.py").exists()
+    assert reg.architecture(dict(cfg)) is arch      # loaded once
+    for attr in INTERFACE:
+        assert hasattr(arch, attr), (config, attr)
+    assert arch.FAMILIES and len(set(arch.FAMILIES)) == len(arch.FAMILIES)
+    for fam in reg.families(arch.FAMILIES).values():
+        assert fam.KERNELS and callable(fam.least_bytes)
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
+def test_every_cell_counts_its_work_at_its_adapters_tiny_sizes(cell):
+    """The program built at the adapter's tiny sizes; the work of one item
+    of the cell's mix: its FLOPs and each family's least bytes."""
+    reg = Registry()
+    arch = adapter(reg, cell)
+    w = reg.workload(cell)
+    config = reg.config(w["config"])
+    mix = reg.traffic(w["traffic"])
+    with arch.tiny(config) as over:
+        config = dict(config, **over)
+        mix["img_wh"] = over.get("img_wh", mix["img_wh"])
+        prog = arch.Program(config, 1, torch.device("cpu"), 1)
+        wk = arch.work(config, mix, prog.cfg)
+        prog.free()
+    assert arch.item_flops(wk) > 0
+    for fam in reg.families(arch.FAMILIES).values():
+        assert fam.least_bytes(wk) >= 0
 
 
 def test_configs_and_metrics_keep_the_contract():
@@ -105,7 +149,7 @@ def test_a_new_file_is_found_without_editing_any(tmp_path):
     assert [m["name"] for m in reg.metrics(cell, True)][-1] == \
         "encode_ms.train"
     assert reg.reader("encode_ms.train").read({}) == 1.5
-    assert "new_family" in reg.families()
+    assert list(reg.families(["new_family"])) == ["new_family"]
     assert reg.limits(cell) == {"loss_gap": 0.1}
     for p, data in before.items():
         assert p.read_bytes() == data, p

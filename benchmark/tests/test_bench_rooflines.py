@@ -1,15 +1,52 @@
-"""The FLOP counter and each roofline family against counts made by hand
-at one small shape, and the FLOP counter against torch's own count of the
-reference's dense layers and convolutions at a tiny size."""
+"""NeO-360's FLOP counter and roofline families (its adapter's `Work`,
+`item_flops` and `FAMILIES`) against counts made by hand at one small
+shape, and the FLOP counter against torch's own count of the reference's
+dense layers and convolutions at a tiny size."""
 
 import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from benchmark import flops, work
+from benchmark import scenes, weights
 from benchmark.reference import model as ref
 from benchmark.registry import Registry
-from benchmark.tests.support import tiny_scene, tiny_weights
+
+NEO = Registry().architecture(Registry().config("neo360"))
+
+
+def tiny_weights(cfg: dict, seed: int = 5) -> dict:
+    """Seeded weights of a port NeRFTP built at `cfg`'s sizes."""
+    from neo360_tpu_torch.models.neo360 import NeRFTP
+    from neo360_tpu_torch.nn.triplane import GridEncoder
+    saved = GridEncoder.plane_hw
+    GridEncoder.plane_hw = tuple(cfg["plane_hw"])
+    try:
+        model = NeRFTP(num_src_views=cfg["num_src_views"],
+                       grid_size=tuple(cfg["grid_size"]),
+                       encoder_width=cfg["encoder_width"],
+                       lift_dim=cfg["lift_dim"],
+                       pillar_width=cfg["pillar_width"],
+                       plane_dim=cfg["plane_dim"],
+                       local_proj_dim=cfg["local_proj_dim"],
+                       use_proposal=cfg["use_proposal"],
+                       num_prop_samples=cfg["num_prop_samples"],
+                       num_coarse_samples=cfg["num_coarse_samples"],
+                       num_fine_samples=cfg["num_fine_samples"])
+    finally:
+        GridEncoder.plane_hw = saved
+    shapes = {k: tuple(v.shape) for k, v in model.named_parameters()}
+    return weights.make(shapes, seed, "cpu")
+
+
+def tiny_scene(nv: int, w: int, h: int, n_rays: int, seed: int = 3):
+    pool = scenes.ScenePool(seed, 1, 12, (w, h), 8.0, "cpu")
+    gen = torch.Generator().manual_seed(seed)
+    view = torch.randint(nv, 12, (n_rays,), generator=gen).numpy()
+    xs = torch.randint(0, w, (n_rays,), generator=gen).numpy()
+    ys = torch.randint(0, h, (n_rays,), generator=gen).numpy()
+    rays = pool.dest_rays(0, view, xs, ys)
+    return pool.source_stack(0, range(nv)), {k: rays[k]
+                                            for k in scenes.RAY_KEYS}
 
 
 def small_work(**kw):
@@ -20,7 +57,7 @@ def small_work(**kw):
                 encodes=1, batches=[(2, [(3, 5, 5, False), (3, 4, 4, True)])],
                 train=True, dense_tables=True)
     base.update(kw)
-    return work.Work(**base)
+    return NEO.Work(**base)
 
 
 # least bytes at small_work(), counted by hand (see each family's doc):
@@ -47,17 +84,17 @@ HAND = {
 
 
 def test_every_family_is_readable():
-    """The families counted by hand here are there; any family file (a
-    later one too) names its kernels and counts bytes at any shape."""
-    fams = Registry().families()
-    assert set(HAND) <= set(fams)
+    """The families counted by hand here are NeO-360's; each names its
+    kernels and counts bytes at any shape."""
+    fams = Registry().families(NEO.FAMILIES)
+    assert set(HAND) == set(fams)
     for fam in fams.values():
         assert fam.KERNELS and fam.least_bytes(small_work()) >= 0
 
 
 @pytest.mark.parametrize("family", sorted(HAND))
 def test_family_least_bytes_by_hand(family):
-    fam = Registry().families()[family]
+    fam = Registry().families([family])[family]
     assert fam.least_bytes(small_work()) == HAND[family]
     assert fam.KERNELS
     if family.endswith("transpose"):
@@ -72,9 +109,9 @@ def test_conditioned_mlp_macs_by_hand():
     # 64 x 64 and rgb 64 x 3
     per_view = 71 * 128 + 2 * 128 * 128 + 199 * 128 + 128 * 128 + 155 * 64
     per_point = 128 + 64 * 64 + 64 * 3
-    assert flops.mlp_macs(w, 3, 4, 3, True) == 2 * 3 * 4 * per_view \
+    assert NEO.mlp_macs(w, 3, 4, 3, True) == 2 * 3 * 4 * per_view \
         + 3 * 4 * per_point
-    assert flops.mlp_macs(w, 3, 5, 4, False) == 3 * 5 * (
+    assert NEO.mlp_macs(w, 3, 5, 4, False) == 3 * 5 * (
         84 * 128 + 3 * 128 * 128 + 128)
 
 
@@ -84,12 +121,12 @@ def test_resnet34_macs_by_hand_at_8x8():
     layer2 = 128 * 64 * 9 + 128 * 128 * 9 + 128 * 64 + 6 * 128 * 128 * 9
     layer3 = 256 * 128 * 9 + 256 * 256 * 9 + 256 * 128 \
         + 10 * 256 * 256 * 9
-    assert flops.resnet34_macs(8, 8) == conv1 + layer1 + layer2 + layer3
+    assert NEO.resnet34_macs(8, 8) == conv1 + layer1 + layer2 + layer3
 
 
 @pytest.mark.parametrize("proposal", [True, False])
 def test_item_flops_match_torch_count_of_the_reference(proposal):
-    """A render item (forward only) at a tiny size: flops.item_flops
+    """A render item (forward only) at a tiny size: the adapter's item_flops
     against FlopCounterMode's count of the reference's convolutions and
     matrix products, over the encode and one batch of 256 rays (a dense
     layer on a permuted map runs as bmm; the few small einsums of the
@@ -104,7 +141,7 @@ def test_item_flops_match_torch_count_of_the_reference(proposal):
     arch = ref.Arch.from_config(cfg)
     wts = tiny_weights(cfg)
     src, rays = tiny_scene(2, 16, 16, 256)
-    wk = work.of(cfg, "view", (16, 16), 1, 1, 256, 256)
+    wk = NEO.of(cfg, "view", (16, 16), 1, 1, 256, 256)
     wk.encodes = 1
     counter = FlopCounterMode(display=False)
     with counter, torch.no_grad():
@@ -114,4 +151,4 @@ def test_item_flops_match_torch_count_of_the_reference(proposal):
     counted = sum(v for k, v in ops.items()
                   if str(k).split(".")[1] in ("convolution", "mm", "addmm",
                                               "bmm"))
-    assert counted == pytest.approx(flops.item_flops(wk), rel=1e-3)
+    assert counted == pytest.approx(NEO.item_flops(wk), rel=1e-3)
