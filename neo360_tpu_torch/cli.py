@@ -91,6 +91,7 @@ from neo360_tpu_torch.data.nerds360 import FAR as SCENE_FAR
 from neo360_tpu_torch.data.nerds360 import NEAR as SCENE_NEAR
 from neo360_tpu_torch.parallel import sharding
 from neo360_tpu_torch.train.loop import TrainState
+from neo360_tpu_torch.train.profiling import span
 
 SRC_KEYS = ("src_imgs", "src_poses", "src_focal", "src_c")
 RAY_KEYS = ("rays_o", "rays_d", "viewdirs")
@@ -562,7 +563,8 @@ def make_loss_fn(cfg: Config, model, randomized: bool = True,
     mipnerf360 (neo360_tpu/cli.py:221-238): loss_fn(batch, generator,
     step), sqrt(mse + 1e-6) + interlevel + 0.01 distortion on the NeRF
     level's MSE, the proposal logits annealed by train_frac = clip(step /
-    1e6, 0, 1) of the step count before the step.
+    1e6, 0, 1) of the step count before the step; the interlevel and
+    distortion terms are the span `model.regularizers`.
 
     `group`: the data-parallel ranks that split the batch's rows. The
     terms that are not means over rays see the whole batch: MipNeRF-360's
@@ -588,8 +590,10 @@ def make_loss_fn(cfg: Config, model, randomized: bool = True,
             mse = img2mse(rend[-1]["rgb"], batch["target"])
             if group is not None:
                 mse = sharding.all_reduce_mean(mse, group)
-            loss = (torch.sqrt(mse + 1e-6) + interlevel_loss(hist)
-                    + 0.01 * distortion_loss(hist))
+            with span("model.regularizers"):
+                interlevel = interlevel_loss(hist)
+                distortion = 0.01 * distortion_loss(hist)
+            loss = torch.sqrt(mse + 1e-6) + interlevel + distortion
             mse = mse.detach()
             return loss, {"mse": mse, "psnr": mse2psnr(mse),
                           "loss": loss.detach()}

@@ -20,6 +20,12 @@ variances are clamped at 0 before the IPE (a variance a rounding below 0,
 scaled by 4^11, would overflow exp); the proposal levels render zero rgb.
 Randomized sampling draws one jitter per ray and level
 (core/sampling.py:_uniform, from a `torch.Generator`).
+
+Spans (train/profiling.py), per level: `model.sample` (the dilation, the
+resampling logits, `sample_intervals`, `s_to_t` and the cone Gaussians),
+`model.ipe` (the contraction with its Jacobian, the lift onto the basis,
+the clamp and the IPE), `model.mlp` (the trunk and the heads) and
+`model.composite` (kernel E). Outside an item they record nothing.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from neo360_tpu_torch.core import encoding, mip
 from neo360_tpu_torch.core.render import composite_mip
 from neo360_tpu_torch.nn.layers import Dense
 from neo360_tpu_torch.ops import losses
+from neo360_tpu_torch.train.profiling import span
 
 RAY_KEYS = ("rays_o", "rays_d", "viewdirs", "radii")
 
@@ -83,7 +90,7 @@ class MipNeRF360MLP(nn.Module):
                 viewdirs: torch.Tensor) -> Dict[str, torch.Tensor]:
         """means (B,S,3), covs (B,S,3,3), viewdirs (B,3) -> density (B,S)
         and rgb (B,S,3), float32."""
-        with torch.no_grad():
+        with span("model.ipe"), torch.no_grad():
             means, covs = encoding.track_linearize(means, covs)
             lifted_means, lifted_vars = encoding.lift_and_diagonalize(
                 means, covs, self.pos_basis)
@@ -91,24 +98,25 @@ class MipNeRF360MLP(nn.Module):
             x = encoding.integrated_pos_enc(lifted_means, lifted_vars,
                                             self.min_deg_point,
                                             self.max_deg_point)
-        inputs = x
-        for idx in range(self.netdepth):
-            x = F.relu(getattr(self, f"pts_{idx}")(x))
-            if self._skip(idx):
-                x = torch.cat([x, inputs.to(x.dtype)], dim=-1)
-        raw_density = self.density(x)[..., 0].float()
-        density = F.softplus(raw_density + self.density_bias)
-        if self.disable_rgb:
-            return {"density": density, "rgb": torch.zeros_like(means)}
-        bottleneck = self.bottleneck(x)
-        dir_enc = encoding.pos_enc(viewdirs, 0, self.deg_view)
-        dir_enc = dir_enc[..., None, :].expand(
-            bottleneck.shape[:-1] + (dir_enc.shape[-1],))
-        x = torch.cat([bottleneck, dir_enc.to(bottleneck.dtype)], dim=-1)
-        x = F.relu(self.views_0(x))
-        rgb = torch.sigmoid(self.rgb(x).float())
-        rgb = rgb * (1.0 + 2.0 * self.rgb_padding) - self.rgb_padding
-        return {"density": density, "rgb": rgb}
+        with span("model.mlp"):
+            inputs = x
+            for idx in range(self.netdepth):
+                x = F.relu(getattr(self, f"pts_{idx}")(x))
+                if self._skip(idx):
+                    x = torch.cat([x, inputs.to(x.dtype)], dim=-1)
+            raw_density = self.density(x)[..., 0].float()
+            density = F.softplus(raw_density + self.density_bias)
+            if self.disable_rgb:
+                return {"density": density, "rgb": torch.zeros_like(means)}
+            bottleneck = self.bottleneck(x)
+            dir_enc = encoding.pos_enc(viewdirs, 0, self.deg_view)
+            dir_enc = dir_enc[..., None, :].expand(
+                bottleneck.shape[:-1] + (dir_enc.shape[-1],))
+            x = torch.cat([bottleneck, dir_enc.to(bottleneck.dtype)], dim=-1)
+            x = F.relu(self.views_0(x))
+            rgb = torch.sigmoid(self.rgb(x).float())
+            rgb = rgb * (1.0 + 2.0 * self.rgb_padding) - self.rgb_padding
+            return {"density": density, "rgb": rgb}
 
 
 class MipNeRF360(nn.Module):
@@ -174,7 +182,7 @@ class MipNeRF360(nn.Module):
             dilation = (self.dilation_bias + self.dilation_multiplier
                         * (init_s_far - init_s_near) / prod_num_samples)
             prod_num_samples *= num_samples
-            with torch.no_grad():
+            with span("model.sample"), torch.no_grad():
                 sdist, weights = sdist.detach(), weights.detach()
                 if i_level > 0:
                     sdist, weights = mip.max_dilate_weights(
@@ -192,9 +200,10 @@ class MipNeRF360(nn.Module):
                     tdist, rays["rays_o"], rays["rays_d"], rays["radii"],
                     "cone", diag=False)
             out = mlp(means, covs, rays["viewdirs"])
-            weights, rgb, acc, depth = composite_mip(
-                out["density"], tdist, rays["rays_d"], out["rgb"],
-                self.bg_intensity, self.opaque_background)
+            with span("model.composite"):
+                weights, rgb, acc, depth = composite_mip(
+                    out["density"], tdist, rays["rays_d"], out["rgb"],
+                    self.bg_intensity, self.opaque_background)
             history.append(dict(out, sdist=sdist, weights=weights))
             renderings.append({"rgb": rgb, "acc": acc, "depth": depth})
         return renderings, history

@@ -18,10 +18,16 @@ On the CPU:
 - `run.run_cell` with `--trace 1` on the tiny cells (and the production
   preset's stage cell, which opens no item): every phase's spans
   recorded, the six metrics absent (no device markers on the CPU),
-  nothing raised.
+  nothing raised;
+- a MipNeRF-360 step (its cell at its adapter's tiny sizes): each level's
+  `model.sample`, `.ipe`, `.mlp` and `.composite`, and
+  `model.regularizers` once, all inside `train.loss`; the readers of
+  `sample_device_ms.train` and `ipe_device_ms.train` on a synthetic
+  record.
 On the card (`cuda`): the same runs give the six metrics; with every
 tile marked, each item's spans tile its device timeline; by default one
-tile in `loop.MARKED_TILES` is timed.
+tile in `loop.MARKED_TILES` is timed; a MipNeRF-360 step launches E and
+E' three times each and gives the two new metrics.
 """
 
 import threading
@@ -474,3 +480,100 @@ def test_one_tile_in_marked_tiles_is_timed_on_the_card(monkeypatch,
         assert table["render.view"]["timed"] == 1
         assert table["render.view"]["self_device_ms"] is None
         assert all(row["device_ms"] >= 0 for row in table.values())
+
+
+# ------------------------------------------------------------ MipNeRF-360
+MIP_CELL = "mipnerf360.train_step"
+MIP_SPANS = ("model.sample", "model.ipe", "model.mlp", "model.composite")
+MIP_METRICS = {"sample_device_ms.train": "model.sample",
+               "ipe_device_ms.train": "model.ipe"}
+
+
+def _run_mip(monkeypatch, device):
+    from benchmark.registry import Registry
+    from benchmark.tests.support import adapter
+    monkeypatch.setattr(run, "forbidden_modules", lambda: [])
+    reg = Registry()
+    config = reg.config(reg.workload(MIP_CELL)["config"])
+    profiling.clear()
+    with adapter(reg, MIP_CELL).tiny(config) as over:
+        res = run.run_cell(reg, MIP_CELL, 3_000_000_019, 0.3, True, device,
+                           over)
+    return reg, res
+
+
+def test_a_mip_step_records_its_model_spans_inside_the_loss(monkeypatch,
+                                                            capsys):
+    """Per step: sample, ipe, mlp and composite once a level (3 levels),
+    the regularizers once, all of them children of `train.loss`; the two
+    new metrics are listed for the cell and read nothing on the CPU."""
+    reg, res = _run_mip(monkeypatch, torch.device("cpu"))
+    assert set(MIP_METRICS) <= {m["name"] for m in reg.metrics(MIP_CELL,
+                                                               True)}
+    assert not set(MIP_METRICS) & set(res["metrics"])
+    got = profiling.items()
+    assert all(it["name"] == "train.step" for it in got)
+    assert len(got) >= res["attempted"] + 1
+    for it in got:
+        table = it["spans"]
+        for p in MIP_SPANS:
+            assert table[p]["count"] == 3, p
+        assert table["model.regularizers"]["count"] == 1
+        for p in ("train.loss", "train.backward", "train.update"):
+            assert table[p]["count"] == 1, p
+        loss = table["train.loss"]
+        children = sum(table[p]["host_ms"] for p in
+                       ("model.sample", "model.composite",
+                        "model.regularizers", "model.ipe", "model.mlp"))
+        assert loss["host_ms"] - loss["self_host_ms"] == \
+            pytest.approx(children, rel=1e-9, abs=1e-9)
+        assert table["train.backward"]["self_host_ms"] == \
+            table["train.backward"]["host_ms"]
+    err = capsys.readouterr().err
+    for p in MIP_SPANS + ("model.regularizers",):
+        assert f"[spans] {p} " in err, p
+
+
+def test_the_mip_readers_read_their_spans_per_step(monkeypatch):
+    """sample_device_ms.train and ipe_device_ms.train through
+    benchmark.spans: the median over the window's steps of their spans'
+    device ms; nothing in a view."""
+    from benchmark.registry import Registry
+    reg = Registry()
+    records = [_item("train.step", [("model.sample", 100.0 + i),
+                                    ("model.ipe", 200.0 - i)], i)
+               for i in range(5)]
+    monkeypatch.setattr(profiling, "items", lambda: records)
+    ctx = {"kind": "step", "items": 4, "trace": {"busy_s": 1.0},
+           "steps_per_item": 1, "window_s": 0.4}
+    # the window: steps 0-3 (step 4 is the profiled one); device ms 2 x
+    assert reg.reader("sample_device_ms.train").read(ctx) == \
+        pytest.approx(2 * 101.5)
+    assert reg.reader("ipe_device_ms.train").read(ctx) == \
+        pytest.approx(2 * 198.5)
+    view = {"kind": "view", "items": 4, "trace": None, "steps_per_item": 1,
+            "window_s": 0.4}
+    for name in MIP_METRICS:
+        assert reg.reader(name).read(view) is None
+
+
+@pytest.mark.cuda
+def test_a_mip_step_on_the_card_launches_e_and_e_prime_three_times(
+        monkeypatch):
+    """Every level composites with kernel E and its transpose E': 3 + 3
+    launches a step; the two new metrics read every window step's
+    spans."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from neo360_tpu_torch.core.render import composite_mip, \
+        composite_mip_backward
+    before = (composite_mip.launches, composite_mip_backward.launches)
+    _, res = _run_mip(monkeypatch, torch.device("cuda"))
+    steps = 3 + res["attempted"] + 1        # warm-up, window, profiled
+    assert composite_mip.launches - before[0] == 3 * steps
+    assert composite_mip_backward.launches - before[1] == 3 * steps
+    for name in MIP_METRICS:
+        assert res["metrics"][name]["value"] > 0, name
+    for it in profiling.items():
+        for p in MIP_SPANS:
+            assert it["spans"][p]["timed"] == 3, p
