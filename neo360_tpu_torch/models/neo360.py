@@ -55,7 +55,29 @@ from neo360_tpu_torch.train.profiling import span
 
 class NeRFTPMLP(nn.Module):
     """Conditioned trunk with mid-network view fusion
-    (neo360_tpu/models/neo360.py:47-100)."""
+    (neo360_tpu/models/neo360.py:47-100).
+
+    The function is the JAX module's: inputs = [pos_enc | local | world];
+    a ReLU trunk whose layer after each skip takes [h | inputs]; at
+    `combine_layer` a bottleneck, then the mean over views of the trunk;
+    the density head; views_0 on [bottleneck | viewdirs_enc], the mean
+    over views, then the view branch and the rgb head. Every Dense whose
+    input is a concatenation is applied block by block instead, each
+    block where it costs least, so no skip or view-direction
+    concatenation is built:
+    - the input block of each Dense after a skip, [W_h | W_in], joins
+      pts_0 in one GEMM over the inputs ([W0; W_in], [b0; b]); the Dense
+      later adds h W_hᵀ into its block as the GEMM's accumulator;
+    - the bottleneck runs on the view mean of the trunk (B·S rows, not
+      NV·B·S): a Dense is affine, so the mean of its outputs is its
+      output at the mean;
+    - views_0 = [W_b | W_c] is split the same way: the view-direction
+      block is mean_v(viewdirs_enc W_cᵀ) + b once per ray (B, Wc), added
+      over the samples to bottleneck W_bᵀ, which replaces the mean after
+      views_0 as the mean is linear.
+    Only the order of the sums differs from the concatenating form.
+    Parameters keep their names and shapes; the weights are sliced at
+    every call, so one path serves inference and training."""
 
     def __init__(self, in_features: int, viewdir_features: int,
                  netdepth: int = 4, netwidth: int = 128,
@@ -87,31 +109,55 @@ class NeRFTPMLP(nn.Module):
         return (idx % self.skip_layer == 0 and idx > 0
                 and idx != self.combine_layer)
 
+    def _next(self, idx: int) -> Dense:
+        """The Dense that takes layer idx's output."""
+        if idx + 1 < self.netdepth:
+            return getattr(self, f"pts_{idx + 1}")
+        return self.density
+
     def forward(self, x, viewdirs_enc, world_latent, local_latent,
                 num_views: int):
         """x (NV*B, S, Dp); viewdirs_enc (NV*B, Dv); latents (NV*B, S, .)
-        -> (raw_rgb, raw_density) (B, S, 3|1) f32."""
-        x = torch.cat([x, local_latent, world_latent], dim=-1)
-        inputs = x
-        bottleneck = None
-        for idx in range(self.netdepth):
-            x = F.relu(getattr(self, f"pts_{idx}")(x))
-            if idx == self.combine_layer:
-                bottleneck = self.bottleneck(x)
-                x = combine_interleaved(x, num_views)
-            if self._skip(idx):
-                x = torch.cat([x, inputs.to(x.dtype)], dim=-1)
-        raw_density = self.density(x)
+        -> (raw_rgb, raw_density) (B, S, 3|1) f32. The blocks are applied
+        as the class docstring says, on rows (NV*B*S, .)."""
+        b, s = x.shape[0] // num_views, x.shape[1]
+        dt = self.pts_0.dtype
+        inputs = torch.cat([x, local_latent, world_latent], dim=-1)
+        inputs = inputs.reshape(-1, inputs.shape[-1]).to(dt)
+        d_in = inputs.shape[-1]
+        heads = [self.pts_0] + [self._next(idx) for idx in
+                                range(self.netdepth) if self._skip(idx)]
+        w = torch.cat([heads[0].weight]
+                      + [d.weight[:, -d_in:] for d in heads[1:]])
+        bias = torch.cat([d.bias for d in heads])
+        blocks = iter(F.linear(inputs, w.to(dt), bias.to(dt)).split(
+            [d.weight.shape[0] for d in heads], dim=-1))
 
-        cond = viewdirs_enc[..., None, :].expand(
-            bottleneck.shape[:-1] + (viewdirs_enc.shape[-1],))
-        h = torch.cat([bottleneck, cond.to(bottleneck.dtype)], dim=-1)
-        for idx in range(self.netdepth_condition):
-            h = getattr(self, f"views_{idx}")(h)
-            if idx == 0:
-                h = combine_interleaved(h, num_views)
-            h = F.relu(h)
-        return self.rgb(h).float(), raw_density.float()
+        x = F.relu(next(blocks))
+        for idx in range(self.netdepth):
+            if idx == self.combine_layer:
+                x = combine_interleaved(x, num_views)
+                bottleneck = self.bottleneck(x)
+            dense = self._next(idx)
+            if self._skip(idx):
+                x = torch.addmm(next(blocks), x,
+                                dense.weight[:, :-d_in].to(dt).t())
+            else:
+                x = dense(x)
+            if idx + 1 < self.netdepth:
+                x = F.relu(x)
+        raw_density = x
+
+        views_0 = self.views_0
+        w_b, w_c = views_0.weight.split(
+            [bottleneck.shape[-1], viewdirs_enc.shape[-1]], dim=1)
+        cond = combine_interleaved(F.linear(
+            viewdirs_enc.to(dt), w_c.to(dt), views_0.bias.to(dt)), num_views)
+        h = F.linear(bottleneck, w_b.to(dt)).view(b, s, -1) + cond[:, None]
+        h = F.relu(h)
+        for idx in range(1, self.netdepth_condition):
+            h = F.relu(getattr(self, f"views_{idx}")(h))
+        return self.rgb(h).float(), raw_density.float().view(b, s, -1)
 
 
 class PropMLP(nn.Module):

@@ -14,11 +14,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from neo360_tpu.models.neo360 import NeRFTP as JNeRFTP
 from neo360_tpu.nn.resnet import SpatialEncoder as JSpatialEncoder
 from neo360_tpu_torch import cli, weights
 from neo360_tpu_torch.config import preset
+from neo360_tpu_torch.models.neo360 import NeRFTPMLP
 from neo360_tpu_torch.train.loop import make_image_renderer
 
 torch.set_num_threads(1)
@@ -207,3 +209,115 @@ def test_weights_reject_unused_and_missing(jax_model):
     missing.pop("fg_fine_mlp.rgb.bias")
     with pytest.raises(KeyError):
         weights.load_into(model, missing)
+
+
+# NeRFTPMLP at the neo360 cells' widths: netwidth 128, condition width 64,
+# fg inputs 63 + 128 + 128 = 319 and bg 84 + 128 + 128 = 340 wide
+MLP_ROWS = dict(b=4, s=5)
+
+
+def _concat_forward(mlp, x, viewdirs_enc, world_latent, local_latent,
+                    num_views):
+    """NeRFTPMLP's function in its concatenating form: every Dense on the
+    concatenation of its inputs, the bottleneck and views_0 on every
+    view's rows, then the mean over views."""
+    mean = lambda t: t.reshape((num_views, -1) + t.shape[1:]).mean(0)
+    x = torch.cat([x, local_latent, world_latent], dim=-1)
+    inputs = x
+    for idx in range(mlp.netdepth):
+        x = F.relu(getattr(mlp, f"pts_{idx}")(x))
+        if idx == mlp.combine_layer:
+            bottleneck = mlp.bottleneck(x)
+            x = mean(x)
+        if mlp._skip(idx):
+            x = torch.cat([x, inputs], dim=-1)
+    raw_density = mlp.density(x)
+    cond = viewdirs_enc[..., None, :].expand(
+        bottleneck.shape[:-1] + (viewdirs_enc.shape[-1],))
+    h = torch.cat([bottleneck, cond], dim=-1)
+    for idx in range(mlp.netdepth_condition):
+        h = getattr(mlp, f"views_{idx}")(h)
+        if idx == 0:
+            h = mean(h)
+        h = F.relu(h)
+    return mlp.rgb(h), raw_density
+
+
+def _mlp_case(point_dim, num_views, seed=0):
+    """A NeRFTPMLP with random weights and biases and its inputs, all
+    drawn from one seeded generator."""
+    g = torch.Generator().manual_seed(seed)
+    d_pe = point_dim * 21
+    mlp = NeRFTPMLP(d_pe + 256, 27, generator=g)
+    with torch.no_grad():
+        for p in mlp.parameters():
+            p.copy_(0.2 * torch.randn(p.shape, generator=g))
+    rows = num_views * MLP_ROWS["b"]
+    s = MLP_ROWS["s"]
+    args = (torch.randn(rows, s, d_pe, generator=g),
+            torch.randn(rows, 27, generator=g),
+            torch.randn(rows, s, 128, generator=g),
+            torch.randn(rows, s, 128, generator=g), num_views)
+    return mlp, args
+
+
+@pytest.mark.parametrize("num_views", [1, 3])
+@pytest.mark.parametrize("point_dim", [3, 4], ids=["fg319", "bg340"])
+def test_nerftp_mlp_blocks_match_concatenation(point_dim, num_views):
+    """The block-split forward equals the concatenating one in outputs and
+    in every parameter's gradient of a random scalar loss, to f32
+    reordering (1e-5 relative to each tensor's largest entry)."""
+    mlp, args = _mlp_case(point_dim, num_views)
+    g = torch.Generator().manual_seed(1)
+    weight = [torch.randn(MLP_ROWS["b"], MLP_ROWS["s"], c, generator=g)
+              for c in (3, 1)]
+
+    def run(fn):
+        mlp.zero_grad()
+        outs = fn(*args)
+        sum((o * w).sum() for o, w in zip(outs, weight)).backward()
+        return outs, {n: p.grad.clone() for n, p in mlp.named_parameters()}
+
+    (rgb, density), grads = run(mlp)
+    (ref_rgb, ref_density), ref_grads = run(
+        lambda *a: _concat_forward(mlp, *a))
+    assert rgb.shape == ref_rgb.shape == (MLP_ROWS["b"], MLP_ROWS["s"], 3)
+    assert density.shape == ref_density.shape == (MLP_ROWS["b"],
+                                                  MLP_ROWS["s"], 1)
+    pairs = [("raw_rgb", rgb, ref_rgb), ("raw_density", density, ref_density)]
+    pairs += [(n, grads[n], ref_grads[n]) for n in ref_grads]
+    for name, ours, ref in pairs:
+        scale = ref.abs().max().item()
+        assert scale > 0, name
+        torch.testing.assert_close(ours, ref, rtol=0, atol=1e-5 * scale,
+                                   msg=name)
+
+
+def test_nerftp_mlp_concatenates_only_its_inputs(monkeypatch):
+    """One forward makes exactly one torch.cat over per-sample
+    activations, the input's; the parameters keep the concatenating
+    layout's names and shapes."""
+    mlp, args = _mlp_case(3, 3)
+    rows = args[0].shape[0] * args[0].shape[1]
+    cats = []
+    cat = torch.cat
+
+    def counting_cat(tensors, *a, **kw):
+        out = cat(tensors, *a, **kw)
+        if out.numel() // out.shape[-1] == rows:     # a row per sample
+            cats.append(tuple(out.shape))
+        return out
+
+    monkeypatch.setattr(torch, "cat", counting_cat)
+    mlp(*args)
+    assert cats == [(args[0].shape[0], args[0].shape[1], 319)]
+    shapes = {"pts_0": (128, 319), "pts_1": (128, 128),
+              "pts_2": (128, 128), "pts_3": (128, 447),
+              "bottleneck": (128, 128), "density": (1, 128),
+              "views_0": (64, 155), "views_1": (64, 64), "rgb": (3, 64)}
+    expected = {}
+    for name, shape in shapes.items():
+        expected[f"{name}.weight"] = shape
+        expected[f"{name}.bias"] = shape[:1]
+    assert {k: tuple(v.shape) for k, v in mlp.state_dict().items()} \
+        == expected
