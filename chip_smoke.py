@@ -202,18 +202,24 @@ ZERO_GRAD = re.compile(r"encoder\.(floorplan_(yz|xz|xy)\.conv[0-3]"
 
 
 def counters():
-    """Counter name -> the wrapper that counts its launches: one per
-    kernel of the training and serving paths (KERNELS), and kernel A'
-    under each of its two contracts (dense and accumulate). Phase 14
-    counts HELPER_KERNELS itself: no training or serving path runs them."""
-    from neo360_tpu_torch.train.profiling import kernel_counters
-    return {k: fn for k, fn in kernel_counters().items()
-            if k not in HELPER_KERNELS}
+    """The counters read: the C entries of the training and serving paths
+    (KERNELS; kernel A' has one entry for each of its two contracts,
+    dense and accumulate). Phase 14 counts HELPER_KERNELS itself: no
+    training or serving path runs them."""
+    from neo360_tpu_torch.ops import kernels
+    return tuple(k for k in kernels.launches if k not in HELPER_KERNELS)
 
 
-def _read(fns) -> dict:
-    """Counter name -> launches so far."""
-    return {k: fn.launches for k, fn in fns.items()}
+def _read(names) -> dict:
+    """Counter name -> launches so far (`kernels.launches`)."""
+    from neo360_tpu_torch.ops import kernels
+    return {k: kernels.launches[k] for k in names}
+
+
+def _zero(names) -> None:
+    """Count the `names`' launches from 0 again."""
+    from neo360_tpu_torch.ops import kernels
+    kernels.launches.update(dict.fromkeys(names, 0))
 
 
 def _by_kernel(counts) -> dict:
@@ -1287,8 +1293,7 @@ def phase_train_main_path(torch, keep: str):
                 return metrics
             return timed
 
-        for fn in fns.values():
-            fn.launches = 0
+        _zero(fns)
         torch.cuda.reset_peak_memory_stats()
         neo360.neo360_loss, loop.make_scene_stage_trainer = (recorded_loss,
                                                              timed_factory)
@@ -1627,8 +1632,7 @@ def phase_neo360_main_path(torch):
                 return metrics
             return timed
 
-        for fn in fns.values():
-            fn.launches = 0
+        _zero(fns)
         torch.cuda.reset_peak_memory_stats()
         neo360.neo360_coarse_fine_loss = recorded_loss
         loop.make_staged_trainer = timed_factory
@@ -1703,8 +1707,7 @@ def phase_neo360_main_path(torch):
         torch.cuda.synchronize()
     encode_s = time.perf_counter() - t0
     render_fn = cli.make_render_fn(cfg, model, dev)
-    for fn in fns.values():
-        fn.launches = 0
+    _zero(fns)
     per_view, view_s = [], []
 
     def timed(sample):
@@ -1898,8 +1901,7 @@ def phase_optimize_finetune(torch, warm_path: str):
                     return metrics
                 return timed
 
-            for fn in fns.values():
-                fn.launches = 0
+            _zero(fns)
             loop.make_staged_trainer = timed_factory
             try:
                 state = cli.run_train(cfg, datasets=datasets)
@@ -1982,11 +1984,7 @@ def phase_main_path(torch, cfg, dev="cuda"):
     import numpy as np
 
     from neo360_tpu_torch import cli
-    from neo360_tpu_torch.core.render import composite_nerfpp
     from neo360_tpu_torch.data.fixtures import MemoryScenes
-    from neo360_tpu_torch.ops.interpolate import local_sample, \
-        table_sample, triplane_sample
-    from neo360_tpu_torch.ops.pillar import pillar_collapse
     from neo360_tpu_torch.train.eval import evaluate
 
     print(f"[main] {cfg.exp_type}: img_wh {cfg.img_wh}, bf16 {cfg.bf16}, lift "
@@ -2007,13 +2005,9 @@ def phase_main_path(torch, cfg, dev="cuda"):
         torch.cuda.synchronize()
     print(f"[main] encode {time.perf_counter() - t0:.3f} s")
 
-    counted = {"table_sample_fwd": table_sample,
-               "triplane_sample_fwd": triplane_sample,
-               "local_sample_fwd": local_sample,
-               "composite_nerfpp_fwd": composite_nerfpp,
-               "pillar_collapse_fwd": pillar_collapse}
-    for fn in counted.values():
-        fn.launches = 0
+    counted = ("table_sample_fwd", "triplane_sample_fwd", "local_sample_fwd",
+               "composite_nerfpp_fwd", "pillar_collapse_fwd")
+    _zero(counted)
     render_fn = cli.make_render_fn(cfg, model, dev)
     w, h = cfg.img_wh
 
@@ -2202,8 +2196,7 @@ def phase_vanilla_main_path(torch):
                 return metrics
             return run
 
-        for fn in fns.values():
-            fn.launches = 0
+        _zero(fns)
         torch.cuda.reset_peak_memory_stats()
         loop.make_train_step = counted_step
         try:
@@ -2319,8 +2312,7 @@ def phase_pixelnerf_main_path(torch):
                 return metrics
             return staged
 
-        for fn in fns.values():
-            fn.launches = 0
+        _zero(fns)
         torch.cuda.reset_peak_memory_stats()
         loop.make_staged_trainer = counted_factory
         try:
@@ -2449,8 +2441,7 @@ def phase_mipnerf360_main_path(torch):
                 return metrics
             return run
 
-        for fn in fns.values():
-            fn.launches = 0
+        _zero(fns)
         torch.cuda.reset_peak_memory_stats()
         loop.make_train_step = counted_step
         try:
@@ -2586,8 +2577,7 @@ def _dp_fast(cfg, eval_ckpt=None):
 
     cfg = _rank_dir(cfg)
     fns = counters()
-    for fn in fns.values():
-        fn.launches = 0
+    _zero(fns)
     group = sharding.current()
     out = {"per_stage": [], "seconds": [], "reductions": [],
            "backend": None if group is None else
@@ -3109,8 +3099,7 @@ def phase_helpers(torch, card: str, dev: str = "cuda", **small):
     from neo360_tpu_torch.ops.interpolate import GRID_SAMPLE_TOL, \
         build_corner_table, grid_sample_2d, \
         grid_sample_2d_backward, grid_sample_2d_backward_reference, \
-        grid_sample_2d_reference, table_sample, table_sample_backward, \
-        triplane_sample
+        grid_sample_2d_reference, table_sample
     from neo360_tpu_torch.parallel import sharding
     from neo360_tpu_torch.train import profiling
 
@@ -3125,17 +3114,14 @@ def phase_helpers(torch, card: str, dev: str = "cuda", **small):
         if not ok:
             failures.append(what)
 
-    counted = {"grid_sample_fwd": grid_sample_2d,
-               "grid_sample_bwd": grid_sample_2d_backward,
-               "table_sample_fwd": table_sample,
-               "table_sample_bwd": table_sample_backward}
+    counted = ("grid_sample_fwd", "grid_sample_bwd", "table_sample_fwd",
+               "table_sample_bwd")
     path = {k: 0 for k in HELPER_KERNELS}
 
     def launches(fn) -> dict:
         """Run `fn` with every count from 0, and add its G / G' launches
         to the path's (the {"kernels": ...} line's)."""
-        for f in counted.values():
-            f.launches = 0
+        _zero(counted)
         fn()
         torch.cuda.synchronize()
         counts = _read(counted)
@@ -3422,7 +3408,7 @@ def phase_helpers(torch, card: str, dev: str = "cuda", **small):
 
         tile(0)
         with tempfile.TemporaryDirectory() as log_dir:
-            triplane_sample.launches = 0
+            _zero(("triplane_sample_fwd",))
             with profiling.trace(log_dir):
                 tile(0)
             traces = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
@@ -3433,16 +3419,15 @@ def phase_helpers(torch, card: str, dev: str = "cuda", **small):
                  if e.get("name") == "neo360_fast_render_tile"]
         gathers = [e for e in events if e.get("cat") == "kernel"
                    and "triplane_sample" in e.get("name", "")]
-        seen["render tile"] = {"triplane_sample_fwd":
-                               triplane_sample.launches}
+        seen["render tile"] = _read(("triplane_sample_fwd",))
         check(len(traces) == 1 and spans and gathers
-              and triplane_sample.launches == 1,
+              and seen["render tile"]["triplane_sample_fwd"] == 1,
               f"profiling.trace: {len(traces)} trace file ({size} bytes, "
               f"{len(events)} events): {len(spans)} span, "
               f"{len(gathers)} triplane_sample kernel event "
               f"({gathers[0]['name'][:60] if gathers else '-'}, "
               f"{gathers[0].get('dur') if gathers else '-'} us), launches "
-              f"{triplane_sample.launches}")
+              f"{seen['render tile']['triplane_sample_fwd']}")
         with profiling.item("neo360_fast_render_view"):
             for i in range(0, n_rays, cfg.chunk):
                 tile(i)
@@ -3646,11 +3631,10 @@ def phase_bench(torch):
     total = {k: 0 for k in fns}
     failures = []
     for label, argv, want in BENCH_RUNS:
-        for fn in fns.values():
-            fn.launches = 0
+        _zero(fns)
         out = bench.run(bench.parse_args(["--seed", str(SEED)] + argv))
-        for k, fn in fns.items():
-            total[k] += fn.launches
+        for k, n in _read(fns).items():
+            total[k] += n
         print(f"[bench] {json.dumps(out)}")
         print(f"[bench] {label}: {out['value']:.1f} rays/s, median "
               f"{out['median_s']:.4f} s ({out['min_s']:.4f}-"

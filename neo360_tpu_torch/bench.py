@@ -68,6 +68,7 @@ import torch
 from neo360_tpu_torch import cli
 from neo360_tpu_torch.config import Config, preset
 from neo360_tpu_torch.models.neo360 import SRC_KEYS, make_scene_stage_fns
+from neo360_tpu_torch.ops import kernels
 from neo360_tpu_torch.train import loop, profiling
 from neo360_tpu_torch.train.pipeline import to_device
 
@@ -308,27 +309,26 @@ def _view_windows(cfg: Config, n: int, synthetic: bool):
 
 class _Clock:
     """Host-clock windows closed by a device synchronize, and the kernels'
-    launches in each."""
+    launches in each (`kernels.launches`)."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
-        self.counters = profiling.kernel_counters()
 
     def sync(self):
         if self.cuda:
             torch.cuda.synchronize()
 
     def window(self, fn: Callable):
-        """(seconds, launches, fn's result)."""
-        before = {k: f.launches for k, f in self.counters.items()}
+        """(seconds, {C entry: its launches in the window} over the
+        entries launched, fn's result)."""
+        before = dict(kernels.launches)
         self.sync()
         t0 = time.perf_counter()
         out = fn()
         self.sync()
         seconds = time.perf_counter() - t0
-        launches = {k: f.launches - before[k]
-                    for k, f in self.counters.items()
-                    if f.launches != before[k]}
+        launches = {k: n - before[k] for k, n in kernels.launches.items()
+                    if n != before[k]}
         return seconds, launches, out
 
 
@@ -377,7 +377,6 @@ def run(args: argparse.Namespace) -> Dict:
     clock = _Clock(device)
     build_s = None
     if device.type == "cuda":
-        from neo360_tpu_torch.ops import kernels
         t0 = time.perf_counter()
         kernels.build()
         kernels.library()

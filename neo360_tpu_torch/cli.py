@@ -85,13 +85,13 @@ import torch
 
 from neo360_tpu_torch import weights
 from neo360_tpu_torch.config import Config, preset
+from neo360_tpu_torch.core.spans import span
 # the single-scene models' sampling bounds (neo360_tpu/cli.py:215, 230,
 # 371)
 from neo360_tpu_torch.data.nerds360 import FAR as SCENE_FAR
 from neo360_tpu_torch.data.nerds360 import NEAR as SCENE_NEAR
 from neo360_tpu_torch.parallel import sharding
 from neo360_tpu_torch.train.loop import TrainState
-from neo360_tpu_torch.train.profiling import span
 
 SRC_KEYS = ("src_imgs", "src_poses", "src_focal", "src_c")
 RAY_KEYS = ("rays_o", "rays_d", "viewdirs")
@@ -909,10 +909,13 @@ def run_train(cfg: Config, device=None, datasets=None):
         logger.close()
         return state
     if datasets is None:
+        node = (0, 1) if group is None else (group.node, group.nodes)
         datasets = (NeRDS360AE(cfg.root_dir, "train", cfg.img_wh,
                                cfg.num_src_views, cfg.ray_batch_size,
                                optimize=cfg.is_optimize,
-                               finetune_lpips=cfg.finetune_lpips),
+                               finetune_lpips=cfg.finetune_lpips,
+                               process_index=node[0],
+                               process_count=node[1]),
                     NeRDS360AE(cfg.root_dir, "val", cfg.img_wh,
                                cfg.num_src_views))
     train_ds, val_ds = datasets

@@ -30,6 +30,7 @@ the CPU; tdist and dirs take no gradient.
 
 from __future__ import annotations
 
+from operator import itemgetter
 from typing import Dict, Optional
 
 import torch
@@ -102,42 +103,30 @@ OUT_KEYS = ("rgb", "fg_rgb", "bg_rgb", "fg_acc", "bg_acc", "fg_weights",
             "bg_weights", "bg_lambda", "depth", "fg_depth")
 
 
-def _checked(name, args):
-    """The eight inputs, contiguous on one CUDA device with the shapes the
-    kernels take; returns them and (B, S_fg, S_bg)."""
-    args = tuple(a.contiguous() for a in args)
-    kernels.require_cuda(name, *args)
-    fg_rgb, fg_sigma, fg_t, bg_rgb, bg_sigma, bg_t, dirs, far = args
-    b, s_fg = fg_t.shape
-    s_bg = bg_t.shape[1]
-    shapes = ((fg_rgb, (b, s_fg, 3)), (fg_sigma, (b, s_fg, 1)),
-              (fg_t, (b, s_fg)), (bg_rgb, (b, s_bg, 3)),
-              (bg_sigma, (b, s_bg, 1)), (bg_t, (b, s_bg)), (dirs, (b, 3)),
-              (far, (b, 1)))
-    for t, shape in shapes:
-        if tuple(t.shape) != shape or t.dtype != torch.float32:
-            raise ValueError(f"{name}: expected float32 {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-    return args, (b, s_fg, s_bg)
+def _nerfpp_shapes(args):
+    """Kernels B / B''s input shapes and output shapes (in OUT_KEYS order)
+    at inputs `args`; and (B, S_fg, S_bg)."""
+    b, s_fg = args[2].shape
+    s_bg = args[5].shape[1]
+    return ((b, s_fg, 3), (b, s_fg, 1), (b, s_fg), (b, s_bg, 3),
+            (b, s_bg, 1), (b, s_bg), (b, 3), (b, 1)), \
+        ((b, 3), (b, 3), (b, 3), (b,), (b,), (b, s_fg), (b, s_bg), (b, 1),
+         (b,), (b,)), (b, s_fg, s_bg)
 
 
 def _composite_forward(args, white_bkgd: bool) -> Dict[str, torch.Tensor]:
     if all(a.device.type == "cpu" for a in args):
         return composite_nerfpp_reference(*args, white_bkgd)
-    args, (b, s_fg, s_bg) = _checked("composite_nerfpp", args)
-    fg_rgb, fg_sigma, fg_t, bg_rgb, bg_sigma, bg_t, dirs, far = args
-    new = lambda *shape: torch.empty(shape, dtype=torch.float32,
-                                     device=dirs.device)
-    out = {"rgb": new(b, 3), "fg_rgb": new(b, 3), "bg_rgb": new(b, 3),
-           "fg_acc": new(b), "bg_acc": new(b), "fg_weights": new(b, s_fg),
-           "bg_weights": new(b, s_bg), "bg_lambda": new(b, 1),
-           "depth": new(b), "fg_depth": new(b)}
+    ins, outs, (b, s_fg, s_bg) = _nerfpp_shapes(args)
+    fg_rgb, fg_sigma, fg_t, bg_rgb, bg_sigma, bg_t, dirs, far = \
+        kernels.checked("composite_nerfpp", args, ins)
+    out = {k: torch.empty(shape, dtype=torch.float32, device=dirs.device)
+           for k, shape in zip(OUT_KEYS, outs)}
     kernels.launch("composite_nerfpp_fwd", dirs.device, fg_rgb.data_ptr(),
                    fg_sigma.data_ptr(), fg_t.data_ptr(), s_fg,
                    bg_rgb.data_ptr(), bg_sigma.data_ptr(), bg_t.data_ptr(),
                    s_bg, dirs.data_ptr(), far.data_ptr(), b, int(white_bkgd),
                    *(out[k].data_ptr() for k in OUT_KEYS))
-    composite_nerfpp.launches += 1
     return out
 
 
@@ -147,42 +136,25 @@ def composite_nerfpp_backward(args, grads, white_bkgd: bool = False):
     cotangents `grads` (one per OUT_KEYS entry, None = zero).
 
     CPU tensors: autograd of `composite_nerfpp_reference`. CUDA tensors
-    launch kernel B' (csrc/composite_nerfpp_bwd.cu) and add one to
-    `composite_nerfpp_backward.launches`."""
+    launch kernel B' (csrc/composite_nerfpp_bwd.cu) through C entry
+    `composite_nerfpp_bwd`."""
     if all(a.device.type == "cpu" for a in args):
-        with torch.enable_grad():
-            leaves = [a.detach().requires_grad_(i in (0, 1, 3, 4))
-                      for i, a in enumerate(args)]
-            out = composite_nerfpp_reference(*leaves, white_bkgd)
-            pairs = [(out[k], g) for k, g in zip(OUT_KEYS, grads)
-                     if g is not None]
-            wrt = [leaves[i] for i in (0, 1, 3, 4)]
-            d = torch.autograd.grad([o for o, _ in pairs], wrt,
-                                    [g for _, g in pairs],
-                                    allow_unused=True) if pairs else [None] * 4
-            return tuple(torch.zeros_like(a) if g is None else g
-                         for a, g in zip(wrt, d))
-    name = "composite_nerfpp_backward"
-    args, (b, s_fg, s_bg) = _checked(name, args)
-    fg_rgb, fg_sigma, fg_t, bg_rgb, bg_sigma, bg_t, dirs, far = args
-    ptrs = []
-    for key, g in zip(OUT_KEYS, grads):
-        if g is None:
-            ptrs.append(None)
-            continue
-        g = g.contiguous()
-        if g.dtype != torch.float32 or g.device != dirs.device:
-            raise ValueError(f"{name}: cotangent of {key} must be float32 "
-                             f"on {dirs.device}")
-        ptrs.append(g)
+        return kernels.plain_grads(
+            lambda *a: itemgetter(*OUT_KEYS)(
+                composite_nerfpp_reference(*a, white_bkgd)),
+            args, (0, 1, 3, 4), grads)
+    ins, outs, (b, s_fg, s_bg) = _nerfpp_shapes(args)
+    checked = kernels.checked("composite_nerfpp_backward",
+                              (*args, *grads), ins + outs)
+    fg_rgb, fg_sigma, fg_t, bg_rgb, bg_sigma, bg_t, dirs, far = checked[:8]
     d = [torch.empty_like(a) for a in (fg_rgb, fg_sigma, bg_rgb, bg_sigma)]
     kernels.launch("composite_nerfpp_bwd", dirs.device, fg_rgb.data_ptr(),
                    fg_sigma.data_ptr(), fg_t.data_ptr(), s_fg,
                    bg_rgb.data_ptr(), bg_sigma.data_ptr(), bg_t.data_ptr(),
                    s_bg, dirs.data_ptr(), far.data_ptr(), b, int(white_bkgd),
-                   *(None if g is None else g.data_ptr() for g in ptrs),
+                   *(None if g is None else g.data_ptr()
+                     for g in checked[8:]),
                    *(t.data_ptr() for t in d))
-    composite_nerfpp_backward.launches += 1
     return tuple(d)
 
 
@@ -212,7 +184,7 @@ def composite_nerfpp(fg_rgb, fg_sigma, fg_t, bg_rgb, bg_sigma, bg_t, dirs,
     bg_lambda (B,1)}, all float32.
 
     CPU tensors run `composite_nerfpp_reference`; CUDA tensors launch
-    kernel B and add one to `composite_nerfpp.launches`. With grad enabled
+    kernel B through C entry `composite_nerfpp_fwd`. With grad enabled
     the call is a `_Composite` autograd Function; t, dirs and far must not
     require grad (raises)."""
     args = (fg_rgb, fg_sigma, fg_t, bg_rgb, bg_sigma, bg_t, dirs, far)
@@ -225,9 +197,6 @@ def composite_nerfpp(fg_rgb, fg_sigma, fg_t, bg_rgb, bg_sigma, bg_t, dirs,
                              f"(detach it)")
     return dict(zip(OUT_KEYS, _Composite.apply(bool(white_bkgd), *args)))
 
-
-composite_nerfpp.launches = 0
-composite_nerfpp_backward.launches = 0
 
 # kernel B' against autograd of the plain version (ops.kernels.compare):
 # 1e-4 relative and 1e-5 * max|ref|. The plain backward of torch.cumprod
@@ -296,36 +265,29 @@ def composite_vanilla_reference(rgb: torch.Tensor, density: torch.Tensor,
     return comp_rgb, acc, weights, depth
 
 
-def _vanilla_checked(name, args):
-    """rgb, density, t, dirs contiguous on one CUDA device with the shapes
-    and type the kernels take; returns them and (B, S)."""
-    args = tuple(a.contiguous() for a in args)
-    kernels.require_cuda(name, *args)
-    rgb, density, t, dirs = args
+def _vanilla_shapes(name, args):
+    """Kernels D / D''s input shapes and output shapes (in VANILLA_OUT_KEYS
+    order) at inputs `args`; and (B, S)."""
+    t = args[2]
     if t.dim() != 2 or t.shape[1] < 1:
         raise ValueError(f"{name}: t_vals must be (B, S) with S >= 1, got "
                          f"{tuple(t.shape)}")
     b, s = t.shape
-    for x, shape in ((rgb, (b, s, 3)), (density, (b, s, 1)), (t, (b, s)),
-                     (dirs, (b, 3))):
-        if tuple(x.shape) != shape or x.dtype != torch.float32:
-            raise ValueError(f"{name}: expected float32 {shape}, got "
-                             f"{x.dtype} {tuple(x.shape)}")
-    return args, (b, s)
+    return ((b, s, 3), (b, s, 1), (b, s), (b, 3)), \
+        ((b, 3), (b,), (b, s), (b,)), (b, s)
 
 
 def _vanilla_forward(args, white_bkgd: bool):
     if all(a.device.type == "cpu" for a in args):
         return composite_vanilla_reference(*args, white_bkgd)
-    args, (b, s) = _vanilla_checked("composite_vanilla", args)
-    rgb, density, t, dirs = args
-    new = lambda *shape: torch.empty(shape, dtype=torch.float32,
-                                     device=dirs.device)
-    out = (new(b, 3), new(b), new(b, s), new(b))
+    name = "composite_vanilla"
+    ins, outs, (b, s) = _vanilla_shapes(name, args)
+    rgb, density, t, dirs = kernels.checked(name, args, ins)
+    out = tuple(torch.empty(shape, dtype=torch.float32, device=dirs.device)
+                for shape in outs)
     kernels.launch("composite_vanilla_fwd", dirs.device, rgb.data_ptr(),
                    density.data_ptr(), t.data_ptr(), s, dirs.data_ptr(), b,
                    int(white_bkgd), *(o.data_ptr() for o in out))
-    composite_vanilla.launches += 1
     return out
 
 
@@ -335,37 +297,23 @@ def composite_vanilla_backward(args, grads, white_bkgd: bool = False):
     VANILLA_OUT_KEYS entry, None = zero).
 
     CPU tensors: autograd of `composite_vanilla_reference`. CUDA tensors
-    launch kernel D' (csrc/composite_vanilla_bwd.cu) and add one to
-    `composite_vanilla_backward.launches`."""
+    launch kernel D' (csrc/composite_vanilla_bwd.cu) through C entry
+    `composite_vanilla_bwd`."""
     if all(a.device.type == "cpu" for a in args):
-        with torch.enable_grad():
-            leaves = [a.detach().requires_grad_(i < 2)
-                      for i, a in enumerate(args)]
-            out = composite_vanilla_reference(*leaves, white_bkgd)
-            pairs = [(o, g) for o, g in zip(out, grads) if g is not None]
-            d = torch.autograd.grad([o for o, _ in pairs], leaves[:2],
-                                    [g for _, g in pairs],
-                                    allow_unused=True) if pairs else [None] * 2
-            return tuple(torch.zeros_like(a) if g is None else g
-                         for a, g in zip(leaves[:2], d))
+        return kernels.plain_grads(
+            lambda *a: composite_vanilla_reference(*a, white_bkgd), args,
+            (0, 1), grads)
     name = "composite_vanilla_backward"
-    args, (b, s) = _vanilla_checked(name, args)
-    rgb, density, t, dirs = args
-    cots = []
-    for key, g in zip(VANILLA_OUT_KEYS, grads):
-        if g is not None:
-            g = g.contiguous()
-            if g.dtype != torch.float32 or g.device != dirs.device:
-                raise ValueError(f"{name}: cotangent of {key} must be "
-                                 f"float32 on {dirs.device}")
-        cots.append(g)
+    ins, outs, (b, s) = _vanilla_shapes(name, args)
+    checked = kernels.checked(name, (*args, *grads), ins + outs)
+    rgb, density, t, dirs = checked[:4]
     d = (torch.empty_like(rgb), torch.empty_like(density))
     kernels.launch("composite_vanilla_bwd", dirs.device, rgb.data_ptr(),
                    density.data_ptr(), t.data_ptr(), s, dirs.data_ptr(), b,
                    int(white_bkgd),
-                   *(None if g is None else g.data_ptr() for g in cots),
+                   *(None if g is None else g.data_ptr()
+                     for g in checked[4:]),
                    *(x.data_ptr() for x in d))
-    composite_vanilla_backward.launches += 1
     return d
 
 
@@ -393,7 +341,7 @@ def composite_vanilla(rgb, density, t_vals, dirs, white_bkgd: bool = False):
     neo360_tpu/core/render.py:volumetric_rendering returns them.
 
     CPU tensors run `composite_vanilla_reference`; CUDA tensors launch
-    kernel D and add one to `composite_vanilla.launches`. With grad enabled
+    kernel D through C entry `composite_vanilla_fwd`. With grad enabled
     the call is a `_CompositeVanilla` autograd Function; t_vals and dirs
     must not require grad (raises)."""
     args = (rgb, density, t_vals, dirs)
@@ -404,10 +352,6 @@ def composite_vanilla(rgb, density, t_vals, dirs, white_bkgd: bool = False):
             raise ValueError(f"composite_vanilla: {name} takes no gradient "
                              f"(detach it)")
     return _CompositeVanilla.apply(bool(white_bkgd), *args)
-
-
-composite_vanilla.launches = 0
-composite_vanilla_backward.launches = 0
 
 
 # --- the MipNeRF-360 composite (kernels E and E') ------------------------
@@ -450,36 +394,29 @@ def composite_mip_reference(density: torch.Tensor, tdist: torch.Tensor,
     return weights, comp, acc, depth
 
 
-def _mip_checked(name, args):
-    """density, tdist, dirs, rgb contiguous on one CUDA device with the
-    shapes and type the kernels take; returns them and (B, S)."""
-    args = tuple(a.contiguous() for a in args)
-    kernels.require_cuda(name, *args)
-    density, tdist, dirs, rgb = args
+def _mip_shapes(name, args):
+    """Kernels E / E''s input shapes and output shapes (in MIP_OUT_KEYS
+    order) at inputs `args`; and (B, S)."""
+    density = args[0]
     if density.dim() != 2 or density.shape[1] < 1:
         raise ValueError(f"{name}: density must be (B, S) with S >= 1, got "
                          f"{tuple(density.shape)}")
     b, s = density.shape
-    for x, shape in ((density, (b, s)), (tdist, (b, s + 1)), (dirs, (b, 3)),
-                     (rgb, (b, s, 3))):
-        if tuple(x.shape) != shape or x.dtype != torch.float32:
-            raise ValueError(f"{name}: expected float32 {shape}, got "
-                             f"{x.dtype} {tuple(x.shape)}")
-    return args, (b, s)
+    return ((b, s), (b, s + 1), (b, 3), (b, s, 3)), \
+        ((b, s), (b, 3), (b,), (b,)), (b, s)
 
 
 def _mip_forward(args, bg: float, opaque: bool):
     if all(a.device.type == "cpu" for a in args):
         return composite_mip_reference(*args, bg, opaque)
-    args, (b, s) = _mip_checked("composite_mip", args)
-    density, tdist, dirs, rgb = args
-    new = lambda *shape: torch.empty(shape, dtype=torch.float32,
-                                     device=dirs.device)
-    out = (new(b, s), new(b, 3), new(b), new(b))
+    name = "composite_mip"
+    ins, outs, (b, s) = _mip_shapes(name, args)
+    density, tdist, dirs, rgb = kernels.checked(name, args, ins)
+    out = tuple(torch.empty(shape, dtype=torch.float32, device=dirs.device)
+                for shape in outs)
     kernels.launch("composite_mip_fwd", dirs.device, density.data_ptr(),
                    tdist.data_ptr(), dirs.data_ptr(), rgb.data_ptr(), s, b,
                    float(bg), int(opaque), *(o.data_ptr() for o in out))
-    composite_mip.launches += 1
     return out
 
 
@@ -492,43 +429,24 @@ def composite_mip_backward(args, acc, grads, bg: float = 1.0,
 
     CPU tensors: autograd of `composite_mip_reference` (which takes the
     branch from its own acc; `acc` is not read). CUDA tensors launch
-    kernel E' (csrc/composite_mip_bwd.cu) and add one to
-    `composite_mip_backward.launches`."""
+    kernel E' (csrc/composite_mip_bwd.cu) through C entry
+    `composite_mip_bwd`."""
     if all(a.device.type == "cpu" for a in args):
-        with torch.enable_grad():
-            leaves = [a.detach().requires_grad_(i in (0, 3))
-                      for i, a in enumerate(args)]
-            out = composite_mip_reference(*leaves, bg, opaque)
-            pairs = [(o, g) for o, g in zip(out, grads) if g is not None]
-            wrt = [leaves[0], leaves[3]]
-            d = torch.autograd.grad([o for o, _ in pairs], wrt,
-                                    [g for _, g in pairs],
-                                    allow_unused=True) if pairs else [None] * 2
-            return tuple(torch.zeros_like(a) if g is None else g
-                         for a, g in zip(wrt, d))
+        return kernels.plain_grads(
+            lambda *a: composite_mip_reference(*a, bg, opaque), args,
+            (0, 3), grads)
     name = "composite_mip_backward"
-    args, (b, s) = _mip_checked(name, args)
-    density, tdist, dirs, rgb = args
-    acc = acc.contiguous()
-    if tuple(acc.shape) != (b,) or acc.dtype != torch.float32 or \
-            acc.device != dirs.device:
-        raise ValueError(f"{name}: acc must be float32 ({b},) on "
-                         f"{dirs.device}")
-    cots = []
-    for key, g in zip(MIP_OUT_KEYS, grads):
-        if g is not None:
-            g = g.contiguous()
-            if g.dtype != torch.float32 or g.device != dirs.device:
-                raise ValueError(f"{name}: cotangent of {key} must be "
-                                 f"float32 on {dirs.device}")
-        cots.append(g)
+    ins, outs, (b, s) = _mip_shapes(name, args)
+    checked = kernels.checked(name, (*args, acc, *grads),
+                              ins + ((b,),) + outs)
+    density, tdist, dirs, rgb, acc = checked[:5]
     d = (torch.empty_like(density), torch.empty_like(rgb))
     kernels.launch("composite_mip_bwd", dirs.device, density.data_ptr(),
                    tdist.data_ptr(), dirs.data_ptr(), rgb.data_ptr(), s, b,
                    float(bg), int(opaque), acc.data_ptr(),
-                   *(None if g is None else g.data_ptr() for g in cots),
+                   *(None if g is None else g.data_ptr()
+                     for g in checked[5:]),
                    *(x.data_ptr() for x in d))
-    composite_mip_backward.launches += 1
     return d
 
 
@@ -556,7 +474,7 @@ def composite_mip(density, tdist, dirs, rgb, bg: float = 1.0,
     (B,), depth (B,)), float32 (`composite_mip_reference`).
 
     CPU tensors run `composite_mip_reference`; CUDA tensors launch kernel
-    E (csrc/composite_mip.cu) and add one to `composite_mip.launches`.
+    E (csrc/composite_mip.cu) through C entry `composite_mip_fwd`.
     With grad enabled the call is a `_CompositeMip` autograd Function
     whose backward is kernel E' on CUDA; tdist and dirs must not require
     grad (raises)."""
@@ -569,9 +487,6 @@ def composite_mip(density, tdist, dirs, rgb, bg: float = 1.0,
                              f"(detach it)")
     return _CompositeMip.apply(float(bg), bool(opaque_background), *args)
 
-
-composite_mip.launches = 0
-composite_mip_backward.launches = 0
 
 # kernel E' against autograd of the plain version (ops.kernels.compare):
 # 1e-4 relative and 1e-5 * max|ref|. The kernel sums the transmittance's

@@ -13,9 +13,9 @@ running max / min are kept rather than plain indexing.
 Randomized (training) sampling draws its uniforms from an explicit
 `torch.Generator`, or takes them as `u` (the tests pass the numbers that
 `jax.random.uniform` draws, so both packages see the same ones); a
-data-parallel rank passes a `parallel.sharding.RowDraws`, which draws the
-global batch's uniforms and keeps the rank's rows. The resampled t is
-detached, as `jax.lax.stop_gradient` does in the JAX code.
+data-parallel rank passes a `RowDraws`, which draws the global batch's
+uniforms and keeps the rank's rows. The resampled t is detached, as
+`jax.lax.stop_gradient` does in the JAX code.
 """
 
 from __future__ import annotations
@@ -26,9 +26,24 @@ import torch
 
 from neo360_tpu_torch.core.geometry import linspace
 from neo360_tpu_torch.core.spherical import depth2pts_outside
-from neo360_tpu_torch.parallel.sharding import RowDraws
 
 _FLOAT_MIN_EPS = 2.0 ** -32
+
+
+class RowDraws:
+    """A generator whose draws are rows `index` of `count` of the draws of
+    the global batch: `rand(shape)` draws (shape[0] * count, ...) from
+    `generator` and keeps this block of the leading (ray) axis."""
+
+    def __init__(self, generator: torch.Generator, index: int, count: int):
+        self.generator, self.index, self.count = generator, index, count
+
+    def rand(self, shape, dtype, device) -> torch.Tensor:
+        n = shape[0]
+        full = torch.rand((n * self.count,) + tuple(shape[1:]),
+                          generator=self.generator, dtype=dtype,
+                          device=device)
+        return full[self.index * n:(self.index + 1) * n]
 
 
 def _uniform(shape, like: torch.Tensor, u: Optional[torch.Tensor],

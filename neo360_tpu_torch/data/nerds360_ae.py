@@ -19,9 +19,9 @@ nearest-view selection `get_nearest_pose_ids`.
   split's scale) with the fixed source stack [0, 15, 38, 52, 70] (3 views:
   [0, 38, 44]).
 
-With several nodes (`process_index` / `process_count`, default: this
-rank's node and the node count, `parallel.sharding`) the train split keeps
-the node's round-robin share of the scenes (neo360_tpu/data/
+With several nodes (`process_index` / `process_count`, default one node;
+`cli.run_train` passes the rank's node and the node count) the train
+split keeps the node's round-robin share of the scenes (neo360_tpu/data/
 nerds360_ae.py:126-141); val and test keep every scene.
 
 Source images are normalized to [-1, 1]; decoded images are cached per
@@ -114,8 +114,7 @@ class NeRDS360AE:
                  dest_views_per_sample: int = 20, optimize: bool = False,
                  finetune_lpips: bool = False,
                  patch_size: int = PATCH_SIZE,
-                 process_index: Optional[int] = None,
-                 process_count: Optional[int] = None):
+                 process_index: int = 0, process_count: int = 1):
         if split not in ("train", "val", "test"):
             raise ValueError(f"split {split!r}: expected train, val or test")
         self.root_dir = root_dir
@@ -130,11 +129,6 @@ class NeRDS360AE:
         self.scene_ids = self._scene_ids()
         if not self.scene_ids:
             raise ValueError(f"no scene directories under {root_dir!r}")
-        if process_index is None or process_count is None:
-            from neo360_tpu_torch.parallel.sharding import current
-            group = current()
-            process_index, process_count = ((0, 1) if group is None
-                                            else (group.node, group.nodes))
         self.process_index, self.process_count = process_index, process_count
         if split == "train" and process_count > 1:
             shard = self.scene_ids[process_index::process_count]

@@ -21,7 +21,7 @@ scaled by 4^11, would overflow exp); the proposal levels render zero rgb.
 Randomized sampling draws one jitter per ray and level
 (core/sampling.py:_uniform, from a `torch.Generator`).
 
-Spans (train/profiling.py), per level: `model.sample` (the dilation, the
+Spans (core/spans.py), per level: `model.sample` (the dilation, the
 resampling logits, `sample_intervals`, `s_to_t` and the cone Gaussians),
 `model.ipe` (the contraction with its Jacobian, the lift onto the basis,
 the clamp and the IPE), `model.mlp` (the trunk and the heads) and
@@ -38,9 +38,9 @@ from torch import nn
 
 from neo360_tpu_torch.core import encoding, mip
 from neo360_tpu_torch.core.render import composite_mip
+from neo360_tpu_torch.core.spans import span
 from neo360_tpu_torch.nn.layers import Dense
 from neo360_tpu_torch.ops import losses
-from neo360_tpu_torch.train.profiling import span
 
 RAY_KEYS = ("rays_o", "rays_d", "viewdirs", "radii")
 

@@ -22,7 +22,7 @@ stratified and random inverse-CDF samples drawn from a `torch.Generator`.
 Viewdirs broadcast in (ray, sample) order, the JAX package's documented
 divergence from the reference.
 
-Spans (train/profiling.py): `model.encode` is `encode`; `forward` takes
+Spans (core/spans.py): `model.encode` is `encode`; `forward` takes
 `model.rays` (the far bound and view directions), then per level
 `model.sample` (the level's samples), `model.gather` (world2camera and
 the tri-plane and local gathers), `model.mlp` (the MLPs with their inputs'
@@ -42,6 +42,7 @@ from torch import nn
 from neo360_tpu_torch.core import encoding, geometry, sampling, spherical
 from neo360_tpu_torch.core.constants import cached
 from neo360_tpu_torch.core.render import composite_nerfpp
+from neo360_tpu_torch.core.spans import span
 from neo360_tpu_torch.nn.layers import Dense
 from neo360_tpu_torch.nn.mlp import combine_interleaved
 from neo360_tpu_torch.nn.resnet import latent_scaling
@@ -50,7 +51,6 @@ from neo360_tpu_torch.nn.triplane import GridEncoder
 from neo360_tpu_torch.ops import losses
 from neo360_tpu_torch.ops.interpolate import build_corner_table, \
     local_sample, triplane_sample
-from neo360_tpu_torch.train.profiling import span
 
 
 class NeRFTPMLP(nn.Module):

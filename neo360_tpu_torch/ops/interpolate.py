@@ -217,7 +217,6 @@ def _table_sample_forward(table, uv, hw, padding_mode, out_dtype,
                    out.data_ptr(), kernels.DTYPE_CODES[out_dtype], b, n, h,
                    w, c, int(padding_mode == "zeros"), int(view_offset),
                    table.shape[0], run or TABLE_SAMPLE_RUN)
-    table_sample.launches += 1
     return out
 
 
@@ -246,8 +245,8 @@ def table_sample_backward(grad: torch.Tensor, uv: torch.Tensor, table_shape,
     contract).
 
     CPU tensors run `table_sample_backward_reference`; CUDA tensors launch
-    kernel A' (csrc/table_sample_bwd.cu) and add one to
-    `table_sample_backward.launches`."""
+    kernel A' (csrc/table_sample_bwd.cu) through C entry
+    `table_sample_bwd`."""
     if grad.device.type == "cpu" and uv.device.type == "cpu":
         return table_sample_backward_reference(
             grad, uv, table_shape, table_dtype, hw, padding_mode,
@@ -267,7 +266,6 @@ def table_sample_backward(grad: torch.Tensor, uv: torch.Tensor, table_shape,
                    kernels.DTYPE_CODES[table_dtype], b, n, h, w, c,
                    int(padding_mode == "zeros"), int(view_offset),
                    table_shape[0], scratch.numel())
-    table_sample_backward.launches += 1
     return dtable
 
 
@@ -281,7 +279,7 @@ def table_sample_accumulate(grad: torch.Tensor, uv: torch.Tensor,
 
     CPU tensors run `table_sample_accumulate_reference`; CUDA tensors
     launch kernel A' (csrc/table_sample_bwd.cu, no scratch, memset or
-    rounding) and add one to `table_sample_accumulate.launches`."""
+    rounding) through C entry `table_sample_bwd_acc`."""
     if all(t.device.type == "cpu" for t in (grad, uv, acc)):
         return table_sample_accumulate_reference(grad, uv, acc, hw,
                                                  padding_mode, view_offset)
@@ -298,7 +296,6 @@ def table_sample_accumulate(grad: torch.Tensor, uv: torch.Tensor,
                    acc.data_ptr(), b, n, h, w, c,
                    int(padding_mode == "zeros"), int(view_offset),
                    acc.shape[0])
-    table_sample_accumulate.launches += 1
 
 
 class _TableSample(torch.autograd.Function):
@@ -341,7 +338,7 @@ def table_sample(table: torch.Tensor, uv: torch.Tensor, hw: tuple,
     total_views = table.shape[0]).
 
     CPU tensors run `table_sample_reference`; CUDA tensors launch kernel A
-    (csrc/table_sample.cu) and add one to `table_sample.launches`. With
+    (csrc/table_sample.cu) through C entry `table_sample_fwd`. With
     grad enabled the call is a `_TableSample` autograd Function; uv must
     not require grad (raises). `grad_acc`: an f32 tensor of the table's
     shape; the backward then adds the table's gradient into it and returns
@@ -356,10 +353,6 @@ def table_sample(table: torch.Tensor, uv: torch.Tensor, hw: tuple,
     return _TableSample.apply(table, uv, tuple(hw), padding_mode, out_dtype,
                               int(view_offset), grad_acc, run)
 
-
-table_sample.launches = 0
-table_sample_backward.launches = 0
-table_sample_accumulate.launches = 0
 
 # kernel A' against its plain version (ops.kernels.compare): bf16, one ulp
 # (both round one f32 sum); f32, 1e-5 relative. Both allow 1e-5 * max|ref|:
@@ -440,7 +433,6 @@ def _triplane_forward(tables, cam, hw, view_offset, run=None):
                    *(t.data_ptr() for t in tables), kernels.DTYPE_CODES[dtype],
                    cam.data_ptr(), out.data_ptr(), b, n, h, w, c,
                    int(view_offset), shape[0], run or TRIPLANE_SAMPLE_RUN)
-    triplane_sample.launches += 1
     return out
 
 
@@ -481,8 +473,8 @@ def triplane_sample(tables, cam: torch.Tensor, hw: tuple,
     View b reads table view clip(b + view_offset, 0, V-1).
 
     CPU tensors run `triplane_sample_reference`; CUDA tensors launch the
-    fused kernel (csrc/triplane_sample.cu) and add one to
-    `triplane_sample.launches`. With grad enabled the call is a
+    fused kernel (csrc/triplane_sample.cu) through C entry
+    `triplane_sample_fwd`. With grad enabled the call is a
     `_TriplaneSample` autograd Function; cam must not require grad
     (raises). `grad_acc`: three f32 accumulators of the tables' shapes;
     the backward then adds the tables' gradients into them (kernel A''s
@@ -550,7 +542,6 @@ def _local_forward(table, cam, focal, c, scale, hw, view_offset, run=None):
                    focal.data_ptr(), c.data_ptr(), float(scale[0]),
                    float(scale[1]), out.data_ptr(), nv, m, h, w, cc,
                    int(view_offset), table.shape[0], run or LOCAL_SAMPLE_RUN)
-    local_sample.launches += 1
     return out
 
 
@@ -593,7 +584,7 @@ def local_sample(table: torch.Tensor, cam: torch.Tensor, focal: torch.Tensor,
     clip(r + view_offset, 0, V-1), border mode.
 
     CPU tensors run `local_sample_reference`; CUDA tensors launch the fused
-    kernel (csrc/local_sample.cu) and add one to `local_sample.launches`.
+    kernel (csrc/local_sample.cu) through C entry `local_sample_fwd`.
     With grad enabled the call is a `_LocalSample` autograd Function; cam
     must not require grad (raises). `grad_acc`: an f32 accumulator of the
     table's shape (kernel A''s accumulate contract). `run`: the kernel's run
@@ -607,10 +598,6 @@ def local_sample(table: torch.Tensor, cam: torch.Tensor, focal: torch.Tensor,
     _check_acc("local_sample", grad_acc, table)
     return _LocalSample.apply(table, cam, focal, c, scale, tuple(hw),
                               int(view_offset), grad_acc, run)
-
-
-triplane_sample.launches = 0
-local_sample.launches = 0
 
 
 # consecutive points a group of threads of kernel G' walks, merging the
@@ -733,7 +720,6 @@ def _grid_sample_forward(image: torch.Tensor, uv: torch.Tensor,
     kernels.launch("grid_sample_fwd", uv.device, image.data_ptr(), code,
                    uv.data_ptr(), out.data_ptr(), b, n, h, w, c,
                    int(padding_mode == "zeros"))
-    grid_sample_2d.launches += 1
     return out
 
 
@@ -746,9 +732,9 @@ def grid_sample_2d_backward(grad: torch.Tensor, uv: torch.Tensor,
 
     CPU tensors run `grid_sample_2d_backward_reference`; CUDA tensors
     launch kernel G' (csrc/grid_sample_bwd.cu: a memset, the scatter and,
-    for a bf16 image, one rounding pass) and add one to
-    `grid_sample_2d_backward.launches`. `run`: the points a group of
-    threads walks, GRID_SAMPLE_BWD_RUN unless given."""
+    for a bf16 image, one rounding pass) through C entry
+    `grid_sample_bwd`. `run`: the points a group of threads walks,
+    GRID_SAMPLE_BWD_RUN unless given."""
     if grad.device.type == "cpu" and uv.device.type == "cpu":
         return grid_sample_2d_backward_reference(grad, uv, image_shape,
                                                  image_dtype, padding_mode)
@@ -774,7 +760,6 @@ def grid_sample_2d_backward(grad: torch.Tensor, uv: torch.Tensor,
                    uv.data_ptr(), scratch.data_ptr(), dimage.data_ptr(), code,
                    b, n, h, w, c, int(padding_mode == "zeros"),
                    run or GRID_SAMPLE_BWD_RUN)
-    grid_sample_2d_backward.launches += 1
     return dimage
 
 
@@ -811,8 +796,8 @@ def grid_sample_2d(image: torch.Tensor, uv: torch.Tensor,
     float32. Non-finite uv samples 0 in zeros mode.
 
     CPU tensors run `grid_sample_2d_reference`. CUDA tensors launch kernel
-    G (csrc/grid_sample.cu) once, whatever C, and add one to
-    `grid_sample_2d.launches`; with autograd on and an image that requires
+    G (csrc/grid_sample.cu) once, whatever C, through C entry
+    `grid_sample_fwd`; with autograd on and an image that requires
     grad the call is a `_GridSample` Function whose backward is kernel G'
     (`grid_sample_2d_backward`). On the card uv must be float32, and a
     call the kernels cannot serve raises. G's values equal the plain
@@ -828,10 +813,6 @@ def grid_sample_2d(image: torch.Tensor, uv: torch.Tensor,
     if torch.is_grad_enabled() and image.requires_grad:
         return _GridSample.apply(image, uv, padding_mode)
     return _grid_sample_forward(image, uv, padding_mode)
-
-
-grid_sample_2d.launches = 0
-grid_sample_2d_backward.launches = 0
 
 
 def in_bounds_mask(uv: torch.Tensor) -> torch.Tensor:

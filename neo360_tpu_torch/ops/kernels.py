@@ -7,7 +7,9 @@ of the checkout, bound with ctypes. The hash covers the
 sources, the headers they share (`csrc/*.cuh`) and the flags, so an edited kernel is rebuilt and a stale library is
 never loaded. Every C entry point takes raw pointers and the CUDA stream as
 `void*`, launches on that stream without synchronising, and returns
-`cudaGetLastError()`; `launch` raises on a non-zero code.
+`cudaGetLastError()`; `launch` raises on a non-zero code, and counts
+each launch that returned 0 in `launches` (entry name -> launches so far),
+the port's one launch counter.
 
 Nothing is compiled or loaded when this module is imported: the CPU tests
 import every module, and there is no `nvcc` there.
@@ -97,6 +99,9 @@ SIGNATURES = {
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+# C entry name -> its launches in this process (`launch` counts them)
+launches = dict.fromkeys(SIGNATURES, 0)
+
 _lock = threading.Lock()
 _lib = None
 build_log = ""
@@ -180,12 +185,14 @@ def library() -> ctypes.CDLL:
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Call C entry `name` on `device` and its current stream (appended as
-    the last argument); raise if the launch was refused."""
+    the last argument); raise if the launch was refused, else add one to
+    `launches[name]`."""
     fn = getattr(library(), name)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    launches[name] += 1
 
 
 def compare(out: torch.Tensor, ref: torch.Tensor, rtol: float = 1e-5,
@@ -229,6 +236,38 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
                              f"got {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def checked(name: str, tensors, shapes) -> tuple:
+    """`tensors` made contiguous, on one CUDA device (`require_cuda`) and
+    each float32 of its shape in `shapes`; raises ValueError naming `name`
+    otherwise. A None (a zero cotangent) stays None."""
+    tensors = tuple(None if t is None else t.contiguous() for t in tensors)
+    require_cuda(name, *(t for t in tensors if t is not None))
+    for t, shape in zip(tensors, shapes, strict=True):
+        if t is not None and (tuple(t.shape) != shape
+                              or t.dtype != torch.float32):
+            raise ValueError(f"{name}: expected float32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    return tensors
+
+
+def plain_grads(plain, args, wrt, grads) -> tuple:
+    """The gradients of `plain(*args)` (a sequence of outputs) with respect
+    to `args[i]` for each i in `wrt`, for the output cotangents `grads`
+    (None = zero), by autograd; zeros where no output reaches an input. A
+    wrapper's backward on CPU tensors."""
+    with torch.enable_grad():
+        leaves = [a.detach().requires_grad_(i in wrt)
+                  for i, a in enumerate(args)]
+        outs = plain(*leaves)
+        pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+        inputs = [leaves[i] for i in wrt]
+        d = torch.autograd.grad([o for o, _ in pairs], inputs,
+                                [g for _, g in pairs], allow_unused=True) \
+            if pairs else [None] * len(inputs)
+        return tuple(torch.zeros_like(a) if g is None else g
+                     for a, g in zip(inputs, d))
 
 
 def dense(t: torch.Tensor) -> torch.Tensor:

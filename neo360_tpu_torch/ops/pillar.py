@@ -73,7 +73,6 @@ def _pillar_forward(args):
                    *(a.data_ptr() for a in args),
                    *(o.data_ptr() for o in outs), scratch.data_ptr(),
                    kernels.DTYPE_CODES[latent.dtype], nv, x, y, z, c)
-    pillar_collapse.launches += 1
     return outs
 
 
@@ -83,18 +82,16 @@ def pillar_collapse_backward(args, grads) -> Tuple[torch.Tensor, ...]:
     logit_xy) for the floor cotangents `grads` (None = zero).
 
     CPU tensors: autograd of `pillar_collapse_reference`. CUDA tensors
-    launch kernel C' (csrc/pillar_collapse_bwd.cu) and add one to
-    `pillar_collapse_backward.launches`."""
+    launch kernel C' (csrc/pillar_collapse_bwd.cu) through C entry
+    `pillar_collapse_bwd`."""
     latent = args[0]
     nv, x, y, z, c = latent.shape
     shapes = ((nv, y, z, c), (nv, x, z, c), (nv, x, y, c))
     grads = tuple(torch.zeros(s, dtype=latent.dtype, device=latent.device)
                   if g is None else g for g, s in zip(grads, shapes))
     if all(a.device.type == "cpu" for a in args):
-        with torch.enable_grad():
-            leaves = [a.detach().requires_grad_() for a in args]
-            outs = pillar_collapse_reference(*leaves)
-            return torch.autograd.grad(outs, leaves, grads)
+        return kernels.plain_grads(pillar_collapse_reference, args,
+                                   (0, 1, 2, 3), grads)
     name = "pillar_collapse_backward"
     args = tuple(a.contiguous() for a in args)
     grads = tuple(g.contiguous() for g in grads)
@@ -124,7 +121,6 @@ def pillar_collapse_backward(args, grads) -> Tuple[torch.Tensor, ...]:
                    *(g.data_ptr() for g in grads),
                    *(t.data_ptr() for t in d), scratch.data_ptr(),
                    kernels.DTYPE_CODES[latent.dtype], nv, x, y, z, c)
-    pillar_collapse_backward.launches += 1
     return d
 
 
@@ -149,17 +145,14 @@ def pillar_collapse(latent: torch.Tensor, logit_yz: torch.Tensor,
     latent over X, Y and Z.
 
     CPU tensors run `pillar_collapse_reference`; CUDA tensors launch
-    kernel C once for all three floors and add one to
-    `pillar_collapse.launches`. With grad enabled the call is a
+    kernel C once for all three floors through C entry
+    `pillar_collapse_fwd`. With grad enabled the call is a
     `_PillarCollapse` autograd Function."""
     args = (latent, logit_yz, logit_xz, logit_xy)
     if not torch.is_grad_enabled():
         return _pillar_forward(args)
     return _PillarCollapse.apply(*args)
 
-
-pillar_collapse.launches = 0
-pillar_collapse_backward.launches = 0
 
 # kernel C' against autograd of the plain version (ops.kernels.compare).
 # d latent: the forward's tolerance (three products summed in f32, rounded

@@ -15,10 +15,10 @@ gradient psum ahead of the optimizer's clip. Here each rank is a process:
 - `rows` / `shard_batch` / `shard_staged_batch` / `shard_stage_batch`
   keep a rank's contiguous block of the ray axis, with the JAX placement
   rule: an array whose axis does not divide by the rank count stays whole.
-- `RowDraws` stands in for a `torch.Generator`: every rank draws the
-  uniforms of the global batch from the same generator state and keeps
-  its rows, so the n-rank step computes the one-rank step on the same
-  global batch (`core/sampling.py:_uniform` takes its rows).
+- `Group.draws` stands in a `core/sampling.py:RowDraws` for a
+  `torch.Generator`: every rank draws the uniforms of the global batch
+  from the same generator state and keeps its rows, so the n-rank step
+  computes the one-rank step on the same global batch.
 - `all_reduce_mean_` averages gradients in one flat bucket per dtype;
   `all_reduce_mean` and `all_gather_rows(..., differentiable=True)` are
   the autograd-aware collectives of losses that need the whole batch
@@ -56,6 +56,8 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence, \
 import torch
 import torch.distributed as dist
 from torch import nn
+
+from neo360_tpu_torch.core.sampling import RowDraws
 
 # long enough for a rank to wait out rank 0's checkpoint write or a
 # validation render; a hung collective fails after it
@@ -274,22 +276,6 @@ def shard_stage_batch(rbs: Dict, group: Group, ray_axis: int) -> Dict:
     ...), 3 for scene-mixed (n_stages, K, S, B/S, ...)
     (`shard_stage_batch`, neo360_tpu/parallel/sharding.py:85)."""
     return _local(rbs, ray_axis, group)
-
-
-class RowDraws:
-    """A generator whose draws are rows `index` of `count` of the draws of
-    the global batch: `rand(shape)` draws (shape[0] * count, ...) from
-    `generator` and keeps this block of the leading (ray) axis."""
-
-    def __init__(self, generator: torch.Generator, index: int, count: int):
-        self.generator, self.index, self.count = generator, index, count
-
-    def rand(self, shape, dtype, device) -> torch.Tensor:
-        n = shape[0]
-        full = torch.rand((n * self.count,) + tuple(shape[1:]),
-                          generator=self.generator, dtype=dtype,
-                          device=device)
-        return full[self.index * n:(self.index + 1) * n]
 
 
 def _staged(group: Group, t: torch.Tensor) -> bool:

@@ -38,8 +38,9 @@ rank's scatter-adds (kernel A') round in their own order. Metrics are
 averaged too (psnr from the averaged mse). The image renderer gives each
 rank a contiguous block of tiles and gathers the tiles.
 
-Spans (train/profiling.py): a per-step trainer's step is the item
-`train.step`, a rendered view the item `render.view`. A step takes
+Spans (core/spans.py, imported through train/profiling.py, the module
+the benchmark reads the recorder from): a per-step trainer's step is the
+item `train.step`, a rendered view the item `render.view`. A step takes
 `train.loss` (forward and loss), `train.backward` (the gradients) and
 `train.update` (the gradient all-reduce, the optimizer, the running
 statistics); a view takes `render.tile` for each tile, one in
@@ -57,11 +58,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from neo360_tpu_torch.core.sampling import RowDraws
 from neo360_tpu_torch.parallel import sharding
 from neo360_tpu_torch.train.profiling import item, span
 
 # one tile in MARKED_TILES of a rendered view takes device markers: a
-# marker costs the host about a launch (train/profiling.py)
+# marker costs the host about a launch (core/spans.py)
 MARKED_TILES = 16
 
 
@@ -170,15 +172,14 @@ def make_buffer_trainer(train_step: Callable, batch_size: int,
     gives the rows instead (the tests pass the JAX draws). With a `group`
     whose size divides batch_size, every rank draws the same global rows
     and keeps its block, and its sampling draws are its rows of the
-    global batch's (`sharding.RowDraws`); otherwise every rank steps the
+    global batch's (`RowDraws`); otherwise every rank steps the
     whole batch, as the JAX mesh replicates it."""
     split = group is not None and batch_size % group.world_size == 0
     block = (group.rank, group.world_size) if split else (0, 1)
 
     def run(state, buffers, generator, indices=None):
         first = next(iter(buffers.values()))
-        draws = generator if block[1] == 1 else sharding.RowDraws(
-            generator, *block)
+        draws = generator if block[1] == 1 else RowDraws(generator, *block)
         metrics = {}
         for i in range(steps_per_call):
             if indices is None:

@@ -22,6 +22,7 @@ from neo360_tpu.core import spherical as jsph
 from neo360_tpu.train import metrics as jmetrics
 from neo360_tpu_torch.core import encoding, geometry, render, sampling, \
     spherical
+from neo360_tpu_torch.ops import kernels
 from neo360_tpu_torch.train import metrics
 
 torch.set_num_threads(1)
@@ -199,11 +200,12 @@ def test_composite_nerfpp_cpu_matches_jax_combination():
     """Kernel B's plain version (the CPU path of the wrapper) against the
     JAX renderer's two calls and the caller's fg + bg_lambda * bg."""
     x = _composite_inputs(7, s=11)
-    before = render.composite_nerfpp.launches
+    before = kernels.launches["composite_nerfpp_fwd"]
     out = render.composite_nerfpp(*(_t(x[k]) for k in (
         "fg_rgb", "fg_sigma", "fg_t", "bg_rgb", "bg_sigma", "bg_t", "dirs",
         "far")))
-    assert render.composite_nerfpp.launches == before   # no kernel on CPU
+    # no kernel on CPU
+    assert kernels.launches["composite_nerfpp_fwd"] == before
     j = {k: jnp.asarray(v) for k, v in x.items()}
     fg_c, fg_a, fg_w, lam, fg_d = jrender.volumetric_rendering_nerfpp(
         j["fg_rgb"], j["fg_sigma"], j["fg_t"], j["dirs"], False, True,

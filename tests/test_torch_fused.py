@@ -26,7 +26,7 @@ from neo360_tpu.nn.triplane import index_grid_tables as jindex_grid_tables
 from neo360_tpu_torch.core import geometry
 from neo360_tpu_torch.data.fixtures import camera_ring
 from neo360_tpu_torch.models.neo360 import NeRFTP
-from neo360_tpu_torch.ops import interpolate
+from neo360_tpu_torch.ops import interpolate, kernels
 
 torch.set_num_threads(1)
 
@@ -80,9 +80,9 @@ def test_triplane_sample_matches_jax_index_grid_tables(dtype, scene):
     cam = geometry.world2camera(torch.from_numpy(pts).reshape(1, -1, 3),
                                 torch.from_numpy(poses), ns=NV)
     assert _behind(cam)
-    before = interpolate.triplane_sample.launches
+    before = kernels.launches["triplane_sample_fwd"]
     ours = interpolate.triplane_sample(tt, cam, HW, NV * scene)
-    assert interpolate.triplane_sample.launches == before   # no kernel
+    assert kernels.launches["triplane_sample_fwd"] == before   # no kernel
     assert ours.dtype == torch.float32 and ours.shape == (NV, pts.size // 3,
                                                           C)
     assert float(ours.abs().max()) > 0
@@ -107,11 +107,11 @@ def test_local_sample_matches_jax_local_feats_pair(dtype, scene):
         torch.from_numpy(poses), ns=NV)
     assert _behind(cam)
     model = SimpleNamespace(num_src_views=NV)
-    before = interpolate.local_sample.launches
+    before = kernels.launches["local_sample_fwd"]
     ofg, obg = NeRFTP._local_feats_pair(
         model, cam, torch.from_numpy(focal), torch.from_numpy(c), tt, HW,
         IMAGE, view_offset=2 * NV * scene)
-    assert interpolate.local_sample.launches == before   # no kernel
+    assert kernels.launches["local_sample_fwd"] == before   # no kernel
     m = fg.size // 3
     np.testing.assert_allclose(cam[:, :m].numpy(), np.asarray(jcam),
                                atol=TOL, rtol=TOL)

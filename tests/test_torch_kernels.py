@@ -15,6 +15,8 @@ its wrapper (`BACKWARD_TOL`). The CPU tests hold each Function's gradient
 against autograd of the plain forward (1e-6: the same float32 operations).
 """
 
+import importlib.util
+
 import pytest
 import torch
 
@@ -65,6 +67,47 @@ def _assert_ok(out, ref):
     assert res["ok"], res
 
 
+def test_launches_count_each_entry_and_no_cpu_call():
+    """`kernels.launches` holds every C entry at 0 when the module is
+    imported, and a call of each wrapper on CPU tensors (its plain
+    version, forward and backward) counts no launch."""
+    spec = importlib.util.find_spec(kernels.__name__)
+    fresh = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fresh)
+    assert fresh.launches == dict.fromkeys(fresh.SIGNATURES, 0)
+    assert set(kernels.launches) == set(kernels.SIGNATURES)
+    before = dict(kernels.launches)
+    g = _gen(60)
+    hw = (5, 6)
+    tables = [build_corner_table(torch.randn(6, *hw, 8, generator=g),
+                                 mode).requires_grad_()
+              for mode in ("zeros", "zeros", "zeros", "border")]
+    uv = (torch.rand(6, 10, 2, generator=g) * 2 - 1) * 1.2
+    cam = _ray_cam(3, 4, 2, g)
+    acc = torch.zeros(tables[0].shape)
+    image = torch.randn(2, *hw, 3, generator=g).requires_grad_()
+    latent = torch.randn(2, 5, 4, 3, 8, generator=g).requires_grad_()
+    logits = [torch.randn(2, 5, 4, 3, generator=g).requires_grad_()
+              for _ in range(3)]
+
+    def leaves(args, wrt):
+        return [a.clone().requires_grad_(i in wrt)
+                for i, a in enumerate(args)]
+
+    outs = [table_sample(tables[0], uv, hw),                        # A, A'
+            table_sample(tables[0], uv, hw, grad_acc=acc),          # A' acc
+            triplane_sample(tables[:3], cam, hw),
+            local_sample(tables[3], cam, FOCAL, CENTRE, SCALE, hw),
+            grid_sample_2d(image, uv[:2]),                          # G, G'
+            composite_nerfpp(*leaves(_composite_args(g, 4, 5, 3),
+                                     (0, 1, 3, 4)))["rgb"],         # B, B'
+            composite_vanilla(*leaves(_vanilla_args(g, 4, 5), (0, 1)))[0],
+            composite_mip(*leaves(_mip_args(g, 4, 5), (0, 3)))[1],  # E, E'
+            *pillar_collapse(latent, *logits)]                      # C, C'
+    sum(o.sum() for o in outs).backward()
+    assert kernels.launches == before
+
+
 def test_compare_tolerances():
     ref = torch.tensor([1.0, 3.0, -0.5])
     assert kernels.compare(ref * (1 + 5e-6), ref)["ok"]
@@ -93,9 +136,9 @@ def test_table_sample_kernel(cuda, table_dtype, out_dtype, mode):
     for offset in (0, 3, 7):
         ref = table_sample_reference(table, uv, (h, w), mode, out_dtype,
                                      offset)
-        before = table_sample.launches
+        before = kernels.launches["table_sample_fwd"]
         out = table_sample(table, uv, (h, w), mode, out_dtype, offset)
-        assert table_sample.launches == before + 1
+        assert kernels.launches["table_sample_fwd"] == before + 1
         _assert_ok(out, ref)
 
 
@@ -141,13 +184,14 @@ def test_grid_sample_2d_kernel(cuda, dtype, mode, c):
     # plain version adds NaN for a NaN point and the edge pixel's share
     # for an infinite one, where G' (and its plain version) add nothing
     uv = raw.nan_to_num(0.0, 0.0, 0.0) if mode == "border" else raw
-    counted = (grid_sample_2d, grid_sample_2d_backward, table_sample,
-               table_sample_backward)
-    before = [f.launches for f in counted]
+    counted = ("grid_sample_fwd", "grid_sample_bwd", "table_sample_fwd",
+               "table_sample_bwd")
+    before = [kernels.launches[k] for k in counted]
     leaf = image.clone().requires_grad_()
     out = grid_sample_2d(leaf, uv, mode)
     (grad,) = torch.autograd.grad(out, leaf, cot)
-    assert [f.launches - n for f, n in zip(counted, before)] == [1, 1, 0, 0]
+    assert [kernels.launches[k] - n for k, n in zip(counted, before)] == [
+        1, 1, 0, 0]
     ref_leaf = image.float().clone().requires_grad_()
     ref = grid_sample_2d_reference(ref_leaf, uv, mode)
     (ref_grad,) = torch.autograd.grad(ref, ref_leaf, cot)
@@ -245,9 +289,9 @@ def test_composite_kernel(cuda, white_bkgd, s_fg, s_bg):
             fg_t[:, -1:] + torch.rand(b, 1, generator=g))
     args = tuple(a.to(cuda) for a in args)
     ref = composite_nerfpp_reference(*args, white_bkgd)
-    before = composite_nerfpp.launches
+    before = kernels.launches["composite_nerfpp_fwd"]
     out = composite_nerfpp(*args, white_bkgd)
-    assert composite_nerfpp.launches == before + 1
+    assert kernels.launches["composite_nerfpp_fwd"] == before + 1
     assert set(out) == set(ref)
     for k in ref:
         _assert_ok(out[k], ref[k])
@@ -263,9 +307,9 @@ def test_pillar_collapse_kernel(cuda, dtype, shape):
     logits = [(torch.randn(nv, x, y, z, generator=g) * 3).to(dtype).to(cuda)
               for _ in range(3)]
     ref = pillar_collapse_reference(latent, *logits)
-    before = pillar_collapse.launches
+    before = kernels.launches["pillar_collapse_fwd"]
     out = pillar_collapse(latent, *logits)
-    assert pillar_collapse.launches == before + 1
+    assert kernels.launches["pillar_collapse_fwd"] == before + 1
     for o, r in zip(out, ref):
         _assert_ok(o, r)
 
@@ -375,10 +419,10 @@ def test_table_sample_backward_kernel(cuda, table_dtype, grad_dtype, mode):
     for offset in (0, 3):
         ref = table_sample_backward_reference(cot, uv, shape, table_dtype,
                                               (h, w), mode, offset)
-        before = table_sample_backward.launches
+        before = kernels.launches["table_sample_bwd"]
         out = table_sample_backward(cot, uv, shape, table_dtype, (h, w),
                                     mode, offset)
-        assert table_sample_backward.launches == before + 1
+        assert kernels.launches["table_sample_bwd"] == before + 1
         res = kernels.compare(out, ref, **INTERP_BWD_TOL)
         assert res["ok"], res
 
@@ -395,9 +439,9 @@ def test_composite_backward_kernel(cuda, white_bkgd, subset, s_fg, s_bg):
              if not subset or k in ("rgb", "fg_weights", "bg_weights")
              else None for k in OUT_KEYS]
     ref = _plain_composite_grads(args, grads, white_bkgd)
-    before = composite_nerfpp_backward.launches
+    before = kernels.launches["composite_nerfpp_bwd"]
     out = composite_nerfpp_backward(args, grads, white_bkgd)
-    assert composite_nerfpp_backward.launches == before + 1
+    assert kernels.launches["composite_nerfpp_bwd"] == before + 1
     for o, r in zip(out, ref):
         res = kernels.compare(o, r, **RENDER_BWD_TOL)
         assert res["ok"], res
@@ -427,9 +471,9 @@ def test_pillar_collapse_backward_kernel(cuda, dtype, shape):
     leaves = [a.detach().requires_grad_() for a in args]
     ref = torch.autograd.grad(pillar_collapse_reference(*leaves), leaves,
                               cots)
-    before = pillar_collapse_backward.launches
+    before = kernels.launches["pillar_collapse_bwd"]
     out = pillar_collapse_backward(args, cots)
-    assert pillar_collapse_backward.launches == before + 1
+    assert kernels.launches["pillar_collapse_bwd"] == before + 1
     res = kernels.compare(out[0], ref[0], **PILLAR_BWD_TOL["latent"])
     assert res["ok"], res
     for o, r in zip(out[1:], ref[1:]):
@@ -446,11 +490,12 @@ def test_gradients_reach_inputs_through_kernels(cuda):
                                "zeros").to(cuda).requires_grad_()
     uv = _uv(3, 500, g).nan_to_num(0.0, 0.0, 0.0).to(cuda)
     cot = torch.randn(3, 500, 32, generator=g).to(cuda)
-    before = (table_sample.launches, table_sample_backward.launches)
+    counted = ("table_sample_fwd", "table_sample_bwd")
+    before = [kernels.launches[k] for k in counted]
     (ours,) = torch.autograd.grad(table_sample(table, uv, (15, 20)), table,
                                   cot)
-    assert (table_sample.launches, table_sample_backward.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert [kernels.launches[k] - n for k, n in zip(counted, before)] == [
+        1, 1]
     (ref,) = torch.autograd.grad(table_sample_reference(table, uv, (15, 20)),
                                  table, cot)
     res = kernels.compare(ours, ref, **INTERP_BWD_TOL)
@@ -486,7 +531,7 @@ def test_accumulate_reference_sums_the_dense_gradients(mode, view_offset,
     shape = (6, h + 1, w + 1, 4 * c)
     acc = torch.zeros(shape)
     dense = torch.zeros(shape)
-    before = table_sample_accumulate.launches
+    before = kernels.launches["table_sample_bwd_acc"]
     for _ in range(3):
         uv = (_uv(3, 50, g, 1.4) if nonfinite
               else (torch.rand(3, 50, 2, generator=g) * 2 - 1) * 1.4)
@@ -495,7 +540,8 @@ def test_accumulate_reference_sums_the_dense_gradients(mode, view_offset,
         dense += table_sample_backward_reference(cot, uv, shape,
                                                  torch.float32, (h, w), mode,
                                                  view_offset)
-    assert table_sample_accumulate.launches == before   # no kernel on CPU
+    # no kernel on CPU
+    assert kernels.launches["table_sample_bwd_acc"] == before
     torch.testing.assert_close(acc, dense, rtol=1e-6, atol=1e-6)
     assert acc.abs().max() > 0
     read = set(range(view_offset, view_offset + 3))
@@ -563,14 +609,14 @@ def test_table_sample_accumulate_kernel(cuda, case, grad_dtype):
     g = _gen(13)
     acc = torch.zeros(shape, device=cuda)
     ref = torch.zeros(shape, device=cuda)
-    before = table_sample_accumulate.launches
+    before = kernels.launches["table_sample_bwd_acc"]
     for off in offsets:
         uv = _ray_uv(b, rays, s, g).to(cuda)
         cot = torch.randn(b, rays * s, shape[-1] // 4, generator=g).to(
             grad_dtype).to(cuda)
         table_sample_accumulate(cot, uv, acc, hw, mode, off)
         table_sample_accumulate_reference(cot, uv, ref, hw, mode, off)
-    assert table_sample_accumulate.launches == before + len(offsets)
+    assert kernels.launches["table_sample_bwd_acc"] == before + len(offsets)
     res = kernels.compare(acc, ref, **INTERP_BWD_TOL)
     assert res["ok"], res
 
@@ -1045,10 +1091,10 @@ def test_pillar_collapse_kernel_path_and_ragged(cuda, dtype, shape):
     logits = [(torch.randn(nv, x, y, z, generator=g) * 3).to(dtype).to(cuda)
               for _ in range(3)]
     ref = pillar_collapse_reference(latent, *logits)
-    before = pillar_collapse.launches
+    before = kernels.launches["pillar_collapse_fwd"]
     out = pillar_collapse(latent, *logits)
     again = pillar_collapse(latent, *logits)
-    assert pillar_collapse.launches == before + 2
+    assert kernels.launches["pillar_collapse_fwd"] == before + 2
     for o, a, r in zip(out, again, ref):
         _assert_ok(o, r)
         assert torch.equal(o, a)
@@ -1271,16 +1317,16 @@ def test_fused_gather_kernels(cuda, dtype, run):
     tri_cam[1, 3] = float("nan")
     focal, centre = FOCAL.to(cuda), CENTRE.to(cuda)
     for off in (0, 3):
-        before = triplane_sample.launches
+        before = kernels.launches["triplane_sample_fwd"]
         tri = triplane_sample(planes, tri_cam, hw, off, run=run)
-        assert triplane_sample.launches == before + 1
+        assert kernels.launches["triplane_sample_fwd"] == before + 1
         res = kernels.compare(tri, triplane_sample_reference(
             planes, tri_cam, hw, off), **FUSED_TOL)
         assert res["ok"], res
-        before = local_sample.launches
+        before = kernels.launches["local_sample_fwd"]
         loc = local_sample(local, cam, focal, centre, SCALE, hw, 2 * off,
                            run=run)
-        assert local_sample.launches == before + 1
+        assert kernels.launches["local_sample_fwd"] == before + 1
         res = kernels.compare(loc, local_sample_reference(
             local, cam, focal, centre, SCALE, hw, 2 * off), **FUSED_TOL)
         assert res["ok"], res
@@ -1388,10 +1434,10 @@ def test_kernels_at_the_narrow_widths(cuda, dtype, c):
                        grad_acc=accs[3])
     cot_w = torch.randn(world.shape, generator=g).to(cuda)
     cot_l = torch.randn(loc.shape, generator=g).to(cuda)
-    before = table_sample_accumulate.launches
+    before = kernels.launches["table_sample_bwd_acc"]
     torch.autograd.grad((world, loc), leaves, (cot_w, cot_l),
                         allow_unused=True)
-    assert table_sample_accumulate.launches == before + 4
+    assert kernels.launches["table_sample_bwd_acc"] == before + 4
     refs = [torch.zeros(t.shape, device=cuda) for t in leaves]
     for t_ref, uv in zip(refs[:3], triplane_uvs(cam)):
         table_sample_accumulate_reference(cot_w, uv, t_ref, hw, "zeros", 3)
@@ -1481,13 +1527,13 @@ def test_composite_vanilla_kernel(cuda, b, s):
     args = tuple(a.to(cuda) for a in _vanilla_args(g, b, s))
     if s > 2 and b >= 4:
         args = _vanilla_nonfinite(args)
-    before = composite_vanilla.launches
+    before = kernels.launches["composite_vanilla_fwd"]
     for white_bkgd in (False, True):
         ref = composite_vanilla_reference(*args, white_bkgd)
         out = composite_vanilla(*args, white_bkgd)
         for o, r in zip(out, ref):
             _assert_ok_where_finite(o, r)
-    assert composite_vanilla.launches == before + 2
+    assert kernels.launches["composite_vanilla_fwd"] == before + 2
 
 
 @pytest.mark.cuda
@@ -1504,7 +1550,7 @@ def test_composite_vanilla_backward_kernel(cuda, b, s, tiny_last):
     g = _gen(31)
     args = tuple(a.to(cuda) for a in _vanilla_args(g, b, s, tiny_last))
     shapes = [o.shape for o in composite_vanilla_reference(*args, False)]
-    before = composite_vanilla_backward.launches
+    before = kernels.launches["composite_vanilla_bwd"]
     for white_bkgd in (False, True):
         for subset in (False, True):
             grads = [torch.randn(sh, generator=g).to(cuda)
@@ -1513,7 +1559,7 @@ def test_composite_vanilla_backward_kernel(cuda, b, s, tiny_last):
             ref = _plain_vanilla_grads(args, grads, white_bkgd)
             out = composite_vanilla_backward(args, grads, white_bkgd)
             _assert_vanilla_grads(out, ref)
-    assert composite_vanilla_backward.launches == before + 4
+    assert kernels.launches["composite_vanilla_bwd"] == before + 4
 
 
 @pytest.mark.cuda
@@ -1522,14 +1568,15 @@ def test_composite_vanilla_gradients_reach_inputs_through_kernels(cuda):
     each, and its gradients are the plain version's."""
     g = _gen(32)
     args = tuple(a.to(cuda) for a in _vanilla_args(g, 64, 65))
-    fwd, bwd = composite_vanilla.launches, composite_vanilla_backward.launches
+    fwd, bwd = (kernels.launches["composite_vanilla_fwd"],
+                kernels.launches["composite_vanilla_bwd"])
     rgb, density = (a.clone().requires_grad_() for a in args[:2])
     comp, acc, weights, depth = composite_vanilla(rgb, density, *args[2:])
     cot = torch.randn(comp.shape, generator=g).to(cuda)
     ours = torch.autograd.grad((comp * cot).sum(), [rgb, density])
     ref = _plain_vanilla_grads(args, [cot, None, None, None], False)
-    assert (composite_vanilla.launches - fwd,
-            composite_vanilla_backward.launches - bwd) == (1, 1)
+    assert (kernels.launches["composite_vanilla_fwd"] - fwd,
+            kernels.launches["composite_vanilla_bwd"] - bwd) == (1, 1)
     for o, r in zip(ours, ref):
         assert kernels.compare(o, r, **RENDER_BWD_TOL)["ok"]
 
@@ -1995,7 +2042,7 @@ def test_composite_mip_kernel(cuda, b, s):
     every ray's infinite last interval."""
     g = _gen(43)
     args = tuple(a.to(cuda) for a in _mip_args(g, b, s, tie=s > 1))
-    before = composite_mip.launches
+    before = kernels.launches["composite_mip_fwd"]
     for opaque in (True, False):
         ref = composite_mip_reference(*args, 1.0, opaque)
         out = composite_mip(*args, 1.0, opaque)
@@ -2003,7 +2050,7 @@ def test_composite_mip_kernel(cuda, b, s):
             _assert_ok(o, r)
         if opaque and s > 1:
             assert float(out[2][0]) == 1.0
-    assert composite_mip.launches == before + 2
+    assert kernels.launches["composite_mip_fwd"] == before + 2
 
 
 @pytest.mark.cuda
@@ -2018,7 +2065,7 @@ def test_composite_mip_backward_kernel(cuda, b, s, subset):
     args = tuple(a.to(cuda) for a in _mip_args(g, b, s, tie=s > 1))
     grads = [None if c is None else c.to(cuda)
              for c in _mip_cots(g, b, s, subset)]
-    before = composite_mip_backward.launches
+    before = kernels.launches["composite_mip_bwd"]
     for opaque in (True, False):
         acc = composite_mip(*args, 1.0, opaque)[2]
         ref = _plain_mip_grads(args, grads, opaque)
@@ -2026,7 +2073,7 @@ def test_composite_mip_backward_kernel(cuda, b, s, subset):
         _assert_mip_grads(out, ref)
         if opaque:
             assert torch.all(out[0][:, -1] == 0)
-    assert composite_mip_backward.launches == before + 2
+    assert kernels.launches["composite_mip_bwd"] == before + 2
 
 
 @pytest.mark.cuda
@@ -2057,7 +2104,8 @@ def test_composite_mip_gradients_reach_inputs_through_kernels(cuda):
     each, and its gradients are the plain version's."""
     g = _gen(45)
     args = tuple(a.to(cuda) for a in _mip_args(g, 64, 64, tie=True))
-    fwd, bwd = composite_mip.launches, composite_mip_backward.launches
+    fwd, bwd = (kernels.launches["composite_mip_fwd"],
+                kernels.launches["composite_mip_bwd"])
     density, rgb = (args[i].clone().requires_grad_() for i in (0, 3))
     weights, comp, acc, depth = composite_mip(density, args[1], args[2], rgb)
     cots = [torch.randn(x.shape, generator=g).to(cuda)
@@ -2065,8 +2113,8 @@ def test_composite_mip_gradients_reach_inputs_through_kernels(cuda):
     ours = torch.autograd.grad((weights * cots[0]).sum()
                                + (comp * cots[1]).sum(), [density, rgb])
     ref = _plain_mip_grads(args, cots + [None, None], True)
-    assert (composite_mip.launches - fwd,
-            composite_mip_backward.launches - bwd) == (1, 1)
+    assert (kernels.launches["composite_mip_fwd"] - fwd,
+            kernels.launches["composite_mip_bwd"] - bwd) == (1, 1)
     _assert_mip_grads(ours, ref)
 
 

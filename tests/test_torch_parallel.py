@@ -134,14 +134,14 @@ def test_row_draws_are_the_rows_of_the_global_draw():
     """RowDraws(g, r, n).rand((B, ...)) is block r of a (B * n, ...) draw
     from the same generator state, and the generator advances as the
     global draw does."""
-    from neo360_tpu_torch.core.sampling import _uniform
+    from neo360_tpu_torch.core.sampling import RowDraws, _uniform
     like = torch.zeros(())
     ref = torch.Generator().manual_seed(3)
     full = torch.rand((12, 5), generator=ref)
     after = torch.rand(4, generator=ref)
     for r in range(3):
         g = torch.Generator().manual_seed(3)
-        part = _uniform((4, 5), like, None, sharding.RowDraws(g, r, 3))
+        part = _uniform((4, 5), like, None, RowDraws(g, r, 3))
         assert torch.equal(part, full[4 * r:4 * (r + 1)])
         assert torch.equal(torch.rand(4, generator=g), after)
 

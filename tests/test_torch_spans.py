@@ -1,6 +1,6 @@
-"""The port's span recorder (`train/profiling.py:item`, `span`) and the
-benchmark's readers of it (`benchmark/spans.py`, the `*_device_ms.*`
-metrics).
+"""The port's span recorder (`core/spans.py:item`, `span`, re-exported by
+`train/profiling.py`) and the benchmark's readers of it
+(`benchmark/spans.py`, the `*_device_ms.*` metrics).
 
 On the CPU:
 - nesting: each span's item, its host and self host ms, on a stubbed
@@ -37,6 +37,8 @@ import torch
 
 from benchmark import run, spans
 from benchmark.tests.support import STAGE_CELL, tiny_over, with_production
+from neo360_tpu_torch.core import spans as core_spans
+from neo360_tpu_torch.ops import kernels
 from neo360_tpu_torch.train import loop, profiling
 from neo360_tpu_torch.train.profiling import item, span
 
@@ -64,7 +66,7 @@ class _Clock:
 @pytest.fixture
 def recorder(monkeypatch):
     profiling.clear()
-    monkeypatch.setattr(profiling, "_now", _Clock())
+    monkeypatch.setattr(core_spans, "_now", _Clock())
     yield
     profiling.clear()
 
@@ -109,7 +111,7 @@ class _Device:
 @pytest.fixture
 def device(recorder, monkeypatch):
     dev = _Device()
-    monkeypatch.setattr(profiling, "_pool", [])
+    monkeypatch.setattr(core_spans, "_pool", [])
     monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: "stream")
     monkeypatch.setattr(torch.cuda, "Event", dev.Event)
@@ -247,8 +249,8 @@ def test_an_item_is_read_by_the_time_the_item_after_next_closes(device):
             with span("loss"):
                 pass
     assert device.synced == 1       # the first, waited for at the third
-    assert [it.name for it in profiling._done] == ["step0"]
-    assert len(profiling._pending) == 2
+    assert [it.name for it in core_spans._done] == ["step0"]
+    assert len(core_spans._pending) == 2
     got = profiling.items()         # reads the rest
     assert [it["name"] for it in got] == ["step0", "step1", "step2"]
     assert all(it["spans"]["loss"]["device_ms"] == 1 for it in got)
@@ -565,13 +567,12 @@ def test_a_mip_step_on_the_card_launches_e_and_e_prime_three_times(
     spans."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    from neo360_tpu_torch.core.render import composite_mip, \
-        composite_mip_backward
-    before = (composite_mip.launches, composite_mip_backward.launches)
+    before = (kernels.launches["composite_mip_fwd"],
+              kernels.launches["composite_mip_bwd"])
     _, res = _run_mip(monkeypatch, torch.device("cuda"))
     steps = 3 + res["attempted"] + 1        # warm-up, window, profiled
-    assert composite_mip.launches - before[0] == 3 * steps
-    assert composite_mip_backward.launches - before[1] == 3 * steps
+    assert kernels.launches["composite_mip_fwd"] - before[0] == 3 * steps
+    assert kernels.launches["composite_mip_bwd"] - before[1] == 3 * steps
     for name in MIP_METRICS:
         assert res["metrics"][name]["value"] > 0, name
     for it in profiling.items():
