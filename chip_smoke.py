@@ -127,6 +127,9 @@ baselines' shapes in phase 3, A / A' at the PixelNeRF levels, and E / E'
 at MipNeRF-360's levels and render tiles, with rays at the tie acc == 1
 and the infinite last interval.
 
+After each phase that renders (phase 13's ranks aside) a "[graph]" line
+counts its tiles by how they ran: captured into the tile renderer's CUDA
+graph, replayed from it, or eager; the neo360 phase must replay some.
 Each kernel's launches per training stage or step and per rendered view
 follow the last phase. The line before the last is {"kernels": [...]}
 (the fourteen kernels; launches: the sum over the eight main paths of
@@ -227,6 +230,21 @@ def _by_kernel(counts) -> dict:
     out = {k: v for k, v in counts.items() if k != "table_sample_bwd_acc"}
     out["table_sample_bwd"] += counts["table_sample_bwd_acc"]
     return out
+
+
+def _graph_line(what: str, before: dict) -> dict:
+    """Print a "[graph]" line: the tiles rendered since `before` (the
+    process's `profiling.graphs`) by how they ran, captured into the tile
+    renderer's CUDA graph, replayed from it or eager. Returns the counts
+    now."""
+    from neo360_tpu_torch.train import profiling
+    now = dict(profiling.graphs)
+    got = {k: now[k] - before[k] for k in now}
+    print(f"[graph] {what}: {got['captured']} captured, {got['replayed']} "
+          f"replayed, {got['eager']} eager tiles")
+    if what.startswith("neo360 ") and not got["replayed"]:
+        raise AssertionError(f"{what}: no tile replayed from a CUDA graph")
+    return now
 
 
 def _bound(nbytes: float, ops: float):
@@ -3683,43 +3701,56 @@ def main() -> int:
     def done(phase):
         print(f"[time] {phase} done at {time.perf_counter() - t0:.1f} s")
 
+    from neo360_tpu_torch.train.profiling import graphs
     card = phase_card(torch)
     phase_build()
     done("build")
     checks = phase_kernels(torch) + phase_backward_kernels(torch)
     done("kernels")
+    tiles = dict(graphs)
     phase_small_reference(torch)
     phase_small_train(torch)
     phase_small_neo360_step(torch)
     phase_sync(torch)
+    tiles = _graph_line("small card-vs-CPU checks", tiles)
     done("small card-vs-CPU checks")
     work = tempfile.TemporaryDirectory()
     trained = os.path.join(work.name, "neo360_fast_96.pt")
     launches, per_stage, _, _ = phase_train_main_path(torch, trained)
+    tiles = _graph_line("neo360_fast training", tiles)
     done("neo360_fast training")
     from neo360_tpu_torch.config import preset
     serve_launches, per_view = phase_main_path(
         torch, preset("neo360_fast", seed=SEED))
+    tiles = _graph_line("neo360_fast serving", tiles)
     done("neo360_fast serving")
     neo_launches, neo_per_step, neo_per_view = phase_neo360_main_path(torch)
+    tiles = _graph_line("neo360 training and serving", tiles)
     done("neo360 training and serving")
     opt_launches, opt_per_step = phase_optimize_finetune(torch, trained)
     work.cleanup()
+    tiles = _graph_line("neo360_fast optimize and finetune", tiles)
     done("neo360_fast optimize and finetune")
     van_launches, van_per_step, van_per_view, _ = phase_vanilla_main_path(
         torch)
+    tiles = _graph_line("vanilla training and evaluation", tiles)
     done("vanilla training and evaluation")
     pix_launches, pix_per_step, pix_per_view, _ = \
         phase_pixelnerf_main_path(torch)
+    tiles = _graph_line("pixelnerf training and serving", tiles)
     done("pixelnerf training and serving")
     mip_launches, mip_per_step, mip_per_view, _ = \
         phase_mipnerf360_main_path(torch)
+    tiles = _graph_line("mipnerf360 training and evaluation", tiles)
     done("mipnerf360 training and evaluation")
-    phase_data_parallel(torch)
+    phase_data_parallel(torch)      # the ranks count their own tiles
     done("data-parallel ranks")
+    tiles = dict(graphs)
     helper_checks, helper_launches = phase_helpers(torch, card)
+    tiles = _graph_line("helpers", tiles)
     done("helpers")
     bench_checks, bench_launches = phase_bench(torch)
+    _graph_line("bench", tiles)
     checks += bench_checks
     done("bench")
 

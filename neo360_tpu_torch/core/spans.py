@@ -30,16 +30,27 @@ While `torch.profiler` records, each span is also a `record_function` in
 the profiler's trace, on the kernels' clock; otherwise `record_function`
 is not called.
 
+A region captured into a CUDA graph runs nothing while it is captured,
+and a replay of the graph runs no Python. `noting()` notes the spans
+opened inside it (their names and nesting) without recording them or
+taking markers; `credit(noted)` then credits those spans to the open item
+once a replay, untimed: each counts once, with no host time (the replay's
+host time stays in the span around it) and no device marker.
+
 Each closed item is folded into a per-name table (`items()`): the spans'
 count, host ms, self host ms (less their child spans'), device ms and
 self device ms, and how many of the spans were timed on the device. The
 last `MAX_ITEMS` items are kept, each with the constants built and
 served while it was open (`core/constants.py`;
-`train/profiling.py:constant_counts` gives the process's totals).
+`train/profiling.py:constant_counts` gives the process's totals) and the
+tiles rendered while it was open by how they ran (`graphs`: "captured"
+into the tile renderer's CUDA graph, "replayed" from it, or run "eager"
+beside it; `train/loop.py:make_image_renderer` counts them).
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import threading
 import time
@@ -61,6 +72,8 @@ _ids = itertools.count()
 _pool: List = []            # free timing events
 _pending: deque = deque()   # closed items whose markers are not read yet
 _done: deque = deque(maxlen=MAX_ITEMS)
+# tiles by how they ran, every thread's (module docstring)
+graphs = dict.fromkeys(("captured", "replayed", "eager"), 0)
 
 
 def enable(on: bool) -> None:
@@ -71,7 +84,7 @@ def enable(on: bool) -> None:
 
 class _Item:
     __slots__ = ("id", "name", "log", "depth", "events", "stream",
-                 "marking", "off", "last", "table", "constants")
+                 "marking", "off", "last", "table", "constants", "graphs")
 
     def __init__(self, name: str, stream):
         self.id = next(_ids)
@@ -91,6 +104,8 @@ class _Item:
         # the constants' (builds, hits) when the item opened; when it
         # closes, those while it was open
         self.constants = (_constants.builds, _constants.hits)
+        # the same for the tiles' counts (`graphs`)
+        self.graphs = tuple(graphs.values())
 
     def mark(self) -> int:
         """Record a marker on the item's stream; its index. A marker that
@@ -166,6 +181,8 @@ class _Span:
                 th.item = None
                 b, h = item.constants
                 item.constants = (_constants.builds - b, _constants.hits - h)
+                item.graphs = tuple(n - n0 for n, n0 in
+                                    zip(graphs.values(), item.graphs))
                 _close(item)
         rfs = th.rfs
         if rfs and rfs[-1][0] is self:
@@ -205,6 +222,46 @@ def item(name: str) -> _Span:
     """A named item: opens one unless the thread has one open, in which
     case it is a span of that item (module docstring)."""
     return _ItemSpan(name)
+
+
+class _Notes:
+    """Stands in for the open item while `noting`: its spans' names go to
+    `log` with no times and no markers, and it never closes."""
+    __slots__ = ("log", "depth", "events", "marking", "off", "last")
+
+    def __init__(self):
+        self.log: List[tuple] = []
+        self.depth = 1
+        self.events = None
+        self.marking = False
+        self.off = self.last = -1
+
+
+@contextlib.contextmanager
+def noting():
+    """Note the spans opened inside the block instead of recording them
+    (module docstring). Yields a list that holds, once the block has
+    closed, each span's name at its start and None at its end, in order:
+    what `credit` takes."""
+    th = _thread
+    outer, notes, noted = th.item, _Notes(), []
+    th.item = notes
+    try:
+        yield noted
+    finally:
+        th.item = outer
+        noted.extend(name for name, _, _ in notes.log)
+
+
+def credit(noted: List[Optional[str]]) -> None:
+    """Credit the spans `noting` noted to the thread's open item, as if
+    they had run now: each counts once, untimed, nested as noted."""
+    item = _thread.item
+    if item is None or not noted:
+        return
+    t = _now()
+    item.log.extend((name, t, -1) for name in noted)
+    item.last = -1
 
 
 def _close(item: _Item) -> None:
@@ -301,12 +358,13 @@ def _per_item(total: float, timed: int, count: int) -> Optional[float]:
 def items() -> List[Dict]:
     """The kept items, oldest first: {"id", "name" (the item's), "spans":
     {span name: {"count", "host_ms", "self_host_ms", "device_ms",
-    "self_device_ms", "timed"}}, "constants": {"builds", "hits"}}, each
-    figure summed over the item's spans of that name. `timed` of them took
-    device markers; the device figures are their sums scaled by count /
-    timed (the same where every span was timed), None where none was.
-    "constants": the constants built and served while the item was open
-    (every thread's)."""
+    "self_device_ms", "timed"}}, "constants": {"builds", "hits"},
+    "graphs": {"captured", "replayed", "eager"}}, each figure summed over
+    the item's spans of that name. `timed` of them took device markers;
+    the device figures are their sums scaled by count / timed (the same
+    where every span was timed), None where none was. "constants": the
+    constants built and served while the item was open; "graphs": the
+    tiles rendered while it was open, by how they ran (every thread's)."""
     with _lock:
         while _pending:
             _read(_pending.popleft())
@@ -318,7 +376,8 @@ def items() -> List[Dict]:
                    "timed": timed}
             for name, (n, ns, self_ns, ms, timed, self_ms, self_timed)
             in it.table.items()}, "constants": dict(
-                zip(("builds", "hits"), it.constants))} for it in _done]
+                zip(("builds", "hits"), it.constants)), "graphs": dict(
+                zip(graphs, it.graphs))} for it in _done]
 
 
 def clear() -> None:

@@ -45,12 +45,14 @@ item `train.step`, a rendered view the item `render.view`. A step takes
 `train.update` (the gradient all-reduce, the optimizer, the running
 statistics); a view takes `render.tile` for each tile, one in
 `MARKED_TILES` with device markers, and `render.assemble` for the padding
-and for the output's concatenation. The stage trainer opens no item: no
-benchmark cell runs it yet.
+and for the output (on CUDA the other tiles replay one CUDA graph, whose
+spans are credited: `make_image_renderer`). The stage trainer opens no
+item: no benchmark cell runs it yet.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Sequence, Tuple
 
@@ -59,8 +61,10 @@ import torch
 from torch import nn
 
 from neo360_tpu_torch.core.sampling import RowDraws
+from neo360_tpu_torch.ops import kernels
 from neo360_tpu_torch.parallel import sharding
-from neo360_tpu_torch.train.profiling import item, span
+from neo360_tpu_torch.train.profiling import credit, graphs, item, noting, \
+    span
 
 # one tile in MARKED_TILES of a rendered view takes device markers: a
 # marker costs the host about a launch (core/spans.py)
@@ -323,6 +327,158 @@ def stack_batches(samples: Sequence[Dict], keys=None) -> Dict[str,
     return {k: np.stack([np.asarray(s[k]) for s in samples]) for k in keys}
 
 
+def _graphs_on(device: torch.device) -> bool:
+    """Whether a view's unmarked tiles on `device` run from a CUDA graph."""
+    return device.type == "cuda"
+
+
+def _warm(fn: Callable[[], Dict], device: torch.device):
+    """fn() once on a new side stream that waits for the current one, as
+    `torch.cuda.graph` asks of the work it captures; the current stream
+    then waits for it. Returns (fn's outputs, the side stream)."""
+    main = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        out = fn()
+    main.wait_stream(side)
+    for v in out.values():
+        v.record_stream(main)
+    return out, side
+
+
+def _capture(fn: Callable[[], Dict], side):
+    """fn() captured into a new CUDA graph on the side stream, in a memory
+    pool of its own. Returns (the graph, fn's outputs: the graph's static
+    outputs, which each replay overwrites)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):   # the stream again if capture raises
+        with torch.cuda.graph(graph, stream=side):
+            out = fn()
+    return graph, out
+
+
+def _graph_key(pack, rays: Dict[str, torch.Tensor], chunk: int):
+    """What a tile's graph is captured from, as far as the renderer can
+    observe it: the device, `chunk`, each ray key with its dtype and
+    trailing shape, and every leaf of `pack` (a tensor by its address,
+    shape, strides and dtype; None, a number or a string by its value; any
+    other object by its identity). Returns (the key, the pack's tensors
+    and objects: a graph's entry holds them, so that no address it reads
+    is freed and reused while it lives)."""
+    held = []
+
+    def leaf(x):
+        if isinstance(x, torch.Tensor):
+            held.append(x)
+            return (x.data_ptr(), tuple(x.shape), x.stride(), x.dtype,
+                    x.device)
+        if isinstance(x, dict):
+            return (dict,) + tuple((k, leaf(v)) for k, v in x.items())
+        if isinstance(x, (list, tuple)):
+            return (type(x),) + tuple(leaf(v) for v in x)
+        if x is None or isinstance(x, (bool, int, float, str)):
+            return x
+        held.append(x)
+        return (type(x), id(x))
+
+    first = next(iter(rays.values()))
+    rays_key = tuple((k, v.dtype, tuple(v.shape[1:]))
+                     for k, v in rays.items())
+    return (first.device, chunk, rays_key, leaf(pack)), held
+
+
+class _TileGraph:
+    """One renderer's newest CUDA graph of a tile, with what it was
+    captured from (make_image_renderer's docstring)."""
+
+    def __init__(self, render_chunk_fn: Callable, chunk: int):
+        self.fn, self.chunk = render_chunk_fn, chunk
+        self.key, self.warned = None, False
+        self._forget()
+
+    def _forget(self) -> None:
+        self.graph = self.static_in = self.static_out = None
+        self.held = []          # the pack's tensors while the graph lives
+        self.noted: List = []   # the spans a tile opens (spans.noting)
+        self.launched: Dict[str, int] = {}  # a tile's launches by entry
+        self.failed = False     # capture raised: tiles of the key eager
+
+    def view(self, pack, padded: Dict[str, torch.Tensor],
+             tiles: range) -> Dict[str, torch.Tensor]:
+        """The tiles of `padded` starting at `tiles`, one after the other
+        in one output per key: one in MARKED_TILES eager with device
+        markers, the others replayed from the key's graph (captured from
+        the first of them)."""
+        key, held = _graph_key(pack, padded, self.chunk)
+        if key != self.key:
+            if self.graph is not None:
+                self.graph.reset()
+            self._forget()
+            self.key, self.held = key, held
+        out = None
+        for j, i in enumerate(tiles):
+            marked = j % MARKED_TILES == 0
+            rays = {k: v[i:i + self.chunk] for k, v in padded.items()}
+            with span("render.tile", marked):
+                res, how = self._tile(pack, rays, marked)
+                if out is None:
+                    out = {k: v.new_empty((len(tiles) * self.chunk,)
+                                          + v.shape[1:])
+                           for k, v in res.items()}
+                for k, v in res.items():
+                    out[k][j * self.chunk:(j + 1) * self.chunk].copy_(v)
+            graphs[how] += 1
+        return out
+
+    def _tile(self, pack, rays, marked: bool):
+        """One tile's outputs and how it ran."""
+        if marked or self.failed:
+            return self.fn(pack, rays), "eager"
+        if self.graph is None:
+            return self._capture(pack, rays)
+        for k, v in rays.items():
+            self.static_in[k].copy_(v)
+        self.graph.replay()
+        credit(self.noted)
+        for name, n in self.launched.items():
+            kernels.launches[name] += n
+        return self.static_out, "replayed"
+
+    def _capture(self, pack, rays):
+        """Run the tile on a side stream (its outputs are the tile's),
+        then capture it from static inputs. The capture's spans are noted
+        and its launches taken back out of `kernels.launches`: it runs
+        nothing on the device, and each replay credits both."""
+        self.static_in = {k: v.clone() for k, v in rays.items()}
+        first, side = _warm(lambda: self.fn(pack, self.static_in),
+                            next(iter(rays.values())).device)
+
+        def captured():
+            before = dict(kernels.launches)
+            try:
+                with noting() as noted:
+                    return self.fn(pack, self.static_in)
+            finally:
+                self.noted = noted
+                self.launched = {k: n - before[k] for k, n in
+                                 kernels.launches.items() if n != before[k]}
+                kernels.launches.update(before)
+
+        try:
+            self.graph, self.static_out = _capture(captured, side)
+        except RuntimeError as e:
+            self.graph = self.static_out = None
+            self.failed = True
+            if not self.warned:
+                self.warned = True
+                warnings.warn(f"a render tile could not be captured into a "
+                              f"CUDA graph ({e}); its scene's tiles run "
+                              f"eagerly", RuntimeWarning)
+            return first, "eager"
+        return first, "captured"
+
+
 def make_image_renderer(render_chunk_fn: Callable, chunk: int = 4096,
                         group=None):
     """render_chunk_fn(pack, rays_chunk) -> dict of (chunk, ...) outputs.
@@ -333,8 +489,30 @@ def make_image_renderer(render_chunk_fn: Callable, chunk: int = 4096,
     and strips the padding. With a `group` the padding goes to a multiple
     of chunk x ranks, rank r renders the r-th contiguous block of tiles
     and every rank returns the whole image, gathered
-    (neo360_tpu/train/loop.py:311-366)."""
+    (neo360_tpu/train/loop.py:311-366).
+
+    On CUDA, a view of two tiles or more replays its tiles from a CUDA
+    graph of `render_chunk_fn`, so the card no longer waits for the host's
+    launches. One tile in MARKED_TILES runs eagerly with its device
+    markers (the first builds the call's constants); the first other tile
+    runs once on a side stream and is then captured from static inputs,
+    one per ray key; every other tile copies its rays into them, replays
+    the graph and copies its static outputs into the view's. The graph is
+    keyed by what the renderer observes (`_graph_key`: the device, chunk,
+    the ray keys' dtypes and trailing shapes, and the pack's tensors by
+    address); another key captures anew, and only the newest graph is
+    kept, holding the pack's tensors while it lives. So `render_chunk_fn`
+    must read only its arguments and tensors that live as long as the
+    renderer (weights updated in place are read where they are), and run
+    the same work for every tile of one key, as every caller's does. A
+    capture that raises (a path that waits for the stream) warns once,
+    and the key's tiles run eagerly. A replayed tile's spans and kernel
+    launches are credited as if it had run (`spans.credit`,
+    `kernels.launches`), and each tile is counted by how it ran
+    (`spans.graphs`). On the CPU, and for a single tile, the tiles run one
+    after the other and their outputs are concatenated."""
     world = 1 if group is None else group.world_size
+    tile_graph = _TileGraph(render_chunk_fn, chunk)
 
     @torch.inference_mode()
     def render(pack, rays: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -347,13 +525,22 @@ def make_image_renderer(render_chunk_fn: Callable, chunk: int = 4096,
                           for k, v in rays.items()}
             per = n_padded // world
             lo = 0 if group is None else group.rank * per
-            outs = []
-            for j, i in enumerate(range(lo, lo + per, chunk)):
-                with span("render.tile", j % MARKED_TILES == 0):
-                    outs.append(render_chunk_fn(
-                        pack, {k: v[i:i + chunk] for k, v in padded.items()}))
+            tiles = range(lo, lo + per, chunk)
+            out = None
+            if len(tiles) > 1 and _graphs_on(
+                    next(iter(padded.values())).device):
+                out = tile_graph.view(pack, padded, tiles)
+            else:
+                outs = []
+                for j, i in enumerate(tiles):
+                    with span("render.tile", j % MARKED_TILES == 0):
+                        outs.append(render_chunk_fn(
+                            pack, {k: v[i:i + chunk]
+                                   for k, v in padded.items()}))
             with span("render.assemble"):
-                out = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+                if out is None:
+                    out = {k: torch.cat([o[k] for o in outs])
+                           for k in outs[0]}
                 if group is not None:
                     out = {k: sharding.all_gather_rows(v, group)
                            for k, v in out.items()}

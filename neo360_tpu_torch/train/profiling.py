@@ -1,8 +1,8 @@
 """Profiling (port of neo360_tpu/train/profiling.py): `trace`,
-`summarize` and `constant_counts`, and the span recorder's public names
-(`item`, `span`, `items`, `enable`, `clear`, `MAX_ITEMS`), which live in
-`core/spans.py` and are re-exported here: the benchmark reads the recorder
-through this module.
+`summarize` and `constant_counts`, and the span recorder's public names (`item`, `span`, `items`, `enable`, `clear`,
+`MAX_ITEMS`, and `noting`, `credit`, `graphs` for the tile renderer's
+CUDA graph), which live in `core/spans.py` and are re-exported here: the
+benchmark reads the recorder through this module.
 
 `trace` records a `torch.profiler` run (host activity, and the card's
 kernels when CUDA is available) and writes it into a directory as a
@@ -21,8 +21,8 @@ import torch
 
 from neo360_tpu_torch.core.constants import cached as _constants
 # the recorder's public names, re-exported (module docstring)
-from neo360_tpu_torch.core.spans import MAX_ITEMS, clear, enable, item, \
-    items, span  # noqa: F401
+from neo360_tpu_torch.core.spans import MAX_ITEMS, clear, credit, enable, \
+    graphs, item, items, noting, span  # noqa: F401
 
 
 @contextlib.contextmanager

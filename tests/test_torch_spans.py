@@ -40,7 +40,7 @@ from benchmark.tests.support import STAGE_CELL, tiny_over, with_production
 from neo360_tpu_torch.core import spans as core_spans
 from neo360_tpu_torch.ops import kernels
 from neo360_tpu_torch.train import loop, profiling
-from neo360_tpu_torch.train.profiling import item, span
+from neo360_tpu_torch.train.profiling import item, noting, span
 
 METRICS = {"step": ("encoder_device_ms.train", "backward_device_ms.train",
                     "update_device_ms.train"),
@@ -283,6 +283,103 @@ def test_an_exception_closes_the_item(device):
     assert set(got[0]["spans"]) == {"step", "loss", "mlp"}
     assert set(got[1]["spans"]) == {"next", "loss"}
     assert got[0]["spans"]["step"]["device_ms"] is not None
+
+
+def _tile():
+    """A render tile's spans: a marker-free leaf, then two nested levels."""
+    with span("model.rays"):
+        pass
+    for _ in range(2):
+        with span("model.mlp"):
+            with span("model.sample"):
+                pass
+            with span("model.gather", device=False):
+                with span("inner"):
+                    pass
+
+
+def _view(replayed: bool):
+    """An item of four tiles, the first marked: the other three run, or
+    are credited from the spans one captured tile noted."""
+    noted = None
+    with item("view"):
+        for j in range(4):
+            with span("tile", j == 0):
+                if j == 0 or not replayed:
+                    _tile()
+                elif noted is None:
+                    with noting() as noted:
+                        _tile()
+                    profiling.credit(noted)
+                else:
+                    profiling.credit(noted)
+    return noted
+
+
+def test_noting_keeps_the_names_and_nesting_and_records_nothing(device):
+    with item("view"):
+        with noting() as noted:
+            _tile()
+            with item("nested item"):   # a span of the noted region
+                pass
+            assert noted == []          # filled when the block closes
+    assert noted == ["model.rays", None] + 2 * [
+        "model.mlp", "model.sample", None, "model.gather", "inner", None,
+        None, None] + ["nested item", None]
+    assert device.records == 2          # the view's markers only
+    assert set(profiling.items()[-1]["spans"]) == {"view"}
+    with noting() as alone:             # outside an item: noted all the same
+        _tile()
+    assert alone == noted[:-2]
+    assert profiling.items()[-1]["spans"] == profiling.items()[0]["spans"]
+
+
+def test_credited_spans_count_as_run_untimed(device):
+    """Crediting a replayed tile's noted spans gives the item the span
+    names, counts, timed counts and device figures of running the tile,
+    and no host time: the replay's host time stays in its tile span."""
+    _view(replayed=False)
+    ran = profiling.items()[-1]["spans"]
+    markers = device.records
+    _view(replayed=True)
+    credited = profiling.items()[-1]["spans"]
+    assert device.records - markers == markers
+    assert set(credited) == set(ran)
+    for name, row in ran.items():
+        for field in ("count", "timed", "device_ms", "self_device_ms"):
+            assert credited[name][field] == row[field], (name, field)
+    assert credited["model.sample"]["count"] == 8
+    assert credited["model.sample"]["timed"] == 2
+    assert credited["inner"]["timed"] == 0
+    # host time: the marked tile's and the noted tile's spans only
+    for name in ("model.rays", "model.mlp", "model.sample", "inner"):
+        assert 0 < credited[name]["host_ms"] < ran[name]["host_ms"]
+    assert credited["model.mlp"]["self_host_ms"] < \
+        ran["model.mlp"]["self_host_ms"]
+
+
+def test_credit_outside_an_item_or_of_nothing_records_nothing(recorder):
+    with noting() as noted:
+        _tile()
+    profiling.credit(noted)
+    with item("view"):
+        profiling.credit([])
+    assert [set(it["spans"]) for it in profiling.items()] == [{"view"}]
+
+
+def test_tiles_by_how_they_ran_per_item(recorder):
+    """Each item carries the tiles counted while it was open, by how they
+    ran (`graphs`), as it carries its constants."""
+    profiling.graphs["eager"] += 5         # outside any item: no item's
+    with item("view"):
+        profiling.graphs["captured"] += 1
+        profiling.graphs["replayed"] += 3
+        profiling.graphs["eager"] += 2
+    with item("view"):
+        profiling.graphs["replayed"] += 4
+    got = [it["graphs"] for it in profiling.items()]
+    assert got == [{"captured": 1, "replayed": 3, "eager": 2},
+                   {"captured": 0, "replayed": 4, "eager": 0}]
 
 
 def test_the_last_max_items_are_kept(recorder):
