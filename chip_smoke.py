@@ -78,7 +78,13 @@ line):
    samples, 512 rays, float32) for PIX_STEPS steps on 3 in-memory
    scenes, then 2 rendered views of one scene with one encode; every step
    launches A, A' (dense), D and D' twice each, every view A and D twice
-   per tile;
+   per tile; then PixelNeRF as published, the network of
+   `pixelnerf.train_step` (`phase_pixelnerf_published`): `cli.run_train`
+   on the preset with `mlp_type` "resnet" (two 5 x 512 ResnetFCs, 64 +
+   16 + 16 samples, border-padded latent, float32) for PUB_STEPS steps of
+   4 scenes x 3 views x 128 rays on 6 in-memory 320x240 scenes, its
+   counters zeroed just before; every step launches A, A' (dense), D and
+   D' twice each;
 12. MipNeRF-360 (`phase_mipnerf360_main_path`): a 320x240 micro scene
    written by `make_micro_scene`, `cli.run_train` at full width (8 x 1024
    NeRF MLP, two 4 x 256 proposal MLPs, 64 + 64 + 32 samples, lifted IPE,
@@ -123,16 +129,18 @@ line):
    neo360 per-step training (3 timed steps), each result on a "[bench]"
    line, the launches of each run's last window asserted.
 Kernel D / D' are also checked against their plain versions at the
-baselines' shapes in phase 3, A / A' at the PixelNeRF levels, and E / E'
-at MipNeRF-360's levels and render tiles, with rays at the tie acc == 1
-and the infinite last interval.
+baselines' shapes in phase 3 (the published PixelNeRF's 512 x 64 and x
+96 too), A / A' at the PixelNeRF levels and, border-padded, at the
+12-image table of `pixelnerf.train_step` with its step's points, and
+E / E' at MipNeRF-360's levels and render tiles, with rays at the tie
+acc == 1 and the infinite last interval.
 
 After each phase that renders (phase 13's ranks aside) a "[graph]" line
 counts its tiles by how they ran: captured into the tile renderer's CUDA
 graph, replayed from it, or eager; the neo360 phase must replay some.
 Each kernel's launches per training stage or step and per rendered view
 follow the last phase. The line before the last is {"kernels": [...]}
-(the fourteen kernels; launches: the sum over the eight main paths of
+(the fourteen kernels; launches: the sum over the nine main paths of
 phases 6-12 and the bench runs of phase 15, each counted from 0, and for G / G' the sum over phase 14's
 runs of grid_sample_2d and homography_warp, each counted from 0; phase
 13's ranks count in their own processes and are not in it), the
@@ -643,9 +651,10 @@ def phase_kernels(torch):
         del latent, logits, out
 
     # Kernel D: a vanilla training step's two levels (2048 rays x 65 and
-    # x 193 points), a PixelNeRF step's (512 x 65, x 129) and a 256-ray
-    # render tile of each model's fine level, white background off (the
-    # presets'); no PyTorch call computes the composite
+    # x 193 points), a PixelNeRF step's (512 x 65, x 129), the published
+    # PixelNeRF's (512 x 64, x 96) and a 256-ray render tile of each
+    # model's fine level, white background off (the presets'); no PyTorch
+    # call computes the composite
     for b, s in VANILLA_SHAPES:
         args = _vanilla_args(torch, g, b, s)
         kernel = lambda: composite_vanilla(*args, False)
@@ -697,6 +706,26 @@ def phase_kernels(torch):
                    library_fn=_grid_sample_fns(torch, 512, dt, u, hw,
                                                "zeros"))
         del table
+
+    # Kernel A in `pixelnerf.train_step`: the published network's
+    # border-padded f32 latent table of 4 scenes x 3 views, sampled at a
+    # step's coarse (64) and fine (96) points a ray (`_published_uv`)
+    table = torch.randn(PUB_TABLE, device=dev, generator=g)
+    for s in PUB_SAMPLES:
+        u = _published_uv(torch, s)
+        kernel = lambda: table_sample(table, u, hw, "border", f32)
+        plain = lambda: table_sample_reference(table, u, hw, "border", f32)
+        rows = _rows_read(table.shape, u, hw, "border", 0)
+        _check("table_sample_fwd",
+               f"pixelnerf.train_step level border f32 {PUB_TABLE[0]} x "
+               f"{PUB_RAYS} x {s} pts", kernel(), plain(), kernel, plain,
+               torch, results,
+               nbytes=(u.numel() * 4 + rows * 2048 * 4
+                       + u.shape[0] * u.shape[1] * 512 * 4),
+               ops=2.0 * u.shape[0] * u.shape[1] * 2048,
+               library_fn=_grid_sample_fns(torch, 512, f32, u, hw,
+                                           "border"))
+    del table, u
     return results
 
 
@@ -732,9 +761,17 @@ def _mip_ties(case, acc, ref_acc):
           f"plain version on {differ}")
 
 
-# (rays, points a ray) of kernels D and D' on the baselines' paths
+# (rays, points a ray) of kernels D and D' on the baselines' paths: a
+# vanilla step's levels, a PixelNeRF step's, the published PixelNeRF's
+# (`pixelnerf.train_step`), and 256-ray render tiles (D alone)
 VANILLA_SHAPES = ((2048, 65), (2048, 193), (512, 65), (512, 129),
-                  (256, 193), (256, 129))
+                  (512, 64), (512, 96), (256, 193), (256, 129))
+VANILLA_TRAIN_SHAPES = VANILLA_SHAPES[:6]
+# `pixelnerf.train_step`: 4 scenes x 3 views x 128 rays a step, the
+# levels' samples a ray, and its border-padded f32 latent table of the 12
+# source images (view-major)
+PUB_SCENES, PUB_RAYS, PUB_SAMPLES = 4, 128, (64, 96)
+PUB_TABLE = (3 * PUB_SCENES, 121, 161, 2048)
 
 
 def _vanilla_args(torch, g, b, s):
@@ -764,6 +801,57 @@ def _pixelnerf_uv(torch, view, n_rays, s):
     focal = view["src_focal"]
     uv = geometry.projection(cam, torch.stack([focal[0], -focal[0]])[None],
                              view["src_c"][:1], 3)
+    scale = latent_scaling((120, 160), cam.device) / torch.tensor(
+        [320.0, 240.0], device=cam.device)
+    return (uv * scale - 1.0).contiguous()
+
+
+def _published_uv(torch, s):
+    """uv (3 * PUB_SCENES, PUB_RAYS * s, 2) of a level of
+    `pixelnerf.train_step`'s step: PUB_RAYS consecutive rays of the middle
+    rows of a 320x240 fixture view of each of PUB_SCENES scenes, `s`
+    depths a ray in [NEAR, FAR] (the coarse level's 64 bin midpoints; the
+    fine level's 96 adds 16 drawn by bin from weights peaked at the ray's
+    closest approach to the scene's centre and 16 at it), each scene's
+    points seen from its own 3 source views, view-major (row v *
+    PUB_SCENES + scene), projected with its view 0's (f, -f) and centre
+    and scaled to the 120x160 latent, as PixelNeRF._latents computes
+    them."""
+    import torch.nn.functional as F
+
+    from neo360_tpu_torch.core import geometry, sampling
+    from neo360_tpu_torch.data.fixtures import MemoryScenes
+    from neo360_tpu_torch.models.pixelnerf import DEPTH_STD, FAR, NEAR
+    from neo360_tpu_torch.nn.resnet import latent_scaling
+    data = MemoryScenes(PUB_SCENES, (320, 240), 3)
+    start, n = 120 * 320, PUB_RAYS
+    pts, poses, focal, c = [], [], [], []
+    for scene in range(PUB_SCENES):
+        view = {k: torch.as_tensor(v, device="cuda")
+                for k, v in data.sample_test(scene, 0).items()
+                if k in ("rays_o", "rays_d", "src_poses", "src_focal",
+                         "src_c")}
+        o = view["rays_o"][start:start + n]
+        d = F.normalize(view["rays_d"][start:start + n], dim=-1)
+        t = sampling.sample_bins(n, PUB_SAMPLES[0], NEAR, FAR, False, o)
+        if s > PUB_SAMPLES[0]:
+            near = torch.clamp(-(o * d).sum(-1), NEAR, FAR)
+            peak = torch.exp(-((t - near[:, None]) / 0.05) ** 2)
+            k = (s - PUB_SAMPLES[0]) // 2
+            t = torch.sort(torch.cat([
+                t, sampling.sample_bins_pdf(peak, k, NEAR, FAR, False),
+                sampling.sample_near_depth(near, k, DEPTH_STD, NEAR, FAR,
+                                           False)], -1), -1).values
+        pts.append(sampling.cast_rays(t, o, d).reshape(-1, 3))
+        poses.append(view["src_poses"])
+        focal.append(view["src_focal"][0])
+        c.append(view["src_c"][0])
+    nv = poses[0].shape[0]
+    poses = torch.stack(poses).transpose(0, 1).reshape(-1, 4, 4)
+    cam = geometry.world2camera(torch.stack(pts).repeat(nv, 1, 1), poses)
+    f = torch.stack(focal)
+    uv = geometry.projection(cam, torch.stack([f, -f], -1).repeat(nv, 1),
+                             torch.stack(c).repeat(nv, 1), 1)
     scale = latent_scaling((120, 160), cam.device) / torch.tensor(
         [320.0, 240.0], device=cam.device)
     return (uv * scale - 1.0).contiguous()
@@ -1102,7 +1190,7 @@ def phase_backward_kernels(torch):
         del args, cots, leaves, floors
 
     # D': the baselines' training levels; the loss reads rgb alone
-    for b, s in VANILLA_SHAPES[:4]:
+    for b, s in VANILLA_TRAIN_SHAPES:
         args = _vanilla_args(torch, g, b, s)
         grads = [torch.randn(b, 3, device=dev, generator=g), None, None,
                  None]
@@ -1169,6 +1257,27 @@ def phase_backward_kernels(torch):
            ops=2.0 * cot.numel() * 4,
            library_fn=_grid_sample_fns(torch, 512, f32, u, hw, "zeros", cot))
     del fwd, t32, cot, u
+
+    # A', dense contract, in `pixelnerf.train_step`: the gradient of the
+    # 12-image border table at a step's coarse and fine points
+    for s in PUB_SAMPLES:
+        u = _published_uv(torch, s)
+        cot = torch.randn(u.shape[0], u.shape[1], 512, device=dev,
+                          generator=g)
+        t32 = torch.zeros(PUB_TABLE, device=dev, requires_grad=True)
+        fwd = table_sample_reference(t32, u, hw, "border", f32)
+        plain = lambda: torch.autograd.grad(fwd, t32, cot,
+                                            retain_graph=True)[0]
+        kernel = lambda: table_sample_backward(cot, u, PUB_TABLE, f32, hw,
+                                               "border")
+        _check("table_sample_bwd", f"dense pixelnerf.train_step level "
+               f"border f32 cotangent, {PUB_RAYS} x {s} pts", kernel(),
+               plain(), kernel, plain, torch, results, A_TOL,
+               nbytes=cot.numel() * 4 + u.numel() * 4 + t32.numel() * 4,
+               ops=2.0 * cot.numel() * 4,
+               library_fn=_grid_sample_fns(torch, 512, f32, u, hw, "border",
+                                           cot))
+        del fwd, t32, cot, u
     return results
 
 
@@ -2399,6 +2508,110 @@ def phase_pixelnerf_main_path(torch):
     return launches, per_step, per_view, {"s_step": steady,
                                           "peak_gib": peak,
                                           "s_view": view_s}
+
+
+# the published PixelNeRF's phase: PUB_STEPS steps of the
+# `pixelnerf.train_step` batch, one a call, on PUB_POOL in-memory scenes
+PUB_STEPS, PUB_POOL = 8, 6
+
+
+def phase_pixelnerf_published(torch):
+    """PixelNeRF as published, the network of `pixelnerf.train_step`: the
+    preset with `mlp_type` "resnet" (ResNet34 SpatialEncoder trained every
+    step, two 5 x 512 ResnetFCs averaging the views before block 3, 64 +
+    16 + 16 samples, border-padded latent, float32, TF32 off) through
+    `cli.run_train` with the per-step trainer, PUB_STEPS calls of one step
+    of PUB_SCENES scenes x 3 source views x PUB_RAYS rays at 320x240 on
+    PUB_POOL in-memory scenes (the last step under torch.profiler), then
+    its validation render and checkpoint. The kernel counters are zeroed
+    just before the run; every step launches exactly
+    `_baseline_step_launches("pixelnerf")` (A and A' dense, D and D', once
+    a level), every loss is finite and every BatchNorm buffer moves.
+    Returns the run's launches and those of each step."""
+    import numpy as np
+
+    from neo360_tpu_torch import cli
+    from neo360_tpu_torch.config import preset
+    from neo360_tpu_torch.data.fixtures import MemoryScenes
+    from neo360_tpu_torch.train import loop
+
+    fns = counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = preset("pixelnerf", seed=SEED, mlp_type="resnet",
+                     run_max_steps=PUB_STEPS, steps_per_call=1,
+                     log_every_steps=1, save_every_steps=PUB_STEPS,
+                     ckpt_dir=tmp, device="cuda")
+        rays = cfg.ray_batch_size // cfg.scenes_per_step
+        if (cfg.scenes_per_step, rays) != (PUB_SCENES, PUB_RAYS):
+            raise AssertionError(f"the published preset's batch: "
+                                 f"{cfg.scenes_per_step} x {rays}")
+        print(f"[pixelnerf published] img_wh {cfg.img_wh}, "
+              f"{cfg.scenes_per_step} scenes x {cfg.num_src_views} source "
+              f"views x {rays} rays a step, lr {cfg.lr_init}, "
+              f"{PUB_STEPS} steps on {PUB_POOL} scenes")
+        datasets = tuple(MemoryScenes(PUB_POOL, cfg.img_wh,
+                                      cfg.num_src_views, split=split,
+                                      ray_batch_size=cfg.ray_batch_size)
+                         for split in ("train", "val"))
+        before = {k: v.clone() for k, v in cli.build_model(
+            cfg, "cpu").state_dict().items() if "running" in k}
+        per_step, step_s, losses = [], [], []
+        plain_factory = loop.make_staged_trainer
+
+        def counted_factory(step_fn):
+            run = _counting(fns, per_step, step_s, PUB_STEPS - 1,
+                            "published pixelnerf training step")(
+                plain_factory(step_fn))
+
+            def staged(*args):
+                metrics = run(*args)
+                losses.append(float(metrics["loss"]))
+                return metrics
+            return staged
+
+        _zero(fns)
+        torch.cuda.reset_peak_memory_stats()
+        loop.make_staged_trainer = counted_factory
+        try:
+            t0 = time.perf_counter()
+            state = cli.run_train(cfg, datasets=datasets)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            loop.make_staged_trainer = plain_factory
+        launches = _read(fns)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ckpts = sorted(os.listdir(os.path.join(tmp, "exp", "checkpoints")))
+
+    model = state.model
+    after = {k: v.cpu() for k, v in model.state_dict().items()
+             if "running" in k}
+    unmoved = [k for k in before if torch.equal(before[k], after[k])]
+    timed = step_s[1:]
+    steady = statistics.median(timed)
+    print(f"[pixelnerf published] s/step: first {step_s[0]:.4f} (warm-up), "
+          f"steady median {steady:.4f} (min {min(timed):.4f}, max "
+          f"{max(timed):.4f}), {cfg.ray_batch_size / steady:.0f} train "
+          f"rays/s; peak device memory {peak:.2f} GiB; run_train wall "
+          f"{wall:.2f} s; losses {[round(x, 4) for x in losses]}; "
+          f"checkpoints {ckpts}; BatchNorm buffers unmoved {len(unmoved)} "
+          f"/ {len(before)}")
+    want = _baseline_step_launches("pixelnerf")
+    ran = lambda counts: {k: n for k, n in counts.items() if n}
+    print(f"[pixelnerf published] launches per step "
+          f"{[ran(n) for n in per_step]} (expected {ran(want)}); the run's "
+          f"(with its validation render) {ran(_by_kernel(launches))}")
+    if len(losses) != PUB_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"published pixelnerf: losses {losses}")
+    if state.step != PUB_STEPS or f"ckpt_{PUB_STEPS:08d}.pt" not in ckpts:
+        raise AssertionError("published pixelnerf: no checkpoint")
+    if unmoved:
+        raise AssertionError(f"published pixelnerf: BatchNorm buffers did "
+                             f"not move: {unmoved[:5]}")
+    if any(n != want for n in per_step):
+        raise AssertionError(f"published pixelnerf: launches per step "
+                             f"{per_step}")
+    return launches, per_step
 
 
 # the MipNeRF-360 phase: MIP_STEPS steps in calls of MIP_CALL through
@@ -3739,6 +3952,9 @@ def main() -> int:
         phase_pixelnerf_main_path(torch)
     tiles = _graph_line("pixelnerf training and serving", tiles)
     done("pixelnerf training and serving")
+    pub_launches, pub_per_step = phase_pixelnerf_published(torch)
+    tiles = _graph_line("published pixelnerf training", tiles)
+    done("published pixelnerf training")
     mip_launches, mip_per_step, mip_per_view, _ = \
         phase_mipnerf360_main_path(torch)
     tiles = _graph_line("mipnerf360 training and evaluation", tiles)
@@ -3768,7 +3984,7 @@ def main() -> int:
     for k, n in _by_kernel(neo_launches).items():
         total[k] += n
     for launches_ in (opt_launches, van_launches, pix_launches,
-                      mip_launches, bench_launches):
+                      pub_launches, mip_launches, bench_launches):
         for k, n in _by_kernel(launches_).items():
             total[k] += n
     print(f"[kernel] launches: A' per stage dense "
@@ -3786,7 +4002,9 @@ def main() -> int:
               f"{van_per_step[1][name]} per training step, "
               f"{van_per_view[0][name]} per view; pixelnerf "
               f"{pix_per_step[1][name]} per training step, "
-              f"{pix_per_view[0][name]} per view; mipnerf360 "
+              f"{pix_per_view[0][name]} per view; published pixelnerf "
+              f"{_by_kernel(pub_per_step[1])[name]} per training step; "
+              f"mipnerf360 "
               f"{mip_per_step[1][name]} per training step, "
               f"{mip_per_view[0][name]} per view; "
               f"{main['case']}: {main['ms']:.4f} ms (device "

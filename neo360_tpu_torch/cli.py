@@ -22,6 +22,11 @@ interlevel + 0.01 distortion. `pixelnerf` is PixelNeRF (ResNet34 pixel
 latents, 64 + 64 samples, 4 x 128 MLP): it trains with the per-step
 trainer like `neo360`, the encoder every step.
 
+With --mlp_type resnet it is PixelNeRF as published (pixel-nerf
+conf/default_mv.conf): a 5 x 512 ResnetFC that averages the views before
+its block 3, 64 + 16 + 16 samples, 4 scenes x 128 rays a step (the
+preset's; --ray_batch_size splits over the 4), Adam at a constant 1e-4.
+
 `neo360` (alias `triplanar_nocs_fusion_conv_scene`) is the reference
 model: a conditioned coarse level, 128 + 256 merged samples, the 64^3 grid
 with the 512-channel lift, float32. `neo360_fast` is the proposal model
@@ -118,7 +123,9 @@ def parse_args(argv=None) -> Config:
     p.add_argument("--img_wh", nargs=2, type=int, default=[320, 240])
     p.add_argument("--white_back", action="store_true")
     p.add_argument("--batch_size", type=int, default=None)
-    p.add_argument("--ray_batch_size", type=int, default=500)
+    p.add_argument("--ray_batch_size", type=int, default=None,
+                   help="rays a step of the few-shot models (default 500; "
+                   "pixelnerf --mlp_type resnet: 512)")
     p.add_argument("--chunk", type=int, default=256)
     p.add_argument("--num_src_views", type=int, default=None)
     p.add_argument("--run_max_steps", type=int, default=100000)
@@ -143,6 +150,9 @@ def parse_args(argv=None) -> Config:
     p.add_argument("--stage_warmup_steps", type=int, default=None)
     p.add_argument("--eval_bn_mode", choices=["batch", "running"],
                    default=None)
+    p.add_argument("--mlp_type", choices=["nerf", "resnet"], default=None,
+                   help="pixelnerf: the JAX package's MLP (default) or the "
+                   "published ResnetFC network")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; raises if absent)")
     a = p.parse_args(argv)
@@ -222,7 +232,10 @@ def build_model(cfg: Config, device=None):
     proposal MLPs), cfg.num_prop_samples or 64 proposal and
     cfg.num_fine_samples or 32 NeRF samples. pixelnerf:
     PixelNeRF over cfg.num_src_views views, 64 + 64 samples unless
-    overridden, bf16 compute with cfg.bf16.
+    overridden, bf16 compute with cfg.bf16; with cfg.mlp_type "resnet"
+    the published network (a 5 x 512 ResnetFC averaging the views before
+    block 3) and its 64 + cfg.num_fine_samples samples (32 unless set, of
+    which 16 around the coarse depth).
 
     neo360 (neo360_tpu/cli.py:117-124): the conditioned coarse level,
     cfg.num_coarse_samples or 128 coarse and cfg.num_fine_samples or 256
@@ -255,8 +268,9 @@ def build_model(cfg: Config, device=None):
         model = PixelNeRF(
             num_src_views=cfg.num_src_views, compute_dtype=dtype,
             num_coarse_samples=cfg.num_coarse_samples or 64,
-            num_fine_samples=cfg.num_fine_samples or 64,
-            generator=generator)
+            num_fine_samples=cfg.num_fine_samples or (
+                32 if cfg.mlp_type == "resnet" else 64),
+            generator=generator, network=cfg.mlp_type)
         return model.to(device).eval()
     from neo360_tpu_torch.models.neo360 import NeRFTP
     size = {k: getattr(cfg, k) for k in (
@@ -484,11 +498,19 @@ def _host(x) -> np.ndarray:
 
 def _check_train_mode(cfg: Config) -> None:
     """Raise on a training configuration the trainers cannot run: the
-    stage trainer's ray batch must split evenly over its scenes."""
+    stage trainer's ray batch must split evenly over its scenes, and a
+    per-step batch of several scenes (pixelnerf's, on one rank) over
+    those."""
     if cfg.stage_k > 1 and not frozen_encoder(cfg) and \
             cfg.ray_batch_size % cfg.stage_scenes:
         raise ValueError(f"ray_batch_size {cfg.ray_batch_size} must divide "
                          f"by stage_scenes {cfg.stage_scenes}")
+    if cfg.scenes_per_step > 1 and (
+            cfg.exp_type != "pixelnerf" or sharding.current() is not None
+            or cfg.ray_batch_size % cfg.scenes_per_step):
+        raise ValueError(f"scenes_per_step {cfg.scenes_per_step}: pixelnerf "
+                         f"on one rank, ray_batch_size "
+                         f"{cfg.ray_batch_size} split evenly over them")
 
 
 def _cpu(tensors: Dict) -> Dict:
@@ -576,7 +598,9 @@ def make_loss_fn(cfg: Config, model, randomized: bool = True,
     MSE, l0 + l1; pixelnerf encodes the batch's source views with
     BatchNorm in training mode (on its running statistics in the optimize
     and finetune modes, which for pixelnerf only pin the lr and freeze
-    nothing, as the JAX CLI's partition matches no PixelNeRF parameter)."""
+    nothing, as the JAX CLI's partition matches no PixelNeRF parameter),
+    one scene's (src (NV, ...), rays (R, ...)) or cfg.scenes_per_step
+    scenes' (src (SB, NV, ...), rays and target (SB, R, ...)) at once."""
     from neo360_tpu_torch.ops.losses import img2mse, mse2psnr
     if cfg.exp_type == "mipnerf360":
         from neo360_tpu_torch.models.mipnerf360 import distortion_loss, \
@@ -963,6 +987,11 @@ def run_train(cfg: Config, device=None, datasets=None):
                 yield (tl.stack_batches(stages, MODEL_SRC_KEYS),
                        _rank_rays(tl.stack_batches(stages, STAGE_RAY_KEYS),
                                   group, ray_axis))
+            elif cfg.scenes_per_step > 1:
+                samples = [train_ds.sample_train_scenes(
+                               rng, cfg.scenes_per_step)
+                           for _ in range(stage_size)]
+                yield (tl.stack_batches(samples, STEP_KEYS),)
             else:
                 samples = [train_ds.sample_train(rng)
                            for _ in range(stage_size)]

@@ -61,6 +61,13 @@ class Config:
     local_proj_dim: Optional[int] = None   # projected pixel-latent width
     pillar_width: Optional[int] = None     # pillar aggregator hidden width
     depth_fc_layers: Optional[int] = None  # DepthPillarEncoder hidden layers
+    # PixelNeRF's network: "nerf", the JAX package's 4 x 128 MLP, or
+    # "resnet", the published ResnetFC (pixel-nerf conf/default_mv.conf:
+    # 5 x 512, the views averaged before block 3, 64 + 16 + 16 samples)
+    mlp_type: str = "nerf"
+    # scenes in a per-step training batch (pixelnerf): the ray_batch_size
+    # rays split evenly over them, each with its own source views
+    scenes_per_step: int = 1
 
     # optimization
     bf16: bool = False                     # bf16 compute in encoders/MLPs
@@ -145,6 +152,12 @@ def preset(exp_type: str, **overrides) -> Config:
     elif exp_type == "pixelnerf":
         cfg = Config(exp_type="pixelnerf", dataset_name="nerds360_ae",
                      lr_init=5e-4, lr_final=5e-6)
+        if overrides.get("mlp_type") == "resnet":
+            # the published training: 4 objects x 128 rays a step, Adam
+            # at a constant 1e-4 (pixel-nerf train/train.py -B 4 -R 128)
+            cfg = cfg.replace(ray_batch_size=512, scenes_per_step=4,
+                              lr_init=1e-4, lr_final=1e-4,
+                              lr_delay_steps=0)
     elif exp_type == "neo360":
         cfg = Config(exp_type="neo360", dataset_name="nerds360_ae",
                      lr_init=5e-4, lr_final=5e-6, grad_max_norm=0.05)

@@ -2,6 +2,9 @@
 scene contraction (port of neo360_tpu/core/encoding.py).
 
 - `pos_enc`: [x, sin(2^i x), cos(2^i x)], cos as sin(x + pi/2).
+- `pos_enc_interleaved`: PixelNeRF's encoding (pixel-nerf src/model/
+  code.py): [x, sin(f_0 x), cos(f_0 x), sin(f_1 x), ...], f_i = factor
+  2^i, sin and cos of each frequency side by side.
 - `integrated_pos_enc`: E[sin] of per-axis Gaussians, exp(-var/2) sin(mean).
 - `contract`: x inside the unit ball, (2 - 1/|x|) x/|x| outside it.
 - `track_linearize`: pushes a Gaussian through `contract` with its
@@ -43,6 +46,28 @@ def pos_enc(x: torch.Tensor, min_deg: int, max_deg: int) -> torch.Tensor:
     xb = (x[..., None, :] * scales[:, None]).reshape(x.shape[:-1] + (-1,))
     four_feat = torch.sin(torch.cat([xb, xb + 0.5 * math.pi], dim=-1))
     return torch.cat([x, four_feat], dim=-1)
+
+
+def pos_enc_interleaved(x: torch.Tensor, num_freqs: int,
+                        freq_factor: float) -> torch.Tensor:
+    """[x, sin(f_0 x), cos(f_0 x), ..., sin(f_{F-1} x), cos(f_{F-1} x)]
+    with f_i = freq_factor * 2^i, each term over x's d channels; the
+    argument is the phase (0 or pi/2) plus x times the frequency in one
+    `addcmul`, as pixel-nerf's PositionalEncoding computes it. Output dim
+    = d * (1 + 2 * num_freqs)."""
+    def build(values):
+        return lambda: torch.tensor(values, dtype=x.dtype,
+                                    device=x.device)[:, None]
+
+    key = (num_freqs, freq_factor)
+    freqs = cached("pos_enc_interleaved.freqs", key, x.dtype, x.device,
+                   build([freq_factor * 2.0 ** (i // 2)
+                          for i in range(2 * num_freqs)]))
+    phases = cached("pos_enc_interleaved.phases", key, x.dtype, x.device,
+                    build([0.5 * math.pi * (i % 2)
+                           for i in range(2 * num_freqs)]))
+    embed = torch.sin(torch.addcmul(phases, x[..., None, :], freqs))
+    return torch.cat([x, embed.flatten(-2)], dim=-1)
 
 
 def expected_sin(mean: torch.Tensor, var: torch.Tensor) -> torch.Tensor:

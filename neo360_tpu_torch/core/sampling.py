@@ -1,6 +1,12 @@
 """Ray sampling: the vanilla stratified and inverse-CDF samplers and the
 NeRF++ fg/bg split (port of neo360_tpu/core/sampling.py:29-145, 150-235).
 
+PixelNeRF's published renderer (pixel-nerf src/render/nerf.py) draws its
+own way: `sample_bins` one depth inside each of N equal bins of [near,
+far]; `sample_bins_pdf` a bin from the coarse weights (+ 1e-5) and a depth
+uniformly inside it; `sample_near_depth` normal draws around the coarse
+depth, clamped to [near, far].
+
 The inverse-CDF lookup uses `torch.searchsorted` instead of the JAX
 package's dense (B, N+1, M) mask, with the same results: the mask
 `u >= cdf` is a prefix of the bins (cdf never decreases), `count` its
@@ -24,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from neo360_tpu_torch.core.constants import cached
 from neo360_tpu_torch.core.geometry import linspace
 from neo360_tpu_torch.core.spherical import depth2pts_outside
 
@@ -38,12 +45,17 @@ class RowDraws:
     def __init__(self, generator: torch.Generator, index: int, count: int):
         self.generator, self.index, self.count = generator, index, count
 
-    def rand(self, shape, dtype, device) -> torch.Tensor:
+    def _rows(self, draw, shape, dtype, device) -> torch.Tensor:
         n = shape[0]
-        full = torch.rand((n * self.count,) + tuple(shape[1:]),
-                          generator=self.generator, dtype=dtype,
-                          device=device)
+        full = draw((n * self.count,) + tuple(shape[1:]),
+                    generator=self.generator, dtype=dtype, device=device)
         return full[self.index * n:(self.index + 1) * n]
+
+    def rand(self, shape, dtype, device) -> torch.Tensor:
+        return self._rows(torch.rand, shape, dtype, device)
+
+    def randn(self, shape, dtype, device) -> torch.Tensor:
+        return self._rows(torch.randn, shape, dtype, device)
 
 
 def _uniform(shape, like: torch.Tensor, u: Optional[torch.Tensor],
@@ -59,6 +71,16 @@ def _uniform(shape, like: torch.Tensor, u: Optional[torch.Tensor],
         return generator.rand(tuple(shape), like.dtype, like.device)
     return torch.rand(shape, generator=generator, dtype=like.dtype,
                       device=like.device)
+
+
+def _normal(shape, like: torch.Tensor,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """N(0, 1) draws from `generator` (a torch.Generator or a RowDraws)
+    on `like`'s device."""
+    if isinstance(generator, RowDraws):
+        return generator.randn(tuple(shape), like.dtype, like.device)
+    return torch.randn(shape, generator=generator, dtype=like.dtype,
+                       device=like.device)
 
 
 def stratify(t_vals: torch.Tensor, u: Optional[torch.Tensor] = None,
@@ -264,3 +286,67 @@ def sample_pdf_nerfpp(
     t_vals_linear = torch.flip(t_vals_linear, [-1])
     coords_linear = cast_rays(t_vals_linear, origins, directions)
     return t_vals, coords, coords_linear
+
+
+# --- PixelNeRF's published samplers (pixel-nerf src/render/nerf.py) -------
+
+def _bins_to_depth(z: torch.Tensor, near: float, far: float) -> torch.Tensor:
+    return near * (1.0 - z) + far * z
+
+
+def sample_bins(n_rays: int, num_bins: int, near: float, far: float,
+                randomized: bool, like: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+    """The coarse depths (n_rays, num_bins) of `sample_coarse`: bin i's
+    start i / N plus U[0, 1) / N, mapped onto [near, far]; the bins'
+    midpoints without `randomized`."""
+    starts = cached("sample_bins.starts", (num_bins,), like.dtype,
+                    like.device, lambda: torch.linspace(
+                        0.0, 1.0 - 1.0 / num_bins, num_bins,
+                        dtype=like.dtype, device=like.device))
+    shape = (n_rays, num_bins)
+    u = _uniform(shape, like, None, generator) if randomized else 0.5
+    return _bins_to_depth(starts + u * (1.0 / num_bins), near,
+                          far).expand(shape)
+
+
+def sample_bins_pdf(weights: torch.Tensor, num_samples: int, near: float,
+                    far: float, randomized: bool,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+    """`sample_fine`'s depths (B, num_samples): a coarse bin drawn from
+    the coarse weights (B, N) + 1e-5 (the first bin whose CDF exceeds a
+    uniform u), then a depth uniformly inside it. Without `randomized`:
+    u at the centres of num_samples equal steps, the bins' midpoints.
+    Detached."""
+    weights = weights.detach() + 1e-5
+    pdf = weights / torch.sum(weights, -1, keepdim=True)
+    cdf = torch.cumsum(pdf, -1)
+    cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], -1)
+    shape = (weights.shape[0], num_samples)
+    if randomized:
+        u = _uniform(shape, cdf, None, generator)
+    else:
+        u = cached("sample_bins_pdf.u", (num_samples,), cdf.dtype,
+                   cdf.device, lambda: (torch.arange(
+                       num_samples, dtype=cdf.dtype, device=cdf.device)
+                       + 0.5) / num_samples).expand(shape)
+    inds = torch.searchsorted(cdf, u.contiguous(), right=True).to(
+        cdf.dtype) - 1.0
+    inds = torch.clamp_min(inds, 0.0)
+    jitter = _uniform(shape, cdf, None, generator) if randomized else 0.5
+    return _bins_to_depth((inds + jitter) / weights.shape[-1], near, far)
+
+
+def sample_near_depth(depth: torch.Tensor, num_samples: int, std: float,
+                      near: float, far: float, randomized: bool,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
+    """`sample_fine_depth`'s depths (B, num_samples): the coarse depth
+    (B,) plus N(0, std^2) draws, clamped to [near, far]; the depth itself
+    without `randomized`. Detached."""
+    z = depth.detach()[:, None].expand(depth.shape[0], num_samples)
+    if randomized:
+        z = z + _normal(z.shape, z, generator) * std
+    return torch.clamp(z, near, far)

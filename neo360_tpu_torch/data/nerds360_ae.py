@@ -332,6 +332,18 @@ class NeRDS360AE:
                     for k in rays[0]})
         return out
 
+    def sample_train_scenes(self, rng: np.random.Generator, n_scenes: int
+                            ) -> Dict[str, np.ndarray]:
+        """One training step over `n_scenes` distinct scenes (the
+        pixelnerf batch): source arrays (S, NV, ...) and rays (S, B // S,
+        ...), drawn as a one-step scene-mixed stage
+        (`sample_train_stage`)."""
+        if n_scenes < 2:
+            raise ValueError(f"{n_scenes} scenes: use sample_train")
+        stage = self.sample_train_stage(rng, 1, n_scenes)
+        return {k: v if k.startswith("src_") else v[0]
+                for k, v in stage.items()}
+
     def sample_val(self, scene_idx: int, dest_offset: int = 0,
                    src_views: Optional[List[int]] = None):
         """Full-image sample of the held-out train camera 100 + i."""
