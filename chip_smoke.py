@@ -39,9 +39,10 @@ line):
    under `torch.profiler`, whose top device ops are printed), then its
    validation render and checkpoint; every step's loss must be finite,
    every parameter and BatchNorm buffer must move (apart from the leaves
-   whose gradient is zero by construction), all eight NeO-360 kernels must
+   whose gradient is zero by construction), all nine NeO-360 kernels must
    launch, and every stage must launch kernel A (the lift), C and C' S
-   times, the fused tri-plane and local gathers S x K times each, kernel
+   times, the fused tri-plane and local gathers S x K times each,
+   pos_enc_into 2 x S x K times (the fine level's fg and bg inputs), kernel
    A' once per scene under the dense contract (the grid lift) and 4 x S x
    K times under the accumulate contract (the tri-plane and local
    tables), and kernel B' 2 x S x K times (both levels of every
@@ -50,7 +51,8 @@ line):
    in-memory 320x240 fixture scene once and renders 3 novel views through
    cli.make_render_fn + train.eval.evaluate, the code of `cli.run_eval`;
    every forward kernel must launch: A and C once (the encode, with the
-   first view), the fused gathers once per 256-ray tile, B twice. One
+   first view), the fused gathers once per 256-ray tile, pos_enc_into and
+   B twice. One
    more render of a view runs under `torch.profiler`;
 8. the neo360 main path (`phase_neo360_main_path`): `cli.run_train` at
    full width with the per-step trainer (float32, 64^3 grid, 512-channel
@@ -176,6 +178,8 @@ KERNELS = {
                             "neo360_tpu/nn/triplane.py:328"),
     "local_sample_fwd": ("neo360_tpu_torch/csrc/local_sample.cu",
                          "neo360_tpu/models/neo360.py:276"),
+    "pos_enc_into": ("neo360_tpu_torch/csrc/pos_enc.cu",
+                     "neo360_tpu/core/encoding.py:23"),
     "composite_nerfpp_fwd": ("neo360_tpu_torch/csrc/composite_nerfpp.cu",
                              "neo360_tpu/core/render.py:55"),
     "pillar_collapse_fwd": ("neo360_tpu_torch/csrc/pillar_collapse.cu",
@@ -280,6 +284,7 @@ def _rows_read(table_shape, uv, hw, mode, view_offset) -> int:
 
 # the port's kernels (csrc/*.cu) as the profiler names them
 PORT_KERNEL = re.compile(r"::(table_sample|triplane_sample|local_sample"
+                         r"|pos_enc_into"
                          r"|table_scatter|round_to_bf16|grid_round_bf16"
                          r"|grid_sample|grid_scatter"
                          r"|composite_(nerfpp|vanilla|mip)(_bwd)?"
@@ -603,6 +608,7 @@ def phase_kernels(torch):
     del table, u
 
     results += _check_fused(torch, g, view)
+    results += _check_in_place(torch, g, view)
 
     # Kernel B at the neo360 tiles: a 256-ray render tile of the merged
     # fine level (385 points) and a 500-ray train step's coarse level (129)
@@ -930,6 +936,101 @@ def _check_fused(torch, g, view):
                library_fn=_grid_sample_fns(torch, 128, dt, u, hw, "border"),
                main=main)
         del planes, table, cam, tri_cam, uvs, u
+    return results
+
+
+def _check_in_place(torch, g, view):
+    """The conditioned MLP's input assembled in place by the main path's
+    own code, at the render tiles of both presets' conditioned levels
+    (neo360: f32 tables and rows, the coarse level's 129 and the fine
+    level's 385 points a branch; neo360_fast: bf16, 61): the preset's
+    model builds each branch's buffer in its MLPs' layout
+    (`NeRFTP._inputs`: fg rows of 320 and bg rows of 340 f32 or 344 bf16
+    values, so the two destinations differ in row length), and A-tri and
+    A-loc write there the bits of their contiguous outputs, rounded once
+    to the rows' type; then pos_enc_into of each branch's points (fg: 3
+    channels; bg: with the depth channel, shared by the views) at the
+    MLP's encoding column, against pos_enc on the card, timed: bit for
+    bit."""
+    from neo360_tpu_torch import cli
+    from neo360_tpu_torch.config import preset
+    from neo360_tpu_torch.core.encoding import pos_enc
+    from neo360_tpu_torch.nn.resnet import latent_scaling
+    from neo360_tpu_torch.ops.encoding import pos_enc_into
+    from neo360_tpu_torch.ops.interpolate import local_sample, \
+        triplane_sample
+
+    dev = g.device
+    hw, image = (120, 160), (320, 240)
+    focal, cc = view["src_focal"], view["src_c"]
+    scale = (latent_scaling(hw) / torch.tensor(image, dtype=torch.float32)
+             ).tolist()
+    exact = dict(rtol=0.0, atol_frac=0.0)
+    results = []
+    for exp, lds, levels in (
+            ("neo360", (320, 340), (("coarse", 129), ("fine", 385))),
+            ("neo360_fast", (320, 344), (("fine", 61),))):
+        model = cli.build_model(preset(exp, seed=SEED), dev).eval()
+        dt = model.compute_dtype
+        name = {torch.bfloat16: "bf16", torch.float32: "f32"}[dt]
+        for which, s in levels:
+            n_rays = 256
+            mlps = (getattr(model, f"fg_{which}_mlp"),
+                    getattr(model, f"bg_{which}_mlp"))
+            world_col, local_col, enc_col = mlps[0].columns
+            c = local_col - world_col
+            cam = _level_cam(torch, view, n_rays, s)
+            nv, m = cam.shape[0], cam.shape[1] // 2
+            planes = [torch.randn(3, 121, 161, 4 * c, device=dev,
+                                  generator=g).to(dt) for _ in range(3)]
+            table = torch.randn(6, 121, 161, 4 * c, device=dev,
+                                generator=g).to(dt)
+            with torch.no_grad():
+                world = triplane_sample(planes, cam, hw)
+                local = local_sample(table, cam, focal, cc, scale, hw)
+                out = model._inputs(mlps, cam, view, planes, hw, table, hw,
+                                    image, (0, 0), (None, None))
+            what = f"{exp} {which} tile, {n_rays} rays x {s}"
+            if tuple(buf.shape for buf in out) != tuple(
+                    (nv * m, ld) for ld in lds):
+                raise AssertionError(f"{what}: the buffers are "
+                                     f"{[tuple(b.shape) for b in out]}, "
+                                     f"not rows of {lds}")
+            for buf, w, loc in zip(out, (world[:, :m], world[:, m:]),
+                                   (local[:nv], local[nv:])):
+                for got, want in ((buf[:, world_col:world_col + c], w),
+                                  (buf[:, local_col:local_col + c], loc)):
+                    if not torch.equal(got, want.reshape(-1, c).to(dt)):
+                        raise AssertionError(
+                            f"{what}: a gather's rows in place differ from "
+                            f"its contiguous output")
+            print(f"[kernel] A-tri / A-loc {what}: the fg and bg rows in "
+                  f"place hold the contiguous outputs' bits ({name} rows "
+                  f"of {lds[0]} and {lds[1]})")
+            depth = torch.rand(m, device=dev, generator=g)
+            for branch, pts, extra in (("fg", cam[:, :m], None),
+                                       ("bg", cam[:, m:], depth)):
+                x = pts if extra is None else torch.cat(
+                    [pts, extra.reshape(1, m, 1).expand(nv, m, 1)], -1)
+                width = x.shape[-1] * 21
+                buf = out[branch == "bg"]
+                kernel = lambda: pos_enc_into(buf, pts, enc_col, 0, 10,
+                                              extra)[:, enc_col:
+                                                     enc_col + width]
+                plain = lambda: pos_enc(x, 0, 10).reshape(nv * m, -1).to(dt)
+                # the points read once (the depth channel once, not per
+                # view), the row's columns from enc_col to its end written
+                _check("pos_enc_into", f"{what} {branch}, {width} columns "
+                       f"of a {name} row of {buf.shape[1]}", kernel(),
+                       plain(), kernel, plain, torch, results, exact,
+                       nbytes=(nv * m * 3 * 4 + (0 if extra is None else m * 4)
+                               + nv * m * (buf.shape[1] - enc_col)
+                               * buf.element_size()),
+                       ops=2.0 * nv * m * width,
+                       main=which == "fine" and branch == "bg"
+                       and exp == "neo360")
+            del planes, table, cam, world, local, out
+        del model
     return results
 
 
@@ -1481,16 +1582,18 @@ def phase_train_main_path(torch, keep: str):
         raise AssertionError(f"kernel B' / C / C' launches per stage {got}, "
                              f"expected {want}")
     # A once per scene (its one encode's lift); the fine level's tri-plane
-    # and local gathers once each per scene-step
+    # and local gathers once each per scene-step, and its encoding into
+    # the fg and the bg MLP's input
     sk = cfg.stage_scenes * cfg.stage_k
-    want = (cfg.stage_scenes, sk, sk)
+    want = (cfg.stage_scenes, sk, sk, 2 * sk)
     got = [(n["table_sample_fwd"], n["triplane_sample_fwd"],
-            n["local_sample_fwd"]) for n in per_stage]
-    print(f"[train] kernels A, A-tri, A-loc per stage: {got}, expected "
-          f"{want} (A per scene, the fused gathers per scene-step)")
+            n["local_sample_fwd"], n["pos_enc_into"]) for n in per_stage]
+    print(f"[train] kernels A, A-tri, A-loc, pos_enc_into per stage: {got}, "
+          f"expected {want} (A per scene, the fused gathers per scene-step, "
+          f"the encoding per branch and scene-step)")
     if any(x != want for x in got):
-        raise AssertionError(f"kernel A / A-tri / A-loc launches per stage "
-                             f"{got}, expected {want}")
+        raise AssertionError(f"kernel A / A-tri / A-loc / pos_enc_into "
+                             f"launches per stage {got}, expected {want}")
     after = {k: v.detach().cpu() for k, v in
              state.model.state_dict().items()}
     still = [k for k, v in before.items()
@@ -1664,12 +1767,13 @@ def _neo360_step_launches(remat: bool) -> dict:
     code: the encode samples the lift table once (kernel A; once more when
     the backward recomputes the remat'ed grid part) and collapses the
     pillars once (C); each of the two conditioned levels gathers the 3
-    plane tables (A-tri) and its local table (A-loc) once and composites
-    once (B); the backward scatters every table gradient under the dense
-    contract (A': the lift once, each level's 3 planes and local table),
-    and runs C' once and B' once per level."""
+    plane tables (A-tri) and its local table (A-loc) once, writes the
+    encoding into its fg and its bg MLP's input (pos_enc_into) and
+    composites once (B); the backward scatters every table gradient under
+    the dense contract (A': the lift once, each level's 3 planes and local
+    table), and runs C' once and B' once per level."""
     return {"table_sample_fwd": 1 + int(remat), "triplane_sample_fwd": 2,
-            "local_sample_fwd": 2,
+            "local_sample_fwd": 2, "pos_enc_into": 4,
             "table_sample_bwd": 1 + 2 * 4, "table_sample_bwd_acc": 0,
             "composite_nerfpp_fwd": 2, "composite_nerfpp_bwd": 2,
             "pillar_collapse_fwd": 1, "pillar_collapse_bwd": 1,
@@ -1866,10 +1970,11 @@ def phase_neo360_main_path(torch):
                 and np.isfinite(v.depth).all()):
             raise AssertionError("neo360 view: non-finite output or metrics")
     # per tile both levels gather the planes (A-tri) and the local table
-    # (A-loc) and composite (B); the first view also encodes (A once for
-    # the lift, C once)
+    # (A-loc), write the encoding into both branches' inputs (pos_enc_into)
+    # and composite (B); the first view also encodes (A once for the lift,
+    # C once)
     want = [{"table_sample_fwd": first, "triplane_sample_fwd": 2 * tiles,
-             "local_sample_fwd": 2 * tiles,
+             "local_sample_fwd": 2 * tiles, "pos_enc_into": 4 * tiles,
              "composite_nerfpp_fwd": 2 * tiles, "pillar_collapse_fwd": first}
             for first in (1, 0)]
     got = [{k: n[k] for k in want[0]} for n in per_view]
@@ -1945,12 +2050,13 @@ def _optimize_step_launches() -> dict:
     latents given (cached) or computed without a kernel, so the lift
     samples its table once (A) and the pillars collapse once (C); the
     proposal level gathers nothing, the fine level gathers the 3 planes
-    (A-tri) and its local table (A-loc) once, both levels composite (B);
+    (A-tri) and its local table (A-loc) once and writes the encoding into
+    both branches' inputs (pos_enc_into), both levels composite (B);
     the backward scatters the lift table's gradient (`lift_proj` still
     trains), the 3 planes' and the local table's under the dense
     contract (A' 5 times), and runs C' once and B' once per level."""
     return {"table_sample_fwd": 1, "triplane_sample_fwd": 1,
-            "local_sample_fwd": 1,
+            "local_sample_fwd": 1, "pos_enc_into": 2,
             "table_sample_bwd": 1 + 4, "table_sample_bwd_acc": 0,
             "composite_nerfpp_fwd": 2, "composite_nerfpp_bwd": 2,
             "pillar_collapse_fwd": 1, "pillar_collapse_bwd": 1,
@@ -2133,7 +2239,7 @@ def phase_main_path(torch, cfg, dev="cuda"):
     print(f"[main] encode {time.perf_counter() - t0:.3f} s")
 
     counted = ("table_sample_fwd", "triplane_sample_fwd", "local_sample_fwd",
-               "composite_nerfpp_fwd", "pillar_collapse_fwd")
+               "pos_enc_into", "composite_nerfpp_fwd", "pillar_collapse_fwd")
     _zero(counted)
     render_fn = cli.make_render_fn(cfg, model, dev)
     w, h = cfg.img_wh
@@ -2172,11 +2278,12 @@ def phase_main_path(torch, cfg, dev="cuda"):
         raise AssertionError(f"kernels not launched by the main path: "
                              f"{missing}")
     # per view: A and C once for the scene's one encode (view 0); per
-    # tile the fine level's tri-plane and local gathers and both levels'
-    # composites
+    # tile the fine level's tri-plane and local gathers and its encoding
+    # into both branches' inputs, and both levels' composites
     tiles = -(-w * h // cfg.chunk)
     want = [{"table_sample_fwd": first, "triplane_sample_fwd": tiles,
-             "local_sample_fwd": tiles, "composite_nerfpp_fwd": 2 * tiles,
+             "local_sample_fwd": tiles, "pos_enc_into": 2 * tiles,
+             "composite_nerfpp_fwd": 2 * tiles,
              "pillar_collapse_fwd": first}
             for first in [1] + [0] * (len(views) - 1)]
     if timed.per_view != want:
@@ -3068,7 +3175,8 @@ def phase_data_parallel(torch, dev: str = "cuda", **small):
         s, sk = cfg.stage_scenes, cfg.stage_scenes * k
         formula = {"table_sample_fwd": s, "pillar_collapse_fwd": s,
                    "pillar_collapse_bwd": s, "triplane_sample_fwd": sk,
-                   "local_sample_fwd": sk, "table_sample_bwd": s,
+                   "local_sample_fwd": sk, "pos_enc_into": 2 * sk,
+                   "table_sample_bwd": s,
                    "table_sample_bwd_acc": 4 * sk,
                    "composite_nerfpp_bwd": 2 * sk}
         check(all(st[n] == v for st in want for n, v in formula.items()),
@@ -3725,11 +3833,11 @@ NARROW_STAGE = dict(plane_dim=64, local_proj_dim=64, pillar_width=16,
 BENCH_RUNS = (
     ("proposal train", ["--repeats", "3"],
      dict(table_sample_fwd=2, triplane_sample_fwd=64, local_sample_fwd=64,
-          composite_nerfpp_fwd=128, pillar_collapse_fwd=2,
+          pos_enc_into=128, composite_nerfpp_fwd=128, pillar_collapse_fwd=2,
           table_sample_bwd=2, table_sample_bwd_acc=256,
           composite_nerfpp_bwd=128, pillar_collapse_bwd=2)),
     ("proposal render", ["--phase", "render", "--repeats", "2"],
-     dict(triplane_sample_fwd=300, local_sample_fwd=300,
+     dict(triplane_sample_fwd=300, local_sample_fwd=300, pos_enc_into=600,
           composite_nerfpp_fwd=600)),
     ("reference train", ["--mode", "reference", "--steps", "1",
                          "--repeats", "3"],

@@ -9,11 +9,15 @@
 // JAX package has no Pallas kernel for it.
 //
 // cam (NV, 2M, 3) f32: the camera points of the concatenated [fg | bg]
-// points of every source view. Output row r of (2NV, M, C) f32 draws its
+// points of every source view. Output row r of (2NV, M, C) draws its
 // point from branch r / NV (0 fg, 1 bg), view r % NV, and reads table
 // view clip(r + view_offset, 0, V-1) of the stacked table (fg rows, then
-// bg rows). Per point, with view 0's focal f and centre c (the JAX code
-// takes c[:1] and focal[0] for every view):
+// bg rows). The output's 2NV·M points go where `Dest` puts the points of
+// one view (table_sample_common.cuh): rows of f32 or bf16 (rounded to
+// nearest even), one (2NV, M, C) output or the fg and bg branches' NV·M
+// points each into a caller's buffer at a row stride and a column offset.
+// Per point, with view 0's focal f and centre c (the JAX code takes c[:1]
+// and focal[0] for every view):
 //   uv = (-xy / (z + 1e-9) * (f, -f) + c) * scale - 1
 // each operation rounded on its own (__fdiv_rn, __fmul_rn, __fadd_rn), as
 // the plain version's elementwise ops are, so that no contraction into a
@@ -39,11 +43,11 @@ __device__ __forceinline__ float project(float a, float zd, float f,
   return __fsub_rn(__fmul_rn(pix, scale), 1.0f);
 }
 
-template <typename Tin>
+template <typename Tin, typename Tout>
 __global__ void __launch_bounds__(kThreads) local_sample_kernel(
     const Tin* __restrict__ table, const float* __restrict__ cam,
     const float* __restrict__ focal, const float* __restrict__ centre,
-    float sx, float sy, float* __restrict__ out, int n_views,
+    float sx, float sy, neo360::Dest<Tout> out, int n_views,
     long long m_points, int h, int w, int c, int view_offset,
     int total_views, int run) {
   constexpr int VEC = neo360::VecOf<Tin>::N;
@@ -79,49 +83,80 @@ __global__ void __launch_bounds__(kThreads) local_sample_kernel(
     if (p >= total) break;
     float acc[VEC];
     neo360::fold<Tin, VEC>(table, c, slice, corners[i], cache, acc);
-    neo360::store_vec(out + p * c + slice, acc);
+    neo360::store_vec(out.at(0, p) + slice, acc);
   }
 }
 
-template <typename Tin>
+template <typename Tin, typename Tout>
 void launch(const void* table, const float* cam, const float* focal,
-            const float* centre, float sx, float sy, float* out, int n_views,
-            long long m_points, int h, int w, int c, int view_offset,
-            int total_views, int run, cudaStream_t stream) {
+            const float* centre, float sx, float sy,
+            const neo360::Rows& rows, int n_views, long long m_points, int h,
+            int w, int c, int view_offset, int total_views, int run,
+            cudaStream_t stream) {
   long long blocks;
   size_t smem;
-  neo360::grid_of<Tin>(2LL * n_views * m_points, c, 1, &run, &blocks, &smem);
+  const long long total = 2LL * n_views * m_points;
+  neo360::grid_of<Tin>(total, c, 1, &run, &blocks, &smem);
   if (blocks == 0) return;
-  local_sample_kernel<Tin><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      static_cast<const Tin*>(table), cam, focal, centre, sx, sy, out,
-      n_views, m_points, h, w, c, view_offset, total_views, run);
+  local_sample_kernel<Tin, Tout>
+      <<<(unsigned)blocks, kThreads, smem, stream>>>(
+          static_cast<const Tin*>(table), cam, focal, centre, sx, sy,
+          rows.as<Tout>(total), n_views, m_points, h, w, c, view_offset,
+          total_views, run);
+}
+
+template <typename Tin>
+int launch_to(int out_dtype, const void* table, const float* cam,
+              const float* focal, const float* centre, float sx, float sy,
+              const neo360::Rows& rows, int n_views, long long m_points,
+              int h, int w, int c, int view_offset, int total_views, int run,
+              cudaStream_t stream) {
+  if (out_dtype == 0)
+    launch<Tin, float>(table, cam, focal, centre, sx, sy, rows, n_views,
+                       m_points, h, w, c, view_offset, total_views, run,
+                       stream);
+  else if (out_dtype == 1)
+    launch<Tin, __nv_bfloat16>(table, cam, focal, centre, sx, sy, rows,
+                               n_views, m_points, h, w, c, view_offset,
+                               total_views, run, stream);
+  else
+    return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16. focal: (NV,) f32, centre (NV, 2)
-// f32, both on the card (only view 0's are read). The wrapper
+// dtype codes: 0 = float32, 1 = bfloat16 (the table; the output rows).
+// focal: (NV,) f32, centre (NV, 2) f32, both on the card (only view 0's
+// are read). first, second, split, ld_first, ld_second, col: the output
+// contract (`Dest`, over the 2NV·M output points as one view). The wrapper
 // (ops/interpolate.py:local_sample) checks shapes, types, contiguity,
-// that C is a multiple of VEC with C / VEC <= 256, and run >= 1.
+// that C is a multiple of VEC with C / VEC <= 256, that both ld and col
+// are multiples of VEC, and run >= 1.
 extern "C" int local_sample_fwd(const void* table, int table_dtype,
                                 const void* cam, const void* focal,
                                 const void* centre, float sx, float sy,
-                                void* out, int n_views, long long m_points,
-                                int h, int w, int c, int view_offset,
-                                int total_views, int run, void* stream) {
+                                void* first, void* second, int out_dtype,
+                                long long split, long long ld_first,
+                                long long ld_second, int col, int n_views,
+                                long long m_points, int h, int w, int c,
+                                int view_offset, int total_views, int run,
+                                void* stream) {
   const float* camf = static_cast<const float*>(cam);
   const float* ff = static_cast<const float*>(focal);
   const float* cf = static_cast<const float*>(centre);
-  float* outf = static_cast<float*>(out);
+  const neo360::Rows rows{first, second, split, ld_first, ld_second, col};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err;
   if (table_dtype == 0)
-    launch<float>(table, camf, ff, cf, sx, sy, outf, n_views, m_points, h, w,
-                  c, view_offset, total_views, run, s);
+    err = launch_to<float>(out_dtype, table, camf, ff, cf, sx, sy, rows,
+                           n_views, m_points, h, w, c, view_offset,
+                           total_views, run, s);
   else if (table_dtype == 1)
-    launch<__nv_bfloat16>(table, camf, ff, cf, sx, sy, outf, n_views,
-                          m_points, h, w, c, view_offset, total_views, run,
-                          s);
+    err = launch_to<__nv_bfloat16>(out_dtype, table, camf, ff, cf, sx, sy,
+                                   rows, n_views, m_points, h, w, c,
+                                   view_offset, total_views, run, s);
   else
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return err ? err : (int)cudaGetLastError();
 }

@@ -20,7 +20,8 @@
 //   forward form of kernel A''s run merging;
 // - the fold runs in f32 registers, the same expression in every entry
 //   point, and the output is written with 16-byte stores where the type
-//   allows (8 bytes for 4 bf16).
+//   allows (8 bytes for 4 bf16); the fused gathers write it where a
+//   caller's rows want it (`Dest`).
 //
 // Points outside the zeros-mode pad, and non-finite points in zeros mode,
 // get zero weights and read nothing. In border mode a NaN coordinate gives
@@ -168,6 +169,45 @@ __device__ __forceinline__ void fold(const Tin* __restrict__ table, int c,
   for (int i = 0; i < VEC; ++i)
     acc[i] = r0[i] * k.w.x + r1[i] * k.w.y + r2[i] * k.w.z + r3[i] * k.w.w;
 }
+
+// Where the fused gathers write a point's C values (their output
+// contract): the points of each of the call's views are split at `split`;
+// point n < split of view b is row b * split + n of `first`, point
+// n >= split is row b * (per - split) + n - split of `second` (`per`: a
+// view's points); a row of `first` is `ld_first` values, one of `second`
+// `ld_second`, and the point's start at column `col`. One contiguous
+// (views, per, C) output is first = second, split = per, both ld = C,
+// col = 0. The wrapper checks that both ld and col are multiples of VEC
+// and both buffers 16-byte aligned, so the stores stay 16 (or 8) bytes
+// wide.
+template <typename T>
+struct Dest {
+  T* first;
+  T* second;
+  long long per, split, ld_first, ld_second;
+  int col;
+
+  __device__ __forceinline__ T* at(long long b, long long n) const {
+    return n < split
+               ? first + (b * split + n) * ld_first + col
+               : second + (b * (per - split) + (n - split)) * ld_second + col;
+  }
+};
+
+// The output contract as a C entry takes it, before the output's type is
+// known: a Dest without `per`.
+struct Rows {
+  void* first;
+  void* second;
+  long long split, ld_first, ld_second;
+  int col;
+
+  template <typename T>
+  Dest<T> as(long long per) const {
+    return {static_cast<T*>(first), static_cast<T*>(second), per, split,
+            ld_first, ld_second, col};
+  }
+};
 
 // How a block divides its points: groups of C/VEC threads, each walking
 // `run` consecutive points; the block owns groups * run points from

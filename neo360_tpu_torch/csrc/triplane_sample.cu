@@ -12,7 +12,11 @@
 // with (x, y, z) = cam[b, n], each A the f32 fold of kernel A in zeros
 // mode reading table view clip(b + view_offset, 0, V-1), and the two adds
 // rounded in that order (the plain version's). Tables (V, H+1, W+1, 4C),
-// f32 or bf16; cam (B, N, 3) f32; out (B, N, C) f32.
+// f32 or bf16; cam (B, N, 3) f32; out[b, n] goes where `Dest` puts point
+// n of view b (table_sample_common.cuh): rows of f32 or bf16 (rounded to
+// nearest even, as `.to(torch.bfloat16)` rounds), one (B, N, C) output or
+// the [fg | bg] halves of each view's points into two callers' buffers at
+// a row stride and a column offset.
 //
 // Bound: device memory. The least a call moves is cam and the output once
 // and the distinct rows the points touch; the unfused chain (three uv
@@ -20,7 +24,9 @@
 // Design: the fold of table_sample_common.cuh with one row cache per
 // plane, so a group of C/VEC threads walking consecutive samples of a ray
 // rereads a plane's corner slices only when that plane's row changes; the
-// three folds and the sum stay in registers; one write.
+// three folds and the sum stay in registers; one write, into the first
+// GEMM's operand of the conditioned MLP on the model's path, so that no
+// copy of the latent follows.
 
 #include "table_sample_common.cuh"
 
@@ -29,11 +35,11 @@ namespace {
 using neo360::Corner;
 using neo360::kThreads;
 
-template <typename Tin>
+template <typename Tin, typename Tout>
 __global__ void __launch_bounds__(kThreads) triplane_sample_kernel(
     const Tin* __restrict__ t_xz, const Tin* __restrict__ t_xy,
     const Tin* __restrict__ t_yz, const float* __restrict__ cam,
-    float* __restrict__ out, int n_views, long long n_points, int h, int w,
+    neo360::Dest<Tout> out, int n_views, long long n_points, int h, int w,
     int c, int view_offset, int total_views, int run) {
   constexpr int VEC = neo360::VecOf<Tin>::N;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -56,57 +62,91 @@ __global__ void __launch_bounds__(kThreads) triplane_sample_kernel(
 
   neo360::RowCache c_xz, c_xy, c_yz;
   const int slice = walk.lane * VEC;
-  for (int k = 0; k < run; ++k) {
+  // the run's first point as (view, point of the view), then stepped
+  long long view = (walk.base + walk.slot * run) / n_points;
+  long long n = walk.base + walk.slot * run - view * n_points;
+  for (int k = 0; k < run; ++k, ++n) {
     const int i = walk.slot * run + k;
     const long long p = walk.base + i;
     if (p >= total) break;
+    if (n == n_points) {
+      n = 0;
+      ++view;
+    }
     float a[VEC], b[VEC], d[VEC];
     neo360::fold<Tin, VEC>(t_xz, c, slice, corners[3 * i], c_xz, a);
     neo360::fold<Tin, VEC>(t_xy, c, slice, corners[3 * i + 1], c_xy, b);
     neo360::fold<Tin, VEC>(t_yz, c, slice, corners[3 * i + 2], c_yz, d);
 #pragma unroll
     for (int j = 0; j < VEC; ++j) a[j] = __fadd_rn(__fadd_rn(a[j], b[j]), d[j]);
-    neo360::store_vec(out + p * c + slice, a);
+    neo360::store_vec(out.at(view, n) + slice, a);
   }
 }
 
-template <typename Tin>
+template <typename Tin, typename Tout>
 void launch(const void* t_xz, const void* t_xy, const void* t_yz,
-            const float* cam, float* out, int n_views, long long n_points,
-            int h, int w, int c, int view_offset, int total_views, int run,
-            cudaStream_t stream) {
+            const float* cam, const neo360::Rows& rows, int n_views,
+            long long n_points, int h, int w, int c, int view_offset,
+            int total_views, int run, cudaStream_t stream) {
   long long blocks;
   size_t smem;
   neo360::grid_of<Tin>((long long)n_views * n_points, c, 3, &run, &blocks,
                        &smem);
   if (blocks == 0) return;
-  triplane_sample_kernel<Tin><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      static_cast<const Tin*>(t_xz), static_cast<const Tin*>(t_xy),
-      static_cast<const Tin*>(t_yz), cam, out, n_views, n_points, h, w, c,
-      view_offset, total_views, run);
+  triplane_sample_kernel<Tin, Tout>
+      <<<(unsigned)blocks, kThreads, smem, stream>>>(
+          static_cast<const Tin*>(t_xz), static_cast<const Tin*>(t_xy),
+          static_cast<const Tin*>(t_yz), cam, rows.as<Tout>(n_points),
+          n_views, n_points, h, w, c, view_offset, total_views, run);
+}
+
+template <typename Tin>
+int launch_to(int out_dtype, const void* t_xz, const void* t_xy,
+              const void* t_yz, const float* cam, const neo360::Rows& rows,
+              int n_views, long long n_points, int h, int w, int c,
+              int view_offset, int total_views, int run,
+              cudaStream_t stream) {
+  if (out_dtype == 0)
+    launch<Tin, float>(t_xz, t_xy, t_yz, cam, rows, n_views, n_points, h, w,
+                       c, view_offset, total_views, run, stream);
+  else if (out_dtype == 1)
+    launch<Tin, __nv_bfloat16>(t_xz, t_xy, t_yz, cam, rows, n_views,
+                               n_points, h, w, c, view_offset, total_views,
+                               run, stream);
+  else
+    return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16 (all three tables). The wrapper
-// (ops/interpolate.py:triplane_sample) checks shapes, types, contiguity,
-// that C is a multiple of VEC with C / VEC <= 256, and run >= 1.
+// dtype codes: 0 = float32, 1 = bfloat16 (all three tables; the output
+// rows). first, second, split, ld_first, ld_second, col: the output
+// contract (`Dest`). The wrapper (ops/interpolate.py:triplane_sample)
+// checks shapes, types, contiguity, that C is a multiple of VEC with
+// C / VEC <= 256, that both ld and col are multiples of VEC, and run >= 1.
 extern "C" int triplane_sample_fwd(const void* t_xz, const void* t_xy,
                                    const void* t_yz, int table_dtype,
-                                   const void* cam, void* out, int n_views,
+                                   const void* cam, void* first,
+                                   void* second, int out_dtype,
+                                   long long split, long long ld_first,
+                                   long long ld_second, int col, int n_views,
                                    long long n_points, int h, int w, int c,
                                    int view_offset, int total_views, int run,
                                    void* stream) {
   const float* camf = static_cast<const float*>(cam);
-  float* outf = static_cast<float*>(out);
+  const neo360::Rows rows{first, second, split, ld_first, ld_second, col};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err;
   if (table_dtype == 0)
-    launch<float>(t_xz, t_xy, t_yz, camf, outf, n_views, n_points, h, w, c,
-                  view_offset, total_views, run, s);
+    err = launch_to<float>(out_dtype, t_xz, t_xy, t_yz, camf, rows, n_views,
+                           n_points, h, w, c, view_offset, total_views, run,
+                           s);
   else if (table_dtype == 1)
-    launch<__nv_bfloat16>(t_xz, t_xy, t_yz, camf, outf, n_views, n_points, h,
-                          w, c, view_offset, total_views, run, s);
+    err = launch_to<__nv_bfloat16>(out_dtype, t_xz, t_xy, t_yz, camf, rows,
+                                   n_views, n_points, h, w, c, view_offset,
+                                   total_views, run, s);
   else
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return err ? err : (int)cudaGetLastError();
 }

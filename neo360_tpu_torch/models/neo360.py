@@ -25,10 +25,10 @@ divergence from the reference.
 Spans (core/spans.py): `model.encode` is `encode`; `forward` takes
 `model.rays` (the far bound and view directions), then per level
 `model.sample` (the level's samples), `model.gather` (world2camera and
-the tri-plane and local gathers), `model.mlp` (the MLPs with their inputs'
-encodings and concatenations) and `model.composite`. None lies inside the
-encoder's recompute; outside an item (the stage trainer) they record
-nothing.
+the tri-plane and local gathers, which write into the MLPs' inputs),
+`model.mlp` (the MLPs with their inputs' encodings) and
+`model.composite`. None lies inside the encoder's recompute; outside an
+item (the stage trainer) they record nothing.
 """
 
 from __future__ import annotations
@@ -49,6 +49,8 @@ from neo360_tpu_torch.nn.resnet import latent_scaling
 from neo360_tpu_torch.nn.layers import commit_running_stats
 from neo360_tpu_torch.nn.triplane import GridEncoder
 from neo360_tpu_torch.ops import losses
+from neo360_tpu_torch.ops.encoding import pos_enc_into
+from neo360_tpu_torch.ops.encoding import width as encoding_width
 from neo360_tpu_torch.ops.interpolate import build_corner_table, \
     local_sample, triplane_sample
 
@@ -75,6 +77,10 @@ class NeRFTPMLP(nn.Module):
       block is mean_v(viewdirs_enc W_cᵀ) + b once per ray (B, Wc), added
       over the samples to bottleneck W_bᵀ, which replaces the mean after
       views_0 as the mean is linear.
+    The inputs arrive assembled in place, in the column order [world |
+    local | pos_enc] that this class owns (`columns`, `row_length`; the
+    caller, `NeRFTP._inputs`, writes them there), so the input block of
+    every Dense that reads them is permuted to that order at every call.
     Only the order of the sums differs from the concatenating form.
     Parameters keep their names and shapes; the weights are sliced at
     every call, so one path serves inference and training."""
@@ -84,8 +90,16 @@ class NeRFTPMLP(nn.Module):
                  netdepth_condition: int = 2, netwidth_condition: int = 64,
                  skip_layer: int = 2, combine_layer: int = 3,
                  dtype=torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 latent_features: Tuple[int, int] = (128, 128)):
+        """`latent_features`: the (local, world) latents' widths, the last
+        columns of `in_features` in the parameters' order; the inputs'
+        layout follows from them."""
         super().__init__()
+        self.in_features = in_features
+        local, world = latent_features
+        # where the inputs' world, local and pos_enc columns start
+        self.columns = (0, world, world + local)
         self.netdepth, self.netdepth_condition = netdepth, netdepth_condition
         self.skip_layer, self.combine_layer = skip_layer, combine_layer
         dense = lambda i, o: Dense(i, o, dtype=dtype, kernel_init="xavier",
@@ -115,20 +129,35 @@ class NeRFTPMLP(nn.Module):
             return getattr(self, f"pts_{idx + 1}")
         return self.density
 
-    def forward(self, x, viewdirs_enc, world_latent, local_latent,
-                num_views: int):
-        """x (NV*B, S, Dp); viewdirs_enc (NV*B, Dv); latents (NV*B, S, .)
-        -> (raw_rgb, raw_density) (B, S, 3|1) f32. The blocks are applied
-        as the class docstring says, on rows (NV*B*S, .)."""
-        b, s = x.shape[0] // num_views, x.shape[1]
+    def row_length(self, align: int) -> int:
+        """The inputs' row length: in_features rounded up to a multiple of
+        `align` columns."""
+        return -(-self.in_features // align) * align
+
+    def _in_place_order(self, w: torch.Tensor) -> torch.Tensor:
+        """The input block w (., in_features) of the parameters' column
+        order [pos_enc | local | world] in the inputs' (`columns`)."""
+        _, local_col, enc_col = self.columns
+        pe = self.in_features - enc_col
+        return torch.cat([w[:, pe + enc_col - local_col:],
+                          w[:, pe:pe + enc_col - local_col], w[:, :pe]],
+                         dim=1)
+
+    def forward(self, inputs, viewdirs_enc, num_views: int):
+        """inputs (NV*B*S, in_features) in the column order of `columns`,
+        view-major rows (a view of the caller's buffer, any
+        row stride: the first GEMM reads it where it lies); viewdirs_enc
+        (NV*B, Dv) -> (raw_rgb, raw_density) (B, S, 3|1) f32. The blocks
+        are applied as the class docstring says, on rows (NV*B*S, .)."""
+        b = viewdirs_enc.shape[0] // num_views
+        s = inputs.shape[0] // viewdirs_enc.shape[0]
         dt = self.pts_0.dtype
-        inputs = torch.cat([x, local_latent, world_latent], dim=-1)
-        inputs = inputs.reshape(-1, inputs.shape[-1]).to(dt)
-        d_in = inputs.shape[-1]
+        inputs = inputs.to(dt)
+        d_in = self.in_features
         heads = [self.pts_0] + [self._next(idx) for idx in
                                 range(self.netdepth) if self._skip(idx)]
-        w = torch.cat([heads[0].weight]
-                      + [d.weight[:, -d_in:] for d in heads[1:]])
+        w = self._in_place_order(torch.cat(
+            [heads[0].weight] + [d.weight[:, -d_in:] for d in heads[1:]]))
         bias = torch.cat([d.bias for d in heads])
         blocks = iter(F.linear(inputs, w.to(dt), bias.to(dt)).split(
             [d.weight.shape[0] for d in heads], dim=-1))
@@ -239,11 +268,12 @@ class NeRFTP(nn.Module):
                                    pillar_width=pillar_width,
                                    depth_fc_layers=depth_fc_layers,
                                    plane_dim=plane_dim)
-        pe = lambda d: d * (1 + 2 * (self.max_deg_point - self.min_deg_point))
         vd = 3 * (1 + 2 * self.deg_view)
         cond = local_proj_dim + plane_dim
-        mlp = lambda d: NeRFTPMLP(pe(d) + cond, vd, dtype=compute_dtype,
-                                  generator=g)
+        mlp = lambda d: NeRFTPMLP(
+            encoding_width(d, self.min_deg_point, self.max_deg_point) + cond,
+            vd, dtype=compute_dtype, generator=g,
+            latent_features=(local_proj_dim, plane_dim))
         if use_proposal:
             self.fg_prop_mlp = PropMLP(3, dtype=compute_dtype, generator=g)
             self.bg_prop_mlp = PropMLP(4, dtype=compute_dtype, generator=g)
@@ -303,13 +333,16 @@ class NeRFTP(nn.Module):
             return plane_tables, local[0] if self.use_proposal else local, hw
 
     def _local_feats_pair(self, cam, focal, c, stacked_table, latent_hw,
-                          image_size, view_offset: int = 0, grad_acc=None):
+                          image_size, view_offset: int = 0, grad_acc=None,
+                          out=None, col: int = 0):
         """Pixel-aligned projected latents for the fg and bg branches in one
         border-mode gather (neo360_tpu/models/neo360.py:276-305) from the
         camera points cam (NV, 2M, 3) of [fg | bg]: `local_sample`, one
         fused kernel on the card. Returns (fg latent, bg latent), each
-        (NV, M, D). `view_offset`: the first view row of this scene in a
-        flat multi-scene table; `grad_acc`: the table's f32 gradient
+        (NV, M, D), or, given `out` (the fg and bg buffers of `_inputs`),
+        writes them at columns col .. col + D of the buffers and returns
+        those. `view_offset`: the first view row of this scene in a flat
+        multi-scene table; `grad_acc`: the table's f32 gradient
         accumulator (`table_sample`'s accumulate contract)."""
         nv = self.num_src_views
         image_size = tuple(image_size)
@@ -318,21 +351,53 @@ class NeRFTP(nn.Module):
                        lambda: latent_scaling(latent_hw) / torch.tensor(
                            image_size, dtype=torch.float32)).tolist()
         latent = local_sample(stacked_table, cam, focal, c, scale, latent_hw,
-                              view_offset=view_offset, grad_acc=grad_acc)
-        return latent[:nv], latent[nv:]
+                              view_offset=view_offset, grad_acc=grad_acc,
+                              out=out, col=col)
+        return latent if out is not None else (latent[:nv], latent[nv:])
 
-    def _predict(self, mlp, cam_pts, world_lat, local_lat, viewdirs_enc,
-                 b: int, n_samples: int, noise=None):
-        """`noise`: None, or (u, generator) for the density noise: the
+    def _inputs(self, mlps, cam, rays, plane_tables, plane_hw, local_table,
+                latent_hw, image_size, offsets, accs):
+        """The conditioned MLPs' inputs of one level, assembled in place
+        (neo360_tpu/models/neo360.py:276-305, 330-350): one (NV·B·S, ld)
+        buffer a branch in the compute dtype, in the layout of the branch's
+        MLP of `mlps` (fg, bg): its `columns`, and ld its `row_length` at
+        16 bytes of the buffer's and the tables' types; the tri-plane gather writes the world latent and
+        the local gather (one border-mode sample of the stacked fg / bg
+        table) the projected pixel latent of the camera points cam
+        (NV, 2·B·S, 3) of [fg | bg] into both buffers, one launch each on
+        the card (`_local_feats_pair`); `_predict` writes the encoding.
+        `offsets`: the first view row of this scene in flat multi-scene
+        plane and local tables; `accs`: their f32 gradient accumulators
+        (`table_sample`'s accumulate contract), or None. Returns (fg
+        buffer, bg buffer)."""
+        rows = cam.shape[0] * (cam.shape[1] // 2)
+        dt = self.compute_dtype
+        align = 16 // min(dt.itemsize, plane_tables[0].element_size(),
+                          local_table.element_size())
+        world_col, local_col, _ = mlps[0].columns
+        out = tuple(torch.empty((rows, mlp.row_length(align)), dtype=dt,
+                                device=cam.device) for mlp in mlps)
+        out = triplane_sample(plane_tables, cam, plane_hw,
+                              view_offset=offsets[0], grad_acc=accs[0],
+                              out=out, col=world_col)
+        return self._local_feats_pair(
+            cam, rays["src_focal"], rays["src_c"], local_table, latent_hw,
+            image_size, view_offset=offsets[1], grad_acc=accs[1], out=out,
+            col=local_col)
+
+    def _predict(self, mlp, inputs, pts, extra, viewdirs_enc, b: int,
+                 noise=None):
+        """One branch's conditioned MLP on its `_inputs` buffer, once its
+        encoding columns hold pos_enc of the camera points pts (NV, B·S, 3)
+        and, in the bg branch, `extra` (B, S), the inverse depth.
+        `noise`: None, or (u, generator) for the density noise: the
         uniforms `u` (B, S, 1), or drawn from `generator` when u is None
         (neo360_tpu/models/neo360.py:454-465)."""
         nv = self.num_src_views
-        x = encoding.pos_enc(cam_pts, self.min_deg_point, self.max_deg_point)
-        raw_rgb, raw_sigma = mlp(
-            x.reshape(nv * b, n_samples, -1),
-            viewdirs_enc.reshape(nv * b, -1),
-            world_lat.reshape(nv * b, n_samples, -1),
-            local_lat.reshape(nv * b, n_samples, -1), nv)
+        pos_enc_into(inputs, pts, mlp.columns[2], self.min_deg_point,
+                     self.max_deg_point, extra)
+        raw_rgb, raw_sigma = mlp(inputs[:, :mlp.in_features],
+                                 viewdirs_enc.reshape(nv * b, -1), nv)
         if noise is not None:
             u = sampling._uniform(raw_sigma.shape, raw_sigma, *noise)
             raw_sigma = raw_sigma + u * self.density_noise
@@ -451,34 +516,26 @@ class NeRFTP(nn.Module):
                     b, s = fg_samples.shape[:2]
                     bg_pts = bg_linear[..., :3]
                     # fg + bg: one world2camera, one tri-plane gather and one
-                    # local gather
+                    # local gather, into both branches' inputs
                     cam = geometry.world2camera(
                         torch.cat([fg_samples, bg_pts], dim=0).reshape(
                             1, -1, 3), poses, ns=nv)       # (NV, 2*B*S, 3)
-                    world = triplane_sample(plane_tables, cam, plane_hw,
-                                            view_offset=plane_off,
-                                            grad_acc=plane_acc)
-                    world_fg, world_bg = world[:, :b * s], world[:, b * s:]
-                    local_fg, local_bg = self._local_feats_pair(
-                        cam, rays["src_focal"], rays["src_c"],
+                    mlps = (getattr(self, f"fg_{which}_mlp"),
+                            getattr(self, f"bg_{which}_mlp"))
+                    fg_in, bg_in = self._inputs(
+                        mlps, cam, rays, plane_tables, plane_hw,
                         local_tables[tab], latent_hw, image_size,
-                        view_offset=local_off, grad_acc=local_acc[tab])
-                    fg_cam = cam[:, :b * s]
-
+                        (plane_off, local_off), (plane_acc, local_acc[tab]))
                     bg_cam = geometry.world2camera(
                         bg_samples[..., :3].reshape(1, -1, 3), poses, ns=nv)
-                    bg_depth_ch = bg_samples[..., 3].reshape(1, -1, 1).expand(
-                        bg_cam.shape[:-1] + (1,))
-                    bg_cam4 = torch.cat([bg_cam, bg_depth_ch], dim=-1)
                 with span("model.mlp"):
                     fg_u, bg_u = next(noise_u, (None, None))
                     fg_rgb, fg_sigma = self._predict(
-                        getattr(self, f"fg_{which}_mlp"), fg_cam, world_fg,
-                        local_fg, viewdirs_enc, b, s,
-                        (fg_u, generator) if noisy else None)
+                        mlps[0], fg_in, cam[:, :b * s], None, viewdirs_enc,
+                        b, (fg_u, generator) if noisy else None)
                     bg_rgb, bg_sigma = self._predict(
-                        getattr(self, f"bg_{which}_mlp"), bg_cam4, world_bg,
-                        local_bg, viewdirs_enc, b, bg_samples.shape[1],
+                        mlps[1], bg_in, bg_cam,
+                        bg_samples[..., 3], viewdirs_enc, b,
                         (bg_u, generator) if noisy else None)
 
             with span("model.composite"):

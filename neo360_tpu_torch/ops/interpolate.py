@@ -20,7 +20,10 @@ both take the camera points themselves, so no uv tensor reaches device
 memory, and both hand kernel A' the (cotangent, uv) pairs of the unfused
 calls in their backward. Their plain versions
 (`triplane_sample_reference`, `local_sample_reference`) are the unfused
-chains over `table_sample_reference`.
+chains over `table_sample_reference`. Given `out`, two callers' row
+buffers (the fg and the bg branch's), both write the [fg | bg] halves of
+their points into the buffers' columns from `col` instead of returning a
+new tensor (`_dest`): the conditioned MLP's input is assembled in place.
 
 `grid_sample_2d` (neo360_tpu/ops/interpolate.py:62) samples an image
 rather than a table: on CUDA tensors it is kernel G (csrc/grid_sample.cu),
@@ -412,9 +415,66 @@ def triplane_sample_reference(tables, cam: torch.Tensor, hw: tuple,
     return xz + xy + yz
 
 
-def _triplane_forward(tables, cam, hw, view_offset, run=None):
+def _dest(name, out, col, shape, per, split, vec, device):
+    """Where a fused gather's kernel writes (its output contract,
+    csrc/table_sample_common.cuh:Dest). Without `out`: a new float32
+    tensor of `shape`, returned. With `out`, two callers' 2-D row buffers
+    of one type, each with its own row length: a view's first `split` of
+    its `per` points go to out[0], the rest to out[1], each point's C
+    values at columns col .. col + C; returns the pair. Returns (the
+    result, the C entry's first, second, out_dtype, split, ld_first,
+    ld_second, col). Raises unless the buffers take the kernel's stores
+    (float32 or bfloat16, contiguous, on `device`, 16-byte aligned, row
+    lengths and col multiples of `vec`) and hold a half's rows."""
+    c = shape[-1]
+    if out is None:
+        whole = torch.empty(shape, dtype=torch.float32, device=device)
+        return whole, (whole.data_ptr(), whole.data_ptr(), 0, per, c, c, 0)
+    first, second = out
+    rows = shape[:-1].numel() // 2
+    if not (first.dtype == second.dtype
+            and first.dtype in kernels.DTYPE_CODES
+            and col >= 0 and col % vec == 0
+            and all(t.dim() == 2 and t.device == device
+                    and t.is_contiguous() and t.shape[0] == rows
+                    and col + c <= t.shape[1] and t.shape[1] % vec == 0
+                    and t.data_ptr() % 16 == 0 for t in out)):
+        raise ValueError(f"{name}: out must be two contiguous float32 or "
+                         f"bfloat16 (rows, ld) buffers of one type on "
+                         f"{device}, of {rows} rows, 16-byte aligned, ld and "
+                         f"col multiples of {vec}, with {c} columns from col "
+                         f"{col}")
+    return (first, second), (first.data_ptr(), second.data_ptr(),
+                             kernels.DTYPE_CODES[first.dtype], split,
+                             first.shape[1], second.shape[1], col)
+
+
+def _write_halves(whole, out, col, dim):
+    """The plain versions' side of the output contract: the two halves of
+    `whole` along `dim` copied into the columns col .. col + C of out[0]
+    and out[1] (rounded to their type, to nearest even). Returns out."""
+    for dst, half in zip(out, whole.chunk(2, dim)):
+        dst[:, col:col + half.shape[-1]].view(half.shape).copy_(half)
+    return tuple(out)
+
+
+def _joined(grads, col, shape, dim):
+    """A fused gather's output cotangent, of `shape`, from its two
+    destinations' (`_dest`): the columns col .. col + C of each, joined
+    along `dim` in one copy (a missing cotangent reads zeros)."""
+    half = list(shape)
+    half[dim] //= 2
+    like = next(g for g in grads if g is not None)
+    return torch.cat([like.new_zeros(half) if g is None
+                      else g[:, col:col + shape[-1]].reshape(half)
+                      for g in grads], dim)
+
+
+def _triplane_forward(tables, cam, hw, view_offset, run=None, out=None,
+                      col=0):
     if all(t.device.type == "cpu" for t in (*tables, cam)):
-        return triplane_sample_reference(tables, cam, hw, view_offset)
+        world = triplane_sample_reference(tables, cam, hw, view_offset)
+        return world if out is None else _write_halves(world, out, col, 1)
     name = "triplane_sample"
     tables = [kernels.dense(t) for t in tables]
     cam = cam.contiguous()
@@ -426,46 +486,65 @@ def _triplane_forward(tables, cam, hw, view_offset, run=None):
         raise ValueError(f"{name}: the three tables must share one shape "
                          f"and a float32 or bfloat16 type")
     h, w = hw
-    c = _table_shape_ok(name, shape, hw, 16 // tables[0].element_size())
+    vec = 16 // tables[0].element_size()
+    c = _table_shape_ok(name, shape, hw, vec)
     b, n = cam.shape[:2]
-    out = torch.empty((b, n, c), dtype=torch.float32, device=cam.device)
+    if out is not None and n % 2:
+        raise ValueError(f"{name}: out takes the [fg | bg] halves of cam "
+                         f"(NV, 2M, 3), got {tuple(cam.shape)}")
+    result, dest = _dest(name, out, col, torch.Size((b, n, c)), n,
+                         n // 2, vec, cam.device)
     kernels.launch("triplane_sample_fwd", cam.device,
                    *(t.data_ptr() for t in tables), kernels.DTYPE_CODES[dtype],
-                   cam.data_ptr(), out.data_ptr(), b, n, h, w, c,
-                   int(view_offset), shape[0], run or TRIPLANE_SAMPLE_RUN)
-    return out
+                   cam.data_ptr(), *dest, b, n, h, w, c, int(view_offset),
+                   shape[0], run or TRIPLANE_SAMPLE_RUN)
+    return result
 
 
 class _TriplaneSample(torch.autograd.Function):
     """triplane_sample; the backward rebuilds the three uv from the saved
     camera points and hands each table's (cotangent, uv) pair to
     `table_sample_backward`, or to `table_sample_accumulate` given
-    accumulators (the table then gets None)."""
+    accumulators (the table then gets None). Given destinations (`first`,
+    `second`: the output contract), the forward writes into them and
+    marks them modified; the backward reads its columns of their
+    cotangents (`_joined`) and passes the cotangents on whole to whatever
+    wrote the buffers before, which reads only its own columns."""
 
     @staticmethod
-    def forward(ctx, t_xz, t_xy, t_yz, cam, hw, view_offset, grad_acc, run):
+    def forward(ctx, t_xz, t_xy, t_yz, cam, hw, view_offset, grad_acc, run,
+                col, first, second):
         tables = (t_xz, t_xy, t_yz)
         ctx.save_for_backward(cam)
         ctx.meta = ([(tuple(t.shape), t.dtype) for t in tables], hw,
-                    view_offset)
+                    view_offset, col)
         ctx.grad_acc = grad_acc or (None,) * 3
-        return _triplane_forward(tables, cam, hw, view_offset, run)
+        out = None
+        if first is not None:
+            out = (first, second)
+            ctx.mark_dirty(first, second)
+        return _triplane_forward(tables, cam, hw, view_offset, run, out, col)
 
     @staticmethod
-    def backward(ctx, grad):
+    def backward(ctx, *grads):
         (cam,) = ctx.saved_tensors
-        metas, hw, offset = ctx.meta
-        grads = [_table_grad(grad, uv, shape, dtype, hw, "zeros", offset,
-                             acc) if need else None
-                 for uv, (shape, dtype), acc, need in zip(
-                     triplane_uvs(cam), metas, ctx.grad_acc,
-                     ctx.needs_input_grad[:3])]
-        return (*grads, None, None, None, None, None)
+        metas, hw, offset, col = ctx.meta
+        grad = grads[0]
+        if len(grads) == 2:
+            grad = _joined(grads, col, cam.shape[:2] + (metas[0][0][-1] // 4,),
+                           1)
+        tables = [_table_grad(grad, uv, shape, dtype, hw, "zeros", offset,
+                              acc) if need else None
+                  for uv, (shape, dtype), acc, need in zip(
+                      triplane_uvs(cam), metas, ctx.grad_acc,
+                      ctx.needs_input_grad[:3])]
+        passed = grads if len(grads) == 2 else (None, None)
+        return (*tables, None, None, None, None, None, None, *passed)
 
 
 def triplane_sample(tables, cam: torch.Tensor, hw: tuple,
-                    view_offset: int = 0, grad_acc=None,
-                    run: int = None) -> torch.Tensor:
+                    view_offset: int = 0, grad_acc=None, run: int = None,
+                    out=None, col: int = 0):
     """The tri-plane world latent (NV, N, C) f32 of camera points cam
     (NV, N, 3): the three zeros-mode plane tables (xz, xy, yz) sampled at
     `triplane_uvs(cam)` and summed (semantics of
@@ -479,10 +558,20 @@ def triplane_sample(tables, cam: torch.Tensor, hw: tuple,
     (raises). `grad_acc`: three f32 accumulators of the tables' shapes;
     the backward then adds the tables' gradients into them (kernel A''s
     accumulate contract) and returns None for the tables. `run`: the
-    kernel's run length, TRIPLANE_SAMPLE_RUN unless given."""
+    kernel's run length, TRIPLANE_SAMPLE_RUN unless given.
+
+    `out`: two row buffers of NV·N/2 rows, float32 or bfloat16, of the fg
+    and the bg branch (their rows may differ in length): cam is
+    (NV, [fg | bg], 3), and the latent of view v's point n of each half is
+    written at columns col .. col + C of row v·N/2 + n of that half's
+    buffer, rounded to the buffers' type; the rows' lengths and col
+    multiples of 16 bytes of the tables' type. Returns the two
+    buffers (with the autograd history of the write) instead of the
+    latent."""
     tables = tuple(tables)
+    first, second = (None, None) if out is None else out
     if not torch.is_grad_enabled():
-        return _triplane_forward(tables, cam, hw, view_offset, run)
+        return _triplane_forward(tables, cam, hw, view_offset, run, out, col)
     if cam.requires_grad:
         raise ValueError("triplane_sample: cam takes no gradient (detach "
                          "it)")
@@ -491,7 +580,7 @@ def triplane_sample(tables, cam: torch.Tensor, hw: tuple,
             _check_acc("triplane_sample", acc, t)
         grad_acc = tuple(grad_acc)
     return _TriplaneSample.apply(*tables, cam, tuple(hw), int(view_offset),
-                                 grad_acc, run)
+                                 grad_acc, run, int(col), first, second)
 
 
 def local_uv(cam: torch.Tensor, focal: torch.Tensor, c: torch.Tensor,
@@ -520,10 +609,12 @@ def local_sample_reference(table: torch.Tensor, cam: torch.Tensor,
                                   "border", torch.float32, view_offset)
 
 
-def _local_forward(table, cam, focal, c, scale, hw, view_offset, run=None):
+def _local_forward(table, cam, focal, c, scale, hw, view_offset, run=None,
+                   out=None, col=0):
     if all(t.device.type == "cpu" for t in (table, cam, focal, c)):
-        return local_sample_reference(table, cam, focal, c, scale, hw,
-                                      view_offset)
+        local = local_sample_reference(table, cam, focal, c, scale, hw,
+                                       view_offset)
+        return local if out is None else _write_halves(local, out, col, 0)
     name = "local_sample"
     table, cam = kernels.dense(table), cam.contiguous()
     focal, c = focal.contiguous(), c.contiguous()
@@ -534,47 +625,61 @@ def _local_forward(table, cam, focal, c, scale, hw, view_offset, run=None):
         raise ValueError(f"{name}: table float32 or bfloat16, focal and c "
                          f"float32, cam (NV, 2M, 3)")
     h, w = hw
-    cc = _table_shape_ok(name, table.shape, hw, 16 // table.element_size())
+    vec = 16 // table.element_size()
+    cc = _table_shape_ok(name, table.shape, hw, vec)
     nv, m = cam.shape[0], cam.shape[1] // 2
-    out = torch.empty((2 * nv, m, cc), dtype=torch.float32, device=cam.device)
+    result, dest = _dest(name, out, col, torch.Size((2 * nv, m, cc)),
+                         2 * nv * m, nv * m, vec, cam.device)
     kernels.launch("local_sample_fwd", cam.device, table.data_ptr(),
                    kernels.DTYPE_CODES[table.dtype], cam.data_ptr(),
                    focal.data_ptr(), c.data_ptr(), float(scale[0]),
-                   float(scale[1]), out.data_ptr(), nv, m, h, w, cc,
+                   float(scale[1]), *dest, nv, m, h, w, cc,
                    int(view_offset), table.shape[0], run or LOCAL_SAMPLE_RUN)
-    return out
+    return result
 
 
 class _LocalSample(torch.autograd.Function):
     """local_sample; the backward rebuilds the uv from the saved camera
     points with `local_uv` and hands (cotangent, uv) to
     `table_sample_backward`, or to `table_sample_accumulate` given an
-    accumulator (the table then gets None)."""
+    accumulator (the table then gets None). Destinations (`first`,
+    `second`) as `_TriplaneSample`'s."""
 
     @staticmethod
     def forward(ctx, table, cam, focal, c, scale, hw, view_offset,
-                grad_acc, run):
+                grad_acc, run, col, first, second):
         ctx.save_for_backward(cam, focal, c)
-        ctx.meta = (tuple(table.shape), table.dtype, scale, hw, view_offset)
+        ctx.meta = (tuple(table.shape), table.dtype, scale, hw, view_offset,
+                    col)
         ctx.grad_acc = grad_acc
+        out = None
+        if first is not None:
+            out = (first, second)
+            ctx.mark_dirty(first, second)
         return _local_forward(table, cam, focal, c, scale, hw, view_offset,
-                              run)
+                              run, out, col)
 
     @staticmethod
-    def backward(ctx, grad):
+    def backward(ctx, *grads):
         cam, focal, c = ctx.saved_tensors
-        shape, dtype, scale, hw, offset = ctx.meta
+        shape, dtype, scale, hw, offset, col = ctx.meta
+        grad = grads[0]
+        if len(grads) == 2:
+            grad = _joined(grads, col, (2 * cam.shape[0], cam.shape[1] // 2,
+                                        shape[-1] // 4), 0)
         dtable = None
         if ctx.needs_input_grad[0]:
             dtable = _table_grad(grad, local_uv(cam, focal, c, scale), shape,
                                  dtype, hw, "border", offset, ctx.grad_acc)
-        return dtable, None, None, None, None, None, None, None, None
+        passed = grads if len(grads) == 2 else (None, None)
+        return (dtable, None, None, None, None, None, None, None, None, None,
+                *passed)
 
 
 def local_sample(table: torch.Tensor, cam: torch.Tensor, focal: torch.Tensor,
                  c: torch.Tensor, scale, hw: tuple, view_offset: int = 0,
-                 grad_acc: torch.Tensor = None, run: int = None
-                 ) -> torch.Tensor:
+                 grad_acc: torch.Tensor = None, run: int = None, out=None,
+                 col: int = 0):
     """Pixel-aligned local latents (2NV, M, C) f32 of the fg and bg points
     from the stacked fg/bg table (semantics of the uv prologue and gather
     of neo360_tpu/models/neo360.py:NeRFTP._local_feats_pair). cam
@@ -588,16 +693,26 @@ def local_sample(table: torch.Tensor, cam: torch.Tensor, focal: torch.Tensor,
     With grad enabled the call is a `_LocalSample` autograd Function; cam
     must not require grad (raises). `grad_acc`: an f32 accumulator of the
     table's shape (kernel A''s accumulate contract). `run`: the kernel's run
-    length, LOCAL_SAMPLE_RUN unless given."""
+    length, LOCAL_SAMPLE_RUN unless given.
+
+    `out`: two row buffers of NV·M rows, float32 or bfloat16, of the fg and
+    the bg branch (their rows may differ in length): the latent of output
+    row (branch, view v) and point m is written at columns col .. col + C
+    of row v·M + m of that branch's buffer, rounded to the buffers' type;
+    the rows' lengths and col multiples of 16 bytes of the table's type.
+    Returns the two buffers (with the autograd history of the write)
+    instead of the latents."""
     scale = (float(scale[0]), float(scale[1]))
+    first, second = (None, None) if out is None else out
     if not torch.is_grad_enabled():
         return _local_forward(table, cam, focal, c, scale, hw, view_offset,
-                              run)
+                              run, out, col)
     if cam.requires_grad:
         raise ValueError("local_sample: cam takes no gradient (detach it)")
     _check_acc("local_sample", grad_acc, table)
     return _LocalSample.apply(table, cam, focal, c, scale, tuple(hw),
-                              int(view_offset), grad_acc, run)
+                              int(view_offset), grad_acc, run, int(col),
+                              first, second)
 
 
 # consecutive points a group of threads of kernel G' walks, merging the

@@ -43,14 +43,19 @@ SIGNATURES = {
     # zeros_mode, view_offset, total_views, run, stream
     "table_sample_fwd": (_P, _I, _P, _P, _I, _I, _L, _I, _I, _I, _I, _I, _I,
                          _I, _P),
-    # t_xz, t_xy, t_yz, table_dtype, cam, out, n_views, n_points, h, w, c,
-    # view_offset, total_views, run, stream
-    "triplane_sample_fwd": (_P, _P, _P, _I, _P, _P, _I, _L, _I, _I, _I, _I,
-                            _I, _I, _P),
-    # table, table_dtype, cam, focal, centre, sx, sy, out, n_views,
-    # m_points, h, w, c, view_offset, total_views, run, stream
-    "local_sample_fwd": (_P, _I, _P, _P, _P, _F, _F, _P, _I, _L, _I, _I, _I,
-                         _I, _I, _I, _P),
+    # t_xz, t_xy, t_yz, table_dtype, cam, first, second, out_dtype, split,
+    # ld_first, ld_second, col, n_views, n_points, h, w, c, view_offset,
+    # total_views, run, stream
+    "triplane_sample_fwd": (_P, _P, _P, _I, _P, _P, _P, _I, _L, _L, _L, _I,
+                            _I, _L, _I, _I, _I, _I, _I, _I, _P),
+    # table, table_dtype, cam, focal, centre, sx, sy, first, second,
+    # out_dtype, split, ld_first, ld_second, col, n_views, m_points, h, w,
+    # c, view_offset, total_views, run, stream
+    "local_sample_fwd": (_P, _I, _P, _P, _P, _F, _F, _P, _P, _I, _L, _L, _L,
+                         _I, _I, _L, _I, _I, _I, _I, _I, _I, _P),
+    # pts, view_stride, extra, extra_stride, out, out_dtype, ld, col,
+    # n_views, n_points, dims, min_deg, n_deg, stream
+    "pos_enc_into": (_P, _L, _P, _L, _P, _I, _L, _I, _I, _L, _I, _I, _I, _P),
     # fg rgb/sigma/t, s_fg, bg rgb/sigma/t, s_bg, dirs, far, n_rays,
     # white_bkgd, comp, fg_comp, bg_comp, fg_acc, bg_acc, fg_w, bg_w,
     # bg_lambda, depth, fg_depth, stream

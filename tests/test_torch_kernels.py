@@ -1454,6 +1454,207 @@ def test_kernels_at_the_narrow_widths(cuda, dtype, c):
         _assert_ok(o, r)
 
 
+# --- the fused gathers' output contract and pos_enc_into -----------------
+# (csrc/table_sample_common.cuh:Dest, csrc/pos_enc.cu): the conditioned
+# MLP's input assembled in place, rows of two branches' buffers
+
+def _emulate_stores(values, per, split, col, first, second, run):
+    """The kernels' stores in their order: a group's run of points from
+    its first as (view, point of the view), stepped, each point's C values
+    at `Dest.at`: point n < split of view b at row b * split + n of
+    `first`, the rest at row b * (per - split) + n - split of `second`
+    (flat buffers, each given as (values, its rows' length)), from column
+    `col`. values: (P, C)."""
+    points, c = values.shape
+    for start in range(0, points, run):
+        b, n = divmod(start, per)
+        for p in range(start, min(start + run, points)):
+            if n == per:
+                b, n = b + 1, 0
+            (dst, ld), row = (first, b * split + n) if n < split else (
+                second, b * (per - split) + n - split)
+            dst[row * ld + col:row * ld + col + c] = values[p]
+            n += 1
+
+
+# the contract's arguments as the wrappers pass them, and the mistakes an
+# emulation must catch: the destinations swapped, the column offset or a
+# row length off by one store
+MUTANTS = {"as built": lambda d: d,
+           "swapped": lambda d: dict(d, first=d["second"],
+                                     second=d["first"]),
+           "offset": lambda d: dict(d, col=d["col"] + d["vec"]),
+           "ld": lambda d: dict(d, second=(d["second"][0],
+                                           d["second"][1] - d["vec"]))}
+
+
+def _rows(n_rows, lds, dtype):
+    """Two sentinel-filled flat row buffers of `n_rows` rows of lds[i]."""
+    return [torch.full((n_rows * ld,), 7.0, dtype=dtype) for ld in lds]
+
+
+@pytest.mark.parametrize("mutant", sorted(MUTANTS))
+@pytest.mark.parametrize("run", [1, 4, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_output_contract_emulated(dtype, run, mutant):
+    """CPU: the fused kernels' walk (emulated, as above) storing by the
+    output contract into two row buffers at a row stride and a column
+    offset reproduces the wrappers' plain form of the contract
+    (`out=`: each half of the points, rounded once, in its branch's
+    rows; within FUSED_TOL, the walk's folds against the plain bmm); a
+    mutant of the contract's arguments (destinations swapped, a wrong
+    offset, a wrong row stride) must not."""
+    g = _gen(48)
+    hw, c, nv, m = (11, 13), 16, 3, 35
+    vec = 16 // torch.tensor([], dtype=dtype).element_size()
+    planes = [build_corner_table(torch.randn(6, *hw, c, generator=g),
+                                 "zeros", dtype=dtype) for _ in range(3)]
+    local = build_corner_table(torch.randn(12, *hw, c, generator=g),
+                               "border", dtype=dtype)
+    cam = _ray_cam(nv, 5, 7, g)
+    lds, col = (2 * c + 2 * vec, 2 * c + 3 * vec), c + vec
+    for which in ("triplane", "local"):
+        out = tuple(r.view(-1, ld) for r, ld in zip(
+            _rows(nv * m, lds, dtype), lds))
+        if which == "triplane":
+            values = _emulate_triplane(planes, cam, hw, 3, run).reshape(-1, c)
+            per, split = 2 * m, m
+            want = triplane_sample(planes, cam, hw, 3, out=out, col=col)
+        else:
+            values = _emulate_local(local, cam, FOCAL, CENTRE, SCALE, hw, 6,
+                                    run).reshape(-1, c)
+            per, split = 2 * nv * m, nv * m
+            want = local_sample(local, cam, FOCAL, CENTRE, SCALE, hw, 6,
+                                out=out, col=col)
+        first, second = _rows(nv * m, lds, dtype)
+        args = MUTANTS[mutant](dict(first=(first, lds[0]),
+                                    second=(second, lds[1]), col=col,
+                                    vec=vec))
+        _emulate_stores(values.to(dtype), per, split, args["col"],
+                        args["first"], args["second"], run)
+        got = [first.view(-1, lds[0]), second.view(-1, lds[1])]
+        same = all(kernels.compare(o, w, **FUSED_TOL)["ok"]
+                   for o, w in zip(got, want))
+        assert same == (mutant == "as built"), (which, mutant)
+
+
+def _into_case(cuda, out_dtype, lds, n):
+    """Two sentinel-filled row buffers of n rows of lds[i], `out_dtype`, on
+    the card."""
+    return tuple(torch.full((n, ld), 7.0, dtype=out_dtype, device=cuda)
+                 for ld in lds)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", [1, 4, 16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_gathers_write_into_callers_rows(cuda, dtype, out_dtype, run):
+    """A-tri and A-loc under the output contract, two destinations with
+    rows of two lengths and a column offset, f32 or bf16 rows: each half's rows
+    hold the bits of the contiguous output (rounded once to bf16 as
+    `.to` rounds), flat two-scene tables and non-finite points included;
+    every other column is left as it was; one launch each."""
+    g = _gen(49)
+    hw, c, nv, rays, s = (15, 20), 32, 3, 7, 13
+    planes, local, cam = _fused_case(cuda, dtype, hw, c, nv, rays, s, 2, g)
+    tri_cam = cam.clone()
+    tri_cam[1, 3] = float("nan")
+    focal, centre = FOCAL.to(cuda), CENTRE.to(cuda)
+    vec = 16 // planes[0].element_size()
+    m = rays * s
+    lds, col = (2 * c + vec, 2 * c + 3 * vec), vec
+    tri = triplane_sample(planes, tri_cam, hw, 3, run=run)
+    loc = local_sample(local, cam, focal, centre, SCALE, hw, 6, run=run)
+    for name, fn, whole, halves in (
+            ("triplane_sample_fwd",
+             lambda out: triplane_sample(planes, tri_cam, hw, 3, run=run,
+                                         out=out, col=col),
+             tri, (tri[:, :m], tri[:, m:])),
+            ("local_sample_fwd",
+             lambda out: local_sample(local, cam, focal, centre, SCALE, hw, 6,
+                                      run=run, out=out, col=col),
+             loc, (loc[:nv], loc[nv:]))):
+        out = _into_case(cuda, out_dtype, lds, nv * m)
+        before = kernels.launches[name]
+        got = fn(out)
+        assert kernels.launches[name] == before + 1
+        assert got[0] is out[0] and got[1] is out[1]
+        for buf, half in zip(out, halves):
+            torch.testing.assert_close(
+                buf[:, col:col + c], half.reshape(-1, c).to(out_dtype),
+                rtol=0, atol=0, equal_nan=True)
+            rest = torch.cat([buf[:, :col], buf[:, col + c:]], dim=1)
+            assert bool((rest == 7).all())
+
+
+@pytest.mark.cuda
+def test_fused_gathers_refuse_rows_they_cannot_store_into(cuda):
+    """The contract's checks: ld or col not a multiple of 16 bytes of the
+    table's type, too few rows, too narrow a row, a misaligned buffer,
+    mixed types; nothing launched."""
+    g = _gen(50)
+    hw, c = (15, 20), 32
+    planes, local, cam = _fused_case(cuda, torch.float32, hw, c, 3, 4, 5, 1,
+                                     g)
+    rows = 3 * 4 * 5
+
+    def bufs(ld, n=rows, dtype=torch.float32):
+        return tuple(torch.zeros((n, ld), dtype=dtype, device=cuda)
+                     for _ in range(2))
+
+    wide = torch.zeros((rows, 2 * c + 4 + 1), device=cuda)
+    bad = [(bufs(2 * c + 2), 0), (bufs(2 * c + 4), 2), (bufs(c + 4, rows - 1),
+                                                         0),
+           (bufs(c - 4), 0), ((wide[:, 1:], wide[:, 1:]), 0),
+           ((bufs(2 * c)[0], bufs(2 * c, dtype=torch.bfloat16)[1]), 0)]
+    before = dict(kernels.launches)
+    for out, col in bad:
+        with pytest.raises(ValueError, match="out must be"):
+            triplane_sample(planes, cam, hw, out=out, col=col)
+        with pytest.raises(ValueError, match="out must be"):
+            local_sample(local, cam, FOCAL.to(cuda), CENTRE.to(cuda), SCALE,
+                         hw, out=out, col=col)
+    assert kernels.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("deg", [(0, 10), (0, 4), (3, 3)])
+def test_pos_enc_into_kernel_is_pos_enc(cuda, out_dtype, deg):
+    """pos_enc_into on the card: pos_enc's bits (torch.sin and the same
+    f32 products and adds, on the card), rounded once to the rows' type,
+    from a half of the [fg | bg] camera points and with a depth channel
+    read from the bg samples, at large |x| (sinf's slow reduction) and
+    non-finite points; zeros to the rows' end; the columns before col
+    left as they were; one launch."""
+    from neo360_tpu_torch.core.encoding import pos_enc
+    from neo360_tpu_torch.ops.encoding import pos_enc_into
+    g = _gen(51)
+    nv, b, s = 3, 9, 13
+    n = b * s
+    cam = (torch.randn(nv, 2 * n, 3, generator=g) * 3).to(cuda)
+    cam[0, 0] = torch.tensor([float("nan"), float("inf"), -1e30])
+    cam[1, 1] = torch.tensor([5e4, -2e5, 1e-40])
+    cam[2, n + 2] = torch.tensor([123456.7, -float("inf"), 3e8])
+    samples = torch.rand(b, s, 4, generator=g).to(cuda)
+    samples[0, 0, 3] = float("nan")
+    for pts, extra in ((cam[:, :n], None), (cam[:, n:], samples[..., 3])):
+        x = pts if extra is None else torch.cat(
+            [pts, extra.reshape(1, n, 1).expand(nv, n, 1)], -1)
+        want = pos_enc(x, *deg).reshape(nv * n, -1).to(out_dtype)
+        col = 12
+        buf = torch.full((nv * n, col + want.shape[1] + 3), 7.0,
+                         dtype=out_dtype, device=cuda)
+        before = kernels.launches["pos_enc_into"]
+        pos_enc_into(buf, pts, col, *deg, extra)
+        assert kernels.launches["pos_enc_into"] == before + 1
+        torch.testing.assert_close(buf[:, col:col + want.shape[1]], want,
+                                   rtol=0, atol=0, equal_nan=True)
+        assert bool((buf[:, :col] == 7).all())
+        assert bool((buf[:, col + want.shape[1]:] == 0).all())
+
+
 # --- kernels D / D': the plain NeRF composite ----------------------------
 
 def _vanilla_args(g, b, s, tiny_last=False):

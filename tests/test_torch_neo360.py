@@ -245,7 +245,9 @@ def _concat_forward(mlp, x, viewdirs_enc, world_latent, local_latent,
 
 def _mlp_case(point_dim, num_views, seed=0):
     """A NeRFTPMLP with random weights and biases and its inputs, all
-    drawn from one seeded generator."""
+    drawn from one seeded generator: the concatenating form's arguments
+    (x, viewdirs_enc, world, local, num_views) and the block-split
+    forward's (the same inputs assembled in place: `_in_place`)."""
     g = torch.Generator().manual_seed(seed)
     d_pe = point_dim * 21
     mlp = NeRFTPMLP(d_pe + 256, 27, generator=g)
@@ -259,6 +261,18 @@ def _mlp_case(point_dim, num_views, seed=0):
             torch.randn(rows, s, 128, generator=g),
             torch.randn(rows, s, 128, generator=g), num_views)
     return mlp, args
+
+
+def _in_place(x, viewdirs_enc, world_latent, local_latent, num_views):
+    """The block-split forward's arguments: the inputs as NeRFTP
+    assembles them, rows of a buffer whose row stride is rounded up to 4
+    floats, columns [world | local | pos_enc]."""
+    d_in = x.shape[-1] + 256
+    buf = torch.full((x.shape[0] * x.shape[1], -(-d_in // 4) * 4),
+                     float("nan"))
+    buf[:, :d_in] = torch.cat([world_latent, local_latent, x],
+                              dim=-1).reshape(-1, d_in)
+    return buf[:, :d_in], viewdirs_enc, num_views
 
 
 @pytest.mark.parametrize("num_views", [1, 3])
@@ -278,7 +292,7 @@ def test_nerftp_mlp_blocks_match_concatenation(point_dim, num_views):
         sum((o * w).sum() for o, w in zip(outs, weight)).backward()
         return outs, {n: p.grad.clone() for n, p in mlp.named_parameters()}
 
-    (rgb, density), grads = run(mlp)
+    (rgb, density), grads = run(lambda *a: mlp(*_in_place(*a)))
     (ref_rgb, ref_density), ref_grads = run(
         lambda *a: _concat_forward(mlp, *a))
     assert rgb.shape == ref_rgb.shape == (MLP_ROWS["b"], MLP_ROWS["s"], 3)
@@ -294,11 +308,12 @@ def test_nerftp_mlp_blocks_match_concatenation(point_dim, num_views):
 
 
 def test_nerftp_mlp_concatenates_only_its_inputs(monkeypatch):
-    """One forward makes exactly one torch.cat over per-sample
-    activations, the input's; the parameters keep the concatenating
-    layout's names and shapes."""
+    """One forward makes no torch.cat over per-sample activations: its
+    inputs arrive assembled in place (NeRFTP._inputs); the parameters
+    keep the concatenating layout's names and shapes."""
     mlp, args = _mlp_case(3, 3)
-    rows = args[0].shape[0] * args[0].shape[1]
+    args = _in_place(*args)
+    rows = args[0].shape[0]
     cats = []
     cat = torch.cat
 
@@ -310,7 +325,7 @@ def test_nerftp_mlp_concatenates_only_its_inputs(monkeypatch):
 
     monkeypatch.setattr(torch, "cat", counting_cat)
     mlp(*args)
-    assert cats == [(args[0].shape[0], args[0].shape[1], 319)]
+    assert cats == []
     shapes = {"pts_0": (128, 319), "pts_1": (128, 128),
               "pts_2": (128, 128), "pts_3": (128, 447),
               "bottleneck": (128, 128), "density": (1, 128),
