@@ -658,9 +658,10 @@ def phase_kernels(torch):
 
     # Kernel D: a vanilla training step's two levels (2048 rays x 65 and
     # x 193 points), a PixelNeRF step's (512 x 65, x 129), the published
-    # PixelNeRF's (512 x 64, x 96) and a 256-ray render tile of each
-    # model's fine level, white background off (the presets'); no PyTorch
-    # call computes the composite
+    # PixelNeRF's (512 x 64, x 96), a 256-ray render tile of each
+    # model's fine level and the vanilla view cell's 1,024-ray tile at
+    # both levels, white background off (the presets'); no PyTorch call
+    # computes the composite
     for b, s in VANILLA_SHAPES:
         args = _vanilla_args(torch, g, b, s)
         kernel = lambda: composite_vanilla(*args, False)
@@ -769,9 +770,11 @@ def _mip_ties(case, acc, ref_acc):
 
 # (rays, points a ray) of kernels D and D' on the baselines' paths: a
 # vanilla step's levels, a PixelNeRF step's, the published PixelNeRF's
-# (`pixelnerf.train_step`), and 256-ray render tiles (D alone)
+# (`pixelnerf.train_step`), 256-ray render tiles, and the 1,024-ray
+# tile of `vanilla.render_view` at both levels (D alone)
 VANILLA_SHAPES = ((2048, 65), (2048, 193), (512, 65), (512, 129),
-                  (512, 64), (512, 96), (256, 193), (256, 129))
+                  (512, 64), (512, 96), (256, 193), (256, 129),
+                  (1024, 65), (1024, 193))
 VANILLA_TRAIN_SHAPES = VANILLA_SHAPES[:6]
 # `pixelnerf.train_step`: 4 scenes x 3 views x 128 rays a step, the
 # levels' samples a ray, and its border-padded f32 latent table of the 12
@@ -2300,6 +2303,7 @@ def phase_main_path(torch, cfg, dev="cuda"):
 # frames; PixelNeRF trains PIX_STEPS steps, one a call, then renders 2
 # test views of one scene (the second with the encode cached)
 VAN_STEPS, VAN_CALL, VIS_FRAMES = 20, 10, 3
+VAN_WIDE_CHUNK = 1024               # `vanilla.render_view`'s tile
 PIX_STEPS = 10
 
 
@@ -2394,7 +2398,9 @@ def phase_vanilla_main_path(torch):
     and vis_only with VIS_FRAMES spiral frames. Every step launches
     exactly `_baseline_step_launches("vanilla")`, every view and frame
     `_baseline_view_launches`, every loss and metric is finite and the
-    flythrough is written. Returns the path's launches, per step and per
+    flythrough is written; the 2 test views once more in 1,024-ray tiles
+    (`vanilla.render_view`'s) launch D twice a tile and score as the
+    preset's tiles do. Returns the path's launches, per step and per
     view."""
     import numpy as np
 
@@ -2455,6 +2461,14 @@ def phase_vanilla_main_path(torch):
             summary = cli.run_eval(cfg.replace(eval_mode="full_eval"))
             cli.run_eval(cfg.replace(eval_mode="vis_only"),
                          n_frames=VIS_FRAMES)
+            # the test views again in `vanilla.render_view`'s tiles,
+            # counted apart from the views above
+            wide_view, wide_s = [], []
+            cli.make_render_fn = plain_render
+            cli.make_render_fn = _counted_renders(cli, fns, wide_view,
+                                                  wide_s, cfg.img_wh)
+            wide = cli.run_eval(cfg.replace(eval_mode="full_eval",
+                                            chunk=VAN_WIDE_CHUNK))
         finally:
             cli.make_render_fn = plain_render
         outputs = sorted(os.listdir(os.path.join(exp, cfg.render_name)))
@@ -2472,9 +2486,13 @@ def phase_vanilla_main_path(torch):
     print(f"[vanilla] run_eval: {len(per_view)} renders (2 full_eval, 2 + "
           f"{VIS_FRAMES} vis_only), s/view {[round(x, 3) for x in view_s]}; "
           f"summary {summary}; outputs {outputs}")
+    print(f"[vanilla] full_eval in {VAN_WIDE_CHUNK}-ray tiles: s/view "
+          f"{[round(x, 3) for x in wide_s]}; summary {wide}")
     want = _baseline_step_launches("vanilla")
     tiles = -(-cfg.img_wh[0] * cfg.img_wh[1] // cfg.chunk)
     want_view = _baseline_view_launches("vanilla", tiles)
+    want_wide = _baseline_view_launches(
+        "vanilla", -(-cfg.img_wh[0] * cfg.img_wh[1] // VAN_WIDE_CHUNK))
     print(f"[vanilla] launches per step {per_step[1]} (expected {want}); "
           f"per view {per_view[0]}")
     if len(losses) != VAN_STEPS or not np.isfinite(losses).all():
@@ -2493,6 +2511,13 @@ def phase_vanilla_main_path(torch):
     if not (np.isfinite(summary["psnr"]) and np.isfinite(summary["ssim"])
             and any(o.startswith("video360.") for o in outputs)):
         raise AssertionError(f"vanilla: eval {summary}, outputs {outputs}")
+    # a ray's samples and MLP are its own, so the tile size moves only the
+    # GEMMs' rounding: the two views' scores agree to well under 0.01 dB
+    if len(wide_view) != 2 or any(n != want_wide for n in wide_view) \
+            or abs(wide["psnr"] - summary["psnr"]) > 0.01:
+        raise AssertionError(f"vanilla: {VAN_WIDE_CHUNK}-ray tiles gave "
+                             f"launches {wide_view} (expected {want_wide}), "
+                             f"{wide}, against {summary}")
     return launches, per_step, per_view, {"s_step": steady,
                                           "peak_gib": peak,
                                           "s_view": view_s}

@@ -226,8 +226,9 @@ def build_model(cfg: Config, device=None):
     """The preset's model on `device` (default cfg.device, see
     `resolve_device`), initialised from cfg.seed.
 
-    vanilla: VanillaNeRF, cfg.num_coarse_samples or 64 coarse and
-    cfg.num_fine_samples or 128 fine samples, float32. mipnerf360:
+    vanilla: VanillaNeRF (an 8 x 256 NeRFMLP a level),
+    cfg.num_coarse_samples or 64 coarse and cfg.num_fine_samples or 128
+    fine samples, float32. mipnerf360:
     MipNeRF360 at the JAX model's widths (8 x 1024 NeRF MLP, two 4 x 256
     proposal MLPs), cfg.num_prop_samples or 64 proposal and
     cfg.num_fine_samples or 32 NeRF samples. pixelnerf:
@@ -293,13 +294,32 @@ def build_model(cfg: Config, device=None):
     return model.to(device).eval()
 
 
+def scene_render_chunk(cfg: Config, model):
+    """A single-scene preset's render_chunk(pack, rays) for
+    `make_image_renderer` (the pack is unused): {"rgb", "depth", "acc"} of
+    the last level, over SCENE_NEAR to SCENE_FAR. vanilla: the fine level
+    of `VanillaNeRF` with deterministic samples (the coarse level's evenly
+    spaced points, and the points drawn by inverse CDF from its weights
+    merged with them), cfg.white_back; mipnerf360: the NeRF level,
+    train_frac 1, no jitter."""
+    if cfg.exp_type == "vanilla":
+        def render_chunk(_, rays):
+            out = model(rays, cfg.white_back, SCENE_NEAR, SCENE_FAR)[1]
+            return {k: out[k] for k in ("rgb", "depth", "acc")}
+    else:
+        def render_chunk(_, rays):
+            out = model(rays, 1.0, False, SCENE_NEAR, SCENE_FAR)[0][-1]
+            return {k: out[k] for k in ("rgb", "depth", "acc")}
+    return render_chunk
+
+
 def make_render_fn(cfg: Config, model, device=None):
     """render_fn(sample) -> the fine level's outputs over a full image of
     rays, with the sample's arrays placed on `device` (default cfg.device,
     see `resolve_device`): {"rgb", "depth", "acc"} for vanilla and
-    mipnerf360 (its NeRF level, train_frac 1, no jitter), {"rgb",
-    "depth"} for pixelnerf, {"rgb", "depth", "fg_rgb", "bg_rgb", "fg_acc",
-    "bg_acc"} for the NeO-360 models.
+    mipnerf360 (`scene_render_chunk`), {"rgb", "depth"} for pixelnerf,
+    {"rgb", "depth", "fg_rgb", "bg_rgb", "fg_acc", "bg_acc"} for the
+    NeO-360 models.
 
     A few-shot model encodes the source stack once per scene: samples
     carrying the same "scene_key" reuse the previous encode (one scene
@@ -312,21 +332,11 @@ def make_render_fn(cfg: Config, model, device=None):
         k: torch.as_tensor(np.asarray(sample[k]), device=device)
         for k in keys}
 
-    if cfg.exp_type == "vanilla":
-        def render_chunk(_, rays):
-            out = model(rays, cfg.white_back, SCENE_NEAR, SCENE_FAR)[1]
-            return {k: out[k] for k in ("rgb", "depth", "acc")}
-
-        renderer = make_image_renderer(render_chunk, cfg.chunk, group)
-        return lambda sample: renderer(None, place(sample, RAY_KEYS))
-
-    if cfg.exp_type == "mipnerf360":
-        def render_chunk(_, rays):
-            out = model(rays, 1.0, False, SCENE_NEAR, SCENE_FAR)[0][-1]
-            return {k: out[k] for k in ("rgb", "depth", "acc")}
-
-        renderer = make_image_renderer(render_chunk, cfg.chunk, group)
-        return lambda sample: renderer(None, place(sample, MIP_RAY_KEYS))
+    if cfg.exp_type in SINGLE_SCENE:
+        renderer = make_image_renderer(scene_render_chunk(cfg, model),
+                                       cfg.chunk, group)
+        keys = RAY_KEYS if cfg.exp_type == "vanilla" else MIP_RAY_KEYS
+        return lambda sample: renderer(None, place(sample, keys))
 
     if cfg.exp_type == "pixelnerf":
         def render_chunk(pack, rays):

@@ -17,15 +17,18 @@ On the CPU:
   profiled one, per training step, on a synthetic record;
 - `run.run_cell` with `--trace 1` on the tiny cells (and the production
   preset's stage cell, which opens no item): every phase's spans
-  recorded, the six metrics absent (no device markers on the CPU),
-  nothing raised;
+  recorded, the cell listing the metric of each recorded span and no
+  other, the six metrics absent (no device markers on the CPU),
+  nothing raised; a vanilla NeRF view's `model.sample`, `.mlp` and
+  `.composite` twice a tile, inside `render.tile`;
 - a MipNeRF-360 step (its cell at its adapter's tiny sizes): each level's
   `model.sample`, `.ipe`, `.mlp` and `.composite`, and
   `model.regularizers` once, all inside `train.loss`; the readers of
   `sample_device_ms.train` and `ipe_device_ms.train` on a synthetic
   record.
-On the card (`cuda`): the same runs give the six metrics; with every
-tile marked, each item's spans tile its device timeline; by default one
+On the card (`cuda`): the same runs give the six metrics (a vanilla
+view the sample and MLP ones); with every tile marked, each item's
+spans tile its device timeline; by default one
 tile in `loop.MARKED_TILES` is timed; a MipNeRF-360 step launches E and
 E' three times each and gives the two new metrics.
 """
@@ -36,7 +39,7 @@ import pytest
 import torch
 
 from benchmark import run, spans
-from benchmark.tests.support import STAGE_CELL, tiny_over, with_production
+from benchmark.tests.support import STAGE_CELL, adapter, with_production
 from neo360_tpu_torch.core import spans as core_spans
 from neo360_tpu_torch.ops import kernels
 from neo360_tpu_torch.train import loop, profiling
@@ -47,9 +50,25 @@ METRICS = {"step": ("encoder_device_ms.train", "backward_device_ms.train",
            "view": ("sample_device_ms.render", "gather_device_ms.render",
                     "mlp_device_ms.render")}
 ALL_METRICS = METRICS["step"] + METRICS["view"]
-CELLS = ["neo360.train_step", "neo360.render_view", STAGE_CELL]
+SPAN = {"encoder_device_ms.train": "model.encode",
+        "backward_device_ms.train": "train.backward",
+        "update_device_ms.train": "train.update",
+        "sample_device_ms.render": "model.sample",
+        "gather_device_ms.render": "model.gather",
+        "mlp_device_ms.render": "model.mlp"}
+VANILLA_CELL = "vanilla.render_view"
+CELLS = ["neo360.train_step", "neo360.render_view", STAGE_CELL,
+         VANILLA_CELL]
 ITEM = {"neo360.train_step": "train.step", STAGE_CELL: "train.stage",
-        "neo360.render_view": "render.view"}
+        "neo360.render_view": "render.view", VANILLA_CELL: "render.view"}
+LEVEL_SPANS = ("model.sample", "model.mlp", "model.composite")
+
+
+def _metrics(reg, cell):
+    """The span metrics that BENCHMARK.json lists for the cell."""
+    kind = "view" if "render" in cell else "step"
+    listed = {m["name"] for m in reg.metrics(cell, True)}
+    return tuple(m for m in METRICS[kind] if m in listed)
 
 
 class _Clock:
@@ -477,15 +496,15 @@ def test_the_readers_window_and_per_step_division(monkeypatch, capsys):
 
 
 def _run_tiny(monkeypatch, tmp_path, cell, device):
-    from neo360_tpu_torch.nn.triplane import GridEncoder
-    monkeypatch.setattr(GridEncoder, "plane_hw", (30, 40))
     # the test process holds JAX for the JAX package's own tests; a
     # benchmark process refuses it (test_bench_harness.py)
     monkeypatch.setattr(run, "forbidden_modules", lambda: [])
     reg = with_production(tmp_path)
+    config = reg.config(reg.workload(cell)["config"])
     profiling.clear()
-    res = run.run_cell(reg, cell, 3_000_000_019, 0.3, True, device,
-                       tiny_over(cell))
+    with adapter(reg, cell).tiny(config) as over:
+        res = run.run_cell(reg, cell, 3_000_000_019, 0.3, True, device,
+                           over)
     return reg, res
 
 
@@ -493,9 +512,8 @@ def _run_tiny(monkeypatch, tmp_path, cell, device):
 def test_run_cell_records_every_phase_on_the_cpu(cell, monkeypatch,
                                                  tmp_path, capsys):
     reg, res = _run_tiny(monkeypatch, tmp_path, cell, torch.device("cpu"))
-    listed = {m["name"] for m in reg.metrics(cell, True)}
     kind = "view" if "render" in cell else "step"
-    assert set(METRICS[kind]) <= listed
+    assert _metrics(reg, cell)
     assert not set(ALL_METRICS) & set(res["metrics"])
     err = capsys.readouterr().err
     got = profiling.items()
@@ -506,14 +524,25 @@ def test_run_cell_records_every_phase_on_the_cpu(cell, monkeypatch,
     assert all(it["name"] == item_name for it in got)
     assert len(got) >= res["attempted"] + 1     # window + profiled item
     table = got[-1]["spans"]
+    # the cell lists the metric of each span its item records, and no other
+    assert set(_metrics(reg, cell)) == {m for m in METRICS[kind]
+                                        if SPAN[m] in table}
     levels = 2
     if kind == "view":
         tiles = table["render.tile"]["count"]
         assert tiles >= 1 and table["render.assemble"]["count"] == 2
-        assert table["model.rays"]["count"] == tiles
-        for p in ("model.sample", "model.mlp", "model.composite"):
+        for p in LEVEL_SPANS:
             assert table[p]["count"] == levels * tiles, p
         assert "model.encode" not in table
+        if cell == VANILLA_CELL:
+            # no rays or gathers; the levels' spans inside the tiles
+            assert tiles > 1
+            assert not {"model.rays", "model.gather"} & set(table)
+            tile = table["render.tile"]
+            assert tile["host_ms"] - tile["self_host_ms"] == pytest.approx(
+                sum(table[p]["host_ms"] for p in LEVEL_SPANS))
+        else:
+            assert table["model.rays"]["count"] == tiles
     else:
         for p in ("train.loss", "train.backward", "train.update",
                   "model.encode"):
@@ -530,7 +559,7 @@ def _card_items(monkeypatch, tmp_path, cell):
         pytest.skip("needs an NVIDIA GPU")
     reg, res = _run_tiny(monkeypatch, tmp_path, cell, torch.device("cuda"))
     kind = "view" if "render" in cell else "step"
-    for m in METRICS[kind]:
+    for m in _metrics(reg, cell):
         assert res["metrics"][m]["value"] >= 0, m
     got = [it for it in profiling.items() if it["name"] == ITEM[cell]]
     assert len(got) >= res["attempted"] + 1
@@ -538,12 +567,17 @@ def _card_items(monkeypatch, tmp_path, cell):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", CELLS[:2])
+@pytest.mark.parametrize("cell", CELLS[:2] + [VANILLA_CELL])
 def test_spans_tile_the_device_timeline_on_the_card(cell, monkeypatch,
                                                     tmp_path):
     """Every tile marked: each item's phases tile its device timeline,
     neither overlapping (the children exceed the parent by at most a
-    marker's resolution each) nor leaving a gap (they cover 95%)."""
+    marker's resolution each) nor leaving a gap (they cover 95%). A
+    vanilla NeRF tile at the tiny size is some 135 short launches, and
+    its output copies with the gaps around them, in `render.tile` but
+    outside the model's spans, took 5.2% of a view: its view is tiled by
+    `render.assemble` and `render.tile`, and its tiles, 85% or more, by
+    the levels' spans."""
     monkeypatch.setattr(loop, "MARKED_TILES", 1)
     kind, got = _card_items(monkeypatch, tmp_path, cell)
     tick = 5e-4                     # a timing event's resolution, ms
@@ -551,6 +585,8 @@ def test_spans_tile_the_device_timeline_on_the_card(cell, monkeypatch,
                  "model.gather", "model.mlp", "model.composite")
                 if kind == "view" else
                 ("train.loss", "train.backward", "train.update"))
+    if cell == VANILLA_CELL:
+        children = ("render.assemble", "render.tile")
     for it in got:
         table = it["spans"]
         n = sum(row["count"] for row in table.values())
@@ -564,6 +600,10 @@ def test_spans_tile_the_device_timeline_on_the_card(cell, monkeypatch,
         assert top["device_ms"] > 0
         assert 0.95 * top["device_ms"] <= below <= \
             top["device_ms"] + tick * n, (below, top)
+        if cell == VANILLA_CELL:
+            tiles = table["render.tile"]["device_ms"]
+            inner = sum(table[p]["device_ms"] for p in LEVEL_SPANS)
+            assert 0.85 * tiles <= inner <= tiles + tick * n, (inner, tiles)
 
 
 @pytest.mark.cuda
